@@ -1,12 +1,13 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the model and data parts of `av_separation_tpu/config.py`,
-without the TPU kernel selectors (`attn_impl`, `decoder_impl`, `proj_impl`,
-`stem_impl`): in this package a tensor on the card goes through the
-hand-written kernel and a tensor on the CPU through the kernel's plain
-PyTorch version, so there is nothing to select.  The five named configs keep
-the reference's widths, depths and data geometry field for field; the
-training, mesh and loss settings come with the slices that use them.
+A copy of the model, data, loss and training parts of
+`av_separation_tpu/config.py`, without the TPU kernel selectors
+(`attn_impl`, `decoder_impl`, `proj_impl`, `stem_impl`): in this package a
+tensor on the card goes through the hand-written kernel and a tensor on the
+CPU through the kernel's plain PyTorch version, so there is nothing to
+select.  The five named configs keep the reference's widths, depths, data
+geometry and training constants field for field; the mesh, the data
+pipelines, remat and checkpointing come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -70,10 +71,35 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """PIT SI-SNR + L1 loss (reference losses.py:45-73)."""
+
+    l1_weight: float = 0.5
+    # 'global': one best permutation per batch (the reference quirk,
+    # losses.py:64-71).  'per_sample': standard per-utterance PIT.
+    pit_mode: str = "global"
+    eps: float = 1e-8
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training loop parameters (reference demo.py:83-113 constants)."""
+
+    batch_size: int = 8
+    steps: int = 100
+    learning_rate: float = 3e-4
+    grad_clip_norm: float = 1.0
+    seed: int = 0
+    log_every: int = 20
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "demo"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def demo_config() -> ExperimentConfig:
@@ -86,6 +112,7 @@ def demo_config() -> ExperimentConfig:
         data=DataConfig(num_samples=500, sample_rate=8000, duration=1.0,
                         n_fft=512, hop_length=128, num_frames=25,
                         frame_h=32, frame_w=32, speaker_freqs=(220.0, 440.0)),
+        train=TrainConfig(batch_size=8, steps=100, learning_rate=3e-4),
     )
 
 
@@ -100,6 +127,7 @@ def scaled_config() -> ExperimentConfig:
         data=DataConfig(num_samples=1000, sample_rate=16000, duration=4.0,
                         n_fft=512, hop_length=128, num_frames=100,
                         frame_h=32, frame_w=32, speaker_freqs=(220.0, 440.0)),
+        train=TrainConfig(batch_size=8, steps=100, learning_rate=3e-4),
     )
 
 
@@ -114,6 +142,7 @@ def three_speaker_config() -> ExperimentConfig:
                         n_fft=512, hop_length=128, num_frames=25,
                         frame_h=32, frame_w=32,
                         speaker_freqs=(220.0, 330.0, 440.0)),
+        train=TrainConfig(batch_size=8, steps=100, learning_rate=3e-4),
     )
 
 
@@ -127,6 +156,7 @@ def lrs2_config() -> ExperimentConfig:
         data=DataConfig(num_samples=1000, sample_rate=16000, duration=3.0,
                         n_fft=512, hop_length=128, num_frames=75,
                         frame_h=96, frame_w=96, speaker_freqs=(220.0, 440.0)),
+        train=TrainConfig(batch_size=8, steps=100, learning_rate=3e-4),
     )
 
 
@@ -141,6 +171,7 @@ def multihost_config() -> ExperimentConfig:
                         n_fft=512, hop_length=128, num_frames=100,
                         frame_h=32, frame_w=32,
                         speaker_freqs=(220.0, 330.0, 440.0, 550.0)),
+        train=TrainConfig(batch_size=16, steps=100, learning_rate=3e-4),
     )
 
 

@@ -5,11 +5,16 @@
 // `_fwd_packed_kernel` (split (B*H, T, dh) layout, `_flash_packed_call`).
 // One kernel serves both layouts: q/k/v/o are addressed through
 // (batch, head, time) strides with the head dim contiguous.  It also covers
-// the multi-block `_fwd_kernel` (Tk > 512) without dropout, since the keys
-// are always streamed in tiles.
+// the multi-block `_fwd_kernel` (Tk > 512), since the keys are always
+// streamed in tiles.
 //
 // Computes O = softmax(Q K^T * scale) V per (batch, head) and the row
 // logsumexp lse = m + log(l) in float32, as the Pallas kernels emit it.
+// Attention dropout as in `_fwd_hpacked_kernel` (attention.py:389-398): l
+// sums the undropped p, dropped p are zeroed before PV, and
+// o = acc / (l * (1 - rate)); the keep test is the Pallas hash
+// (dropout_hash.cuh), so the backward kernels regenerate the same mask.  At
+// rate 0 the hash is skipped and the arithmetic is unchanged.
 //
 // Bound on the H100 at the scaled serving shapes (B=8, H=4, dh=128, float32):
 // audio self-attention (Tq = Tk = 501) is 4*B*H*Tq*Tk*dh = 4.1 GFLOP against
@@ -29,6 +34,8 @@
 // the float32 reference's tolerances.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -50,6 +57,8 @@ struct Params {
   long long svb, svh, svt;
   long long sob, soh, sot;
   float scale;
+  float keep;  // 1 - rate
+  DropoutHash drop;
 };
 
 template <int DH>
@@ -181,10 +190,15 @@ flash_fwd_kernel(const Params p) {
       const float sb = vbk ? s[r][1] * p.scale : -INFINITY;
       const float m_new = fmaxf(m_i[r], warp_max(fmaxf(sa, sb)));
       const float alpha = expf(m_i[r] - m_new);
-      const float pa = expf(sa - m_new);
-      const float pb = expf(sb - m_new);
+      float pa = expf(sa - m_new);
+      float pb = expf(sb - m_new);
       l_i[r] = l_i[r] * alpha + warp_sum(pa + pb);
       m_i[r] = m_new;
+      if (p.drop.on) {
+        const HashRow hr = hash_row(p.drop, bh, q0 + warp * kRowsPerWarp + r);
+        if (!hash_keep(p.drop, hr, k0 + lane)) pa = 0.f;
+        if (!hash_keep(p.drop, hr, k0 + lane + 32)) pb = 0.f;
+      }
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
       pw[r * L::kPS + lane] = pa;
@@ -226,7 +240,7 @@ flash_fwd_kernel(const Params p) {
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int t = q0 + warp * kRowsPerWarp + r;
     if (t >= p.Tq) continue;
-    const float inv = 1.f / l_i[r];
+    const float inv = 1.f / (l_i[r] * p.keep);
     float* orow = ob + t * p.sot + lane * kCols;
     if constexpr (kCols == 4) {
       st4(orow, make_float4(acc[r][0] * inv, acc[r][1] * inv,
@@ -260,7 +274,8 @@ extern "C" int avsep_flash_attn_fwd(
     long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt,
     long long sob, long long soh, long long sot,
-    float scale, int device, void* stream) {
+    float scale, float keep, unsigned threshold, unsigned seed, int hq,
+    int hk, int dropout, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
@@ -275,6 +290,12 @@ extern "C" int avsep_flash_attn_fwd(
   p.svb = svb; p.svh = svh; p.svt = svt;
   p.sob = sob; p.soh = soh; p.sot = sot;
   p.scale = scale;
+  p.keep = keep;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.hq = hq;
+  p.drop.hk = hk;
+  p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32: err = launch<32>(p, B, s); break;

@@ -8,7 +8,8 @@ float32-rounded hand-rolled STFT, and lip brightness from window energy.
 `dataset[idx]` is bit-identical to `tests/golden/golden_dataset.npz`.
 
 `clean_audios` also supplies the per-speaker waveforms whose sum the serving
-path separates.
+path separates; `materialize` stacks the whole dataset for the training
+loader (`data/loader.py`).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ class SyntheticAVDataset:
         self.cfg = cfg
         self.t_axis = np.linspace(0.0, cfg.duration, cfg.num_samples_audio,
                                   endpoint=False)
+        self._cache: Dict[str, np.ndarray] | None = None
 
     def __len__(self) -> int:
         return self.cfg.num_samples
@@ -106,3 +108,11 @@ class SyntheticAVDataset:
             "lip_frames": lip_frames,
             "clean_specs": clean_specs,
         }
+
+    def materialize(self) -> Dict[str, np.ndarray]:
+        """The whole dataset as stacked arrays (computed once, cached)."""
+        if self._cache is None:
+            samples = [self[i] for i in range(len(self))]
+            self._cache = {key: np.stack([s[key] for s in samples], axis=0)
+                           for key in samples[0]}
+        return self._cache

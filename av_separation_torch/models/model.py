@@ -9,30 +9,40 @@
 Module names are the reference's torch names (reference model.py:22-301), so
 its state dict loads as it is.  The audio projection and the mask decoder
 hold their weights in the reference's `nn.Sequential` slots but run as the
-fused kernels of `ops/kernels/`; attention runs through `ops/attention.py`.
-The visual conv stem is `F.conv2d`, as it is XLA's convolution in the JAX
-package.  Float32 only, eval mode only (the serving slice).
+fused kernels of `ops/kernels/`, with their backward rules; attention runs
+through `ops/attention.py`.  The visual conv stem is `F.conv2d`, as it is
+XLA's convolution in the JAX package.  Float32 only.
+
+Eval mode serves; training mode applies dropout (from the `Generators`
+passed to `forward`) and BatchNorm batch statistics, as the JAX model does
+with `deterministic=False`.  The decoder's fused kernel runs in eval mode or
+at dropout 0; training with dropout runs the plain MLP with `gelu_dropout`,
+as at `av_separation_tpu/models/model.py:309-333`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from av_separation_torch.config import ModelConfig
 from av_separation_torch.models.layers import (
+    Generators,
     MultiHeadAttention,
     PositionalEncoding,
     TorchBatchNorm,
     TransformerEncoder,
-    require_eval,
+    bits,
+    train_rate,
 )
+from av_separation_torch.ops.activations import gelu_dropout
+from av_separation_torch.ops.dropout import Dropout
 from av_separation_torch.ops.interpolate import interpolate_time_linear
-from av_separation_torch.ops.kernels.audio_proj import audio_proj_fwd
-from av_separation_torch.ops.kernels.decoder import mask_decoder_fwd
+from av_separation_torch.ops.kernels.audio_proj import audio_projection
+from av_separation_torch.ops.kernels.decoder import mask_decoder
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -55,19 +65,21 @@ class AudioEncoder(nn.Module):
         self.input_proj = nn.Sequential(
             nn.Conv1d(cfg.freq_bins, d, 3, padding=1), nn.ReLU(),
             nn.Conv1d(d, d, 3, padding=1), nn.ReLU())
-        self.pos_enc = PositionalEncoding(d)
+        self.pos_enc = PositionalEncoding(d, cfg.dropout)
         self.transformer = TransformerEncoder(d, cfg.nhead,
-                                              cfg.num_encoder_layers)
+                                              cfg.num_encoder_layers,
+                                              cfg.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                gens: Optional[Generators] = None) -> torch.Tensor:
         conv1, conv2 = self.input_proj[0], self.input_proj[2]
         # torch Conv1d weights (out, in, k) -> the kernel's (k, in, out).
-        y, _ = audio_proj_fwd(x.transpose(1, 2).contiguous(),
-                              conv1.weight.permute(2, 1, 0).contiguous(),
-                              conv1.bias,
-                              conv2.weight.permute(2, 1, 0).contiguous(),
-                              conv2.bias)
-        return self.transformer(self.pos_enc(y))
+        y = audio_projection(x.transpose(1, 2).contiguous(),
+                             conv1.weight.permute(2, 1, 0).contiguous(),
+                             conv1.bias,
+                             conv2.weight.permute(2, 1, 0).contiguous(),
+                             conv2.bias)
+        return self.transformer(self.pos_enc(y, gens), gens)
 
 
 class VisualEncoder(nn.Module):
@@ -83,36 +95,46 @@ class VisualEncoder(nn.Module):
                        TorchBatchNorm(cout), nn.ReLU()]
         self.conv = nn.Sequential(*layers)
         self.frame_proj = nn.Linear(128, cfg.d_model)
-        self.pos_enc = PositionalEncoding(cfg.d_model)
+        self.pos_enc = PositionalEncoding(cfg.d_model, cfg.dropout)
         self.transformer = TransformerEncoder(cfg.d_model, cfg.nhead,
-                                              cfg.num_encoder_layers)
+                                              cfg.num_encoder_layers,
+                                              cfg.dropout)
 
-    def forward(self, frames: torch.Tensor, target_len: int) -> torch.Tensor:
+    def forward(self, frames: torch.Tensor, target_len: int,
+                gens: Optional[Generators] = None) -> torch.Tensor:
         b, n, h, w = frames.shape
         x = self.conv(frames.reshape(b * n, 1, h, w)).mean(dim=(2, 3))
         x = self.frame_proj(x).reshape(b, n, -1)
-        x = self.transformer(self.pos_enc(x))
+        x = self.transformer(self.pos_enc(x, gens), gens)
         return interpolate_time_linear(x, target_len)
 
 
 class CrossAttentionLayer(nn.Module):
     """Pre-norm cross-attention block (reference model.py:152-173): queries
     from norm1(audio), keys and values from the raw, un-normalised visual
-    stream (the reference's quirk, kept)."""
+    stream (the reference's quirk, kept).  The FFN keeps the reference's
+    `ff` slots (Linear, GELU, dropout, Linear) and runs GELU and its
+    dropout fused, with the port's quantized mask."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d = cfg.d_model
-        self.cross_attn = MultiHeadAttention(d, cfg.nhead)
+        self.dropout = cfg.dropout
+        self.cross_attn = MultiHeadAttention(d, cfg.nhead, cfg.dropout)
         self.norm1 = nn.LayerNorm(d, eps=1e-5)
         self.norm2 = nn.LayerNorm(d, eps=1e-5)
         self.ff = nn.Sequential(nn.Linear(d, 4 * d), nn.GELU(),
-                                nn.Dropout(cfg.dropout), nn.Linear(4 * d, d))
+                                Dropout(cfg.dropout), nn.Linear(4 * d, d))
+        self.drop1 = Dropout(cfg.dropout)
+        self.drop2 = Dropout(cfg.dropout)
 
-    def forward(self, audio: torch.Tensor, visual: torch.Tensor
-                ) -> torch.Tensor:
-        audio = audio + self.cross_attn(self.norm1(audio), visual)
-        return audio + self.ff(self.norm2(audio))
+    def forward(self, audio: torch.Tensor, visual: torch.Tensor,
+                gens: Optional[Generators] = None) -> torch.Tensor:
+        attn = self.cross_attn(self.norm1(audio), visual, gens)
+        audio = audio + self.drop1(attn, bits(gens))
+        h = gelu_dropout(self.ff[0](self.norm2(audio)),
+                         train_rate(self, self.dropout, gens), bits(gens))
+        return audio + self.drop2(self.ff[3](h), bits(gens))
 
 
 class CrossModalFusion(nn.Module):
@@ -124,35 +146,44 @@ class CrossModalFusion(nn.Module):
             CrossAttentionLayer(cfg) for _ in range(cfg.num_fusion_layers))
         self.norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
 
-    def forward(self, audio: torch.Tensor, visual: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, audio: torch.Tensor, visual: torch.Tensor,
+                gens: Optional[Generators] = None) -> torch.Tensor:
         for layer in self.layers:
-            audio = layer(audio, visual)
+            audio = layer(audio, visual, gens)
         return self.norm(audio)
 
 
 class SeparationDecoder(nn.Module):
     """Per-speaker soft-mask head (reference model.py:180-220):
-    Linear(d -> 2d) + GELU + Linear(2d -> S*F) + sigmoid, times the mixture,
-    run as the fused mask-decoder kernel."""
+    Linear(d -> 2d) + GELU + Linear(2d -> S*F) + sigmoid, times the mixture.
+    Runs as the fused mask-decoder kernel in eval mode or at dropout 0; in
+    training with dropout, as the plain MLP with `gelu_dropout`."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.num_speakers = cfg.num_speakers
+        self.dropout = cfg.dropout
         d = cfg.d_model
         self.decoder = nn.Sequential(
-            nn.Linear(d, 2 * d), nn.GELU(), nn.Dropout(cfg.dropout),
+            nn.Linear(d, 2 * d), nn.GELU(), Dropout(cfg.dropout),
             nn.Linear(2 * d, cfg.freq_bins * cfg.num_speakers), nn.Sigmoid())
 
-    def forward(self, fused: torch.Tensor, mixed_spec: torch.Tensor
+    def forward(self, fused: torch.Tensor, mixed_spec: torch.Tensor,
+                gens: Optional[Generators] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        require_eval(self)
         fc1, fc2 = self.decoder[0], self.decoder[3]
-        # torch Linear weights (out, in) -> the kernel's (in, out).
-        return mask_decoder_fwd(
-            fused.contiguous(), fc1.weight.t().contiguous(), fc1.bias,
-            fc2.weight.t().contiguous(), fc2.bias, mixed_spec.contiguous(),
-            self.num_speakers)
+        rate = train_rate(self, self.dropout, gens)
+        if rate == 0.0:
+            # torch Linear weights (out, in) -> the kernel's (in, out).
+            return mask_decoder(
+                fused.contiguous(), fc1.weight.t().contiguous(), fc1.bias,
+                fc2.weight.t().contiguous(), fc2.bias,
+                mixed_spec.contiguous(), self.num_speakers)
+        b, t, _ = fused.shape
+        h = gelu_dropout(fc1(fused), rate, bits(gens))
+        masks = torch.sigmoid(fc2(h).reshape(b, t, self.num_speakers, -1))
+        masks = masks.permute(0, 2, 3, 1)  # (B, S, F, T)
+        return masks * mixed_spec[:, None], masks
 
 
 class AVSeparationTransformer(nn.Module):
@@ -172,12 +203,14 @@ class AVSeparationTransformer(nn.Module):
         self.fusion = CrossModalFusion(cfg)
         self.decoder = SeparationDecoder(cfg)
 
-    def forward(self, mixed_spec: torch.Tensor, lip_frames: torch.Tensor
+    def forward(self, mixed_spec: torch.Tensor, lip_frames: torch.Tensor,
+                gens: Optional[Generators] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        audio = self.audio_encoder(mixed_spec)
-        visual = self.visual_encoder(lip_frames, mixed_spec.shape[-1])
-        fused = self.fusion(audio, visual)
-        return self.decoder(fused, mixed_spec)
+        """In training mode with dropout > 0, `gens` must be given."""
+        audio = self.audio_encoder(mixed_spec, gens)
+        visual = self.visual_encoder(lip_frames, mixed_spec.shape[-1], gens)
+        fused = self.fusion(audio, visual, gens)
+        return self.decoder(fused, mixed_spec, gens)
 
 
 @torch.no_grad()

@@ -6,7 +6,8 @@ PyTorch version.  `LAUNCHES` counts kernel launches per wrapper, and only
 those: plain-version calls never touch it.
 """
 
-LAUNCHES = {"flash_attn_fwd": 0, "audio_proj_fwd": 0, "mask_decoder_fwd": 0}
+LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
+            "mask_decoder_fwd": 0}
 
 
 def reset_launch_counts() -> None:

@@ -3,9 +3,10 @@
 Each source is compiled by `nvcc` for `sm_90a` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds) and loaded
 with `ctypes`.  Libraries go to `build/torch_kernels/` at the root of the
-checkout, named by a hash of the source and the flags, so an edited source is
-never served by a stale library.  `build()` starts one `nvcc` per missing
-source, all at once.  Nothing is built or loaded at import time.
+checkout, named by a hash of the source, the shared headers and the flags,
+so an edited source is never served by a stale library.  `build()` starts
+one `nvcc` per missing source, all at once.  Nothing is built or loaded at
+import time.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("flash_attn_fwd", "audio_proj", "mask_decoder")
+SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "audio_proj", "mask_decoder")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,9 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where the library of one source lives: named by a hash of the
+    source, the shared headers (`*.cuh`) and the flags."""
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

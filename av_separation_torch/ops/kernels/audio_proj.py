@@ -1,11 +1,12 @@
-"""Fused audio input projection forward: the CUDA kernel `csrc/audio_proj.cu`
-and its plain PyTorch version.
+"""Fused audio input projection: the CUDA forward kernel `csrc/audio_proj.cu`,
+its plain PyTorch version, and the autograd function around it.
 
 Port of `av_separation_tpu/ops/pallas/audio_proj.py` (`_proj_kernel`): two
 k=3 conv1d layers with ReLU in channels-last layout, torch zero padding on
 both, emitting the output y and the hidden activation h.  Weights are in the
 flax layout (3, C_in, C_out); `models/model.py` permutes the torch Conv1d
-weights into it.
+weights into it.  The backward is the JAX package's framed-einsum rule
+(`audio_proj.py:126-158`, XLA there), as plain matmuls on either device.
 """
 
 from __future__ import annotations
@@ -92,3 +93,42 @@ def audio_proj_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _build.check(lib, rc, "audio_proj_fwd")
     kernels.LAUNCHES["audio_proj_fwd"] += 1
     return y, h
+
+
+def _frames3(t: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) -> (B, T, 3, C): tap k of row t reads t_pad[t + k] under
+    zero padding of one frame on each side."""
+    padded = F.pad(t, (0, 0, 1, 1))
+    n = t.shape[1]
+    return torch.stack([padded[:, k:k + n] for k in range(3)], dim=2)
+
+
+class AudioProjection(torch.autograd.Function):
+    """y = audio_proj_fwd(x, w1, b1, w2, b2)[0]; the backward reads the
+    ReLU masks from the saved h and y and does each conv's dgrad and wgrad
+    as one einsum over a 3-tap framed view (`_bwd_rule`, audio_proj.py)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        y, h = audio_proj_fwd(x, w1, b1, w2, b2)
+        ctx.save_for_backward(x, h, y, w1, w2)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h, y, w1, w2 = ctx.saved_tensors
+        gp = g * (y > 0)                                   # d_preact2
+        db2 = gp.sum(dim=(0, 1))
+        dw2 = torch.einsum("btkf,btd->kfd", _frames3(h), gp)
+        dh = torch.einsum("btkd,kfd->btf", _frames3(gp).flip(2), w2)
+        gp1 = dh * (h > 0)                                 # d_preact1
+        db1 = gp1.sum(dim=(0, 1))
+        dw1 = torch.einsum("btkf,btd->kfd", _frames3(x), gp1)
+        dx = torch.einsum("btkd,kfd->btf", _frames3(gp1).flip(2), w1)
+        return dx, dw1, db1, dw2, db2
+
+
+def audio_projection(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused projection: x (B, T, F) -> y (B, T, D)."""
+    return AudioProjection.apply(x, w1, b1, w2, b2)

@@ -1,11 +1,13 @@
-"""Fused separation mask decoder forward: the CUDA kernel
-`csrc/mask_decoder.cu` and its plain PyTorch version.
+"""Fused separation mask decoder: the CUDA forward kernel
+`csrc/mask_decoder.cu`, its plain PyTorch version, and the autograd function
+around it.
 
 Port of `av_separation_tpu/ops/pallas/decoder.py` (`_decoder_kernel`):
 Linear(d -> 2d) + exact GELU + Linear(2d -> S*F) + sigmoid + mask x mixed,
 returning (separated, masks) in the reference layout (B, S, F, T).  Weights
 are in the (in, out) layout of the JAX package; `models/model.py` transposes
-the torch Linear weights into it.
+the torch Linear weights into it.  The backward is the JAX package's rule
+(`decoder.py:159-187`, XLA matmuls there), as plain matmuls on either device.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from av_separation_torch.ops import kernels
+from av_separation_torch.ops.activations import gelu_grad
 from av_separation_torch.ops.kernels import _build
 
 
@@ -93,3 +96,42 @@ def mask_decoder_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _build.check(lib, rc, "mask_decoder_fwd")
     kernels.LAUNCHES["mask_decoder_fwd"] += 1
     return sep, masks
+
+
+class MaskDecoder(torch.autograd.Function):
+    """(separated, masks) = mask_decoder_fwd(...); the backward folds the
+    separated cotangent into the masks', goes through the sigmoid, and
+    recomputes the first Linear + GELU (`_bwd_rule`, decoder.py)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, mixed, num_speakers: int):
+        sep, masks = mask_decoder_fwd(x, w1, b1, w2, b2, mixed, num_speakers)
+        ctx.save_for_backward(x, w1, b1, w2, mixed, masks)
+        return sep, masks
+
+    @staticmethod
+    def backward(ctx, g_sep, g_mask):
+        x, w1, b1, w2, mixed, masks = ctx.saved_tensors
+        g_masks = g_mask + g_sep * mixed[:, None]
+        g_mixed = (g_sep * masks).sum(dim=1)
+        # masks = sigmoid(logits), logits laid out (B, T, S, F) pre-permute.
+        d_logits = (g_masks * masks * (1.0 - masks)).permute(0, 3, 1, 2)
+        b, t, s, f = d_logits.shape
+        d_logits = d_logits.reshape(b, t, s * f)
+        pre = torch.matmul(x, w1) + b1
+        a = F.gelu(pre)
+        g_a = torch.matmul(d_logits, w2.t())
+        g_w2 = torch.einsum("bth,bto->ho", a, d_logits)
+        g_b2 = d_logits.sum(dim=(0, 1))
+        g_pre = g_a * gelu_grad(pre)
+        g_x = torch.matmul(g_pre, w1.t())
+        g_w1 = torch.einsum("btd,bth->dh", x, g_pre)
+        g_b1 = g_pre.sum(dim=(0, 1))
+        return g_x, g_w1, g_b1, g_w2, g_b2, g_mixed, None
+
+
+def mask_decoder(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, mixed: torch.Tensor,
+                 num_speakers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable fused mask head -> (separated, masks)."""
+    return MaskDecoder.apply(x, w1, b1, w2, b2, mixed, num_speakers)

@@ -1,5 +1,6 @@
-"""Weights carried into the port: JAX variables or reference goldens -> a
-`state_dict` for `models.model.AVSeparationTransformer`.
+"""Weights carried between the port and the JAX package: JAX variables or
+reference goldens -> a `state_dict` for `models.model.AVSeparationTransformer`,
+and back.
 
 `from_jax_variables` is the inverse of
 `av_separation_tpu/utils/transplant.py:from_reference_state_dict`:
@@ -9,11 +10,15 @@
   - flax conv1d (k, in, out) -> (out, in, k); conv2d (kh, kw, in, out) ->
     (out, in, kh, kw);
   - 'batch_stats' -> BatchNorm running stats (num_batches_tracked = 0).
+`to_jax_variables` goes the other way, for parameters and for gradients
+(every map is a transpose, a split or a rename, so it is linear), and gives
+NumPy trees.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import re
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +107,76 @@ def from_jax_variables(variables: Tree) -> Dict[str, torch.Tensor]:
     sd.update(_linear(dec["fc1"], "decoder.decoder.0"))
     sd.update(_linear(dec["fc2"], "decoder.decoder.3"))
     return sd
+
+
+_RENAMES = ((r"\.layers\.(\d+)\.", r".layer_\1."),
+            (r"\.ff\.0\.", ".ff1."), (r"\.ff\.3\.", ".ff2."),
+            (r"^decoder\.decoder\.0\.", "decoder.fc1."),
+            (r"^decoder\.decoder\.3\.", "decoder.fc2."))
+
+
+def _jax_leaves(name: str, a: np.ndarray
+                ) -> Iterator[Tuple[str, Tuple[str, ...], np.ndarray]]:
+    """(collection, path, array) of the JAX leaves one port tensor holds."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    if name.startswith("audio_encoder.input_proj."):
+        conv = ("conv1", "conv2")[int(parts[2]) // 2]
+        yield ("params", ("audio_encoder", conv, "kernel" if leaf == "weight"
+                          else "bias"),
+               a.transpose(2, 1, 0) if leaf == "weight" else a)
+        return
+    if name.startswith("visual_encoder.conv."):
+        slot = int(parts[2])
+        j = f"{slot // 3 + 1}"
+        if slot % 3 == 0:
+            yield ("params", ("visual_encoder", f"conv{j}",
+                              "kernel" if leaf == "weight" else "bias"),
+                   a.transpose(2, 3, 1, 0) if leaf == "weight" else a)
+        elif leaf in ("weight", "bias"):
+            yield ("params", ("visual_encoder", f"bn{j}",
+                              "scale" if leaf == "weight" else "bias"), a)
+        elif leaf in ("running_mean", "running_var"):
+            yield ("batch_stats", ("visual_encoder", f"bn{j}",
+                                   leaf[len("running_"):]), a)
+        return  # num_batches_tracked has no JAX counterpart
+    # Everything else: linears, norms and attention blocks, whose torch
+    # module paths map onto flax paths by renaming.
+    for pattern, repl in _RENAMES:
+        name = re.sub(pattern, repl, name)
+    path = name.split(".")[:-1]
+    if leaf in ("in_proj_weight", "in_proj_bias"):
+        d = a.shape[0] // 3
+        for n, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            chunk = a[n * d:(n + 1) * d]
+            yield ("params", (*path, proj,
+                              "kernel" if leaf == "in_proj_weight"
+                              else "bias"),
+                   chunk.T if leaf == "in_proj_weight" else chunk)
+        return
+    if path[-1].startswith("norm"):
+        yield ("params", (*path, "scale" if leaf == "weight" else "bias"), a)
+        return
+    yield ("params", (*path, "kernel" if leaf == "weight" else "bias"),
+           a.T if leaf == "weight" else a)
+
+
+def to_jax_variables(tensors: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, dict]:
+    """Port tensors by state-dict name (a state dict, or parameter
+    gradients by parameter name) -> {'params': ..., 'batch_stats': ...} of
+    the JAX model as NumPy arrays; 'batch_stats' only when running stats
+    are among the tensors."""
+    out: Dict[str, dict] = {"params": {}}
+    for name, t in tensors.items():
+        a = t.detach().cpu().numpy()
+        for coll, path, value in _jax_leaves(name, a):
+            node = out.setdefault(coll, {})
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            # A copy: the tensors' memory moves on with the model.
+            node[path[-1]] = np.array(value, dtype=np.float32)
+    return out
 
 
 def load_reference_state_dict(npz_path: str) -> Dict[str, torch.Tensor]:

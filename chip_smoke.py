@@ -10,9 +10,12 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            parallel) into build/torch_kernels/; prints the build seconds and
            each kernel's registers and spills.
   kernels  each kernel against its plain PyTorch version on the card, at the
-           shapes the serving path gives it (plus the demo shapes and one
-           Tk > 512 attention): max abs error with its tolerance, kernel /
-           plain / library times (CUDA events) and the kernel's bound.
+           shapes the serving and training paths give it (plus the demo
+           shapes and one T > 512 attention): max abs error with its
+           tolerance, kernel / plain / library times (CUDA events) and the
+           kernel's bound.  Flash attention at dropout 0 and 0.1, forward
+           and backward; each backward is run twice and must give
+           bit-identical gradients.
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
@@ -22,10 +25,24 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            (4 s at 16 kHz, 200 lip frames) from 4 threads.  The launch counts
            are zeroed just before and read just after; every forward must
            launch 16 attention, 1 projection and 1 decoder kernel.  One
-           batch is checked against the same model on the CPU.
+           batch is checked against the same model on the CPU.  No
+           backward kernel may launch.
   profile  where the time of one served batch of 8 goes: host-clock batch
            time, then a torch.profiler trace summed per kernel name and
            group, and the device's busy share.
+  train    the scaled config at full width and depth (seeded random
+           weights), dropout 0.1, batches of 8 from the port's synthetic
+           dataset, through create_train_state -> make_train_step: loss
+           and grad norm per step (finite), ms per step, training audio-s/s
+           and launches per step (16 flash forward, 16 flash backward,
+           1 projection, 0 decoder; counts zeroed just before, read just
+           after).  Then one step at dropout 0 and batch 2 on the card,
+           against the same weights and batch in float64 on the CPU: loss,
+           grad norm and the largest gradient error against stated
+           tolerances (the CPU's float32 errors are printed beside them).
+  train_profile  where the time of one train step goes (torch.profiler).
+  demo     `av_separation_torch.demo`: 100 steps of the demo config on the
+           card; fails below +35 dB or with masks outside [0, 1].
 Then the kernel summary line, the card line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -50,20 +67,35 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # float32 outside the tensor cores
 
+PALLAS = "av_separation_tpu/ops/pallas/"
 KERNELS = {
     "flash_attn_fwd": {
         "source": "av_separation_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "av_separation_tpu/ops/pallas/attention.py:462",
+        "replaces": PALLAS + "attention.py:462",
+        "also_replaces": [PALLAS + "attention.py:269",
+                          PALLAS + "attention.py:677"],
+    },
+    "flash_attn_bwd": {
+        "source": "av_separation_torch/csrc/flash_attn_bwd.cu",
+        "replaces": PALLAS + "attention.py:502",
+        "head_rate": 0.1,
+        "also_replaces": [PALLAS + "attention.py:320",
+                          PALLAS + "attention.py:828",
+                          PALLAS + "attention.py:842",
+                          PALLAS + "attention.py:870"],
     },
     "audio_proj_fwd": {
         "source": "av_separation_torch/csrc/audio_proj.cu",
-        "replaces": "av_separation_tpu/ops/pallas/audio_proj.py:75",
+        "replaces": PALLAS + "audio_proj.py:75",
+        "also_replaces": [],
     },
     "mask_decoder_fwd": {
         "source": "av_separation_torch/csrc/mask_decoder.cu",
-        "replaces": "av_separation_tpu/ops/pallas/decoder.py:82",
+        "replaces": PALLAS + "decoder.py:82",
+        "also_replaces": [],
     },
 }
+ATTN_SEED = -12345  # an int32 dropout seed with the sign bit set
 
 
 def emit(obj) -> None:
@@ -155,10 +187,6 @@ def _attn_inputs(b, h, tq, tk, dh, kind, gen):
 
 
 def phase_kernels(state):
-    import torch.nn.functional as F
-
-    from av_separation_torch.ops.kernels.attention import (
-        flash_attn_fwd, flash_attn_fwd_torch)
     from av_separation_torch.ops.kernels.audio_proj import (
         audio_proj_fwd, audio_proj_fwd_torch)
     from av_separation_torch.ops.kernels.decoder import (
@@ -169,23 +197,25 @@ def phase_kernels(state):
     failures = []
 
     def record(name, shape, err, tol, extra_errs, fn_k, fn_p, fn_lib,
-               nbytes, flops, iters):
+               nbytes, flops, iters, **extra):
         # In turns (kernel, plain, plain, kernel), each the mean of the two.
         times = [cuda_ms(fn, iters) for fn in (fn_k, fn_p, fn_p, fn_k)]
         ms, plain_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         lib_ms = cuda_ms(fn_lib, iters) if fn_lib is not None else None
         bound_ms, bound_by = bound(nbytes, flops)
-        ok = err <= tol and all(e <= t for e, t in extra_errs.values())
+        ok = err <= tol and all(e <= t for e, t in extra_errs.values()) \
+            and extra.get("bit_identical", True)
         row = {"shape": shape, "max_abs_err": err, "tol": tol,
                "extra_errs": extra_errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "ok": ok}
+               "bound_by": bound_by, "ok": ok, **extra}
         results[name].append(row)
         emit({"kernel": name, **row})
         if not ok:
             failures.append(f"{name} {shape}")
 
-    # flash attention: the scaled path's three shapes, demo, split, long.
+    # flash attention: the scaled path's three shapes (serving at dropout
+    # 0, training at 0.1), demo, split, long; forward, then backward.
     attn_cases = [
         ("scaled audio self", 8, 4, 501, 501, 128, "self"),
         ("scaled visual self", 8, 4, 200, 200, 128, "self"),
@@ -194,21 +224,10 @@ def phase_kernels(state):
         ("demo cross split", 4, 4, 63, 50, 32, "split"),
         ("long self Tk>512", 2, 4, 1024, 1024, 128, "self"),
     ]
-    for label, b, h, tq, tk, dh, kind in attn_cases:
-        q, k, v = _attn_inputs(b, h, tq, tk, dh, kind, gen)
-        o_k, lse_k = flash_attn_fwd(q, k, v)
-        o_p, lse_p = flash_attn_fwd_torch(q, k, v)
-        torch.cuda.synchronize()
-        bh = q.shape[0] * q.shape[1]
-        nbytes = 4 * (bh * (2 * tq * dh + 2 * tk * dh) + bh * tq)
-        flops = 4 * bh * tq * tk * dh
-        record("flash_attn_fwd", f"{label} B={b} H={h} Tq={tq} Tk={tk} "
-               f"dh={dh}", max_err(o_k, o_p), 2e-5,
-               {"lse": (max_err(lse_k, lse_p), 1e-4)},
-               lambda: flash_attn_fwd(q, k, v),
-               lambda: flash_attn_fwd_torch(q, k, v),
-               lambda: F.scaled_dot_product_attention(q, k, v),
-               nbytes, flops, 20)
+    for rate in (0.0, 0.1):
+        for label, b, h, tq, tk, dh, kind in attn_cases:
+            q, k, v = _attn_inputs(b, h, tq, tk, dh, kind, gen)
+            _attn_rows(record, label, rate, q, k, v, gen)
 
     # fused audio projection at the scaled shape and the demo shape.
     for label, b, t, f, d in (("scaled", 8, 501, 257, 512),
@@ -264,6 +283,66 @@ def phase_kernels(state):
     return {"checked": {n: len(r) for n, r in results.items()}}
 
 
+def _attn_rows(record, label, rate, q, k, v, gen):
+    """One forward row and one backward row of flash attention at `rate`.
+
+    Float32 on both sides, sums over <= 1024 keys in another order: 2e-5
+    on o and on the gradients (O(1) values), 1e-4 on lse.  The library
+    yardstick is F.scaled_dot_product_attention (float32, same dropout
+    rate), forward alone for the forward row and forward + backward for
+    the backward row; the port never calls it.
+    """
+    import torch.nn.functional as F
+
+    from av_separation_torch.ops.kernels.attention import (
+        flash_attn_bwd, flash_attn_bwd_torch, flash_attn_fwd,
+        flash_attn_fwd_torch)
+
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    seed = ATTN_SEED
+    shape = (f"{label} B={b} H={h} Tq={tq} Tk={tk} dh={dh} "
+             f"dropout={rate}")
+    o_k, lse_k = flash_attn_fwd(q, k, v, rate, seed)
+    o_p, lse_p = flash_attn_fwd_torch(q, k, v, rate, seed)
+    do = torch.randn(o_p.shape, generator=gen).cuda()
+    g_k = flash_attn_bwd(q, k, v, o_k, do, lse_k, rate, seed)
+    g_k2 = flash_attn_bwd(q, k, v, o_k, do, lse_k, rate, seed)
+    g_p = flash_attn_bwd_torch(q, k, v, o_p, do, lse_p, rate, seed)
+    torch.cuda.synchronize()
+    bh = b * h
+    lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                     dropout_p=rate)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    # Forward: 2 products of 2*Tq*Tk*dh against q, k, v in and o, lse out.
+    record("flash_attn_fwd", shape, max_err(o_k, o_p), 2e-5,
+           {"lse": (max_err(lse_k, lse_p), 1e-4)},
+           lambda: flash_attn_fwd(q, k, v, rate, seed),
+           lambda: flash_attn_fwd_torch(q, k, v, rate, seed), lib_fwd,
+           4 * (bh * (2 * tq * dh + 2 * tk * dh) + bh * tq),
+           4 * bh * tq * tk * dh, 20, dropout=rate)
+    # Backward: the least work is 5 products (QK^T, dO V^T, dV, dQ, dK)
+    # against q, k, v, o, dO, lse in and dQ, dK, dV out; what the kernels
+    # recompute on top is not counted.
+    errs = [max_err(x, y) for x, y in zip(g_k, g_p)]
+    record("flash_attn_bwd", shape, max(errs), 2e-5,
+           {"dq": (errs[0], 2e-5), "dk": (errs[1], 2e-5),
+            "dv": (errs[2], 2e-5)},
+           lambda: flash_attn_bwd(q, k, v, o_k, do, lse_k, rate, seed),
+           lambda: flash_attn_bwd_torch(q, k, v, o_p, do, lse_p, rate, seed),
+           lib_fwd_bwd,
+           4 * (bh * (3 * tq * dh + 2 * tk * dh + tq)
+                + bh * (tq * dh + 2 * tk * dh)),
+           10 * bh * tq * tk * dh, 10, dropout=rate,
+           bit_identical=all(torch.equal(x, y) for x, y in zip(g_k, g_k2)),
+           library="F.scaled_dot_product_attention forward + backward")
+
+
 def phase_golden(state):
     from av_separation_torch.config import get_config
     from av_separation_torch.models.model import AVSeparationTransformer
@@ -300,8 +379,8 @@ def phase_golden(state):
         if not within(got, g[name], atol, 1e-4):
             bad.append(name)
     want = {"flash_attn_fwd": 2 * cfg.num_encoder_layers
-            + cfg.num_fusion_layers, "audio_proj_fwd": 1,
-            "mask_decoder_fwd": 1}
+            + cfg.num_fusion_layers, "flash_attn_bwd": 0,
+            "audio_proj_fwd": 1, "mask_decoder_fwd": 1}
     if launches != want:
         bad.append(f"launches {launches} != {want}")
     if bad:
@@ -361,7 +440,7 @@ def phase_serve(state):
         server.close()
     if errors or any(th.is_alive() for th in threads):
         raise AssertionError(f"client failures: {errors}")
-    state["launches"] = launches
+    state["launches"]["serve"] = launches
     state["serve_batch"] = (sep, np.stack(mixes[:8]), np.stack(lips[:8]))
 
     s, n_audio = cfg.model.num_speakers, cfg.data.num_samples_audio
@@ -373,8 +452,8 @@ def phase_serve(state):
                 and masks.max() <= 1.0):
             bad.append(f"request {i}: masks outside [0, 1]")
     batches = stats["batches"]
-    want = {"flash_attn_fwd": 16 * batches, "audio_proj_fwd": batches,
-            "mask_decoder_fwd": batches}
+    want = {"flash_attn_fwd": 16 * batches, "flash_attn_bwd": 0,
+            "audio_proj_fwd": batches, "mask_decoder_fwd": batches}
     per_forward = 2 * cfg.model.num_encoder_layers \
         + cfg.model.num_fusion_layers
     if per_forward != 16 or launches != want:
@@ -416,7 +495,6 @@ def phase_profile(state):
     requests through the serve phase's Separator, timed (host clock around
     synchronised calls) and then traced with torch.profiler; device time is
     summed per kernel name from the CUDA kernel events."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sep, audio, frames = state["serve_batch"]
@@ -436,59 +514,244 @@ def phase_profile(state):
             sep.separate_waveform(audio, frames)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) / iters * 1e3
-    by_name, launches = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / iters
-            launches += 1
-    device_ms = sum(by_name.values())
-
-    def group(name):
-        low = name.lower()
-        if "flash_fwd" in low:
-            return "flash_attn_fwd (ours)"
-        if "audio_proj" in low:
-            return "audio_proj_fwd (ours)"
-        if "mask_decoder" in low:
-            return "mask_decoder_fwd (ours)"
-        if "memcpy" in low:
-            return "memcpy (host <-> device)"
-        if "fprop" in low or "conv" in low or "cudnn" in low:
-            return "conv stem (cuDNN)"
-        if "gemm" in low or "xmma" in low or "cutlass" in low:
-            return "matmul (cuBLAS)"
-        if "norm" in low:
-            return "layer norm"
-        return "other (elementwise, reductions, index_add)"
-
-    groups = {}
-    for name, ms in by_name.items():
-        groups[group(name)] = groups.get(group(name), 0.0) + ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"config": "scaled", "batch": int(audio.shape[0]),
             "card": state["card"], "batch_ms": batch_ms,
             "traced_batch_ms": traced_ms,
-            "device_ms_per_batch": device_ms if by_name else "not measured",
-            "device_busy_share": (device_ms / traced_ms if by_name
-                                  else "not measured"),
-            "kernels_per_batch": launches / iters,
+            **device_split(prof, iters, traced_ms, "batch")}
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_attn_fwd (ours)"
+    if "dkv_kernel" in low or "dq_kernel" in low or "delta_kernel" in low:
+        return "flash_attn_bwd (ours)"
+    if "audio_proj" in low:
+        return "audio_proj_fwd (ours)"
+    if "mask_decoder" in low:
+        return "mask_decoder_fwd (ours)"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy / memset"
+    if "fprop" in low or "grad" in low or "conv" in low or "cudnn" in low:
+        return "conv stem (cuDNN)"
+    if "gemm" in low or "xmma" in low or "cutlass" in low:
+        return "matmul (cuBLAS)"
+    if "norm" in low:
+        return "layer norm"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer (foreach Adam)"
+    return "other (elementwise, reductions, index_add)"
+
+
+def device_split(prof, iters: int, traced_ms: float, unit: str) -> dict:
+    """Device time per `unit` from a torch.profiler trace: summed per kernel
+    name and per group, and its share of the host-clock time."""
+    from torch.autograd import DeviceType
+
+    by_name, launches = {}, 0
+    for e in prof.events():
+        # Kernels and copies only: a user annotation (such as
+        # Optimizer.step) spans kernels that are already counted.
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            us = e.time_range.end - e.time_range.start
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / iters
+            launches += 1
+    if not by_name:
+        return {f"device_ms_per_{unit}": "not measured",
+                "device_busy_share": "not measured"}
+    device_ms = sum(by_name.values())
+    groups = {}
+    for name, ms in by_name.items():
+        groups[_group(name)] = groups.get(_group(name), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {f"device_ms_per_{unit}": device_ms,
+            "device_busy_share": device_ms / traced_ms,
+            f"kernels_per_{unit}": launches / iters,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": [[name[:90], ms] for name, ms in top]}
 
 
+def _scaled_train_setup(dropout: float, n_samples: int, batch: int):
+    """The scaled config at `dropout` and its first `batch_iterator` batches
+    over a cut of the synthetic dataset (`n_samples` of its 1000; widths,
+    depths and the data geometry are the config's)."""
+    import dataclasses
+
+    from av_separation_torch.config import get_config
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+
+    cfg = get_config("scaled")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=dropout),
+        data=dataclasses.replace(cfg.data, num_samples=n_samples),
+        train=dataclasses.replace(cfg.train, batch_size=batch))
+    return cfg, batch_iterator(SyntheticAVDataset(cfg.data), batch, seed=0)
+
+
+def phase_train(state):
+    from av_separation_torch.ops import kernels
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    cfg, batches = _scaled_train_setup(0.1, 24, 8)
+    m = cfg.model
+    if (m.d_model, m.nhead, m.num_encoder_layers, m.num_fusion_layers) \
+            != (512, 4, 6, 4):
+        raise AssertionError(f"not the scaled config: {m}")
+    ts = create_train_state(cfg, device="cuda")
+    step = make_train_step(cfg)
+    per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
+    want = {"flash_attn_fwd": per_step, "flash_attn_bwd": per_step,
+            "audio_proj_fwd": 1, "mask_decoder_fwd": 0}
+    n_steps, rows, bad = 6, [], []
+    total = {name: 0 for name in kernels.LAUNCHES}
+    for i in range(n_steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts, metrics = step(ts, batch)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        for name, n in launches.items():
+            total[name] += n
+        rows.append({"step": i, "loss": loss, "grad_norm": norm, "ms": ms,
+                     "launches": launches})
+        if not (np.isfinite(loss) and np.isfinite(norm)):
+            bad.append(f"step {i}: loss {loss}, grad norm {norm}")
+        if launches != want:
+            bad.append(f"step {i}: launches {launches} != {want}")
+    state["launches"]["train"] = total
+    state["train"] = (cfg, ts, step, batch)
+    # Step 0 pays cuBLAS / cuDNN set-up; the rate is over the others.
+    step_ms = float(np.mean([r["ms"] for r in rows[1:]]))
+    audio_s = cfg.train.batch_size * cfg.data.duration
+
+    check = _train_cpu_check(bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"config": "scaled", "card": state["card"],
+            "batch": cfg.train.batch_size, "dropout": m.dropout,
+            "steps": rows, "ms_per_step": step_ms,
+            "audio_s_per_s": audio_s / step_ms * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cpu_check_dropout0_batch2": check}
+
+
+def _train_cpu_check(bad: list) -> dict:
+    """One step of the scaled config at dropout 0 and batch 2 through
+    make_train_step on the card, against the same weights and batch on the
+    CPU in float64 (forward, loss, backward, the same clip).
+
+    Float64 is the reference because the CPU's own float32 run can be the
+    noisier side (its float32 loss reductions over 257k elements); its
+    errors against float64 are reported beside the card's.  Tolerances:
+    the loss (SI-SNR in dB plus L1) to 1e-3, the global norm to 1e-4
+    relative, every clipped gradient element to 1e-3 of the largest."""
+    from av_separation_torch.losses import separation_loss
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    cfg0, batches0 = _scaled_train_setup(0.0, 8, 2)
+    batch0 = next(batches0)
+    ref = create_train_state(cfg0, device="cpu").model.double()
+    mixed, frames, clean = (torch.as_tensor(batch0[k], dtype=torch.float64)
+                            for k in ("mixed_spec", "lip_frames",
+                                      "clean_specs"))
+    lc = cfg0.loss
+    loss_ref = separation_loss(ref(mixed, frames)[0], clean, lc.l1_weight,
+                               lc.pit_mode, lc.eps)
+    loss_ref.backward()
+    g_ref = {n: p.grad for n, p in ref.named_parameters()}
+    n_ref = float(torch.sqrt(sum(g.square().sum() for g in g_ref.values())))
+    clip = min(1.0, cfg0.train.grad_clip_norm / n_ref)
+
+    g_max = max(float(g.abs().max()) for g in g_ref.values()) * clip
+    runs = {}
+    for device in ("cuda", "cpu"):
+        s0 = create_train_state(cfg0, device=device)
+        s0, met = make_train_step(cfg0)(s0, batch0)
+        runs[device] = (float(met["loss"]), float(met["grad_norm"]), max(
+            float((p.grad.double().cpu() - g_ref[n] * clip).abs().max())
+            for n, p in s0.model.named_parameters()))
+    (l_g, n_g, g_err), (l_c, n_c, g_err_c) = runs["cuda"], runs["cpu"]
+    l_r = float(loss_ref.detach())
+    if abs(l_g - l_r) > 1e-3:
+        bad.append(f"loss card {l_g} vs CPU float64 {l_r}")
+    if abs(n_g - n_ref) > 1e-4 * n_ref:
+        bad.append(f"grad norm card {n_g} vs CPU float64 {n_ref}")
+    if g_err > 1e-3 * g_max:
+        bad.append(f"gradients card vs CPU float64 {g_err} > 1e-3 * {g_max}")
+    return {"reference": "CPU float64", "loss": [l_g, l_r, 1e-3],
+            "grad_norm": [n_g, n_ref, 1e-4 * n_ref],
+            "max_grad_err": [g_err, g_max, 1e-3 * g_max],
+            "cpu_float32": {"loss": l_c, "grad_norm": n_c,
+                            "max_grad_err": g_err_c}}
+
+
+def phase_train_profile(state):
+    """Where the time of one scaled train step goes: host-clock step time,
+    then a torch.profiler trace of two steps summed per kernel and group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, ts, step, batch = state["train"]
+    iters = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ts, metrics = step(ts, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) / iters * 1e3
+    return {"config": "scaled", "batch": cfg.train.batch_size,
+            "card": state["card"], "traced_step_ms": traced_ms,
+            **device_split(prof, iters, traced_ms, "step")}
+
+
+def phase_demo(state):
+    from av_separation_torch import demo
+    from av_separation_torch.ops import kernels
+
+    lines = []
+    kernels.reset_launch_counts()
+    out = demo.run(device="cuda", log=lines.append)
+    launches = dict(kernels.LAUNCHES)
+    print("\n".join(lines), file=sys.stderr, flush=True)
+    state["launches"]["demo"] = launches
+    if not out["passed"]:
+        raise AssertionError(f"demo gate failed: {out}")
+    if not all(launches[n] > 0 for n in ("flash_attn_fwd", "flash_attn_bwd",
+                                         "audio_proj_fwd")):
+        raise AssertionError(f"demo launches {launches}")
+    return {"config": "demo", "card": state["card"], **out,
+            "gate_db": demo.PASS_DB, "launches": launches}
+
+
 def kernel_summary(state):
     """One entry per kernel: errors are the worst over the shapes checked;
-    times and the bound are those of the first (scaled serving) shape."""
+    times and the bound are those of the first scaled shape at the rate of
+    the kernel's main path (serving at dropout 0, the backward at the
+    training rate 0.1); launches are summed over the serve, train and demo
+    runs, each counted from 0."""
     rows = state.get("kernel_rows", {})
-    launches = state.get("launches", {})
+    by_path = state.get("launches", {})
     out = []
     for name, meta in KERNELS.items():
         mine = rows.get(name, [])
-        head = mine[0] if mine else {}
+        rate = meta.get("head_rate", 0.0)
+        head = next((r for r in mine if r.get("dropout", 0.0) == rate),
+                    mine[0] if mine else {})
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches.get(name, 0),
+            "replaces": meta["replaces"],
+            "also_replaces": meta["also_replaces"],
+            "launches": sum(p.get(name, 0) for p in by_path.values()),
+            "launches_by_path": {path: p.get(name, 0)
+                                 for path, p in by_path.items()},
             "max_abs_err": max((r["max_abs_err"] for r in mine),
                                default=None),
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
@@ -509,11 +772,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    state = {}
+    state = {"launches": {}}
     failed = []
     for name, phase in (("env", phase_env), ("build", phase_build),
                         ("kernels", phase_kernels), ("golden", phase_golden),
-                        ("serve", phase_serve), ("profile", phase_profile)):
+                        ("serve", phase_serve), ("profile", phase_profile),
+                        ("train", phase_train),
+                        ("train_profile", phase_train_profile),
+                        ("demo", phase_demo)):
         t0 = time.perf_counter()
         try:
             info = phase(state)

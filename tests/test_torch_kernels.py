@@ -3,9 +3,12 @@
 On the CPU each wrapper runs its kernel's plain PyTorch version (the CUDA
 kernels are held against those on the card by chip_smoke.py); the Pallas
 kernels run in interpret mode, as tests/test_kernels.py runs them.  Inputs
-are made with numpy from a seed and handed to both.
+are made with numpy from a seed and handed to both.  Attention dropout
+masks agree bit for bit (the same hash), so the dropout cases are held at
+the float32 tolerances of the dropout-free ones.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,11 +16,19 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from av_separation_torch.ops import kernels
-from av_separation_torch.ops.attention import (multi_head_attention,
+from av_separation_torch.ops.attention import (draw_seed, merge_heads,
+                                               multi_head_attention,
                                                split_heads)
-from av_separation_torch.ops.kernels.attention import flash_attn_fwd
-from av_separation_torch.ops.kernels.audio_proj import audio_proj_fwd
-from av_separation_torch.ops.kernels.decoder import mask_decoder_fwd
+from av_separation_torch.ops.kernels.attention import (flash_attention,
+                                                       flash_attn_bwd,
+                                                       flash_attn_fwd,
+                                                       keep_mask)
+from av_separation_torch.ops.kernels.audio_proj import (audio_proj_fwd,
+                                                        audio_projection)
+from av_separation_torch.ops.kernels.decoder import (mask_decoder,
+                                                     mask_decoder_fwd)
+
+SEED = -1234567  # an int32 dropout seed with the sign bit set
 
 
 def rand(shape, seed, scale=1.0):
@@ -126,7 +137,8 @@ class TestDispatch:
     def test_cpu_tensors_launch_no_kernel(self):
         kernels.reset_launch_counts()
         q = torch.from_numpy(rand((1, 2, 5, 32), 18))
-        flash_attn_fwd(q, q, q)
+        o, lse = flash_attn_fwd(q, q, q, 0.1, SEED)
+        flash_attn_bwd(q, q, q, o, o, lse, 0.1, SEED)
         d = 64
         audio_proj_fwd(torch.zeros(1, 4, 8), torch.zeros(3, 8, d),
                        torch.zeros(d), torch.zeros(3, d, d), torch.zeros(d))
@@ -134,6 +146,7 @@ class TestDispatch:
                          torch.zeros(2 * d), torch.zeros(2 * d, 2 * 3),
                          torch.zeros(2 * 3), torch.zeros(1, 3, 4), 2)
         assert kernels.LAUNCHES == {"flash_attn_fwd": 0,
+                                    "flash_attn_bwd": 0,
                                     "audio_proj_fwd": 0,
                                     "mask_decoder_fwd": 0}
 
@@ -141,8 +154,242 @@ class TestDispatch:
         q = torch.empty(1, 2, 5, 32, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             flash_attn_fwd(q, q, q)
+        with pytest.raises(ValueError, match="unsupported device"):
+            flash_attn_bwd(q, q, q, q, q, q[..., 0])
         x = torch.empty(1, 4, 8, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             audio_proj_fwd(x, x, x, x, x)
         with pytest.raises(ValueError, match="unsupported device"):
             mask_decoder_fwd(x, x, x, x, x, x, 2)
+
+
+# ---------------------------------------------------------------------------
+# Attention dropout and the flash backward.
+# ---------------------------------------------------------------------------
+
+def _jax_attention(layout, nh, rate):
+    """The Pallas entry point of one layout, as a function of (q, k, v)."""
+    from av_separation_tpu.ops.pallas.attention import (
+        flash_attention as jax_flash, flash_attention_packed_qkv)
+    seed = jnp.asarray([SEED], jnp.int32) if rate > 0 else None
+    if layout == "packed":
+        return lambda q, k, v: flash_attention_packed_qkv(
+            q, k, v, nh, dropout_rate=rate, dropout_seed=seed)
+    return lambda q, k, v: jax_flash(q, k, v, dropout_rate=rate,
+                                     dropout_seed=seed)
+
+
+def _port_attention(layout, nh, rate):
+    if layout == "packed":
+        return lambda q, k, v: merge_heads(flash_attention(
+            *(split_heads(x, nh) for x in (q, k, v)), rate, SEED))
+    return lambda q, k, v: flash_attention(q, k, v, rate, SEED)
+
+
+# (layout, shape of q, shape of k/v, heads): packed (B, T, H*dh) at dh 128
+# (`_fwd_hpacked_kernel`), split (B, H, T, dh) at dh 32
+# (`_fwd_packed_kernel`) and the multi-block grid (Tq, Tk > 512,
+# `_fwd_kernel` and the three-stage backward).
+LAYOUTS = {
+    "packed": ((2, 37, 256), (2, 45, 256), 2),
+    "split": ((2, 2, 37, 32), (2, 2, 50, 32), 2),
+    "multiblock": ((1, 1, 600, 32), (1, 1, 530, 32), 1),
+}
+
+
+class TestAttentionDropout:
+    def test_keep_rate_and_seed(self):
+        keep = keep_mask(SEED, 2, 2, 300, 300, 0.3)
+        # 360k Bernoulli(0.7) draws: 5 sigma is 0.004.
+        assert abs(float(keep.float().mean()) - 0.7) < 0.004
+        assert not torch.equal(keep, keep_mask(SEED + 1, 2, 2, 300, 300, 0.3))
+        assert bool(keep_mask(SEED, 1, 1, 9, 9, 0.0).all())
+
+    def test_draw_seed_is_int32(self):
+        gen = torch.Generator().manual_seed(0)
+        seeds = [draw_seed(gen) for _ in range(64)]
+        assert all(-2 ** 31 <= s < 2 ** 31 for s in seeds)
+        assert any(s < 0 for s in seeds) and len(set(seeds)) == 64
+
+    # The same bits on both sides: float32 tolerances, as without dropout.
+    @pytest.mark.parametrize("layout", list(LAYOUTS))
+    def test_forward_matches_pallas(self, layout):
+        qs, ks, nh = LAYOUTS[layout]
+        q, k, v = rand(qs, 20), rand(ks, 21), rand(ks, 22)
+        ref = _jax_attention(layout, nh, 0.3)(
+            *(jnp.asarray(x) for x in (q, k, v)))
+        ours = _port_attention(layout, nh, 0.3)(
+            *(torch.from_numpy(x) for x in (q, k, v)))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
+                                   atol=2e-5, rtol=1e-4)
+
+    # Gradients sum up to 600 products per element in another order than
+    # the Pallas kernels: 5e-5 absolute on O(1) values.
+    @pytest.mark.parametrize("rate", [0.0, 0.3])
+    @pytest.mark.parametrize("layout", list(LAYOUTS))
+    def test_backward_matches_jax_vjp(self, layout, rate):
+        qs, ks, nh = LAYOUTS[layout]
+        q, k, v = rand(qs, 23), rand(ks, 24), rand(ks, 25)
+        g = rand(qs, 26)
+        _, vjp = jax.vjp(_jax_attention(layout, nh, rate),
+                         *(jnp.asarray(x) for x in (q, k, v)))
+        want = vjp(jnp.asarray(g))
+        ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        _port_attention(layout, nh, rate)(*ts).backward(torch.from_numpy(g))
+        for name, t, w in zip("qkv", ts, want):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                       atol=5e-5, rtol=1e-4, err_msg=name)
+
+    def test_backward_wrapper_matches_autograd_of_dense(self):
+        """flash_attn_bwd against autograd through dense softmax attention
+        with the same keep mask (float64)."""
+        b, h, tq, tk, dh = 1, 2, 7, 9, 8
+        gen = np.random.default_rng(27)
+        q, k, v, do = (torch.from_numpy(gen.normal(size=s))
+                       for s in ((b, h, tq, dh), (b, h, tk, dh),
+                                 (b, h, tk, dh), (b, h, tq, dh)))
+        rate = 0.25
+        o, lse = flash_attn_fwd(q, k, v, rate, SEED)
+        dq, dk, dv = flash_attn_bwd(q, k, v, o, do, lse, rate, SEED)
+        keep = keep_mask(SEED, b, h, tq, tk, rate)
+        ts = [x.clone().requires_grad_() for x in (q, k, v)]
+        p = torch.softmax(ts[0] @ ts[1].transpose(-1, -2) / dh ** 0.5, -1)
+        dense = torch.where(keep, p / (1 - rate), 0.0) @ ts[2]
+        np.testing.assert_allclose(o.numpy(), dense.detach().numpy(),
+                                   atol=1e-12)
+        dense.backward(do)
+        for got, t in zip((dq, dk, dv), ts):
+            np.testing.assert_allclose(got.numpy(), t.grad.numpy(),
+                                       atol=1e-12)
+
+    @pytest.mark.parametrize("rate", [0.0, 0.3])
+    def test_gradcheck_plain_float64(self, rate):
+        gen = np.random.default_rng(28)
+        q, k, v = (torch.from_numpy(gen.normal(size=s)).requires_grad_()
+                   for s in ((1, 2, 5, 8), (1, 2, 6, 8), (1, 2, 6, 8)))
+        assert torch.autograd.gradcheck(
+            lambda q, k, v: flash_attention(q, k, v, rate, SEED), (q, k, v),
+            eps=1e-6, atol=1e-6)
+
+    def test_multi_head_attention_draws_one_seed_per_call(self):
+        q = torch.from_numpy(rand((1, 9, 64), 29))
+        outs = [multi_head_attention(q, q, q, 2, 0.5,
+                                     torch.Generator().manual_seed(s))
+                for s in (0, 0, 1)]
+        assert torch.equal(outs[0], outs[1])
+        assert not torch.equal(outs[0], outs[2])
+        # Without a generator there is no dropout.
+        assert torch.equal(multi_head_attention(q, q, q, 2, 0.5),
+                           multi_head_attention(q, q, q, 2))
+
+
+# ---------------------------------------------------------------------------
+# Residual dropout and the fused activations: distribution only.
+# ---------------------------------------------------------------------------
+
+class TestDropout:
+    def test_quantized_rate_and_scale(self):
+        from av_separation_torch.ops.dropout import (fast_dropout,
+                                                     quantized_rate)
+        assert quantized_rate(0.1) == 26 and quantized_rate(0.0001) == 1
+        assert quantized_rate(0.9999) == 255
+        x = torch.ones(1 << 20)
+        out = fast_dropout(x, 0.1, torch.Generator().manual_seed(0))
+        kept = out[out != 0]
+        assert torch.all(kept == torch.tensor(1.0 / (1.0 - 26 / 256)))
+        # 2^20 Bernoulli(26/256) draws: 5 sigma is 0.0015.
+        assert abs(float((out == 0).float().mean()) - 26 / 256) < 0.0015
+        # Mean-unbiased: the survivor scale uses the quantized rate.
+        assert abs(float(out.mean()) - 1.0) < 0.0017
+
+    def test_backward_takes_the_forward_mask(self):
+        from av_separation_torch.ops.dropout import fast_dropout
+        x = torch.ones(4096, requires_grad=True)
+        out = fast_dropout(x, 0.3, torch.Generator().manual_seed(1))
+        out.sum().backward()
+        assert torch.equal(x.grad, out.detach())
+
+    def test_module_identity_in_eval_and_needs_generator(self):
+        from av_separation_torch.ops.dropout import Dropout
+        drop = Dropout(0.1)
+        x = torch.randn(8, 8)
+        assert drop.eval()(x) is x
+        with pytest.raises(ValueError, match="generator"):
+            drop.train()(x)
+
+    @pytest.mark.parametrize("kind", ["relu", "gelu"])
+    def test_fused_activation_matches_unfused(self, kind):
+        """Output and gradient against autograd of activation * mask *
+        scale with the same bits (same generator seed)."""
+        import torch.nn.functional as F
+
+        from av_separation_torch.ops.activations import (gelu_dropout,
+                                                         relu_dropout)
+        from av_separation_torch.ops.dropout import (keep_bits, keep_scale,
+                                                     quantized_rate)
+        fused = {"relu": relu_dropout, "gelu": gelu_dropout}[kind]
+        act = {"relu": torch.relu, "gelu": F.gelu}[kind]
+        x = torch.from_numpy(rand((64, 96), 30))
+        g = torch.from_numpy(rand((64, 96), 31))
+        n = quantized_rate(0.1)
+        keep = keep_bits(x.shape, n, torch.Generator().manual_seed(7), "cpu")
+        xa = x.clone().requires_grad_()
+        ref = torch.where(keep, act(xa) * keep_scale(n), 0.0)
+        ref.backward(g)
+        xb = x.clone().requires_grad_()
+        out = fused(xb, 0.1, torch.Generator().manual_seed(7))
+        out.backward(g)
+        assert torch.equal(out.detach(), ref.detach())
+        # GELU's derivative is recomputed in closed form: float32 rounding.
+        np.testing.assert_allclose(xb.grad.numpy(), xa.grad.numpy(),
+                                   atol=1e-6, rtol=1e-5)
+        plain = fused(x, 0.0, None)
+        assert torch.equal(plain, act(x))
+
+
+# ---------------------------------------------------------------------------
+# Backward rules of the fused projection and decoder.
+# ---------------------------------------------------------------------------
+
+class TestFusedBackward:
+    # Float32 sums of up to 2 * 37 * 3 products per weight gradient.
+    def test_audio_projection_matches_jax_vjp(self):
+        from av_separation_tpu.ops.pallas.audio_proj import (
+            fused_audio_projection)
+        b, t, f, d = 2, 37, 65, 64
+        args = [rand((b, t, f), 32), rand((3, f, d), 33, 0.1),
+                rand((d,), 34, 0.1), rand((3, d, d), 35, 0.1),
+                rand((d,), 36, 0.1)]
+        g = rand((b, t, d), 37)
+        y_ref, vjp = jax.vjp(fused_audio_projection,
+                             *(jnp.asarray(a) for a in args))
+        want = vjp(jnp.asarray(g))
+        ts = [torch.from_numpy(a).requires_grad_() for a in args]
+        y = audio_projection(*ts)
+        y.backward(torch.from_numpy(g))
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
+                                   atol=2e-5, rtol=1e-4)
+        for name, t_, w in zip(("x", "w1", "b1", "w2", "b2"), ts, want):
+            np.testing.assert_allclose(t_.grad.numpy(), np.asarray(w),
+                                       atol=5e-5, rtol=1e-4, err_msg=name)
+
+    # The Pallas forward's erf approximation (1.5e-7) reaches the decoder
+    # gradients through the saved masks: 2e-5 on O(1) sums.
+    def test_mask_decoder_matches_jax_vjp(self):
+        from av_separation_tpu.ops.pallas.decoder import fused_mask_decoder
+        b, t, d, s, f = 2, 37, 64, 2, 65
+        args = [rand((b, t, d), 38), rand((d, 2 * d), 39, 0.05),
+                rand((2 * d,), 40, 0.05), rand((2 * d, s * f), 41, 0.05),
+                rand((s * f,), 42, 0.05), rand((b, f, t), 43)]
+        g_sep, g_mask = rand((b, s, f, t), 44), rand((b, s, f, t), 45)
+        _, vjp = jax.vjp(lambda *a: fused_mask_decoder(*a, s, f),
+                         *(jnp.asarray(a) for a in args))
+        want = vjp((jnp.asarray(g_sep), jnp.asarray(g_mask)))
+        ts = [torch.from_numpy(a).requires_grad_() for a in args]
+        sep, masks = mask_decoder(*ts, s)
+        torch.autograd.backward((sep, masks), (torch.from_numpy(g_sep),
+                                               torch.from_numpy(g_mask)))
+        for name, t_, w in zip(("x", "w1", "b1", "w2", "b2", "mixed"), ts,
+                               want):
+            np.testing.assert_allclose(t_.grad.numpy(), np.asarray(w),
+                                       atol=2e-5, rtol=1e-4, err_msg=name)

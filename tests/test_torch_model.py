@@ -199,7 +199,9 @@ class TestModelContract:
                                                 compute_dtype="bfloat16"))
 
     def test_training_mode_raises(self):
+        """Training with dropout draws from explicit generators: a
+        training-mode forward without them raises."""
         model = build_model(ModelConfig(**SMALL), device="cpu").train()
         mixed, frames = inputs()
-        with pytest.raises(NotImplementedError, match="eval mode"):
+        with pytest.raises(ValueError, match="(?i)generator"):
             model(torch.from_numpy(mixed), torch.from_numpy(frames))
