@@ -1,0 +1,295 @@
+"""Command line: train, evaluate and separate (port of
+`av_separation_tpu/cli.py`).
+
+    python -m av_separation_torch.cli train --config demo --steps 100
+    python -m av_separation_torch.cli train --config scaled --data device --fused
+    python -m av_separation_torch.cli eval --config demo --checkpoint-dir ckpt
+    python -m av_separation_torch.cli separate --config demo --checkpoint-dir ckpt
+
+Every command runs on the CUDA device and raises without one; `--cpu` runs
+it on the CPU (the kernels' plain versions).  The JSON lines are the JAX
+CLI's: one per logged step, eval lines between them, and a final
+{"final_step", "loss", "audio_s_per_s"} line, whose loss is printed
+unrounded so that two runs can be compared.  Not yet ported, and refused
+by the argument parser: the mesh and multi-host flags, `--impl`, `--dtype`,
+`--data native|files` (`--data-root`, `--dynamic-mix`), `--debug-nans`,
+`--mode`, and the `serve` and `bench` commands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import sys
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", default="demo",
+                   help="named config: demo|scaled|three_speaker|lrs2|"
+                        "multihost")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (default: the CUDA device)")
+    p.add_argument("--batch", type=int, default=None)
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--pit", choices=("global", "per_sample"), default=None)
+    p.add_argument("--data", choices=("host", "device"), default=None,
+                   help="batch pipeline: the host NumPy dataset, or batches "
+                        "generated on the model's device")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the "
+                        "training loop into this directory")
+    p.add_argument("--fused", action="store_true",
+                   help="K steps per call on batches generated on the "
+                        "device, reading back to the host only between "
+                        "segments (logging, eval, checkpoints)")
+    p.add_argument("--eval-every", type=int, default=None,
+                   help="run the SNR eval every N steps")
+
+
+def _build_config(args):
+    from av_separation_torch.config import NAMED_CONFIGS, get_config
+
+    if args.config not in NAMED_CONFIGS:
+        sys.exit(f"avsep: unknown config '{args.config}'. "
+                 f"Available: {', '.join(sorted(NAMED_CONFIGS))}")
+    cfg = get_config(args.config)
+    train_kw = {}
+    for field, attr in (("batch_size", "batch"), ("steps", "steps"),
+                        ("checkpoint_dir", "checkpoint_dir"),
+                        ("checkpoint_every", "checkpoint_every"),
+                        ("data_pipeline", "data"), ("seed", "seed")):
+        v = getattr(args, attr)
+        if v is not None:
+            train_kw[field] = v
+    if train_kw:
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, **train_kw))
+    if args.pit:
+        cfg = dataclasses.replace(
+            cfg, loss=dataclasses.replace(cfg.loss, pit_mode=args.pit))
+    return cfg
+
+
+def _device(args):
+    from av_separation_torch.models.model import resolve_device
+    return resolve_device("cpu" if args.cpu else "cuda")
+
+
+def _batches(cfg, device, start_step: int = 0):
+    """Batch stream of the per-step loop; `start_step` makes a resumed run
+    see the stream an uninterrupted run sees from that step."""
+    if cfg.train.data_pipeline == "device":
+        from av_separation_torch.data.device_synthetic import (
+            device_batch_iterator)
+        return device_batch_iterator(cfg.data, cfg.train.batch_size,
+                                     seed=cfg.train.seed,
+                                     start_step=start_step, device=device)
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    return batch_iterator(SyntheticAVDataset(cfg.data), cfg.train.batch_size,
+                          seed=cfg.train.seed, start_step=start_step)
+
+
+def _eval_metrics(model, batch) -> dict:
+    from av_separation_torch.train import make_eval_step
+
+    m = make_eval_step()(model, batch)
+    out = {k: round(float(v), 4) for k, v in m.items()}
+    out["snr_improvement_db"] = round(
+        float(m["output_snr"]) - float(m["input_snr"]), 4)
+    return out
+
+
+def _eval_runner(cfg):
+    """(state) -> metrics of the 20 deterministic host eval samples."""
+    from av_separation_torch.data.loader import eval_batch
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+
+    batch = eval_batch(SyntheticAVDataset(cfg.data), 20)
+    return lambda state: _eval_metrics(state.model, batch)
+
+
+def _final_line(step: int, loss, audio_s: float, dt: float) -> None:
+    print(json.dumps({"final_step": step, "loss": float(loss),
+                      "audio_s_per_s": round(audio_s / max(dt, 1e-9), 2)}),
+          flush=True)
+
+
+def _save_every(cfg, step: int, state) -> None:
+    if (cfg.train.checkpoint_dir and cfg.train.checkpoint_every
+            and step % cfg.train.checkpoint_every == 0):
+        from av_separation_torch.utils.checkpoint import save_checkpoint
+        save_checkpoint(cfg.train.checkpoint_dir, step, state)
+
+
+def cmd_train(args) -> int:
+    from av_separation_torch.train import create_train_state, make_train_step
+    from av_separation_torch.utils.profiling import (Timer, step_metrics_line,
+                                                     trace)
+
+    cfg = _build_config(args)
+    device = _device(args)
+    print(f"config={cfg.name} device={device} "
+          f"data={cfg.train.data_pipeline} fused={args.fused}",
+          file=sys.stderr)
+    state = create_train_state(cfg, device=device)
+    start_step = 0
+    if cfg.train.checkpoint_dir:
+        from av_separation_torch.utils.checkpoint import restore_checkpoint
+        state = restore_checkpoint(cfg.train.checkpoint_dir, state)
+        start_step = state.step
+        if start_step:
+            print(f"resumed from step {start_step}", file=sys.stderr)
+
+    evaluate = _eval_runner(cfg) if args.eval_every else None
+    ctx = trace(args.profile_dir) if args.profile_dir \
+        else contextlib.nullcontext()
+    per_step_audio = cfg.train.batch_size * cfg.data.duration
+    with ctx:
+        if args.fused:
+            state = _fused_train(args, cfg, state, start_step, evaluate)
+        else:
+            step_fn = make_train_step(cfg)
+            batches = _batches(cfg, device, start_step)
+            timer = Timer()
+            for i in range(start_step, cfg.train.steps):
+                state, metrics = step_fn(state, next(batches))
+                if cfg.train.log_every and (i + 1) % cfg.train.log_every == 0:
+                    audio_s = (i + 1 - start_step) * per_step_audio
+                    print(step_metrics_line(i + 1, metrics, {
+                        "audio_s_per_s": round(audio_s / timer.elapsed(),
+                                               2)}), flush=True)
+                if evaluate and (i + 1) % args.eval_every == 0:
+                    print(step_metrics_line(i + 1, evaluate(state)),
+                          flush=True)
+                _save_every(cfg, i + 1, state)
+            if cfg.train.steps > start_step:
+                # A summary line even when steps < log_every.
+                dt = timer.elapsed()
+                _final_line(cfg.train.steps, metrics["loss"],
+                            (cfg.train.steps - start_step) * per_step_audio,
+                            dt)
+
+    if cfg.train.checkpoint_dir:
+        from av_separation_torch.utils.checkpoint import save_checkpoint
+        save_checkpoint(cfg.train.checkpoint_dir, state.step, state,
+                        wait=True)
+        print(f"saved checkpoint at step {state.step}", file=sys.stderr)
+    return 0
+
+
+def _fused_train(args, cfg, state, start_step: int, evaluate):
+    """K steps per call on device-generated batches
+    (`train.make_fused_train_steps`), reading back to the host only at
+    segment ends for logging, eval and checkpoints."""
+    from av_separation_torch.train import make_fused_train_steps
+    from av_separation_torch.utils.profiling import Timer, step_metrics_line
+
+    # The longest segment that still lands on every log, eval and
+    # checkpoint step.
+    seg = cfg.train.log_every or 20
+    for every in (cfg.train.checkpoint_every, args.eval_every):
+        if every:
+            seg = math.gcd(seg, every)
+    fused = {}
+    per_step_audio = cfg.train.batch_size * cfg.data.duration
+    step = start_step
+    timer = Timer()
+    loss = None
+    while step < cfg.train.steps:
+        k = min(seg, cfg.train.steps - step)
+        if k not in fused:
+            fused[k] = make_fused_train_steps(cfg, k)
+        state, loss = fused[k](state)
+        step += k
+        if cfg.train.log_every and step % cfg.train.log_every == 0:
+            audio_s = (step - start_step) * per_step_audio
+            print(step_metrics_line(step, {"loss": loss}, {
+                "audio_s_per_s": round(audio_s / timer.elapsed(), 2),
+                "fused_segment": k}), flush=True)
+        if evaluate and step % args.eval_every == 0:
+            print(step_metrics_line(step, evaluate(state)), flush=True)
+        _save_every(cfg, step, state)
+    if step > start_step:
+        dt = timer.elapsed()
+        _final_line(step, loss, (step - start_step) * per_step_audio, dt)
+    return state
+
+
+def cmd_eval(args) -> int:
+    from av_separation_torch.data.loader import eval_batch
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.train import create_train_state
+
+    cfg = _build_config(args)
+    state = create_train_state(cfg, device=_device(args))
+    if cfg.train.checkpoint_dir:
+        from av_separation_torch.utils.checkpoint import restore_checkpoint
+        state = restore_checkpoint(cfg.train.checkpoint_dir, state)
+    batch = eval_batch(SyntheticAVDataset(cfg.data), 20)
+    print(json.dumps(_eval_metrics(state.model, batch)), flush=True)
+    return 0
+
+
+def cmd_separate(args) -> int:
+    """Serving-path smoke: synthetic mixtures (deterministic per index)
+    through `Separator.separate_waveform`, with the waveform SI-SNR against
+    the clean sources.  Loads the model from --checkpoint-dir when given,
+    else draws it from --seed."""
+    import numpy as np
+    import torch
+
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.inference import Separator
+    from av_separation_torch.models.model import build_model
+    from av_separation_torch.ops.istft import permutation_si_snr_waveform
+
+    cfg = _build_config(args)
+    device = _device(args)
+    if cfg.train.checkpoint_dir:
+        sep = Separator.from_checkpoint(cfg.train.checkpoint_dir, cfg.model,
+                                        cfg.data, device=device)
+    else:
+        weights = build_model(cfg.model, device="cpu",
+                              seed=cfg.train.seed).state_dict()
+        sep = Separator(cfg.model, weights, cfg.data, device=device)
+        print("separate: no --checkpoint-dir, using untrained init",
+              file=sys.stderr)
+
+    ds = SyntheticAVDataset(cfg.data)
+    n = args.batch or 4
+    cleans = np.stack([ds.clean_audios(i)[0] for i in range(n)])  # (B, S, N)
+    lips = np.stack([ds[i]["lip_frames"] for i in range(n)])
+    out = sep.separate_waveform(cleans.sum(axis=1), lips)
+    snr = permutation_si_snr_waveform(torch.from_numpy(out["waveforms"]),
+                                      torch.from_numpy(cleans))
+    print(json.dumps({
+        "batch": n,
+        "waveform_shape": list(out["waveforms"].shape),
+        "si_snr_waveform_db": round(float(snr.mean()), 3),
+        "mask_min": round(float(out["masks"].min()), 4),
+        "mask_max": round(float(out["masks"].max()), 4),
+    }), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m av_separation_torch.cli")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name, fn in (("train", cmd_train), ("eval", cmd_eval),
+                     ("separate", cmd_separate)):
+        p = sub.add_parser(name)
+        _add_common(p)
+        p.set_defaults(fn=fn)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

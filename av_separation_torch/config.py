@@ -6,14 +6,16 @@ A copy of the model, data, loss and training parts of
 tensor on the card goes through the hand-written kernel and a tensor on the
 CPU through the kernel's plain PyTorch version, so there is nothing to
 select.  The five named configs keep the reference's widths, depths, data
-geometry and training constants field for field; the mesh, the data
-pipelines, remat and checkpointing come with the slices that use them.
+geometry and training constants field for field, and `TrainConfig` carries
+the host and device data pipelines and the checkpoint fields; the mesh, the
+native and file pipelines, `rng_impl` and remat come with the slices that
+use them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -91,6 +93,14 @@ class TrainConfig:
     grad_clip_norm: float = 1.0
     seed: int = 0
     log_every: int = 20
+    # Checkpointing (utils/checkpoint.py): the directory to save into and
+    # restore from, and the save interval in steps (0: only the final save).
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    # Batch pipeline: 'host' cuts batches from the NumPy dataset that
+    # bit-matches the reference (data/loader.py); 'device' generates the
+    # same distribution on the model's device (data/device_synthetic.py).
+    data_pipeline: str = "host"
 
 
 @dataclass(frozen=True)

@@ -8,8 +8,9 @@
     iSTFT -> per-speaker waveforms (B, S, N_audio).
 Requests are zero-padded along the batch axis to the next power-of-two
 bucket, as in the JAX package; padded rows never mix with real ones and are
-sliced off.  Streaming (`separate_waveform_streaming`) and Orbax checkpoints
-(`from_checkpoint`) are not ported yet.
+sliced off.  ``from_checkpoint`` builds one from the model variables of a
+`utils/checkpoint.py` checkpoint.  Streaming (`separate_waveform_streaming`)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -59,6 +60,15 @@ class Separator:
         model = AVSeparationTransformer(model_cfg)
         model.load_state_dict(state_dict)
         self.model = model.eval().to(self.device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, model_cfg: ModelConfig,
+                        data_cfg: Optional[DataConfig] = None, *,
+                        device: torch.device | str = "cuda") -> "Separator":
+        """A Separator over the newest checkpoint under `path`."""
+        from av_separation_torch.utils.checkpoint import restore_variables
+        return cls(model_cfg, restore_variables(path), data_cfg,
+                   device=device)
 
     def _padded(self, x: np.ndarray, bucket: int) -> torch.Tensor:
         x = np.asarray(x, np.float32)

@@ -6,7 +6,8 @@
     overlap-add by `index_add_`, divided by the summed squared window.
   - ``masked_istft``: per-speaker waveforms from soft masks applied to the
     complex mixture STFT (masked magnitude with the mixture's phase).
-  - ``si_snr_waveform``: zero-mean, scale-projected waveform SI-SNR in dB.
+  - ``si_snr_waveform``: zero-mean, scale-projected waveform SI-SNR in dB;
+    ``permutation_si_snr_waveform`` its best-permutation mean per sample.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import functools
 import numpy as np
 import torch
 
+from av_separation_torch.losses import permutation_table
 from av_separation_torch.ops.stft import hann_symmetric, stft_complex
 
 
@@ -97,3 +99,13 @@ def si_snr_waveform(estimate: torch.Tensor, target: torch.Tensor,
     noise = estimate - proj
     ratio = (proj * proj).sum(dim=-1) / ((noise * noise).sum(dim=-1) + eps)
     return 10.0 * torch.log10(ratio + eps)
+
+
+def permutation_si_snr_waveform(estimates: torch.Tensor,
+                                targets: torch.Tensor) -> torch.Tensor:
+    """Best-permutation mean waveform SI-SNR per sample: (B, S, N) x
+    (B, S, N) -> (B,), the waveform analogue of
+    `utils.metrics.permutation_snr`."""
+    per_perm = [si_snr_waveform(estimates[:, list(perm)], targets)
+                .mean(dim=-1) for perm in permutation_table(estimates.shape[1])]
+    return torch.stack(per_perm).max(dim=0).values

@@ -7,7 +7,9 @@ step and the eval step, on one device.
 as optax's `chain(clip_by_global_norm, adam)` does it (reference
 demo.py:88,103).  The step runs eagerly and updates the model and the
 optimizer state in place (torch's idiom; the JAX step returns a new state).
-The mesh, the scan-fused on-device steps, remat, bf16 and checkpointing come
+`make_fused_train_steps` runs K steps whose batches are generated on the
+model's device (`data/device_synthetic.py`), with no read back to the host
+in between.  The mesh, remat, bf16 and CUDA graphs of the fused steps come
 with later slices.
 """
 
@@ -20,6 +22,8 @@ import numpy as np
 import torch
 
 from av_separation_torch.config import ExperimentConfig
+from av_separation_torch.data.device_synthetic import (generate_batch,
+                                                       step_generator)
 from av_separation_torch.losses import separation_loss
 from av_separation_torch.models.layers import Generators
 from av_separation_torch.models.model import (AVSeparationTransformer,
@@ -122,6 +126,31 @@ def make_train_step(cfg: ExperimentConfig
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return step_fn
+
+
+def make_fused_train_steps(cfg: ExperimentConfig, steps_per_call: int
+                           ) -> Callable[[TrainState],
+                                         Tuple[TrainState, torch.Tensor]]:
+    """(state) -> (state, last_loss): `steps_per_call` updates, each on a
+    batch generated on the model's device from the generator of
+    (cfg.train.seed + 17, state.step), as the JAX scan body keys it
+    (`fold_in(key(seed + 17), step)`).  Nothing is read back to the host
+    inside the K steps; the loss is a 0-d tensor on the device."""
+    step_fn = make_train_step(cfg)
+    data_cfg, batch_size = cfg.data, cfg.train.batch_size
+    seed = cfg.train.seed + 17
+
+    def multi(state: TrainState):
+        device = _device_of(state.model)
+        loss = None
+        for _ in range(steps_per_call):
+            batch = generate_batch(step_generator(seed, state.step, device),
+                                   data_cfg, batch_size)
+            state, metrics = step_fn(state, batch)
+            loss = metrics["loss"]
+        return state, loss
+
+    return multi
 
 
 def make_eval_step() -> Callable[[torch.nn.Module, Batch],

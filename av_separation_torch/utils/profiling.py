@@ -1,0 +1,66 @@
+"""Timing and tracing helpers (port of `av_separation_tpu/utils/profiling.py`).
+
+- ``trace(logdir)``: a `torch.profiler` window over the block that writes a
+  Chrome trace (`trace.json`, viewable in Perfetto) into `logdir`.
+- ``Timer``: a wall clock that synchronises the CUDA device before it reads
+  the clock, so the time covers the work queued before the call.
+- ``step_metrics_line``: one JSON line of metrics per step.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from typing import Any, Dict, Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[None]:
+    """Trace the CPU and, where there is one, the CUDA device; the trace
+    goes to `logdir/trace.json` when the block exits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def _synchronize() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class Timer:
+    """Seconds since construction, read after the device has finished the
+    work queued so far."""
+
+    def __init__(self):
+        _synchronize()
+        self.start = time.perf_counter()
+
+    def elapsed(self) -> float:
+        _synchronize()
+        return time.perf_counter() - self.start
+
+
+def step_metrics_line(step: int, metrics: Dict[str, Any],
+                      extra: Optional[Dict[str, Any]] = None) -> str:
+    """One JSON metrics record: the step, every metric as a float where it
+    converts (a device tensor is read back here), then `extra`."""
+    rec = {"step": step}
+    for k, v in metrics.items():
+        try:
+            rec[k] = float(v)
+        except (TypeError, ValueError):
+            rec[k] = v
+    if extra:
+        rec.update(extra)
+    return json.dumps(rec)

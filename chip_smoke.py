@@ -15,7 +15,10 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            tolerance, kernel / plain / library times (CUDA events) and the
            kernel's bound.  Flash attention at dropout 0 and 0.1, forward
            and backward; each backward is run twice and must give
-           bit-identical gradients.
+           bit-identical gradients.  The STFT magnitude at the scaled
+           device batch (24 x 64,000), the demo's (24 x 8,000) and an odd
+           shape (3 x 2,000, n_fft 128, hop 64); its library yardstick is
+           torch.stft (cuFFT).
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
@@ -41,6 +44,23 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            grad norm and the largest gradient error against stated
            tolerances (the CPU's float32 errors are printed beside them).
   train_profile  where the time of one train step goes (torch.profiler).
+  device_data  the scaled config's batches generated on the card
+           (data/device_synthetic.py generate_batch, batch 8): exactly one
+           STFT launch per batch, shapes, finite values, lips in [0, 1];
+           the same variates through `synthesize` on the CPU (spectra atol
+           1e-3 + rtol 1e-5, lips 1e-5); ms per generated batch (CUDA
+           events) beside the host batch_iterator's ms per batch of 8.
+  train_device  `python -m av_separation_torch.cli train` in process on
+           the scaled config at full width and depth, dropout 0.1, batch 8,
+           --data device: --fused --steps 20, then --steps 6; the final
+           JSON lines (finite loss, audio-s/s) and launches per step (16
+           flash forward, 16 flash backward, 1 projection, 0 decoder,
+           1 STFT; counts zeroed before each run, read after).  Then a
+           4-step run with --checkpoint-every 2 against a run to step 2
+           resumed to step 4: final losses within 1e-5 relative.
+  train_device_profile  host-data steps against fused device-data steps
+           in turns (host clock), then where the time of a fused step goes
+           (torch.profiler over two fused steps).
   demo     `av_separation_torch.demo`: 100 steps of the demo config on the
            card; fails below +35 dB or with masks outside [0, 1].
 Then the kernel summary line, the card line, and the last line
@@ -92,6 +112,11 @@ KERNELS = {
     "mask_decoder_fwd": {
         "source": "av_separation_torch/csrc/mask_decoder.cu",
         "replaces": PALLAS + "decoder.py:82",
+        "also_replaces": [],
+    },
+    "stft_mag_fwd": {
+        "source": "av_separation_torch/csrc/stft_mag.cu",
+        "replaces": PALLAS + "stft.py:95",
         "also_replaces": [],
     },
 }
@@ -276,6 +301,8 @@ def phase_kernels(state):
                lambda: mask_decoder_fwd_torch(x, w1, b1, w2, b2, mixed, s),
                None, nbytes, flops, 20)
 
+    _stft_rows(record, gen)
+
     state["kernel_rows"] = results
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -343,6 +370,67 @@ def _attn_rows(record, label, rate, q, k, v, gen):
            library="F.scaled_dot_product_attention forward + backward")
 
 
+def _stft_rows(record, gen):
+    """The STFT magnitude against its plain version at three shapes: the
+    scaled and demo device batches (B 8: [mixed; 2 clean] = 24 signals of
+    generated tones) and an odd shape of noise.  Float32 sums of n_fft
+    windowed samples in another order (peaks ~100 on the tones): max abs
+    error 2e-4, tighter everywhere than atol 2e-4 with rtol 1e-5.  Bound:
+    the audio read once and the spectra written once, against the least
+    work of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame (the kernel's
+    matrix DFT does 4 n_fft F).  Library: torch.stft with the symmetric
+    Hann window, no centering, on the zero-padded signal, then abs (cuFFT;
+    timed only, never called by the port)."""
+    import torch.nn.functional as F
+
+    from av_separation_torch.config import get_config
+    from av_separation_torch.data.device_synthetic import (clean_waveforms,
+                                                           draw_variates,
+                                                           step_generator)
+    from av_separation_torch.ops.kernels.stft import (
+        stft_magnitude_fwd, stft_magnitude_fwd_torch)
+
+    def tones(name):
+        cfg = get_config(name).data
+        v = draw_variates(step_generator(0, 0, "cuda"), cfg, 8)
+        clean = clean_waveforms(v, cfg)
+        audio = torch.cat([clean.sum(dim=1, keepdim=True), clean], dim=1)
+        return audio.reshape(-1, cfg.num_samples_audio).contiguous(), cfg
+
+    scaled, cfg_s = tones("scaled")
+    demo, cfg_d = tones("demo")
+    odd = torch.randn(3, 2000, generator=gen).cuda()
+    cases = [("scaled device batch", scaled, cfg_s.n_fft, cfg_s.hop_length),
+             ("demo device batch", demo, cfg_d.n_fft, cfg_d.hop_length),
+             ("odd", odd, 128, 64)]
+    for label, audio, n_fft, hop in cases:
+        b, n = audio.shape
+        t = 1 + n // hop
+        f = n_fft // 2 + 1
+        window = torch.hann_window(n_fft, periodic=False, device="cuda")
+        pad = max(0, (t - 1) * hop + n_fft - n)
+
+        def lib(audio=audio, n_fft=n_fft, hop=hop, window=window, pad=pad):
+            return torch.stft(F.pad(audio, (0, pad)), n_fft, hop,
+                              window=window, center=False,
+                              return_complex=True).abs()
+
+        k = stft_magnitude_fwd(audio, n_fft, hop)
+        p = stft_magnitude_fwd_torch(audio, n_fft, hop)
+        lib_out = lib()
+        torch.cuda.synchronize()
+        nbytes = 4 * (b * n + b * f * t)
+        flops = 2.5 * n_fft * np.log2(n_fft) * t * b
+        record("stft_mag_fwd",
+               f"{label} B={b} N={n} n_fft={n_fft} hop={hop} T={t}",
+               max_err(k, p), 2e-4, {}, lambda: stft_magnitude_fwd(
+                   audio, n_fft, hop),
+               lambda: stft_magnitude_fwd_torch(audio, n_fft, hop), lib,
+               nbytes, flops, 20,
+               peak=float(p.max()), library_max_abs_err=max_err(lib_out, p),
+               library="torch.stft(center=False, symmetric Hann).abs()")
+
+
 def phase_golden(state):
     from av_separation_torch.config import get_config
     from av_separation_torch.models.model import AVSeparationTransformer
@@ -380,7 +468,7 @@ def phase_golden(state):
             bad.append(name)
     want = {"flash_attn_fwd": 2 * cfg.num_encoder_layers
             + cfg.num_fusion_layers, "flash_attn_bwd": 0,
-            "audio_proj_fwd": 1, "mask_decoder_fwd": 1}
+            "audio_proj_fwd": 1, "mask_decoder_fwd": 1, "stft_mag_fwd": 0}
     if launches != want:
         bad.append(f"launches {launches} != {want}")
     if bad:
@@ -453,7 +541,8 @@ def phase_serve(state):
             bad.append(f"request {i}: masks outside [0, 1]")
     batches = stats["batches"]
     want = {"flash_attn_fwd": 16 * batches, "flash_attn_bwd": 0,
-            "audio_proj_fwd": batches, "mask_decoder_fwd": batches}
+            "audio_proj_fwd": batches, "mask_decoder_fwd": batches,
+            "stft_mag_fwd": 0}
     per_forward = 2 * cfg.model.num_encoder_layers \
         + cfg.model.num_fusion_layers
     if per_forward != 16 or launches != want:
@@ -530,6 +619,8 @@ def _group(name: str) -> str:
         return "audio_proj_fwd (ours)"
     if "mask_decoder" in low:
         return "mask_decoder_fwd (ours)"
+    if "stft_mag" in low:
+        return "stft_mag_fwd (ours)"
     if "memcpy" in low or "memset" in low:
         return "memcpy / memset"
     if "fprop" in low or "grad" in low or "conv" in low or "cudnn" in low:
@@ -565,11 +656,16 @@ def device_split(prof, iters: int, traced_ms: float, unit: str) -> dict:
     for name, ms in by_name.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # Host side: the operators with the most self CPU time.
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / iters)
+                   for e in prof.key_averages()),
+                  key=lambda kv: -kv[1])[:8]
     return {f"device_ms_per_{unit}": device_ms,
             "device_busy_share": device_ms / traced_ms,
             f"kernels_per_{unit}": launches / iters,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top_kernels_ms": [[name[:90], ms] for name, ms in top]}
+            "top_kernels_ms": [[name[:90], ms] for name, ms in top],
+            "host_self_cpu_ms": [[name[:60], ms] for name, ms in host]}
 
 
 def _scaled_train_setup(dropout: float, n_samples: int, batch: int):
@@ -603,7 +699,7 @@ def phase_train(state):
     step = make_train_step(cfg)
     per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
     want = {"flash_attn_fwd": per_step, "flash_attn_bwd": per_step,
-            "audio_proj_fwd": 1, "mask_decoder_fwd": 0}
+            "audio_proj_fwd": 1, "mask_decoder_fwd": 0, "stft_mag_fwd": 0}
     n_steps, rows, bad = 6, [], []
     total = {name: 0 for name in kernels.LAUNCHES}
     for i in range(n_steps):
@@ -712,6 +808,225 @@ def phase_train_profile(state):
             **device_split(prof, iters, traced_ms, "step")}
 
 
+def phase_device_data(state):
+    """Batches generated on the card: launches, contract, the CPU check on
+    the same variates, and ms per batch beside the host pipeline's."""
+    import dataclasses
+
+    from av_separation_torch.config import get_config
+    from av_separation_torch.data.device_synthetic import (draw_variates,
+                                                           generate_batch,
+                                                           step_generator,
+                                                           synthesize)
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.ops import kernels
+
+    cfg, bs = get_config("scaled").data, 8
+    s, f, t = cfg.num_speakers, cfg.freq_bins, cfg.num_stft_frames
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    batch = generate_batch(step_generator(0, 0, "cuda"), cfg, bs)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    state["launches"]["device_data"] = launches
+    bad = []
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want["stft_mag_fwd"] = 1
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+    shapes = {"mixed_spec": (bs, f, t), "clean_specs": (bs, s, f, t),
+              "lip_frames": (bs, s * cfg.num_frames, cfg.frame_h,
+                             cfg.frame_w)}
+    for name, shape in shapes.items():
+        x = batch[name]
+        if tuple(x.shape) != shape or x.device.type != "cuda" \
+                or not bool(torch.isfinite(x).all()):
+            bad.append(f"{name}: {tuple(x.shape)} on {x.device}, "
+                       f"finite {bool(torch.isfinite(x).all())}")
+    lips = batch["lip_frames"]
+    lip_range = [float(lips.min()), float(lips.max())]
+    if lip_range[0] < 0.0 or lip_range[1] > 1.0:
+        bad.append(f"lip frames outside [0, 1]: {lip_range}")
+
+    # The same variates (redrawn from the same generator seed), on the CPU.
+    variates = draw_variates(step_generator(0, 0, "cuda"), cfg, bs)
+    ref = synthesize({k: v.cpu() for k, v in variates.items()}, cfg)
+    errs = {}
+    for name, atol, rtol in (("mixed_spec", 1e-3, 1e-5),
+                             ("clean_specs", 1e-3, 1e-5),
+                             ("lip_frames", 1e-5, 0.0)):
+        got, want_ = batch[name].cpu(), ref[name]
+        errs[name] = {"max_abs_err": max_err(got, want_), "atol": atol,
+                      "rtol": rtol}
+        if not within(got.numpy(), want_.numpy(), atol, rtol):
+            bad.append(f"{name} card vs CPU {errs[name]}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+    gen = step_generator(0, 1, "cuda")
+    device_ms = cuda_ms(lambda: generate_batch(gen, cfg, bs), iters=20)
+    host_cfg = dataclasses.replace(cfg, num_samples=bs)
+    t0 = time.perf_counter()
+    host = batch_iterator(SyntheticAVDataset(host_cfg), bs, seed=0)
+    next(host)
+    host_first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(10):
+        next(host)
+    host_cut_ms = (time.perf_counter() - t0) / 10 * 1e3
+    return {"config": "scaled", "card": state["card"], "batch": bs,
+            "launches": launches, "lip_range": lip_range,
+            "peak_spectrum": float(batch["mixed_spec"].max()),
+            "cpu_check": errs, "device_ms_per_batch": device_ms,
+            "host_ms_per_batch_generated": host_first_ms,
+            "host_ms_per_batch_cut_from_memory": host_cut_ms}
+
+
+def _run_cli(args):
+    """cli.main(args) in process: its JSON stdout lines and the launches
+    counted from 0 over the run."""
+    import contextlib
+    import io
+
+    from av_separation_torch import cli
+    from av_separation_torch.ops import kernels
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    if rc != 0 or not lines or "final_step" not in lines[-1]:
+        raise AssertionError(f"cli {args}: rc {rc}, lines {lines}")
+    return lines, launches
+
+
+def phase_train_device(state):
+    import tempfile
+
+    from av_separation_torch.config import get_config
+
+    m = get_config("scaled").model
+    if (m.d_model, m.nhead, m.num_encoder_layers, m.num_fusion_layers,
+            m.dropout) != (512, 4, 6, 4, 0.1):
+        raise AssertionError(f"not the scaled config: {m}")
+    base = ["train", "--config", "scaled", "--batch", "8", "--data",
+            "device"]
+    per_step = {"flash_attn_fwd": 16, "flash_attn_bwd": 16,
+                "audio_proj_fwd": 1, "mask_decoder_fwd": 0,
+                "stft_mag_fwd": 1}
+    runs, bad = {}, []
+    total = {name: 0 for name in per_step}
+    for label, extra, steps in (("fused", ["--fused"], 20),
+                                ("per_step", [], 6)):
+        lines, launches = _run_cli(base + extra + ["--steps", str(steps)])
+        final = lines[-1]
+        for name, n in launches.items():
+            total[name] += n
+        got = {name: launches[name] / steps for name in per_step}
+        if got != per_step:
+            bad.append(f"{label}: launches per step {got} != {per_step}")
+        if final["final_step"] != steps or not (
+                np.isfinite(final["loss"])
+                and np.isfinite(final["audio_s_per_s"])):
+            bad.append(f"{label}: final line {final}")
+        runs[label] = {"steps": steps, "lines": lines,
+                       "launches_per_step": got,
+                       "audio_s_per_s": final["audio_s_per_s"],
+                       "ms_per_step": 8 * 4.0 / final["audio_s_per_s"] * 1e3}
+    state["launches"]["train_device"] = total
+
+    # Checkpoint and resume: 4 steps straight against 2 + resumed 2.  The
+    # card's cuDNN backward is not guaranteed bit-deterministic, so the
+    # losses are held to 1e-5 relative (the CPU test asserts equality).
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        every = ["--fused", "--checkpoint-every", "2"]
+        straight, _ = _run_cli(base + every + [
+            "--steps", "4", "--checkpoint-dir", f"{tmp}/straight"])
+        _run_cli(base + every + ["--steps", "2", "--checkpoint-dir",
+                                 f"{tmp}/resumed"])
+        resumed, _ = _run_cli(base + every + [
+            "--steps", "4", "--checkpoint-dir", f"{tmp}/resumed"])
+        saved = sorted(p.name for p in Path(f"{tmp}/resumed").iterdir())
+    l_straight, l_resumed = straight[-1]["loss"], resumed[-1]["loss"]
+    rel = abs(l_straight - l_resumed) / abs(l_straight)
+    if rel > 1e-5 or saved != ["2.pt", "4.pt"]:
+        bad.append(f"resume: loss {l_resumed} vs {l_straight} (rel {rel}), "
+                   f"files {saved}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"config": "scaled", "card": state["card"], "batch": 8,
+            "dropout": m.dropout, "runs": runs,
+            "resume": {"loss_straight": l_straight,
+                       "loss_resumed": l_resumed, "rel_diff": rel,
+                       "tol": 1e-5, "files": saved}}
+
+
+def phase_train_device_profile(state):
+    """Where the time of a fused device-data step goes, against the
+    host-data step: the two run in turns (host, device, device, host), four
+    steps each on the host clock with one read of the loss at the end, on
+    two train states of the scaled config (batch 8, dropout 0.1); then two
+    fused steps traced with torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from av_separation_torch.train import (create_train_state,
+                                           make_fused_train_steps,
+                                           make_train_step)
+
+    cfg, batches = _scaled_train_setup(0.1, 24, 8)
+    host_state = create_train_state(cfg, device="cuda")
+    dev_state = create_train_state(cfg, device="cuda")
+    step, two = make_train_step(cfg), make_fused_train_steps(cfg, 2)
+
+    def host_steps(ts, n):
+        for _ in range(n):
+            ts, metrics = step(ts, next(batches))
+        return ts, metrics["loss"]
+
+    def device_steps(ts, n):
+        for _ in range(n // 2):
+            ts, loss = two(ts)
+        return ts, loss
+
+    def timed(fn, ts, n=4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, loss = fn(ts, n)
+        float(loss)
+        torch.cuda.synchronize()
+        return ts, (time.perf_counter() - t0) / n * 1e3
+
+    host_state, _ = timed(host_steps, host_state, 2)   # set-up
+    dev_state, _ = timed(device_steps, dev_state, 2)
+    turns = {"host": [], "device": []}
+    for which in ("host", "device", "device", "host"):
+        if which == "host":
+            host_state, ms = timed(host_steps, host_state)
+        else:
+            dev_state, ms = timed(device_steps, dev_state)
+        turns[which].append(ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dev_state, loss = two(dev_state)
+        float(loss)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) / 2 * 1e3
+    return {"config": "scaled", "batch": 8, "card": state["card"],
+            "host_data_ms_per_step": turns["host"],
+            "device_data_fused_ms_per_step": turns["device"],
+            "traced_step_ms": traced_ms,
+            **device_split(prof, 2, traced_ms, "step")}
+
+
 def phase_demo(state):
     from av_separation_torch import demo
     from av_separation_torch.ops import kernels
@@ -735,8 +1050,8 @@ def kernel_summary(state):
     """One entry per kernel: errors are the worst over the shapes checked;
     times and the bound are those of the first scaled shape at the rate of
     the kernel's main path (serving at dropout 0, the backward at the
-    training rate 0.1); launches are summed over the serve, train and demo
-    runs, each counted from 0."""
+    training rate 0.1); launches are summed over the serve, train,
+    device_data, train_device and demo runs, each counted from 0."""
     rows = state.get("kernel_rows", {})
     by_path = state.get("launches", {})
     out = []
@@ -779,6 +1094,9 @@ def main() -> int:
                         ("serve", phase_serve), ("profile", phase_profile),
                         ("train", phase_train),
                         ("train_profile", phase_train_profile),
+                        ("device_data", phase_device_data),
+                        ("train_device", phase_train_device),
+                        ("train_device_profile", phase_train_device_profile),
                         ("demo", phase_demo)):
         t0 = time.perf_counter()
         try:

@@ -27,6 +27,8 @@ from av_separation_torch.ops.kernels.audio_proj import (audio_proj_fwd,
                                                         audio_projection)
 from av_separation_torch.ops.kernels.decoder import (mask_decoder,
                                                      mask_decoder_fwd)
+from av_separation_torch.ops.kernels.stft import (launch_shape,
+                                                  stft_magnitude_fwd)
 
 SEED = -1234567  # an int32 dropout seed with the sign bit set
 
@@ -133,6 +135,62 @@ class TestMaskDecoder:
                                    atol=2e-5, rtol=1e-5)
 
 
+class TestStft:
+    # Float32 DFT sums over 512 windowed samples in another order against
+    # the Pallas kernel's (peaks ~50 on unit-normal audio).
+    @pytest.mark.parametrize("shape,n_fft,hop,frames", [
+        ((3, 8000), 512, 128, 63),
+        ((2000,), 128, 64, 32),
+        ((2, 3, 1500), 128, 64, 24),
+    ])
+    def test_matches_pallas(self, shape, n_fft, hop, frames):
+        from av_separation_tpu.ops.pallas.stft import stft_magnitude_pallas
+        audio = rand(shape, 20)
+        ref = stft_magnitude_pallas(jnp.asarray(audio), n_fft, hop, frames)
+        ours = stft_magnitude_fwd(torch.from_numpy(audio), n_fft, hop)
+        assert ours.shape == shape[:-1] + (n_fft // 2 + 1, frames)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
+                                   rtol=1e-5)
+
+    @pytest.mark.parametrize("shape,n_fft,hop,frames", [
+        ((3, 8000), 512, 128, 63), ((1, 2000), 128, 64, 32)])
+    def test_matches_float64_numpy(self, shape, n_fft, hop, frames):
+        # The tolerance tests/test_kernels.py gives the Pallas kernel.
+        from av_separation_torch.data.synthetic import stft_magnitude_np
+        audio = rand(shape, 21)
+        want = np.stack([stft_magnitude_np(a, n_fft, hop, frames)
+                         for a in audio])
+        ours = stft_magnitude_fwd(torch.from_numpy(audio), n_fft, hop, frames)
+        np.testing.assert_allclose(ours.numpy(), want, atol=5e-4, rtol=1e-4)
+
+    def test_tail_frames_read_zeros(self):
+        # The frame starting at N reads only zeros; one starting at N - 1
+        # sees one windowed sample, and the Hann window is 0 there.
+        audio = torch.ones(1, 256)
+        mag = stft_magnitude_fwd(audio, 64, 32, 12)
+        assert torch.equal(mag[..., 8:], torch.zeros(1, 33, 4))
+        assert float(mag[0, 0, 0]) == pytest.approx(31.5, rel=1e-6)
+
+    @pytest.mark.parametrize("audio,n_fft,hop,match", [
+        (torch.zeros(2, 300, dtype=torch.float64), 64, 32, "float32"),
+        (torch.zeros(300, 2).t(), 64, 32, "contiguous"),
+        (torch.zeros(2, 300), 62, 32, "n_fft 62"),
+        (torch.zeros(2, 300), 64, 30, "hop 30"),
+        (torch.zeros(2, 300), 512, 2048, "shared memory")])
+    def test_kernel_inputs_are_checked(self, audio, n_fft, hop, match):
+        from av_separation_torch.ops.kernels.stft import _check
+        with pytest.raises(ValueError, match=match):
+            _check(audio, n_fft, hop, 1 + audio.shape[-1] // hop)
+
+    @pytest.mark.parametrize("n_fft,threads,f_pad", [
+        (512, 96, 288), (128, 96, 96), (1024, 128, 640), (256, 96, 192),
+        (4, 32, 32)])
+    def test_launch_shape_covers_every_bin(self, n_fft, threads, f_pad):
+        assert launch_shape(n_fft) == (threads, f_pad)
+        assert f_pad >= n_fft // 2 + 1 and f_pad % threads == 0
+        assert threads % 32 == 0 and threads <= 128
+
+
 class TestDispatch:
     def test_cpu_tensors_launch_no_kernel(self):
         kernels.reset_launch_counts()
@@ -145,10 +203,12 @@ class TestDispatch:
         mask_decoder_fwd(torch.zeros(1, 4, d), torch.zeros(d, 2 * d),
                          torch.zeros(2 * d), torch.zeros(2 * d, 2 * 3),
                          torch.zeros(2 * 3), torch.zeros(1, 3, 4), 2)
+        stft_magnitude_fwd(torch.zeros(2, 300), 64, 32)
         assert kernels.LAUNCHES == {"flash_attn_fwd": 0,
                                     "flash_attn_bwd": 0,
                                     "audio_proj_fwd": 0,
-                                    "mask_decoder_fwd": 0}
+                                    "mask_decoder_fwd": 0,
+                                    "stft_mag_fwd": 0}
 
     def test_other_devices_raise(self):
         q = torch.empty(1, 2, 5, 32, device="meta")
@@ -161,6 +221,8 @@ class TestDispatch:
             audio_proj_fwd(x, x, x, x, x)
         with pytest.raises(ValueError, match="unsupported device"):
             mask_decoder_fwd(x, x, x, x, x, x, 2)
+        with pytest.raises(ValueError, match="unsupported device"):
+            stft_magnitude_fwd(torch.empty(2, 300, device="meta"), 64, 32)
 
 
 # ---------------------------------------------------------------------------
