@@ -1,37 +1,64 @@
-// Flash attention forward, float32, for Hopper (sm_90a).
+// Flash attention forward, float32 on the tensor cores in 3xTF32, for
+// Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_fwd_hpacked_kernel`
-// (packed (B, T, H*dh) layout, called from `_flash_hpacked_call`) and
-// `_fwd_packed_kernel` (split (B*H, T, dh) layout, `_flash_packed_call`).
-// One kernel serves both layouts: q/k/v/o are addressed through
-// (batch, head, time) strides with the head dim contiguous.  It also covers
-// the multi-block `_fwd_kernel` (Tk > 512), since the keys are always
-// streamed in tiles.
+// (packed (B, T, H*dh) layout, called from `_flash_hpacked_call`),
+// `_fwd_packed_kernel` (split (B*H, T, dh) layout, `_flash_packed_call`)
+// and the multi-block `_fwd_kernel` (Tk > 512, `_flash_call`).  One kernel
+// serves all three: q/k/v/o are addressed through (batch, head, time)
+// strides with the head dim contiguous, and the keys are always streamed in
+// tiles, so Tk has no cap.
 //
 // Computes O = softmax(Q K^T * scale) V per (batch, head) and the row
 // logsumexp lse = m + log(l) in float32, as the Pallas kernels emit it.
 // Attention dropout as in `_fwd_hpacked_kernel` (attention.py:389-398): l
 // sums the undropped p, dropped p are zeroed before PV, and
 // o = acc / (l * (1 - rate)); the keep test is the Pallas hash
-// (dropout_hash.cuh), so the backward kernels regenerate the same mask.  At
-// rate 0 the hash is skipped and the arithmetic is unchanged.
+// (dropout_hash.cuh), keyed by (row, key) and the Pallas tile sizes, not by
+// this kernel's tiles, so the backward kernels regenerate the same mask.
 //
-// Bound on the H100 at the scaled serving shapes (B=8, H=4, dh=128, float32):
-// audio self-attention (Tq = Tk = 501) is 4*B*H*Tq*Tk*dh = 4.1 GFLOP against
-// 33 MB of q/k/v/o, so at 67 TFLOP/s (float32, no tensor cores) and
-// 3.35 TB/s it is bound by operations (61 us vs 10 us).  Visual
-// self-attention (200 x 200) is 0.66 GFLOP: 10 us vs 4 us of bytes.
+// Bound on the H100 at the scaled serving shapes (B=8, H=4, dh=128):
+// audio self-attention (Tq = Tk = 501) is 4*B*H*Tq*Tk*dh = 4.1 GFLOP of
+// float32 products against 33 MB of q/k/v/o.  Float32 products at float32
+// accuracy run on the tensor cores in 3xTF32 (three TF32 products each), at
+// 495/3 = 165 TFLOP/s: 25 us, against 10 us of bytes, so bound by
+// operations.
 //
-// Design: the TPU kernel kept whole (T <= 512, dh) K/V rows in VMEM; at
-// dh=128 float32 that is 512 KB, more than a block's 227 KB of shared
-// memory.  Here a block owns 32 query rows of one (batch, head) (8 rows per
-// warp) and walks the keys in tiles of 64 held in shared memory, with the
-// online-softmax rescale in registers, so Tk has no cap.  Scores: each lane
-// owns two keys of the tile; QK^T reads float4 K rows from a padded tile
-// (stride dh+4: conflict-free) against broadcast Q rows.  PV: each lane owns
-// dh/32 output columns; P goes through a per-warp shared buffer.  Simple
-// SIMT float32 FMAs: `wgmma` has no float32 mode, and TF32 would not hold
-// the float32 reference's tolerances.
+// Design:
+// - Products.  Both QK^T and PV are mma.sync.m16n8k8 TF32 products in
+//   3xTF32, CUTLASS's OpMultiplyAddFastF32 (the route of SDPA's float32
+//   kernel): each operand x splits into a TF32 big part and a TF32 small
+//   part (`split` below), and the sum takes small*big + big*small +
+//   big*big.  1xTF32 (10 mantissa bits) would not hold the float32
+//   reference's 2e-5; `wgmma` in TF32 needs K-major operands, and V as the
+//   B operand of PV is not.
+// - Tiles.  Each warp owns 16 query rows of one (batch, head), and a block
+//   64 rows (4 row warps).  Keys come in 32-key tiles through a 2-stage
+//   ring of cp.async 16-byte copies (src-size 0 zero-fills keys past Tk),
+//   so the copy of stage j+1 runs under the products of stage j.  When the
+//   grid has more blocks than SMs (audio self-attention and fusion: 256),
+//   a block is 4 warps and 101 KB of shared memory at dh 128, 2 blocks an
+//   SM.  When it has at most one a SM (visual self-attention at T 200 and
+//   the long T 1024 shape: 128 blocks), a block is 8 warps: two groups of 4
+//   take alternate 32-key tiles of each 64-key stage (169 KB), and the
+//   second group hands its (m, l, O) to the first, which merges them.  A
+//   finer row tile would not help there: 6,400 rows over 132 SMs still
+//   leave some SM 64 rows.  The score tile S (16 x 32) and the O
+//   accumulator (16 x dh) live in registers; the online softmax runs on
+//   the fragments, a row's max over the four lanes that share it; l is
+//   summed per lane and reduced once at the end.
+// - P into PV without a shuffle.  The m16n8k8 fragments (lane = 4g + t):
+//   A holds (g, t), (g+8, t), (g, t+4), (g+8, t+4); B holds (k=t, n=g),
+//   (k=t+4, n=g); C holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).  The
+//   keys of PV are a sum, so their order is free: A's k = t and k = t+4
+//   stand for keys 2t and 2t+1, which is where S's C fragment already has
+//   them, and V's B fragment reads key rows 2t and 2t+1 to match.
+// - Bank conflicts.  Q, K and V rows are dh+4 floats apart: the A loads of
+//   Q and the B loads of K hit bank 4g + t, the B loads of V (rows 2t,
+//   2t+1) bank 8t + g (+4): 32 distinct banks per load.
+// - Output.  Each warp writes its O rows into its own (now unused) Q rows
+//   of shared memory and stores them as 16-byte row chunks, packed
+//   (B, T, H, dh) memory through the o strides.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -39,11 +66,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 32 query rows per block
-constexpr int kBlockK = 64;                     // keys per shared tile
-constexpr int kThreads = kWarps * 32;
+constexpr int kRowWarps = 4;              // warps over the query rows
+constexpr int kBlockQ = 16 * kRowWarps;   // 64 query rows per block
+constexpr int kBlockK = 32;               // keys per warp per tile
 
 struct Params {
   const float* q;
@@ -61,61 +86,114 @@ struct Params {
   DropoutHash drop;
 };
 
-template <int DH>
+// SPLIT warp groups of 4 share the block's 64 rows and take SPLIT
+// consecutive 32-key tiles of each stage, one each.
+template <int DH, int SPLIT>
 struct Layout {
-  static constexpr int kQS = DH + 4;       // Q row stride (floats)
-  static constexpr int kKS = DH + 4;       // K row stride: conflict-free float4
-  static constexpr int kVS = DH;           // V rows are read along dh
-  static constexpr int kPS = kBlockK + 4;  // P row stride
-  static constexpr size_t kFloats =
-      kBlockQ * kQS + kBlockK * kKS + kBlockK * kVS + kBlockQ * kPS;
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+  static constexpr int kThreads = 32 * kRowWarps * SPLIT;
+  static constexpr int kS = DH + 4;  // row stride of the Q, K and V tiles
+  static constexpr int kKeys = kBlockK * SPLIT;  // keys per stage
+  static constexpr int kQ = kBlockQ * kS;
+  static constexpr int kKV = kKeys * kS;
+  static constexpr size_t kBytes = (kQ + 4 * kKV) * sizeof(float);
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = big + small for 3xTF32: big keeps the top 10 mantissa bits (the mask
+// truncates; the low 13 bits of a TF32 operand register are zero), small
+// = x - big is exact in float32, and the tensor core reads its top 10
+// mantissa bits.  What is lost, x's bits below 2^-20 |x| and the
+// small * small term, is ~2^-20 relative, against 2^-11 for 1xTF32.  Two
+// ALU instructions: the splits outnumber the products, and two
+// cvt.rna.tf32.f32 conversions a split made the whole kernel slower.
+__device__ __forceinline__ void split(float x, unsigned& big,
+                                      unsigned& small) {
+  big = __float_as_uint(x) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b in 3xTF32: the small terms first, then big * big.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const unsigned (&ab)[4],
+                                           const unsigned (&as)[4],
+                                           const unsigned (&bb)[2],
+                                           const unsigned (&bs)[2]) {
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+
+// Copy rows [r0, r0 + ROWS) of a (time, dh) slice into a tile at row stride
+// DH + 4 with THREADS threads; rows at or past `n_valid` are zero-filled.
+template <int DH, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(float* tile, const float* base,
+                                          long long stride, int r0,
+                                          int n_valid, int tid) {
+  constexpr int kChunks = DH / 4;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = r0 + r < n_valid;
+    const float* src = ok ? base + (long long)(r0 + r) * stride + c : base;
+    cp_async16(tile + r * (DH + 4) + c, src, ok ? 16 : 0);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int DH, int SPLIT>
+__global__ void __launch_bounds__(Layout<DH, SPLIT>::kThreads, 3 - SPLIT)
 flash_fwd_kernel(const Params p) {
-  using L = Layout<DH>;
-  constexpr int kV4 = DH / 4;     // float4 per row
-  constexpr int kCols = DH / 32;  // output columns per lane
+  using L = Layout<DH, SPLIT>;
+  constexpr int kS = L::kS;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kDN = DH / 8;       // 8-wide column tiles of O; QK^T k-steps
+  constexpr int kKN = kBlockK / 8;  // 8-key tiles of S; PV k-steps
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + kBlockQ * L::kQS;
-  float* sV = sK + kBlockK * L::kKS;
-  float* sP = sV + kBlockK * L::kVS;
+  float* sKV = sQ + L::kQ;  // stage s: K at sKV + 2 s kKV, V after it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int rw = warp % kRowWarps;  // which 16 rows
+  const int part = warp / kRowWarps;  // which 32-key tile of a stage
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
@@ -124,145 +202,232 @@ flash_fwd_kernel(const Params p) {
   const float* qb = p.q + b * p.sqb + h * p.sqh;
   const float* kb = p.k + b * p.skb + h * p.skh;
   const float* vb = p.v + b * p.svb + h * p.svh;
+  const int n_stages = (p.Tk + L::kKeys - 1) / L::kKeys;
 
-  for (int i = tid; i < kBlockQ * kV4; i += kThreads) {
-    const int r = i / kV4, c = (i % kV4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < p.Tq) val = ld4(qb + (q0 + r) * p.sqt + c);
-    st4(sQ + r * L::kQS + c, val);
-  }
+  load_rows<DH, kBlockQ, kThreads>(sQ, qb, p.sqt, q0, p.Tq, tid);
+  load_rows<DH, L::kKeys, kThreads>(sKV, kb, p.skt, 0, p.Tk, tid);
+  load_rows<DH, L::kKeys, kThreads>(sKV + L::kKV, vb, p.svt, 0, p.Tk, tid);
+  cp_async_commit();
 
-  float acc[kRowsPerWarp][kCols];
-  float m_i[kRowsPerWarp];
-  float l_i[kRowsPerWarp];
+  float o[kDN][4];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_i[r] = -INFINITY;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+  for (int n = 0; n < kDN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8
+  float l0 = 0.f, l1 = 0.f;              // this lane's part of the row sums
+  const int row0 = q0 + rw * 16 + g;
+  HashRow hr0 = {0u, 0u}, hr1 = {0u, 0u};
+  if (p.drop.on) {
+    hr0 = hash_row(p.drop, bh, row0);
+    hr1 = hash_row(p.drop, bh, row0 + 8);
   }
+  const float* qw = sQ + rw * 16 * kS;
 
-  const float* qw = sQ + warp * kRowsPerWarp * L::kQS;
-  float* pw = sP + warp * kRowsPerWarp * L::kPS;
-  const int n_tiles = (p.Tk + kBlockK - 1) / kBlockK;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile is consumed; Q is visible
-    for (int i = tid; i < kBlockK * kV4; i += kThreads) {
-      const int r = i / kV4, c = (i % kV4) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (k0 + r < p.Tk) {
-        kv = ld4(kb + (k0 + r) * p.skt + c);
-        vv = ld4(vb + (k0 + r) * p.svt + c);
-      }
-      st4(sK + r * L::kKS + c, kv);
-      st4(sV + r * L::kVS + c, vv);
+  for (int j = 0; j < n_stages; ++j) {
+    if (j + 1 < n_stages) {
+      float* next = sKV + ((j + 1) & 1) * 2 * L::kKV;
+      const int r0 = (j + 1) * L::kKeys;
+      load_rows<DH, L::kKeys, kThreads>(next, kb, p.skt, r0, p.Tk, tid);
+      load_rows<DH, L::kKeys, kThreads>(next + L::kKV, vb, p.svt, r0, p.Tk,
+                                        tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int k0 = j * L::kKeys + part * kBlockK;
+    const float* sK = sKV + (j & 1) * 2 * L::kKV + part * kBlockK * kS;
+    const float* sV = sK + L::kKV;
 
-    // S = Q K^T for this warp's rows; lane owns keys lane and lane + 32.
-    float s[kRowsPerWarp][2];
+    if (k0 < p.Tk) {
+      // S = Q K^T for this warp's 16 rows and its 32 keys.
+      float s[kKN][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* ka = sK + lane * L::kKS;
-    const float* kbb = sK + (lane + 32) * L::kKS;
+      for (int n = 0; n < kKN; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      const float4 x = ld4(ka + d);
-      const float4 y = ld4(kbb + d);
+      for (int kk = 0; kk < kDN; ++kk) {
+        const float* qa = qw + g * kS + kk * 8 + t;
+        unsigned ab[4], as[4];
+        split(qa[0], ab[0], as[0]);
+        split(qa[8 * kS], ab[1], as[1]);
+        split(qa[4], ab[2], as[2]);
+        split(qa[8 * kS + 4], ab[3], as[3]);
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = ld4(qw + r * L::kQS + d);
-        s[r][0] = dot4(qv, x, s[r][0]);
-        s[r][1] = dot4(qv, y, s[r][1]);
-      }
-    }
-
-    // Online softmax; keys past Tk score -inf and weigh 0.
-    const bool va = k0 + lane < p.Tk;
-    const bool vbk = k0 + lane + 32 < p.Tk;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float sa = va ? s[r][0] * p.scale : -INFINITY;
-      const float sb = vbk ? s[r][1] * p.scale : -INFINITY;
-      const float m_new = fmaxf(m_i[r], warp_max(fmaxf(sa, sb)));
-      const float alpha = expf(m_i[r] - m_new);
-      float pa = expf(sa - m_new);
-      float pb = expf(sb - m_new);
-      l_i[r] = l_i[r] * alpha + warp_sum(pa + pb);
-      m_i[r] = m_new;
-      if (p.drop.on) {
-        const HashRow hr = hash_row(p.drop, bh, q0 + warp * kRowsPerWarp + r);
-        if (!hash_keep(p.drop, hr, k0 + lane)) pa = 0.f;
-        if (!hash_keep(p.drop, hr, k0 + lane + 32)) pb = 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-      pw[r * L::kPS + lane] = pa;
-      pw[r * L::kPS + lane + 32] = pb;
-    }
-    __syncwarp();
-
-    // O += P V; lane owns columns [lane * kCols, lane * kCols + kCols).
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float4 pj[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) pj[r] = ld4(pw + r * L::kPS + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = sV + (j + jj) * L::kVS + lane * kCols;
-        float vv[kCols];
-        if constexpr (kCols == 4) {
-          const float4 t = ld4(vrow);
-          vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-        } else {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) vv[c] = vrow[c];
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float pr = jj == 0 ? pj[r].x : jj == 1 ? pj[r].y
-                         : jj == 2 ? pj[r].z : pj[r].w;
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pr, vv[c], acc[r][c]);
+        for (int n = 0; n < kKN; ++n) {
+          const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(kr[0], bb[0], bs[0]);
+          split(kr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], ab, as, bb, bs);
         }
       }
+
+      // Online softmax on the fragments; keys past Tk score -inf, weigh 0.
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = k0 + n * 8 + 2 * t + e < p.Tk;
+          s[n][e] = valid ? s[n][e] * p.scale : -INFINITY;
+          s[n][2 + e] = valid ? s[n][2 + e] * p.scale : -INFINITY;
+          mx0 = fmaxf(mx0, s[n][e]);
+          mx1 = fmaxf(mx1, s[n][2 + e]);
+        }
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float alpha0 = expf(m0 - mx0), alpha1 = expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= alpha0;
+      l1 *= alpha1;
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = expf(s[n][e] - m0);
+          float p1 = expf(s[n][2 + e] - m1);
+          l0 += p0;
+          l1 += p1;
+          if (p.drop.on) {
+            const int key = k0 + n * 8 + 2 * t + e;
+            if (!hash_keep(p.drop, hr0, key)) p0 = 0.f;
+            if (!hash_keep(p.drop, hr1, key)) p1 = 0.f;
+          }
+          s[n][e] = p0;
+          s[n][2 + e] = p1;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDN; ++n) {
+        o[n][0] *= alpha0;
+        o[n][1] *= alpha0;
+        o[n][2] *= alpha1;
+        o[n][3] *= alpha1;
+      }
+
+      // O += P V: A's k = t, t + 4 are keys 2t, 2t + 1 of each 8-key tile.
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        unsigned ab[4], as[4];
+        split(s[n][0], ab[0], as[0]);
+        split(s[n][2], ab[1], as[1]);
+        split(s[n][1], ab[2], as[2]);
+        split(s[n][3], ab[3], as[3]);
+        const float* vr = sV + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(vr[dn * 8], bb[0], bs[0]);
+          split(vr[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(o[dn], ab, as, bb, bs);
+        }
+      }
     }
-    __syncwarp();
+    __syncthreads();  // the stage just read is the next copy's target
   }
 
-  float* ob = p.o + b * p.sob + h * p.soh;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (SPLIT == 2) {
+    // The second group hands its O fragments, m and l over through the idle
+    // ring; the first merges them: m = max of the two, each side rescaled
+    // by exp(m_side - m).  A group that saw no key has m = -inf, l = 0.
+    constexpr int kX = 32 * 4 * kDN;
+    float* xo = sKV + rw * (kX + 4 * 32);
+    if (part == 1) {
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = q0 + warp * kRowsPerWarp + r;
-    if (t >= p.Tq) continue;
-    const float inv = 1.f / (l_i[r] * p.keep);
-    float* orow = ob + t * p.sot + lane * kCols;
-    if constexpr (kCols == 4) {
-      st4(orow, make_float4(acc[r][0] * inv, acc[r][1] * inv,
-                            acc[r][2] * inv, acc[r][3] * inv));
-    } else {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) orow[c] = acc[r][c] * inv;
+      for (int n = 0; n < kDN; ++n)
+        *reinterpret_cast<float4*>(xo + (n * 32 + lane) * 4) =
+            make_float4(o[n][0], o[n][1], o[n][2], o[n][3]);
+      xo[kX + lane] = m0;
+      xo[kX + 32 + lane] = m1;
+      xo[kX + 64 + lane] = l0;
+      xo[kX + 96 + lane] = l1;
     }
-    if (lane == 0) p.lse[(long long)bh * p.Tq + t] = m_i[r] + logf(l_i[r]);
+    __syncthreads();
+    if (part == 1) return;
+    const float pm0 = xo[kX + lane], pm1 = xo[kX + 32 + lane];
+    const float mn0 = fmaxf(m0, pm0), mn1 = fmaxf(m1, pm1);
+    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    const float c0 = expf(pm0 - mn0), c1 = expf(pm1 - mn1);
+#pragma unroll
+    for (int n = 0; n < kDN; ++n) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(xo + (n * 32 + lane) * 4);
+      o[n][0] = o[n][0] * a0 + x.x * c0;
+      o[n][1] = o[n][1] * a0 + x.y * c0;
+      o[n][2] = o[n][2] * a1 + x.z * c1;
+      o[n][3] = o[n][3] * a1 + x.w * c1;
+    }
+    l0 = l0 * a0 + xo[kX + 64 + lane] * c0;
+    l1 = l1 * a1 + xo[kX + 96 + lane] * c1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+
+  const float inv0 = 1.f / (l0 * p.keep), inv1 = 1.f / (l1 * p.keep);
+  // This warp's Q rows are its alone: stage O there, then store rows.
+  float* ow = sQ + rw * 16 * kS;
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) {
+    *reinterpret_cast<float2*>(ow + g * kS + n * 8 + 2 * t) =
+        make_float2(o[n][0] * inv0, o[n][1] * inv0);
+    *reinterpret_cast<float2*>(ow + (g + 8) * kS + n * 8 + 2 * t) =
+        make_float2(o[n][2] * inv1, o[n][3] * inv1);
+  }
+  __syncwarp();
+  float* ob = p.o + b * p.sob + h * p.soh;
+  constexpr int kChunks = DH / 4;
+#pragma unroll 4
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const int row = q0 + rw * 16 + r;
+    if (row < p.Tq)
+      *reinterpret_cast<float4*>(ob + row * p.sot + c) =
+          *reinterpret_cast<const float4*>(ow + r * kS + c);
+  }
+  if (t == 0) {
+    if (row0 < p.Tq) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(l0);
+    if (row0 + 8 < p.Tq)
+      p.lse[(long long)bh * p.Tq + row0 + 8] = m1 + logf(l1);
   }
 }
 
-template <int DH>
+template <int DH, int SPLIT>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = Layout<DH>::kBytes;
+  using L = Layout<DH, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<DH, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, B * p.H);
-  flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<DH, SPLIT><<<grid, L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// One m16n8k8 product in 3xTF32 by one warp, for checking the fragment
+// layouts on the card: a (16, 8) and b (8, 8) row-major, c = a b (16, 8).
+__global__ void mma_3xtf32_probe_kernel(const float* a, const float* b,
+                                        float* c) {
+  const int lane = threadIdx.x;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned ab[4], as[4], bb[2], bs[2];
+  split(a[g * 8 + t], ab[0], as[0]);
+  split(a[(g + 8) * 8 + t], ab[1], as[1]);
+  split(a[g * 8 + t + 4], ab[2], as[2]);
+  split(a[(g + 8) * 8 + t + 4], ab[3], as[3]);
+  split(b[t * 8 + g], bb[0], bs[0]);
+  split(b[(t + 4) * 8 + g], bb[1], bs[1]);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(d, ab, as, bb, bs);
+  c[g * 8 + 2 * t] = d[0];
+  c[g * 8 + 2 * t + 1] = d[1];
+  c[(g + 8) * 8 + 2 * t] = d[2];
+  c[(g + 8) * 8 + 2 * t + 1] = d[3];
 }
 
 }  // namespace
@@ -297,12 +462,30 @@ extern "C" int avsep_flash_attn_fwd(
   p.drop.hk = hk;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 32: err = launch<32>(p, B, s); break;
-    case 128: err = launch<128>(p, B, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // A grid of at most one 4-warp block an SM leaves half the warps the SMs
+  // could hold idle: split each block's keys over two warp groups instead.
+  const long long blocks = (long long)((Tq + kBlockQ - 1) / kBlockQ) * B * H;
+  const int split = blocks <= sms ? 2 : 1;
+  if (dh == 32)
+    err = split == 2 ? launch<32, 2>(p, B, s) : launch<32, 1>(p, B, s);
+  else if (dh == 128)
+    err = split == 2 ? launch<128, 2>(p, B, s) : launch<128, 1>(p, B, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+extern "C" int avsep_mma_3xtf32_probe(const void* a, const void* b, void* c,
+                                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mma_3xtf32_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(c));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* avsep_error_string(int code) {

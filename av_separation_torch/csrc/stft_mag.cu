@@ -1,7 +1,11 @@
-// Fused STFT magnitude, float32, for Hopper (sm_90a).
+// Fused STFT magnitude as a matrix DFT, float32, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/stft.py `_stft_kernel` (called from
-// `stft_magnitude_pallas`).  Computes, with the reference's semantics
+// `stft_magnitude_pallas`) for an n_fft that is not a power of two in
+// [8, 4096] (a multiple of 4): the route for non-power-of-two n_fft, chosen
+// by shape in ops/kernels/stft.py, launches counted as `stft_mag_dft_fwd`.
+// Power-of-two n_fft, every config of the repository, take the FFT of
+// stft_fft.cu.  Computes, with the reference's semantics
 // (symmetric Hann window, frame i starting at sample i*hop, no centering,
 // samples past N read as zero),
 //     mag[b, k, i] = | sum_n audio[b, i*hop + n] * w[n] * exp(-2 pi j k n / n_fft) |
@@ -9,10 +13,14 @@
 // mag (B, F, T).  The windowed bases cos_b / sin_b are (n_fft, F_pad) float32
 // (built in float64 on the host, zero in the pad columns [F, F_pad)).
 //
-// Bound on the H100 at the scaled device batch (24 signals of 64,000
-// samples, n_fft 512, hop 128, T 501, F 257): 4*T*n_fft*F FLOPs per signal,
-// 6.33 GFLOP in all, against 19.6 MB (audio, spectra, bases), so at
-// 67 TFLOP/s float32 and 3.35 TB/s it is bound by operations: 94 us vs 6 us.
+// Bound on the H100, for the function and not this algorithm: the audio
+// read once and the spectra written once against a real FFT's
+// 2.5 n_fft log2(n_fft) FLOPs a frame.  That is bound by bytes: at n_fft
+// 400, hop 160 on 24 x 64,000 samples (T 401, F 201), 13.9 MB at
+// 3.35 TB/s, 4.1 us.  This
+// matrix DFT does 4 n_fft F FLOPs a frame (O(n_fft^2)), so at 67 TFLOP/s
+// float32 it stays far above that bound; it is kept for the shapes the FFT
+// does not take.
 //
 // Design: a block owns one signal, a tile of kTile = 32 frames and a group of
 // frequency bins (one bin per thread, at most 128 threads).  It stages the

@@ -7,7 +7,7 @@ those: plain-version calls never touch it.
 """
 
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
-            "mask_decoder_fwd": 0, "stft_mag_fwd": 0}
+            "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0}
 
 
 def reset_launch_counts() -> None:

@@ -257,6 +257,34 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+@functools.lru_cache(maxsize=None)
+def _probe_entry():
+    lib = _build.load("flash_attn_fwd")
+    fn = lib.avsep_mma_3xtf32_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def mma_3xtf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (16, 8) @ b (8, 8) as one m16n8k8 tensor-core product in 3xTF32,
+    through the fragment code of `csrc/flash_attn_fwd.cu`: a check of the
+    fragment layouts the flash forward builds on.  CPU tensors take a @ b;
+    no launch is counted (the probe is not on any path)."""
+    if a.shape != (16, 8) or b.shape != (8, 8):
+        raise ValueError(f"the probe takes (16, 8) @ (8, 8), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if not _device(a):
+        return a @ b
+    a, b = a.float().contiguous(), b.float().contiguous()
+    c = torch.empty(16, 8, dtype=torch.float32, device=a.device)
+    lib, fn = _probe_entry()
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), a.device.index,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, rc, "mma_3xtf32_probe")
+    return c
+
+
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                    rate: float = 0.0, seed: int = 0

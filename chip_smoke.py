@@ -9,16 +9,24 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   build    nvcc builds every kernel of `av_separation_torch/csrc/` (in
            parallel) into build/torch_kernels/; prints the build seconds and
            each kernel's registers and spills.
-  kernels  each kernel against its plain PyTorch version on the card, at the
-           shapes the serving and training paths give it (plus the demo
-           shapes and one T > 512 attention): max abs error with its
-           tolerance, kernel / plain / library times (CUDA events) and the
-           kernel's bound.  Flash attention at dropout 0 and 0.1, forward
-           and backward; each backward is run twice and must give
-           bit-identical gradients.  The STFT magnitude at the scaled
-           device batch (24 x 64,000), the demo's (24 x 8,000) and an odd
-           shape (3 x 2,000, n_fft 128, hop 64); its library yardstick is
-           torch.stft (cuFFT).
+  kernels  first one m16n8k8 3xTF32 tensor-core product against float64
+           (the fragment layouts of the flash forward).  Then each kernel
+           against its plain PyTorch version on the card, at the shapes the
+           serving and training paths give it (plus the demo shapes and one
+           T > 512 attention): max abs error with its tolerance; kernel /
+           plain / library times on the host's view (CUDA events around
+           back-to-back calls: `ms`, host-inclusive) and on the device's
+           (`device_ms`, `library_device_ms`: torch.profiler kernel
+           durations, the kernel's own per launch, every device kernel of
+           one library call); the bound with the rate it used (matrix
+           products at 3xTF32's 165 TFLOP/s, the FFT at float32's 67) and
+           a failure if any time reads below it.  Flash attention at
+           dropout 0 and 0.1, forward and backward; each backward is run
+           twice and must give bit-identical gradients.  The STFT magnitude
+           (FFT route) at the scaled device batch (24 x 64,000), the demo's
+           (24 x 8,000) and an odd shape (3 x 2,001, n_fft 128, hop 64),
+           and its matrix-DFT route at n_fft 400, hop 160; its library
+           yardstick is torch.stft (cuFFT).
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
@@ -85,7 +93,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_FP32_FLOPS = 67e12      # float32 outside the tensor cores
+# Operations rates, H100 SXM data sheet (dense): float32 matrix products at
+# float32 accuracy run on the tensor cores in 3xTF32 (three TF32 products
+# each, CUTLASS's OpMultiplyAddFastF32, as SDPA's float32 kernel does), so
+# their least time is at 495 / 3 TFLOP/s; other float32 work (the FFT) at
+# the 67 TFLOP/s outside the tensor cores.
+RATES = {"3xTF32": 495e12 / 3, "float32": 67e12}
 
 PALLAS = "av_separation_tpu/ops/pallas/"
 KERNELS = {
@@ -115,10 +128,25 @@ KERNELS = {
         "also_replaces": [],
     },
     "stft_mag_fwd": {
-        "source": "av_separation_torch/csrc/stft_mag.cu",
+        "source": "av_separation_torch/csrc/stft_fft.cu",
         "replaces": PALLAS + "stft.py:95",
         "also_replaces": [],
     },
+    "stft_mag_dft_fwd": {
+        "source": "av_separation_torch/csrc/stft_mag.cu",
+        "replaces": PALLAS + "stft.py:95",
+        "also_replaces": [],
+        "note": "the route for n_fft that is not a power of two in [8, 4096]",
+    },
+}
+# The device kernels each wrapper launches, by name (torch.profiler).
+KERNEL_NAMES = {
+    "flash_attn_fwd": ("flash_fwd_kernel",),
+    "flash_attn_bwd": ("delta_kernel", "dkv_kernel", "dq_kernel"),
+    "audio_proj_fwd": ("audio_proj_kernel",),
+    "mask_decoder_fwd": ("mask_decoder_kernel",),
+    "stft_mag_fwd": ("stft_fft_kernel",),
+    "stft_mag_dft_fwd": ("stft_mag_kernel",),
 }
 ATTN_SEED = -12345  # an int32 dropout seed with the sign bit set
 
@@ -149,9 +177,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def device_ms(fn, iters: int, names=None):
+    """Device time of one call of fn() from a torch.profiler trace of
+    `iters` calls: the kernels whose names contain one of `names` (a
+    wrapper's own kernels, one each per launch), or every kernel and copy
+    of the call (a library call), summed and divided by `iters`.
+
+    A trace can come back short of events; one whose counts are not
+    `iters` per kernel name (per launch) is taken again, up to three
+    times, and then reported as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, counts = 0.0, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA \
+                    or getattr(e, "is_user_annotation", False):
+                continue
+            if names is None or any(n in e.name for n in names):
+                us += e.time_range.end - e.time_range.start
+                counts[e.name] = counts.get(e.name, 0) + 1
+        whole = counts and all(c % iters == 0 for c in counts.values())
+        if names is not None:
+            whole = whole and sum(counts.values()) == iters * len(names)
+        if whole:
+            return us / iters / 1e3
+    return "not measured"
+
+
+def bound(nbytes: float, flops: float, rate: str):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_ops = flops / RATES[rate] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -214,6 +277,7 @@ def _attn_inputs(b, h, tq, tk, dh, kind, gen):
 def phase_kernels(state):
     from av_separation_torch.ops.kernels.audio_proj import (
         audio_proj_fwd, audio_proj_fwd_torch)
+    from av_separation_torch.ops.kernels.attention import mma_3xtf32_probe
     from av_separation_torch.ops.kernels.decoder import (
         mask_decoder_fwd, mask_decoder_fwd_torch)
 
@@ -221,23 +285,51 @@ def phase_kernels(state):
     results = {name: [] for name in KERNELS}
     failures = []
 
+    # The m16n8k8 TF32 fragment layouts the flash forward builds on: one
+    # 3xTF32 product against float64 on the host.  Sums of 8 products of
+    # unit normals: 3xTF32 keeps ~2^-20 relative, so 1e-5 (a wrong layout
+    # gives O(1) errors, 1xTF32 ~1e-3).
+    a = torch.randn(16, 8, generator=gen)
+    b = torch.randn(8, 8, generator=gen)
+    c = mma_3xtf32_probe(a.cuda(), b.cuda()).cpu().double()
+    probe_err = max_err(c, a.double() @ b.double())
+    emit({"mma_3xtf32_probe": "m16n8k8 against float64",
+          "max_abs_err": probe_err, "tol": 1e-5})
+    if probe_err > 1e-5:
+        failures.append(f"mma_3xtf32_probe {probe_err}")
+
     def record(name, shape, err, tol, extra_errs, fn_k, fn_p, fn_lib,
-               nbytes, flops, iters, **extra):
-        # In turns (kernel, plain, plain, kernel), each the mean of the two.
+               nbytes, flops, iters, op_rate="3xTF32", **extra):
+        # Host-inclusive times (CUDA events around back-to-back calls) in
+        # turns (kernel, plain, plain, kernel), each the mean of the two;
+        # then device times from a profiler trace: the kernel's own device
+        # kernels per launch, every device kernel of one library call.
         times = [cuda_ms(fn, iters) for fn in (fn_k, fn_p, fn_p, fn_k)]
         ms, plain_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         lib_ms = cuda_ms(fn_lib, iters) if fn_lib is not None else None
-        bound_ms, bound_by = bound(nbytes, flops)
+        dev_ms = device_ms(fn_k, iters, KERNEL_NAMES[name])
+        lib_dev_ms = device_ms(fn_lib, iters) if fn_lib is not None else None
+        bound_ms, bound_by = bound(nbytes, flops, op_rate)
         ok = err <= tol and all(e <= t for e, t in extra_errs.values()) \
             and extra.get("bit_identical", True)
+        measured = [t for t in (ms, lib_ms, dev_ms, lib_dev_ms)
+                    if isinstance(t, float)]
         row = {"shape": shape, "max_abs_err": err, "tol": tol,
                "extra_errs": extra_errs, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "ok": ok, **extra}
+               "library_ms": lib_ms, "device_ms": dev_ms,
+               "library_device_ms": lib_dev_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "rate": f"{op_rate} {RATES[op_rate] / 1e12:.0f} TFLOP/s",
+               "ok": ok, **extra}
+        if isinstance(dev_ms, float) and isinstance(lib_dev_ms, float):
+            row["device_vs_library"] = dev_ms / lib_dev_ms
         results[name].append(row)
         emit({"kernel": name, **row})
         if not ok:
             failures.append(f"{name} {shape}")
+        if any(t < bound_ms for t in measured):
+            failures.append(f"{name} {shape}: a time below its bound "
+                            f"{bound_ms} ms, so the bound is wrong")
 
     # flash attention: the scaled path's three shapes (serving at dropout
     # 0, training at 0.1), demo, split, long; forward, then backward.
@@ -305,9 +397,9 @@ def phase_kernels(state):
 
     state["kernel_rows"] = results
     if failures:
-        raise AssertionError(f"kernels disagree with their plain versions: "
-                             f"{failures}")
-    return {"checked": {n: len(r) for n, r in results.items()}}
+        raise AssertionError(f"kernel checks failed: {failures}")
+    return {"checked": {n: len(r) for n, r in results.items()},
+            "mma_3xtf32_probe_err": probe_err}
 
 
 def _attn_rows(record, label, rate, q, k, v, gen):
@@ -388,7 +480,7 @@ def _stft_rows(record, gen):
                                                            draw_variates,
                                                            step_generator)
     from av_separation_torch.ops.kernels.stft import (
-        stft_magnitude_fwd, stft_magnitude_fwd_torch)
+        route, stft_magnitude_fwd, stft_magnitude_fwd_torch)
 
     def tones(name):
         cfg = get_config(name).data
@@ -399,10 +491,12 @@ def _stft_rows(record, gen):
 
     scaled, cfg_s = tones("scaled")
     demo, cfg_d = tones("demo")
-    odd = torch.randn(3, 2000, generator=gen).cuda()
+    odd = torch.randn(3, 2001, generator=gen).cuda()  # N % 4: 4-byte copies
     cases = [("scaled device batch", scaled, cfg_s.n_fft, cfg_s.hop_length),
              ("demo device batch", demo, cfg_d.n_fft, cfg_d.hop_length),
-             ("odd", odd, 128, 64)]
+             ("odd", odd, 128, 64),
+             ("scaled device batch, n_fft not a power of two", scaled, 400,
+              160)]
     for label, audio, n_fft, hop in cases:
         b, n = audio.shape
         t = 1 + n // hop
@@ -421,12 +515,12 @@ def _stft_rows(record, gen):
         torch.cuda.synchronize()
         nbytes = 4 * (b * n + b * f * t)
         flops = 2.5 * n_fft * np.log2(n_fft) * t * b
-        record("stft_mag_fwd",
-               f"{label} B={b} N={n} n_fft={n_fft} hop={hop} T={t}",
+        name = {"fft": "stft_mag_fwd", "dft": "stft_mag_dft_fwd"}[route(n_fft)]
+        record(name, f"{label} B={b} N={n} n_fft={n_fft} hop={hop} T={t}",
                max_err(k, p), 2e-4, {}, lambda: stft_magnitude_fwd(
                    audio, n_fft, hop),
                lambda: stft_magnitude_fwd_torch(audio, n_fft, hop), lib,
-               nbytes, flops, 20,
+               nbytes, flops, 20, op_rate="float32",
                peak=float(p.max()), library_max_abs_err=max_err(lib_out, p),
                library="torch.stft(center=False, symmetric Hann).abs()")
 
@@ -468,7 +562,8 @@ def phase_golden(state):
             bad.append(name)
     want = {"flash_attn_fwd": 2 * cfg.num_encoder_layers
             + cfg.num_fusion_layers, "flash_attn_bwd": 0,
-            "audio_proj_fwd": 1, "mask_decoder_fwd": 1, "stft_mag_fwd": 0}
+            "audio_proj_fwd": 1, "mask_decoder_fwd": 1, "stft_mag_fwd": 0,
+            "stft_mag_dft_fwd": 0}
     if launches != want:
         bad.append(f"launches {launches} != {want}")
     if bad:
@@ -542,7 +637,7 @@ def phase_serve(state):
     batches = stats["batches"]
     want = {"flash_attn_fwd": 16 * batches, "flash_attn_bwd": 0,
             "audio_proj_fwd": batches, "mask_decoder_fwd": batches,
-            "stft_mag_fwd": 0}
+            "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0}
     per_forward = 2 * cfg.model.num_encoder_layers \
         + cfg.model.num_fusion_layers
     if per_forward != 16 or launches != want:
@@ -619,8 +714,10 @@ def _group(name: str) -> str:
         return "audio_proj_fwd (ours)"
     if "mask_decoder" in low:
         return "mask_decoder_fwd (ours)"
-    if "stft_mag" in low:
+    if "stft_fft" in low:
         return "stft_mag_fwd (ours)"
+    if "stft_mag" in low:
+        return "stft_mag_dft_fwd (ours)"
     if "memcpy" in low or "memset" in low:
         return "memcpy / memset"
     if "fprop" in low or "grad" in low or "conv" in low or "cudnn" in low:
@@ -699,7 +796,8 @@ def phase_train(state):
     step = make_train_step(cfg)
     per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
     want = {"flash_attn_fwd": per_step, "flash_attn_bwd": per_step,
-            "audio_proj_fwd": 1, "mask_decoder_fwd": 0, "stft_mag_fwd": 0}
+            "audio_proj_fwd": 1, "mask_decoder_fwd": 0, "stft_mag_fwd": 0,
+            "stft_mag_dft_fwd": 0}
     n_steps, rows, bad = 6, [], []
     total = {name: 0 for name in kernels.LAUNCHES}
     for i in range(n_steps):
@@ -919,7 +1017,7 @@ def phase_train_device(state):
             "device"]
     per_step = {"flash_attn_fwd": 16, "flash_attn_bwd": 16,
                 "audio_proj_fwd": 1, "mask_decoder_fwd": 0,
-                "stft_mag_fwd": 1}
+                "stft_mag_fwd": 1, "stft_mag_dft_fwd": 0}
     runs, bad = {}, []
     total = {name: 0 for name in per_step}
     for label, extra, steps in (("fused", ["--fused"], 20),
@@ -1073,7 +1171,11 @@ def kernel_summary(state):
             "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"),
             "library_ms": head.get("library_ms"),
+            "device_ms": head.get("device_ms"),
+            "library_device_ms": head.get("library_device_ms"),
+            "rate": head.get("rate"),
             "shape": head.get("shape"),
+            **({"note": meta["note"]} if "note" in meta else {}),
         })
     return {"kernels": out}
 

@@ -203,12 +203,14 @@ class TestDispatch:
         mask_decoder_fwd(torch.zeros(1, 4, d), torch.zeros(d, 2 * d),
                          torch.zeros(2 * d), torch.zeros(2 * d, 2 * 3),
                          torch.zeros(2 * 3), torch.zeros(1, 3, 4), 2)
-        stft_magnitude_fwd(torch.zeros(2, 300), 64, 32)
+        stft_magnitude_fwd(torch.zeros(2, 300), 64, 32)   # the FFT route's
+        stft_magnitude_fwd(torch.zeros(2, 300), 60, 32)   # the DFT route's
         assert kernels.LAUNCHES == {"flash_attn_fwd": 0,
                                     "flash_attn_bwd": 0,
                                     "audio_proj_fwd": 0,
                                     "mask_decoder_fwd": 0,
-                                    "stft_mag_fwd": 0}
+                                    "stft_mag_fwd": 0,
+                                    "stft_mag_dft_fwd": 0}
 
     def test_other_devices_raise(self):
         q = torch.empty(1, 2, 5, 32, device="meta")
