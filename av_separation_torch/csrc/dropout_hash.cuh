@@ -31,14 +31,31 @@ __device__ __forceinline__ HashRow hash_row(const DropoutHash& d, int bh,
   return r;
 }
 
+// Key part of the hash, for a kernel that holds one key across many rows.
+struct HashCol {
+  unsigned col;   // in-tile key term
+  unsigned tile;  // key-block term
+};
+
+__device__ __forceinline__ HashCol hash_col(const DropoutHash& d, int c) {
+  HashCol k;
+  k.col = static_cast<unsigned>(c % d.hk) * 0x61C88647u;
+  k.tile = static_cast<unsigned>(c / d.hk) * 0x27D4EB2Fu;
+  return k;
+}
+
 __device__ __forceinline__ bool hash_keep(const DropoutHash& d, HashRow r,
-                                          int c) {
-  unsigned h = r.row + static_cast<unsigned>(c % d.hk) * 0x61C88647u +
-               (r.tile ^ (static_cast<unsigned>(c / d.hk) * 0x27D4EB2Fu));
+                                          HashCol k) {
+  unsigned h = r.row + k.col + (r.tile ^ k.tile);
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h >= d.threshold;
+}
+
+__device__ __forceinline__ bool hash_keep(const DropoutHash& d, HashRow r,
+                                          int c) {
+  return hash_keep(d, r, hash_col(d, c));
 }

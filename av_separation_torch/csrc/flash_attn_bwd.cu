@@ -1,4 +1,5 @@
-// Flash attention backward, float32, for Hopper (sm_90a).
+// Flash attention backward, float32 on the tensor cores in 3xTF32, for
+// Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_bwd_hpacked_kernel`
 // (packed (B, T, H*dh) layout, `_flash_hpacked_bwd_rule`),
@@ -6,7 +7,7 @@
 // and the multi-block `_delta_kernel` / `_dq_kernel` / `_dkv_kernel`
 // (`_flash_bwd_rule`, T > 512).  Tensors are addressed through
 // (batch, head, time) strides with the head dim contiguous, as in the
-// forward.
+// forward; queries and keys are always streamed in tiles, so T has no cap.
 //
 // The Pallas arithmetic, in float32:
 //   delta = rowsum(dO * O)
@@ -15,55 +16,74 @@
 //   pd = keep ? p / (1 - rate) : 0,   dV = pd^T dO
 //   ds = p (dp - delta) scale,        dQ = ds K,   dK = ds^T Q
 // with the keep mask regenerated from the Pallas hash (dropout_hash.cuh),
-// so it is the forward's mask bit for bit.
+// keyed by (query row, key) and the Pallas tile sizes, never by this
+// kernel's tiles, so it is the forward's mask and the JAX mask bit for bit.
 //
 // Bound on the H100 at the scaled training shapes (B=8, H=4, dh=128,
 // Tq = Tk = 501): the least work is 5 products of 2*B*H*Tq*Tk*dh FLOPs
 // (QK^T, dO V^T, dV, dQ, dK), 10.3 GFLOP, against 57 MB of q, k, v, o, dO,
-// lse in and dQ, dK, dV out: 154 us of float32 FMAs at 67 TFLOP/s against
-// 17 us of bytes at 3.35 TB/s, so bound by operations.
+// lse in and dQ, dK, dV out.  Float32 products at float32 accuracy run on
+// the tensor cores in 3xTF32 at 495/3 = 165 TFLOP/s: 62 us, against 17 us
+// of bytes at 3.35 TB/s, so bound by operations.  These kernels do 7
+// products (the dQ kernel recomputes QK^T and dO V^T), so as to need no
+// atomics: two runs give bit-identical gradients.
 //
-// Design (FlashAttention-2 style, no atomics, so two runs give bit-identical
-// gradients): the TPU kernel held whole (T <= 512, dh) rows of every operand
-// in VMEM; at dh=128 in float32 one 512-row operand is 256 KB, more than a
-// block's 227 KB of shared memory.  So keys and queries are tiled, which
-// serves any T and makes the same three kernels the counterparts of the
-// single-block and the multi-block Pallas backward alike:
-//   delta_kernel  one warp per query row: delta = sum(dO * O).
-//   dkv_kernel    a block owns 32 keys of one (batch, head) and walks the
-//                 query tiles of 32 rows.  Phase A: each lane owns one key,
-//                 each warp 8 rows; s and dp come from float4 K/V rows of a
-//                 padded tile (stride dh+4, conflict-free) against broadcast
-//                 Q/dO rows, and pd and ds go to shared memory.  Phase B:
-//                 each warp owns 8 keys, each lane dh/32 columns of the dK
-//                 and dV accumulators (64 registers at dh=128).
-//   dq_kernel     a block owns 32 query rows and walks the key tiles of 64,
-//                 as the forward does: s and dp per (row, key), ds through a
-//                 per-warp shared buffer, then dQ += ds K with each lane
-//                 owning dh/32 columns.
-// The dQ kernel recomputes QK^T and dO V^T: 7 products in all against the
-// 5 of the bound.  Simple SIMT float32 FMAs: `wgmma` has no float32 mode and
-// TF32 would not hold the float32 reference's tolerances.
+// Design:
+// - Products.  Every product is an mma.sync.m16n8k8 TF32 product in
+//   3xTF32 (big*small + small*big + big*big, `split` and `mma_3xtf32` in
+//   mma_3xtf32.cuh, as the forward).  3xTF32 keeps ~2^-20 relative per
+//   operand against 1xTF32's 2^-11: in a numpy emulation of these tiles at
+//   the audio self-attention shape (tests/test_torch_kernel_design.py) it
+//   holds dQ, dK, dV within 2e-5 of the plain float32 version, and 1xTF32
+//   misses by two orders of magnitude.  `wgmma` has no TF32 route for the
+//   operands that are not K-major here (dO and Q as the B operands of dV
+//   and dK, K of dQ).
+// - delta kernel: one warp per query row, delta = sum(dO * O).
+// - dK/dV kernel: a block owns 64 keys of one (batch, head), K and V in
+//   shared memory, and walks the query tiles of 16 rows through a 2-stage
+//   cp.async ring of Q and dO rows, their lse and delta, and the row part
+//   of the dropout hash.  Each warp owns 16 keys.  It computes S^T = K Q^T
+//   and dP^T = V dO^T with K and V as the A operands and the Q and dO rows
+//   as the B operands (read as the forward reads K), forms P^T, Pd^T and
+//   dS^T in the C fragments, and accumulates dV += Pd^T dO and
+//   dK += dS^T Q with the C fragment as the A operand: the forward's "P
+//   into PV without a shuffle" with keys and queries swapped (A's k = t,
+//   t + 4 stand for queries 2t, 2t + 1, and the dO and Q rows 2t, 2t + 1
+//   are read as the forward reads V).  The fragment's rows are keys and its
+//   columns queries, so the hash's row part is taken per column and its key
+//   part once per lane (`hash_col`).
+// - dQ kernel: a block owns 64 query rows (16 a warp), Q and dO in shared
+//   memory, and walks the key tiles of 16 through a 2-stage ring of K and
+//   V rows: S = Q K^T, dP = dO V^T, ds in the C fragment, then dQ += ds K
+//   with ds as the A operand and K read as the forward reads V.
+// - Registers.  A dK/dV warp carries 16 x dh accumulators of each, 128
+//   floats a thread at dh 128; the K and V A fragments are re-read from
+//   shared memory for every query tile rather than held.
+// - Filling 132 SMs.  Audio self-attention and fusion give 256 blocks of
+//   4 warps (101 KB of shared memory at dh 128, 2 blocks an SM).  A grid of
+//   at most one block an SM (visual self-attention at T 200, the long T 1024
+//   shape: 128) takes 8-warp blocks instead: two groups of 4 walk alternate
+//   tiles (query tiles in dK/dV, key tiles in dQ), and the second hands its
+//   accumulators to the first through the idle ring, which adds them in a
+//   fixed order.
+// - Rows past T are zero-filled by the copies; a query past Tq gets lse
+//   +inf in the dK/dV kernel (p = 0), a key past Tk gets p = 0 in the dQ
+//   kernel, and neither is stored.
+// - Bank conflicts.  Operand rows are dh+4 floats apart: the A loads and
+//   the B loads of rows n*8 + g hit bank 4g + t, the B loads of rows 2t,
+//   2t + 1 bank 8t + g (+4): 32 distinct banks per load.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "dropout_hash.cuh"
+#include "mma_3xtf32.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-// dq_kernel tiles (the forward's).
-constexpr int kQRowsPerWarp = 8;
-constexpr int kQBlock = kWarps * kQRowsPerWarp;  // 32 query rows per block
-constexpr int kQKeys = 64;                       // keys per shared tile
-
-// dkv_kernel tiles.
-constexpr int kKBlock = 32;                      // keys per block
-constexpr int kKRowsPerWarp = 8;                 // phase A rows per warp
-constexpr int kKQTile = kWarps * kKRowsPerWarp;  // 32 query rows per tile
-constexpr int kKKeysPerWarp = kKBlock / kWarps;  // phase B keys per warp
+constexpr int kWarps = 4;               // warps of a group
+constexpr int kBlock = 16 * kWarps;     // keys (dK/dV) or rows (dQ) a block
+constexpr int kTile = 16;               // query (dK/dV) or key (dQ) tile
+constexpr int kDeltaThreads = 128;
 
 struct Params {
   const float* q;
@@ -84,28 +104,6 @@ struct Params {
   DropoutHash drop;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 __device__ __forceinline__ const float* head(const float* base,
                                              const long long* s, int b,
                                              int h) {
@@ -117,355 +115,519 @@ __device__ __forceinline__ float* head(float* base, const long long* s, int b,
   return base + b * s[0] + h * s[1];
 }
 
-// Rows [t0, t0 + rows) of a (T, DH) operand into a shared tile of stride
-// `ld`, zero past T.
+// The 3xTF32 A fragment of rows [0, 16) and columns [c, c + 8) of a tile
+// at row stride S.
+template <int S>
+__device__ __forceinline__ void load_a(const float* tile, int c, int g, int t,
+                                       unsigned (&ab)[4], unsigned (&as)[4]) {
+  const float* a = tile + g * S + c + t;
+  split(a[0], ab[0], as[0]);
+  split(a[8 * S], ab[1], as[1]);
+  split(a[4], ab[2], as[2]);
+  split(a[8 * S + 4], ab[3], as[3]);
+}
+
+// A C fragment (rows g, g + 8; columns 2t, 2t + 1) as the A fragment of
+// the next product: its columns are that product's k, taken in the order
+// k = t -> column 2t, k = t + 4 -> column 2t + 1.
+__device__ __forceinline__ void c_as_a(const float (&c)[4], unsigned (&ab)[4],
+                                       unsigned (&as)[4]) {
+  split(c[0], ab[0], as[0]);
+  split(c[2], ab[1], as[1]);
+  split(c[1], ab[2], as[2]);
+  split(c[3], ab[3], as[3]);
+}
+
+// Accumulators (16 x DH a warp, as C fragments) to rows [r0, r0 + 16) of a
+// (time, dh) output: staged in `st`, this warp's own 16 rows of a shared
+// tile at stride DH + 4, then stored as 16-byte row chunks.
 template <int DH>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
-                                          long long st, int t0, int rows,
-                                          int T) {
-  constexpr int kV4 = DH / 4;
-  for (int i = threadIdx.x; i < rows * kV4; i += kThreads) {
-    const int r = i / kV4, c = (i % kV4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t0 + r < T) val = ld4(src + (t0 + r) * st + c);
-    st4(dst + r * ld + c, val);
-  }
-}
-
-// kCols consecutive floats from shared memory (float4 when kCols == 4).
-template <int kCols>
-__device__ __forceinline__ void ld_cols(const float* p, float (&out)[kCols]) {
-  if constexpr (kCols == 4) {
-    const float4 t = ld4(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else {
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
+                                           float* st, float* out,
+                                           long long stride, int r0, int n,
+                                           int lane) {
+  constexpr int kS = DH + 4;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) out[c] = p[c];
+  for (int d = 0; d < DH / 8; ++d) {
+    *reinterpret_cast<float2*>(st + g * kS + d * 8 + 2 * t) =
+        make_float2(acc[d][0], acc[d][1]);
+    *reinterpret_cast<float2*>(st + (g + 8) * kS + d * 8 + 2 * t) =
+        make_float2(acc[d][2], acc[d][3]);
+  }
+  __syncwarp();
+  constexpr int kChunks = DH / 4;
+#pragma unroll 4
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    if (r0 + r < n)
+      *reinterpret_cast<float4*>(out + (r0 + r) * stride + c) =
+          *reinterpret_cast<const float4*>(st + r * kS + c);
   }
 }
 
-template <int kCols>
-__device__ __forceinline__ void st_cols(float* p, const float (&in)[kCols]) {
-  if constexpr (kCols == 4) {
-    st4(p, make_float4(in[0], in[1], in[2], in[3]));
-  } else {
+// A split block's second warp group hands its accumulators to the first
+// through `x` (4 * 32 * N floats a warp), after the block's last
+// __syncthreads; the first adds them after the next one.
+template <int N>
+__device__ __forceinline__ void hand_over(const float (&acc)[N][4], float* x,
+                                          int lane) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) p[c] = in[c];
-  }
+  for (int n = 0; n < N; ++n)
+    *reinterpret_cast<float4*>(x + (n * 32 + lane) * 4) =
+        make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
 }
 
-__device__ __forceinline__ float f4(float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+template <int N>
+__device__ __forceinline__ void take_over(float (&acc)[N][4], const float* x,
+                                          int lane) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float4 y = *reinterpret_cast<const float4*>(x + (n * 32 + lane) * 4);
+    acc[n][0] += y.x;
+    acc[n][1] += y.y;
+    acc[n][2] += y.z;
+    acc[n][3] += y.w;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // delta = rowsum(dO * O): one warp per query row.
 // ---------------------------------------------------------------------------
 template <int DH>
-__global__ void __launch_bounds__(kThreads) delta_kernel(const Params p) {
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int t = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
   if (t >= p.Tq) return;
   const float* orow = head(p.o, p.so, b, h) + t * p.so[2];
   const float* drow = head(p.dout, p.sdo, b, h) + t * p.sdo[2];
   float acc = 0.f;
 #pragma unroll
   for (int d = lane; d < DH; d += 32) acc = fmaf(drow[d], orow[d], acc);
-  acc = warp_sum(acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[(long long)bh * p.Tq + t] = acc;
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: a block owns kKBlock keys and walks the query tiles.
+// dK, dV: a block owns kBlock keys and walks the query tiles.
 // ---------------------------------------------------------------------------
-template <int DH>
+template <int DH, int SPLIT>
 struct DkvLayout {
-  static constexpr int kS = DH + 4;      // operand row stride (floats)
-  static constexpr int kPS = kKBlock;    // pd / ds row stride
-  static constexpr size_t kFloats = 2 * kKBlock * kS + 2 * kKQTile * kS +
-                                    2 * kKQTile * kPS + 2 * kKQTile;
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+  static constexpr int kThreads = 32 * kWarps * SPLIT;
+  static constexpr int kS = DH + 4;          // operand row stride (floats)
+  static constexpr int kRows = kTile * SPLIT;  // query rows a stage
+  static constexpr int kKV = kBlock * kS;    // one of K, V
+  // A stage: Q rows, dO rows, then lse, delta and the hash's row part
+  // (tile and row terms) of each row.
+  static constexpr int kStage = 2 * kRows * kS + 4 * kRows;
+  static constexpr size_t kBytes = (2 * kKV + 2 * kStage) * sizeof(float);
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
-  using L = DkvLayout<DH>;
-  constexpr int kCols = DH / 32;
+template <int DH, int SPLIT>
+__global__ void __launch_bounds__(DkvLayout<DH, SPLIT>::kThreads, 3 - SPLIT)
+flash_bwd_dkv_kernel(const Params p) {
+  using L = DkvLayout<DH, SPLIT>;
+  constexpr int kS = L::kS;
+  constexpr int kRows = L::kRows;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kDN = DH / 8;      // 8-wide column tiles of dK, dV; k-steps
+  constexpr int kQN = kTile / 8;   // 8-query tiles of S^T; dK/dV k-steps
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + kKBlock * L::kS;
-  float* sQ = sV + kKBlock * L::kS;
-  float* sO = sQ + kKQTile * L::kS;  // dO rows
-  float* sP = sO + kKQTile * L::kS;  // pd (dropout-scaled p)
-  float* sD = sP + kKQTile * L::kPS;  // ds
-  float* sLse = sD + kKQTile * L::kPS;
-  float* sDelta = sLse + kKQTile;
+  float* sV = sK + L::kKV;
+  float* sRing = sV + L::kKV;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int kw = warp % kWarps;    // which 16 keys
+  const int part = warp / kWarps;  // which query tile of a stage
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kKBlock;
+  const int k0 = blockIdx.x * kBlock;
 
-  load_rows<DH>(sK, L::kS, head(p.k, p.sk, b, h), p.sk[2], k0, kKBlock, p.Tk);
-  load_rows<DH>(sV, L::kS, head(p.v, p.sv, b, h), p.sv[2], k0, kKBlock, p.Tk);
   const float* qb = head(p.q, p.sq, b, h);
   const float* ob = head(p.dout, p.sdo, b, h);
   const float* lse = p.lse + (long long)bh * p.Tq;
   const float* delta = p.delta + (long long)bh * p.Tq;
+  const int n_stages = (p.Tq + kRows - 1) / kRows;
 
-  float acc_k[kKKeysPerWarp][kCols];
-  float acc_v[kKKeysPerWarp][kCols];
-#pragma unroll
-  for (int kk = 0; kk < kKKeysPerWarp; ++kk)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_k[kk][c] = acc_v[kk][c] = 0.f;
-
-  const int key = k0 + lane;  // phase A: this lane's key
-  const bool key_ok = key < p.Tk;
-  const float* kr = sK + lane * L::kS;
-  const float* vr = sV + lane * L::kS;
-  const int n_tiles = (p.Tq + kKQTile - 1) / kKQTile;
-
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int t0 = qt * kKQTile;
-    __syncthreads();  // the previous tile is consumed
-    load_rows<DH>(sQ, L::kS, qb, p.sq[2], t0, kKQTile, p.Tq);
-    load_rows<DH>(sO, L::kS, ob, p.sdo[2], t0, kKQTile, p.Tq);
-    if (tid < kKQTile) {
-      const bool ok = t0 + tid < p.Tq;
-      sLse[tid] = ok ? lse[t0 + tid] : 0.f;
-      sDelta[tid] = ok ? delta[t0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // Phase A: s = q.k and dp = dO.v for this lane's key and the warp's rows.
-    float s[kKRowsPerWarp], dp[kKRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kKRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
-    const float* qw = sQ + warp * kKRowsPerWarp * L::kS;
-    const float* ow = sO + warp * kKRowsPerWarp * L::kS;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      const float4 x = ld4(kr + d);
-      const float4 y = ld4(vr + d);
-#pragma unroll
-      for (int r = 0; r < kKRowsPerWarp; ++r) {
-        s[r] = dot4(ld4(qw + r * L::kS + d), x, s[r]);
-        dp[r] = dot4(ld4(ow + r * L::kS + d), y, dp[r]);
+  auto load_stage = [&](int j) {
+    float* st = sRing + (j & 1) * L::kStage;
+    const int r0 = j * kRows;
+    load_rows<DH, kRows, kThreads>(st, qb, p.sq[2], r0, p.Tq, tid);
+    load_rows<DH, kRows, kThreads>(st + kRows * kS, ob, p.sdo[2], r0, p.Tq,
+                                   tid);
+    if (tid < kRows) {
+      float* sl = st + 2 * kRows * kS;
+      const int row = r0 + tid;
+      if (row < p.Tq) {
+        cp_async4(sl + tid, lse + row, 4);
+        cp_async4(sl + kRows + tid, delta + row, 4);
+      } else {
+        sl[tid] = INFINITY;  // p = exp(s - inf) = 0
+        sl[kRows + tid] = 0.f;
       }
-    }
-#pragma unroll
-    for (int r = 0; r < kKRowsPerWarp; ++r) {
-      const int row = warp * kKRowsPerWarp + r;
-      const int t = t0 + row;
-      const float pr =
-          (key_ok && t < p.Tq) ? expf(s[r] * p.scale - sLse[row]) : 0.f;
-      float pd = pr, dpr = dp[r];
       if (p.drop.on) {
-        const bool keep = hash_keep(p.drop, hash_row(p.drop, bh, t), key);
-        pd = keep ? pr / p.keep : 0.f;
-        dpr = keep ? dpr / p.keep : 0.f;
+        const HashRow hr = hash_row(p.drop, bh, row);
+        reinterpret_cast<unsigned*>(sl)[2 * kRows + tid] = hr.tile;
+        reinterpret_cast<unsigned*>(sl)[3 * kRows + tid] = hr.row;
       }
-      sP[row * L::kPS + lane] = pd;
-      sD[row * L::kPS + lane] = pr * (dpr - sDelta[row]) * p.scale;
+    }
+  };
+
+  load_rows<DH, kBlock, kThreads>(sK, head(p.k, p.sk, b, h), p.sk[2], k0,
+                                  p.Tk, tid);
+  load_rows<DH, kBlock, kThreads>(sV, head(p.v, p.sv, b, h), p.sv[2], k0,
+                                  p.Tk, tid);
+  load_stage(0);
+  cp_async_commit();
+
+  float dk[kDN][4], dv[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  HashCol hc0 = {0u, 0u}, hc1 = {0u, 0u};
+  if (p.drop.on) {
+    hc0 = hash_col(p.drop, k0 + kw * 16 + g);
+    hc1 = hash_col(p.drop, k0 + kw * 16 + g + 8);
+  }
+  const float* kt = sK + kw * 16 * kS;
+  const float* vt = sV + kw * 16 * kS;
+  const float inv_keep = 1.f / p.keep;
+
+  for (int j = 0; j < n_stages; ++j) {
+    if (j + 1 < n_stages) {
+      load_stage(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* st = sRing + (j & 1) * L::kStage;
+    const int c0 = part * kTile;  // this group's rows of the stage
 
-    // Phase B: dV += pd^T dO, dK += ds^T Q for the warp's keys.
-#pragma unroll 2
-    for (int row = 0; row < kKQTile; ++row) {
-      float dov[kCols], qv[kCols];
-      ld_cols<kCols>(sO + row * L::kS + lane * kCols, dov);
-      ld_cols<kCols>(sQ + row * L::kS + lane * kCols, qv);
-      const float* prow = sP + row * L::kPS + warp * kKKeysPerWarp;
-      const float* drow = sD + row * L::kPS + warp * kKKeysPerWarp;
+    if (j * kRows + c0 < p.Tq) {
+      const float* sQ = st + c0 * kS;
+      const float* sO = st + (kRows + c0) * kS;
+      const float* sl = st + 2 * kRows * kS + c0;
+      const unsigned* sh = reinterpret_cast<const unsigned*>(sl);
+
+      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys.
+      float s[kQN][4], dp[kQN][4];
 #pragma unroll
-      for (int k4 = 0; k4 < kKKeysPerWarp; k4 += 4) {
-        const float4 pv = ld4(prow + k4);
-        const float4 dv = ld4(drow + k4);
+      for (int n = 0; n < kQN; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pw = f4(pv, i), dw = f4(dv, i);
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      // Two k-steps at a time, one in the split block (the second
+      // spilled there).
+#pragma unroll(SPLIT == 1 ? 2 : 1)
+      for (int kk = 0; kk < kDN; ++kk) {
+        unsigned ab[4], as[4];
+        load_a<kS>(kt, kk * 8, g, t, ab, as);
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            acc_v[k4 + i][c] = fmaf(pw, dov[c], acc_v[k4 + i][c]);
-            acc_k[k4 + i][c] = fmaf(dw, qv[c], acc_k[k4 + i][c]);
+        for (int n = 0; n < kQN; ++n) {
+          const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(qr[0], bb[0], bs[0]);
+          split(qr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], ab, as, bb, bs);
+        }
+        load_a<kS>(vt, kk * 8, g, t, ab, as);
+#pragma unroll
+        for (int n = 0; n < kQN; ++n) {
+          const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(orow[0], bb[0], bs[0]);
+          split(orow[4], bb[1], bs[1]);
+          mma_3xtf32(dp[n], ab, as, bb, bs);
+        }
+      }
+
+      // P^T, then Pd^T into s and dS^T into dp; rows g, g + 8 are keys,
+      // column 2t + e of tile n is query c0 + n * 8 + 2t + e.
+#pragma unroll
+      for (int n = 0; n < kQN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * t + e;
+          const float l = sl[col], dl = sl[kRows + col];
+          const float p0 = expf(s[n][e] * p.scale - l);
+          const float p1 = expf(s[n][2 + e] * p.scale - l);
+          float pd0 = p0, pd1 = p1, d0 = dp[n][e], d1 = dp[n][2 + e];
+          if (p.drop.on) {
+            const HashRow hr = {sh[2 * kRows + col], sh[3 * kRows + col]};
+            const bool keep0 = hash_keep(p.drop, hr, hc0);
+            const bool keep1 = hash_keep(p.drop, hr, hc1);
+            pd0 = keep0 ? p0 * inv_keep : 0.f;
+            d0 = keep0 ? d0 * inv_keep : 0.f;
+            pd1 = keep1 ? p1 * inv_keep : 0.f;
+            d1 = keep1 ? d1 * inv_keep : 0.f;
           }
+          s[n][e] = pd0;
+          s[n][2 + e] = pd1;
+          dp[n][e] = p0 * (d0 - dl) * p.scale;
+          dp[n][2 + e] = p1 * (d1 - dl) * p.scale;
+        }
+      }
+
+      // dV += Pd^T dO, dK += dS^T Q: the C fragments as A operands, the
+      // dO and Q rows n * 8 + 2t, + 1 as B.
+#pragma unroll
+      for (int n = 0; n < kQN; ++n) {
+        unsigned ab[4], as[4];
+        c_as_a(s[n], ab, as);
+        const float* orow = sO + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(orow[dn * 8], bb[0], bs[0]);
+          split(orow[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dv[dn], ab, as, bb, bs);
+        }
+        c_as_a(dp[n], ab, as);
+        const float* qr = sQ + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(qr[dn * 8], bb[0], bs[0]);
+          split(qr[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dk[dn], ab, as, bb, bs);
         }
       }
     }
+    __syncthreads();  // the stage just read is the next copy's target
   }
 
-  float* dkb = head(p.dk, p.sdk, b, h);
-  float* dvb = head(p.dv, p.sdv, b, h);
-#pragma unroll
-  for (int kk = 0; kk < kKKeysPerWarp; ++kk) {
-    const int kt = k0 + warp * kKKeysPerWarp + kk;
-    if (kt >= p.Tk) continue;
-    st_cols<kCols>(dkb + kt * p.sdk[2] + lane * kCols, acc_k[kk]);
-    st_cols<kCols>(dvb + kt * p.sdv[2] + lane * kCols, acc_v[kk]);
+  if (SPLIT == 2) {
+    constexpr int kX = 32 * 4 * kDN;
+    float* x = sRing + kw * 2 * kX;
+    if (part == 1) {
+      hand_over(dk, x, lane);
+      hand_over(dv, x + kX, lane);
+    }
+    __syncthreads();
+    if (part == 1) return;
+    take_over(dk, x, lane);
+    take_over(dv, x + kX, lane);
   }
+  store_rows<DH>(dk, sK + kw * 16 * kS, head(p.dk, p.sdk, b, h), p.sdk[2],
+                 k0 + kw * 16, p.Tk, lane);
+  store_rows<DH>(dv, sV + kw * 16 * kS, head(p.dv, p.sdv, b, h), p.sdv[2],
+                 k0 + kw * 16, p.Tk, lane);
 }
 
 // ---------------------------------------------------------------------------
-// dQ: a block owns kQBlock query rows and walks the key tiles.
+// dQ: a block owns kBlock query rows and walks the key tiles.
 // ---------------------------------------------------------------------------
-template <int DH>
+template <int DH, int SPLIT>
 struct DqLayout {
-  static constexpr int kS = DH + 4;         // operand row stride (floats)
-  static constexpr int kDS = kQKeys + 4;    // ds row stride
-  static constexpr size_t kFloats =
-      2 * kQBlock * kS + 2 * kQKeys * kS + kQBlock * kDS;
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+  static constexpr int kThreads = 32 * kWarps * SPLIT;
+  static constexpr int kS = DH + 4;           // operand row stride (floats)
+  static constexpr int kKeys = kTile * SPLIT;  // keys a stage
+  static constexpr int kQ = kBlock * kS;      // one of Q, dO
+  static constexpr int kKV = kKeys * kS;      // one of K, V of a stage
+  static constexpr size_t kBytes = (2 * kQ + 4 * kKV) * sizeof(float);
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
-  using L = DqLayout<DH>;
-  constexpr int kCols = DH / 32;
+template <int DH, int SPLIT>
+__global__ void __launch_bounds__(DqLayout<DH, SPLIT>::kThreads, 3 - SPLIT)
+flash_bwd_dq_kernel(const Params p) {
+  using L = DqLayout<DH, SPLIT>;
+  constexpr int kS = L::kS;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kDN = DH / 8;      // 8-wide column tiles of dQ; k-steps
+  constexpr int kKN = kTile / 8;   // 8-key tiles of S; dQ k-steps
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + kQBlock * L::kS;  // dO rows
-  float* sK = sO + kQBlock * L::kS;
-  float* sV = sK + kQKeys * L::kS;
-  float* sDS = sV + kQKeys * L::kS;
+  float* sO = sQ + L::kQ;   // dO rows
+  float* sKV = sO + L::kQ;  // stage s: K at sKV + 2 s kKV, V after it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int rw = warp % kWarps;    // which 16 rows
+  const int part = warp / kWarps;  // which key tile of a stage
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kQBlock;
+  const int q0 = blockIdx.x * kBlock;
 
-  load_rows<DH>(sQ, L::kS, head(p.q, p.sq, b, h), p.sq[2], q0, kQBlock, p.Tq);
-  load_rows<DH>(sO, L::kS, head(p.dout, p.sdo, b, h), p.sdo[2], q0, kQBlock,
-                p.Tq);
   const float* kb = head(p.k, p.sk, b, h);
   const float* vb = head(p.v, p.sv, b, h);
+  const int n_stages = (p.Tk + L::kKeys - 1) / L::kKeys;
 
-  float lse_r[kQRowsPerWarp], delta_r[kQRowsPerWarp];
-  float acc[kQRowsPerWarp][kCols];
-#pragma unroll
-  for (int r = 0; r < kQRowsPerWarp; ++r) {
-    const int t = q0 + warp * kQRowsPerWarp + r;
-    const bool ok = t < p.Tq;
-    lse_r[r] = ok ? p.lse[(long long)bh * p.Tq + t] : 0.f;
-    delta_r[r] = ok ? p.delta[(long long)bh * p.Tq + t] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+  load_rows<DH, kBlock, kThreads>(sQ, head(p.q, p.sq, b, h), p.sq[2], q0,
+                                  p.Tq, tid);
+  load_rows<DH, kBlock, kThreads>(sO, head(p.dout, p.sdo, b, h), p.sdo[2],
+                                  q0, p.Tq, tid);
+  load_rows<DH, L::kKeys, kThreads>(sKV, kb, p.sk[2], 0, p.Tk, tid);
+  load_rows<DH, L::kKeys, kThreads>(sKV + L::kKV, vb, p.sv[2], 0, p.Tk, tid);
+  cp_async_commit();
+
+  const int row0 = q0 + rw * 16 + g;  // and row0 + 8
+  const long long base = (long long)bh * p.Tq;
+  const float lse0 = row0 < p.Tq ? p.lse[base + row0] : 0.f;
+  const float lse1 = row0 + 8 < p.Tq ? p.lse[base + row0 + 8] : 0.f;
+  const float dl0 = row0 < p.Tq ? p.delta[base + row0] : 0.f;
+  const float dl1 = row0 + 8 < p.Tq ? p.delta[base + row0 + 8] : 0.f;
+  HashRow hr0 = {0u, 0u}, hr1 = {0u, 0u};
+  if (p.drop.on) {
+    hr0 = hash_row(p.drop, bh, row0);
+    hr1 = hash_row(p.drop, bh, row0 + 8);
   }
+  float dq[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const float* qw = sQ + rw * 16 * kS;
+  const float* ow = sO + rw * 16 * kS;
+  const float inv_keep = 1.f / p.keep;
 
-  const float* qw = sQ + warp * kQRowsPerWarp * L::kS;
-  const float* ow = sO + warp * kQRowsPerWarp * L::kS;
-  float* dsw = sDS + warp * kQRowsPerWarp * L::kDS;
-  const int n_tiles = (p.Tk + kQKeys - 1) / kQKeys;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kQKeys;
-    __syncthreads();  // the previous tile is consumed; Q/dO are visible
-    load_rows<DH>(sK, L::kS, kb, p.sk[2], k0, kQKeys, p.Tk);
-    load_rows<DH>(sV, L::kS, vb, p.sv[2], k0, kQKeys, p.Tk);
+  for (int j = 0; j < n_stages; ++j) {
+    if (j + 1 < n_stages) {
+      float* next = sKV + ((j + 1) & 1) * 2 * L::kKV;
+      const int r0 = (j + 1) * L::kKeys;
+      load_rows<DH, L::kKeys, kThreads>(next, kb, p.sk[2], r0, p.Tk, tid);
+      load_rows<DH, L::kKeys, kThreads>(next + L::kKV, vb, p.sv[2], r0, p.Tk,
+                                        tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const int kt0 = j * L::kKeys + part * kTile;
+    const float* sK = sKV + (j & 1) * 2 * L::kKV + part * kTile * kS;
+    const float* sV = sK + L::kKV;
 
-    // s and dp for the warp's rows; lane owns keys lane and lane + 32.
-    float s[kQRowsPerWarp][2], dp[kQRowsPerWarp][2];
+    if (kt0 < p.Tk) {
+      // S = Q K^T and dP = dO V^T for this warp's 16 rows and the tile.
+      float s[kKN][4], dp[kKN][4];
 #pragma unroll
-    for (int r = 0; r < kQRowsPerWarp; ++r)
-      s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    const float* ka = sK + lane * L::kS;
-    const float* kc = sK + (lane + 32) * L::kS;
-    const float* va = sV + lane * L::kS;
-    const float* vc = sV + (lane + 32) * L::kS;
+      for (int n = 0; n < kKN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < DH; d += 4) {
-      const float4 x = ld4(ka + d), y = ld4(kc + d);
-      const float4 vx = ld4(va + d), vy = ld4(vc + d);
+      for (int kk = 0; kk < kDN; ++kk) {
+        unsigned qab[4], qas[4], oab[4], oas[4];
+        load_a<kS>(qw, kk * 8, g, t, qab, qas);
+        load_a<kS>(ow, kk * 8, g, t, oab, oas);
 #pragma unroll
-      for (int r = 0; r < kQRowsPerWarp; ++r) {
-        const float4 qv = ld4(qw + r * L::kS + d);
-        const float4 ov = ld4(ow + r * L::kS + d);
-        s[r][0] = dot4(qv, x, s[r][0]);
-        s[r][1] = dot4(qv, y, s[r][1]);
-        dp[r][0] = dot4(ov, vx, dp[r][0]);
-        dp[r][1] = dot4(ov, vy, dp[r][1]);
+        for (int n = 0; n < kKN; ++n) {
+          const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+          const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(kr[0], bb[0], bs[0]);
+          split(kr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], qab, qas, bb, bs);
+          split(vr[0], bb[0], bs[0]);
+          split(vr[4], bb[1], bs[1]);
+          mma_3xtf32(dp[n], oab, oas, bb, bs);
+        }
       }
-    }
 
-    const bool ok_a = k0 + lane < p.Tk;
-    const bool ok_b = k0 + lane + 32 < p.Tk;
+      // ds into s; keys past Tk weigh 0.
 #pragma unroll
-    for (int r = 0; r < kQRowsPerWarp; ++r) {
-      const float pa = ok_a ? expf(s[r][0] * p.scale - lse_r[r]) : 0.f;
-      const float pb = ok_b ? expf(s[r][1] * p.scale - lse_r[r]) : 0.f;
-      float dpa = dp[r][0], dpb = dp[r][1];
-      if (p.drop.on) {
-        const HashRow hr =
-            hash_row(p.drop, bh, q0 + warp * kQRowsPerWarp + r);
-        dpa = hash_keep(p.drop, hr, k0 + lane) ? dpa / p.keep : 0.f;
-        dpb = hash_keep(p.drop, hr, k0 + lane + 32) ? dpb / p.keep : 0.f;
+      for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kt0 + n * 8 + 2 * t + e;
+          const bool valid = key < p.Tk;
+          const float p0 = valid ? expf(s[n][e] * p.scale - lse0) : 0.f;
+          const float p1 = valid ? expf(s[n][2 + e] * p.scale - lse1) : 0.f;
+          float d0 = dp[n][e], d1 = dp[n][2 + e];
+          if (p.drop.on) {
+            const HashCol hc = hash_col(p.drop, key);
+            d0 = hash_keep(p.drop, hr0, hc) ? d0 * inv_keep : 0.f;
+            d1 = hash_keep(p.drop, hr1, hc) ? d1 * inv_keep : 0.f;
+          }
+          s[n][e] = p0 * (d0 - dl0) * p.scale;
+          s[n][2 + e] = p1 * (d1 - dl1) * p.scale;
+        }
       }
-      dsw[r * L::kDS + lane] = pa * (dpa - delta_r[r]) * p.scale;
-      dsw[r * L::kDS + lane + 32] = pb * (dpb - delta_r[r]) * p.scale;
-    }
-    __syncwarp();
 
-    // dQ += ds K; lane owns columns [lane * kCols, lane * kCols + kCols).
-#pragma unroll 2
-    for (int j = 0; j < kQKeys; j += 4) {
-      float4 dj[kQRowsPerWarp];
+      // dQ += ds K: ds as the A operand, K rows n * 8 + 2t, + 1 as B.
 #pragma unroll
-      for (int r = 0; r < kQRowsPerWarp; ++r) dj[r] = ld4(dsw + r * L::kDS + j);
+      for (int n = 0; n < kKN; ++n) {
+        unsigned ab[4], as[4];
+        c_as_a(s[n], ab, as);
+        const float* kr = sK + (n * 8 + 2 * t) * kS + g;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float kv[kCols];
-        ld_cols<kCols>(sK + (j + jj) * L::kS + lane * kCols, kv);
-#pragma unroll
-        for (int r = 0; r < kQRowsPerWarp; ++r) {
-          const float w = f4(dj[r], jj);
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(w, kv[c], acc[r][c]);
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(kr[dn * 8], bb[0], bs[0]);
+          split(kr[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dq[dn], ab, as, bb, bs);
         }
       }
     }
-    __syncwarp();
+    __syncthreads();  // the stage just read is the next copy's target
   }
 
-  float* dqb = head(p.dq, p.sdq, b, h);
-#pragma unroll
-  for (int r = 0; r < kQRowsPerWarp; ++r) {
-    const int t = q0 + warp * kQRowsPerWarp + r;
-    if (t >= p.Tq) continue;
-    st_cols<kCols>(dqb + t * p.sdq[2] + lane * kCols, acc[r]);
+  if (SPLIT == 2) {
+    float* x = sKV + rw * (32 * 4 * kDN);
+    if (part == 1) hand_over(dq, x, lane);
+    __syncthreads();
+    if (part == 1) return;
+    take_over(dq, x, lane);
   }
+  // This warp's Q rows are its alone now: stage dQ there.
+  store_rows<DH>(dq, sQ + rw * 16 * kS, head(p.dq, p.sdq, b, h), p.sdq[2],
+                 q0 + rw * 16, p.Tq, lane);
 }
 
 template <typename Kernel>
-cudaError_t launch_one(Kernel kernel, dim3 grid, size_t smem,
+cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
                        cudaStream_t stream, const Params& p) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <int DH, int SPLIT>
+cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
+  using L = DkvLayout<DH, SPLIT>;
+  return launch_one(flash_bwd_dkv_kernel<DH, SPLIT>,
+                    dim3((p.Tk + kBlock - 1) / kBlock, bh), L::kThreads,
+                    L::kBytes, stream, p);
+}
+
+template <int DH, int SPLIT>
+cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
+  using L = DqLayout<DH, SPLIT>;
+  return launch_one(flash_bwd_dq_kernel<DH, SPLIT>,
+                    dim3((p.Tq + kBlock - 1) / kBlock, bh), L::kThreads,
+                    L::kBytes, stream, p);
+}
+
+// A grid of at most one 4-warp block an SM leaves half the warps the SMs
+// could hold idle: split each block's walk over two warp groups instead.
 template <int DH>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int B, int sms, cudaStream_t stream) {
   const int bh = B * p.H;
-  cudaError_t err = launch_one(delta_kernel<DH>,
-                               dim3((p.Tq + kWarps - 1) / kWarps, bh), 0,
-                               stream, p);
+  cudaError_t err = launch_one(
+      flash_bwd_delta_kernel<DH>,
+      dim3((p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), bh),
+      kDeltaThreads, 0, stream, p);
   if (err != cudaSuccess) return err;
-  err = launch_one(dkv_kernel<DH>, dim3((p.Tk + kKBlock - 1) / kKBlock, bh),
-                   DkvLayout<DH>::kBytes, stream, p);
+  const long long dkv_blocks = (long long)((p.Tk + kBlock - 1) / kBlock) * bh;
+  err = dkv_blocks <= sms ? launch_dkv<DH, 2>(p, bh, stream)
+                          : launch_dkv<DH, 1>(p, bh, stream);
   if (err != cudaSuccess) return err;
-  return launch_one(dq_kernel<DH>, dim3((p.Tq + kQBlock - 1) / kQBlock, bh),
-                    DqLayout<DH>::kBytes, stream, p);
+  const long long dq_blocks = (long long)((p.Tq + kBlock - 1) / kBlock) * bh;
+  return dq_blocks <= sms ? launch_dq<DH, 2>(p, bh, stream)
+                          : launch_dq<DH, 1>(p, bh, stream);
 }
 
 }  // namespace
@@ -502,9 +664,12 @@ extern "C" int avsep_flash_attn_bwd(
   p.drop.hk = hk;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   switch (dh) {
-    case 32: err = launch<32>(p, B, s); break;
-    case 128: err = launch<128>(p, B, s); break;
+    case 32: err = launch<32>(p, B, sms, s); break;
+    case 128: err = launch<128>(p, B, sms, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -28,10 +28,10 @@
 // - Products.  Both QK^T and PV are mma.sync.m16n8k8 TF32 products in
 //   3xTF32, CUTLASS's OpMultiplyAddFastF32 (the route of SDPA's float32
 //   kernel): each operand x splits into a TF32 big part and a TF32 small
-//   part (`split` below), and the sum takes small*big + big*small +
-//   big*big.  1xTF32 (10 mantissa bits) would not hold the float32
-//   reference's 2e-5; `wgmma` in TF32 needs K-major operands, and V as the
-//   B operand of PV is not.
+//   part (`split` in mma_3xtf32.cuh), and the sum takes small*big +
+//   big*small + big*big.  1xTF32 (10 mantissa bits) would not hold the
+//   float32 reference's 2e-5; `wgmma` in TF32 needs K-major operands, and
+//   V as the B operand of PV is not.
 // - Tiles.  Each warp owns 16 query rows of one (batch, head), and a block
 //   64 rows (4 row warps).  Keys come in 32-key tiles through a 2-stage
 //   ring of cp.async 16-byte copies (src-size 0 zero-fills keys past Tk),
@@ -63,6 +63,7 @@
 #include <math.h>
 
 #include "dropout_hash.cuh"
+#include "mma_3xtf32.cuh"
 
 namespace {
 
@@ -97,74 +98,6 @@ struct Layout {
   static constexpr int kKV = kKeys * kS;
   static constexpr size_t kBytes = (kQ + 4 * kKV) * sizeof(float);
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = big + small for 3xTF32: big keeps the top 10 mantissa bits (the mask
-// truncates; the low 13 bits of a TF32 operand register are zero), small
-// = x - big is exact in float32, and the tensor core reads its top 10
-// mantissa bits.  What is lost, x's bits below 2^-20 |x| and the
-// small * small term, is ~2^-20 relative, against 2^-11 for 1xTF32.  Two
-// ALU instructions: the splits outnumber the products, and two
-// cvt.rna.tf32.f32 conversions a split made the whole kernel slower.
-__device__ __forceinline__ void split(float x, unsigned& big,
-                                      unsigned& small) {
-  big = __float_as_uint(x) & 0xFFFFE000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a * b in 3xTF32: the small terms first, then big * big.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const unsigned (&ab)[4],
-                                           const unsigned (&as)[4],
-                                           const unsigned (&bb)[2],
-                                           const unsigned (&bs)[2]) {
-  mma_tf32(d, as, bb);
-  mma_tf32(d, ab, bs);
-  mma_tf32(d, ab, bb);
-}
-
-// Copy rows [r0, r0 + ROWS) of a (time, dh) slice into a tile at row stride
-// DH + 4 with THREADS threads; rows at or past `n_valid` are zero-filled.
-template <int DH, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(float* tile, const float* base,
-                                          long long stride, int r0,
-                                          int n_valid, int tid) {
-  constexpr int kChunks = DH / 4;
-#pragma unroll
-  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = r0 + r < n_valid;
-    const float* src = ok ? base + (long long)(r0 + r) * stride + c : base;
-    cp_async16(tile + r * (DH + 4) + c, src, ok ? 16 : 0);
-  }
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));

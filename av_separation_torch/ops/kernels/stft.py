@@ -12,11 +12,13 @@ STFT.
 
 Two routes on the card, chosen by shape (not a fallback: an error in either
 raises):
-  - n_fft a power of two in [8, 4096] (every config: 512): `stft_fft.cu`, a
-    half-length complex FFT in shared memory plus the real split step;
-    launches count under `stft_mag_fwd`.
-  - any other n_fft (a multiple of 4): `stft_mag.cu`, the matrix DFT against
-    windowed cos/sin bases; launches count under `stft_mag_dft_fwd`.
+  - n_fft a multiple of 4 in [8, 4096] whose half has no prime factor above
+    5 (every config: 512; the speech front ends' 400): `stft_fft.cu`, a
+    half-length mixed-radix complex FFT in shared memory plus the real
+    split step; launches count under `stft_mag_fwd`.
+  - any other n_fft (a multiple of 4, such as 448): `stft_mag.cu`, the
+    matrix DFT against windowed cos/sin bases; launches count under
+    `stft_mag_dft_fwd`.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from av_separation_torch.ops.stft import (dft_basis, hann_symmetric,
 
 TILE_FRAMES = 32            # frames per block of the DFT route (stft_mag.cu)
 MAX_SMEM_BYTES = 232448     # dynamic shared memory a block may use (H100)
-FFT_SIZES = (8, 4096)       # power-of-two n_fft the FFT route takes
+FFT_SIZES = (8, 4096)       # n_fft the FFT route takes
 MAX_GRID_Y = 65535          # signals: the FFT route's grid.y
 
 
@@ -46,10 +48,29 @@ def stft_magnitude_fwd_torch(audio: torch.Tensor, n_fft: int, hop: int,
     return stft_magnitude(audio, n_fft, hop, num_frames)
 
 
+def fft_plan(n_fft: int) -> Tuple[int, ...]:
+    """The radices of the FFT route's Stockham stages over M = n_fft / 2
+    points: one 2 when M's power of two has an odd exponent, then 4s, 3s
+    and 5s (M = 256: 4, 4, 4, 4; M = 200: 2, 4, 5, 5).  Empty when M has
+    another prime factor."""
+    m, twos = n_fft // 2, 0
+    while m > 1 and m % 2 == 0:
+        m //= 2
+        twos += 1
+    plan = [2] * (twos % 2) + [4] * (twos // 2)
+    for r in (3, 5):
+        while m % r == 0:
+            m //= r
+            plan.append(r)
+    return tuple(plan) if m == 1 else ()
+
+
 def route(n_fft: int) -> str:
-    """'fft' for a power-of-two n_fft in [8, 4096], else 'dft'."""
+    """'fft' for a multiple of 4 in [8, 4096] whose half has no prime
+    factor above 5, else 'dft'."""
     lo, hi = FFT_SIZES
-    return "fft" if lo <= n_fft <= hi and n_fft & (n_fft - 1) == 0 else "dft"
+    ok = lo <= n_fft <= hi and n_fft % 4 == 0 and fft_plan(n_fft)
+    return "fft" if ok else "dft"
 
 
 def launch_shape(n_fft: int) -> Tuple[int, int]:
@@ -132,7 +153,8 @@ def _entry():
 def _fft_entry():
     lib = _build.load("stft_fft")
     fn = lib.avsep_stft_fft_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -167,8 +189,8 @@ def _check(audio: torch.Tensor, n_fft: int, hop: int, num_frames: int,
                              f"and n_fft {n_fft} does not fit in shared "
                              f"memory")
     elif route(n_fft) != "fft":
-        raise ValueError(f"n_fft {n_fft} is not a power of two in "
-                         f"{FFT_SIZES}")
+        raise ValueError(f"n_fft {n_fft} is not in {FFT_SIZES} with a half "
+                         f"whose prime factors are 2, 3 and 5")
     elif math.prod(audio.shape[:-1]) > MAX_GRID_Y:
         raise ValueError(f"more than {MAX_GRID_Y} signals")
 
@@ -178,8 +200,7 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
     """|STFT| of (..., N) float32 audio -> (..., n_fft // 2 + 1, T).
 
     CPU tensors take the plain version; CUDA tensors launch the FFT kernel
-    for a power-of-two n_fft in [8, 4096] and the matrix-DFT kernel for any
-    other.
+    where `route` says 'fft' and the matrix-DFT kernel for any other n_fft.
     """
     if audio.device.type == "cpu":
         return stft_magnitude_fwd_torch(audio, n_fft, hop, num_frames)
@@ -203,10 +224,11 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
         window, twiddle = _fft_tables(n_fft, audio.device)
         tile = fft_tile_frames(n_fft, hop, b, num_frames, _sm_count(index))
         vec = int(n % 4 == 0 and audio.data_ptr() % 16 == 0)
+        plan = fft_plan(n_fft)
         lib, fn = _fft_entry()
         rc = fn(audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
                 out.data_ptr(), b, n, num_frames, n_fft, hop, tile, vec,
-                index, stream)
+                (ctypes.c_int * len(plan))(*plan), len(plan), index, stream)
         _build.check(lib, rc, "stft_mag_fwd")
         kernels.LAUNCHES["stft_mag_fwd"] += 1
     else:

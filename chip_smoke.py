@@ -10,7 +10,7 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            parallel) into build/torch_kernels/; prints the build seconds and
            each kernel's registers and spills.
   kernels  first one m16n8k8 3xTF32 tensor-core product against float64
-           (the fragment layouts of the flash forward).  Then each kernel
+           (the fragment layouts of the flash kernels).  Then each kernel
            against its plain PyTorch version on the card, at the shapes the
            serving and training paths give it (plus the demo shapes and one
            T > 512 attention): max abs error with its tolerance; kernel /
@@ -21,12 +21,15 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            one library call); the bound with the rate it used (matrix
            products at 3xTF32's 165 TFLOP/s, the FFT at float32's 67) and
            a failure if any time reads below it.  Flash attention at
-           dropout 0 and 0.1, forward and backward; each backward is run
-           twice and must give bit-identical gradients.  The STFT magnitude
-           (FFT route) at the scaled device batch (24 x 64,000), the demo's
-           (24 x 8,000) and an odd shape (3 x 2,001, n_fft 128, hop 64),
-           and its matrix-DFT route at n_fft 400, hop 160; its library
-           yardstick is torch.stft (cuFFT).
+           dropout 0 and 0.1, forward and backward (both on the tensor
+           cores in 3xTF32; the backward's bound counts its 5 least
+           products); each backward is run twice and must give
+           bit-identical gradients.  The STFT magnitude on its FFT route
+           (mixed radix 2, 3, 4, 5) at the scaled device batch
+           (24 x 64,000), the demo's (24 x 8,000), an odd shape (3 x 2,001,
+           n_fft 128, hop 64) and n_fft 400, hop 160 on the scaled batch;
+           its matrix-DFT route at n_fft 448, hop 112 (a half with the
+           prime factor 7); its library yardstick is torch.stft (cuFFT).
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
@@ -136,13 +139,14 @@ KERNELS = {
         "source": "av_separation_torch/csrc/stft_mag.cu",
         "replaces": PALLAS + "stft.py:95",
         "also_replaces": [],
-        "note": "the route for n_fft that is not a power of two in [8, 4096]",
+        "note": "the route for n_fft whose half has a prime factor above 5",
     },
 }
 # The device kernels each wrapper launches, by name (torch.profiler).
 KERNEL_NAMES = {
     "flash_attn_fwd": ("flash_fwd_kernel",),
-    "flash_attn_bwd": ("delta_kernel", "dkv_kernel", "dq_kernel"),
+    "flash_attn_bwd": ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
+                       "flash_bwd_dq_kernel"),
     "audio_proj_fwd": ("audio_proj_kernel",),
     "mask_decoder_fwd": ("mask_decoder_kernel",),
     "stft_mag_fwd": ("stft_fft_kernel",),
@@ -247,11 +251,34 @@ def phase_build(state):
     t0 = time.perf_counter()
     logs = _build.build(ptxas_verbose=True)
     secs = time.perf_counter() - t0
-    usage = {name: [ln.split("ptxas info    : ")[-1].strip()
-                    for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
+    usage = {name: _ptxas_usage(log) for name, log in logs.items()}
     return {"build_s": round(secs, 2), "ptxas": usage}
+
+
+def _ptxas_usage(log: str) -> dict:
+    """Registers and spills per device function from `nvcc -Xptxas -v`,
+    keyed by the kernel's name and template arguments as mangled (for
+    example flash_bwd_dkv_kernel<128,1>)."""
+    import re
+    usage, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN([^']+)'", ln)
+        if m:
+            # Nested names: <length><identifier> ... then I<args>E or E.
+            rest, parts = m.group(1), []
+            while (k := re.match(r"(\d+)", rest)):
+                n = int(k.group(1))
+                parts.append(rest[len(k.group(1)):len(k.group(1)) + n])
+                rest = rest[len(k.group(1)) + n:]
+            args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+            name = parts[-1] if parts else m.group(1)
+            if args:
+                name += "<" + ",".join(
+                    re.findall(r"L[a-z]+(\d+)E", args.group(1))) + ">"
+        elif name and ("registers" in ln or "spill" in ln):
+            usage.setdefault(name, []).append(
+                ln.split("ptxas info    : ")[-1].strip())
+    return usage
 
 
 def _attn_inputs(b, h, tq, tk, dh, kind, gen):
@@ -285,7 +312,7 @@ def phase_kernels(state):
     results = {name: [] for name in KERNELS}
     failures = []
 
-    # The m16n8k8 TF32 fragment layouts the flash forward builds on: one
+    # The m16n8k8 TF32 fragment layouts the flash kernels build on: one
     # 3xTF32 product against float64 on the host.  Sums of 8 products of
     # unit normals: 3xTF32 keeps ~2^-20 relative, so 1e-5 (a wrong layout
     # gives O(1) errors, 1xTF32 ~1e-3).
@@ -463,14 +490,15 @@ def _attn_rows(record, label, rate, q, k, v, gen):
 
 
 def _stft_rows(record, gen):
-    """The STFT magnitude against its plain version at three shapes: the
-    scaled and demo device batches (B 8: [mixed; 2 clean] = 24 signals of
-    generated tones) and an odd shape of noise.  Float32 sums of n_fft
+    """The STFT magnitude against its plain version: the scaled and demo
+    device batches (B 8: [mixed; 2 clean] = 24 signals of generated tones),
+    an odd shape of noise, and the scaled batch at n_fft 400 (the mixed-radix
+    FFT) and 448 (the matrix DFT).  Float32 sums of n_fft
     windowed samples in another order (peaks ~100 on the tones): max abs
     error 2e-4, tighter everywhere than atol 2e-4 with rtol 1e-5.  Bound:
     the audio read once and the spectra written once, against the least
-    work of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame (the kernel's
-    matrix DFT does 4 n_fft F).  Library: torch.stft with the symmetric
+    work of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame (the DFT
+    route's matrix DFT does 4 n_fft F).  Library: torch.stft with the symmetric
     Hann window, no centering, on the zero-padded signal, then abs (cuFFT;
     timed only, never called by the port)."""
     import torch.nn.functional as F
@@ -495,8 +523,8 @@ def _stft_rows(record, gen):
     cases = [("scaled device batch", scaled, cfg_s.n_fft, cfg_s.hop_length),
              ("demo device batch", demo, cfg_d.n_fft, cfg_d.hop_length),
              ("odd", odd, 128, 64),
-             ("scaled device batch, n_fft not a power of two", scaled, 400,
-              160)]
+             ("scaled device batch, mixed radix", scaled, 400, 160),
+             ("scaled device batch, DFT route", scaled, 448, 112)]
     for label, audio, n_fft, hop in cases:
         b, n = audio.shape
         t = 1 + n // hop
@@ -708,7 +736,7 @@ def _group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "flash_attn_fwd (ours)"
-    if "dkv_kernel" in low or "dq_kernel" in low or "delta_kernel" in low:
+    if "flash_bwd" in low:
         return "flash_attn_bwd (ours)"
     if "audio_proj" in low:
         return "audio_proj_fwd (ours)"
