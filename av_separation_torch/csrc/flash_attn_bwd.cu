@@ -116,7 +116,9 @@ __device__ __forceinline__ float* head(float* base, const long long* s, int b,
 }
 
 // The 3xTF32 A fragment of rows [0, 16) and columns [c, c + 8) of a tile
-// at row stride S.
+// at row stride S.  (`load_a_frag` in mma_3xtf32.cuh does the same; with
+// it the 8-warp dK/dV kernel at dh 128, at 255 registers, spilled 40
+// bytes.)
 template <int S>
 __device__ __forceinline__ void load_a(const float* tile, int c, int g, int t,
                                        unsigned (&ab)[4], unsigned (&as)[4]) {
@@ -667,8 +669,11 @@ extern "C" int avsep_flash_attn_bwd(
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // The head dims of the configs: 32 (demo), 64 (the reference's default
+  // model), 128 (the rest).
   switch (dh) {
     case 32: err = launch<32>(p, B, sms, s); break;
+    case 64: err = launch<64>(p, B, sms, s); break;
     case 128: err = launch<128>(p, B, sms, s); break;
     default: err = cudaErrorInvalidValue;
   }

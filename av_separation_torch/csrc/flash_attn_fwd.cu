@@ -180,12 +180,8 @@ flash_fwd_kernel(const Params p) {
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 4
       for (int kk = 0; kk < kDN; ++kk) {
-        const float* qa = qw + g * kS + kk * 8 + t;
         unsigned ab[4], as[4];
-        split(qa[0], ab[0], as[0]);
-        split(qa[8 * kS], ab[1], as[1]);
-        split(qa[4], ab[2], as[2]);
-        split(qa[8 * kS + 4], ab[3], as[3]);
+        load_a_frag(qw + kk * 8, kS, g, t, ab, as);
 #pragma unroll
         for (int n = 0; n < kKN; ++n) {
           const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
@@ -402,8 +398,12 @@ extern "C" int avsep_flash_attn_fwd(
   // could hold idle: split each block's keys over two warp groups instead.
   const long long blocks = (long long)((Tq + kBlockQ - 1) / kBlockQ) * B * H;
   const int split = blocks <= sms ? 2 : 1;
+  // The head dims of the configs: 32 (demo), 64 (the reference's default
+  // model), 128 (the rest).  Rows are DH + 4 floats apart at each.
   if (dh == 32)
     err = split == 2 ? launch<32, 2>(p, B, s) : launch<32, 1>(p, B, s);
+  else if (dh == 64)
+    err = split == 2 ? launch<64, 2>(p, B, s) : launch<64, 1>(p, B, s);
   else if (dh == 128)
     err = split == 2 ? launch<128, 2>(p, B, s) : launch<128, 1>(p, B, s);
   else

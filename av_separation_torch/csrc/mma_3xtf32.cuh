@@ -1,7 +1,8 @@
 // Float32 products on the tensor cores in 3xTF32, and the cp.async copies
 // that feed them: shared by the flash-attention forward and backward
-// kernels (flash_attn_fwd.cu, flash_attn_bwd.cu) on Hopper (sm_90a); the
-// STFT's FFT (stft_fft.cu) takes the copies.
+// kernels (flash_attn_fwd.cu, flash_attn_bwd.cu), the audio projection
+// (audio_proj.cu) and the mask decoder (mask_decoder.cu) on Hopper
+// (sm_90a); the STFT's FFT (stft_fft.cu) takes the copies.
 //
 // The m16n8k8 TF32 fragments (lane = 4g + t): A (16 x 8, row-major) holds
 // (g, t), (g+8, t), (g, t+4), (g+8, t+4); B (8 x 8, k x n) holds (k=t, n=g),
@@ -69,6 +70,18 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, as, bb);
   mma_tf32(d, ab, bs);
   mma_tf32(d, ab, bb);
+}
+
+// The 3xTF32 A fragment of rows [0, 16) and columns [0, 8) of a row-major
+// tile at `a` with a row stride of `stride` floats.
+__device__ __forceinline__ void load_a_frag(const float* a, int stride, int g,
+                                            int t, unsigned (&ab)[4],
+                                            unsigned (&as)[4]) {
+  const float* p = a + g * stride + t;
+  split(p[0], ab[0], as[0]);
+  split(p[8 * stride], ab[1], as[1]);
+  split(p[4], ab[2], as[2]);
+  split(p[8 * stride + 4], ab[3], as[3]);
 }
 
 // Copy rows [r0, r0 + ROWS) of a (time, dh) slice into a tile at row stride

@@ -174,11 +174,10 @@ class SeparationDecoder(nn.Module):
         fc1, fc2 = self.decoder[0], self.decoder[3]
         rate = train_rate(self, self.dropout, gens)
         if rate == 0.0:
-            # torch Linear weights (out, in) -> the kernel's (in, out).
+            # The kernel reads the torch Linear weights as they are.
             return mask_decoder(
-                fused.contiguous(), fc1.weight.t().contiguous(), fc1.bias,
-                fc2.weight.t().contiguous(), fc2.bias,
-                mixed_spec.contiguous(), self.num_speakers)
+                fused.contiguous(), fc1.weight, fc1.bias, fc2.weight,
+                fc2.bias, mixed_spec.contiguous(), self.num_speakers)
         b, t, _ = fused.shape
         h = gelu_dropout(fc1(fused), rate, bits(gens))
         masks = torch.sigmoid(fc2(h).reshape(b, t, self.num_speakers, -1))

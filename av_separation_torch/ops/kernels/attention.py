@@ -33,7 +33,8 @@ import torch
 from av_separation_torch.ops import kernels
 from av_separation_torch.ops.kernels import _build
 
-HEAD_DIMS = (32, 128)  # demo (128 / 4 heads) and every wider config
+# demo (d 128, 4 heads), ModelConfig() (d 256, 4 heads), every wider config
+HEAD_DIMS = (32, 64, 128)
 MAX_HASH_BLOCK = 512   # the Pallas kernels' DEFAULT_BLOCK_Q / _K
 _M32 = 0xFFFFFFFF
 

@@ -1,11 +1,14 @@
-"""Fused audio input projection: the CUDA forward kernel `csrc/audio_proj.cu`,
-its plain PyTorch version, and the autograd function around it.
+"""Audio input projection: the CUDA forward kernels `csrc/audio_proj.cu` (one
+implicit-GEMM launch a conv), its plain PyTorch version, and the autograd
+function around it.
 
 Port of `av_separation_tpu/ops/pallas/audio_proj.py` (`_proj_kernel`): two
 k=3 conv1d layers with ReLU in channels-last layout, torch zero padding on
 both, emitting the output y and the hidden activation h.  Weights are in the
 flax layout (3, C_in, C_out); `models/model.py` permutes the torch Conv1d
-weights into it.  The backward is the JAX package's framed-einsum rule
+weights into it (the kernel's k-major weight tiles read that layout
+directly; the Conv1d layout (out, in, k) would put the taps innermost).
+The backward is the JAX package's framed-einsum rule
 (`audio_proj.py:126-158`, XLA there), as plain matmuls on either device.
 """
 
@@ -38,11 +41,21 @@ def audio_proj_fwd_torch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return conv_relu(h, w2, b2), h
 
 
+BLOCK_COLS = 128  # output channels a block (audio_proj.cu kBN)
+
+
+def proj_rows(b: int, t: int, d: int, sms: int) -> int:
+    """Frames a block computes: (ceil(T / rows), ceil(D / 128), B) blocks
+    a conv."""
+    return kernels.gemm_rows(
+        lambda rows: -(-t // rows) * -(-d // BLOCK_COLS) * b, sms)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     lib = _build.load("audio_proj")
     fn = lib.avsep_audio_proj_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -85,11 +98,12 @@ def audio_proj_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     d = w1.shape[-1]
     y = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     h = torch.empty_like(y)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib, fn = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), y.data_ptr(), h.data_ptr(), b, t, f, d,
-            x.device.index, stream)
+            proj_rows(b, t, d, sms), x.device.index, stream)
     _build.check(lib, rc, "audio_proj_fwd")
     kernels.LAUNCHES["audio_proj_fwd"] += 1
     return y, h

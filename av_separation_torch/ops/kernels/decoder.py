@@ -1,13 +1,14 @@
-"""Fused separation mask decoder: the CUDA forward kernel
-`csrc/mask_decoder.cu`, its plain PyTorch version, and the autograd function
-around it.
+"""Separation mask decoder: the CUDA forward kernels `csrc/mask_decoder.cu`
+(two tiled GEMM launches), its plain PyTorch version, and the autograd
+function around it.
 
 Port of `av_separation_tpu/ops/pallas/decoder.py` (`_decoder_kernel`):
 Linear(d -> 2d) + exact GELU + Linear(2d -> S*F) + sigmoid + mask x mixed,
 returning (separated, masks) in the reference layout (B, S, F, T).  Weights
-are in the (in, out) layout of the JAX package; `models/model.py` transposes
-the torch Linear weights into it.  The backward is the JAX package's rule
-(`decoder.py:159-187`, XLA matmuls there), as plain matmuls on either device.
+are the torch Linear weights as they are, (out, in): w1 (2d, d), w2
+(S*F, 2d), so the model copies none per forward (the JAX package's are
+(in, out)).  The backward is the JAX package's rule (`decoder.py:159-187`,
+XLA matmuls there), as plain matmuls on either device.
 """
 
 from __future__ import annotations
@@ -32,18 +33,28 @@ def mask_decoder_fwd_torch(x: torch.Tensor, w1: torch.Tensor,
     """Plain version: x (B, T, d), mixed (B, F, T) -> (separated, masks)."""
     b, t, _ = x.shape
     f = mixed.shape[1]
-    a = F.gelu(torch.matmul(x, w1) + b1)
-    logits = torch.matmul(a, w2) + b2
+    a = F.gelu(F.linear(x, w1, b1))
+    logits = F.linear(a, w2, b2)
     masks = torch.sigmoid(logits).reshape(b, t, num_speakers, f)
     masks = masks.permute(0, 2, 3, 1).contiguous()
     return masks * mixed[:, None], masks
+
+
+BLOCK_COLS = 128  # output columns a block (mask_decoder.cu kBN)
+
+
+def decoder_rows(m: int, n: int, sms: int) -> int:
+    """Block rows of one of the kernel's two GEMMs over m rows and n
+    output columns."""
+    return kernels.gemm_rows(
+        lambda rows: -(-m // rows) * -(-n // BLOCK_COLS), sms)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     lib = _build.load("mask_decoder")
     fn = lib.avsep_mask_decoder_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -54,7 +65,7 @@ def _check(x, w1, b1, w2, b2, mixed, num_speakers) -> None:
         raise ValueError("x must be (B, T, d) and mixed (B, F, T)")
     b, t, d = x.shape
     f = mixed.shape[1]
-    want = {"w1": (d, 2 * d), "b1": (2 * d,), "w2": (2 * d, num_speakers * f),
+    want = {"w1": (2 * d, d), "b1": (2 * d,), "w2": (num_speakers * f, 2 * d),
             "b2": (num_speakers * f,), "mixed": (b, f, t)}
     for name, ten in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2),
                       ("b2", b2), ("mixed", mixed)):
@@ -88,11 +99,18 @@ def mask_decoder_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     masks = torch.empty((b, num_speakers, f, t), dtype=x.dtype,
                         device=x.device)
     sep = torch.empty_like(masks)
+    # The GELU activation between the kernel's two GEMMs (16 MB at the
+    # scaled shape: it stays in the L2).
+    hidden = torch.empty((b * t, 2 * d), dtype=x.dtype, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib, fn = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), mixed.data_ptr(), masks.data_ptr(),
-            sep.data_ptr(), b, t, d, num_speakers, f, x.device.index, stream)
+            b2.data_ptr(), mixed.data_ptr(), hidden.data_ptr(),
+            masks.data_ptr(), sep.data_ptr(), b, t, d, num_speakers, f,
+            decoder_rows(b * t, 2 * d, sms),
+            decoder_rows(b * t, num_speakers * f, sms), x.device.index,
+            stream)
     _build.check(lib, rc, "mask_decoder_fwd")
     kernels.LAUNCHES["mask_decoder_fwd"] += 1
     return sep, masks
@@ -118,14 +136,14 @@ class MaskDecoder(torch.autograd.Function):
         d_logits = (g_masks * masks * (1.0 - masks)).permute(0, 3, 1, 2)
         b, t, s, f = d_logits.shape
         d_logits = d_logits.reshape(b, t, s * f)
-        pre = torch.matmul(x, w1) + b1
+        pre = F.linear(x, w1, b1)
         a = F.gelu(pre)
-        g_a = torch.matmul(d_logits, w2.t())
-        g_w2 = torch.einsum("bth,bto->ho", a, d_logits)
+        g_a = torch.matmul(d_logits, w2)
+        g_w2 = torch.einsum("bth,bto->oh", a, d_logits)
         g_b2 = d_logits.sum(dim=(0, 1))
         g_pre = g_a * gelu_grad(pre)
-        g_x = torch.matmul(g_pre, w1.t())
-        g_w1 = torch.einsum("btd,bth->dh", x, g_pre)
+        g_x = torch.matmul(g_pre, w1)
+        g_w1 = torch.einsum("btd,bth->hd", x, g_pre)
         g_b1 = g_pre.sum(dim=(0, 1))
         return g_x, g_w1, g_b1, g_w2, g_b2, g_mixed, None
 

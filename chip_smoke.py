@@ -23,8 +23,13 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            a failure if any time reads below it.  Flash attention at
            dropout 0 and 0.1, forward and backward (both on the tensor
            cores in 3xTF32; the backward's bound counts its 5 least
-           products); each backward is run twice and must give
-           bit-identical gradients.  The STFT magnitude on its FFT route
+           products), at dh 128, 32 and 64 (the reference's default
+           model); each backward is run twice and must give
+           bit-identical gradients.  The audio projection and the mask
+           decoder (both in 3xTF32) at the scaled, demo, three_speaker
+           and multihost shapes; their library yardsticks are two cuDNN
+           conv1d and F.linear / F.gelu / F.linear / sigmoid (cuBLAS).
+           The STFT magnitude on its FFT route
            (mixed radix 2, 3, 4, 5) at the scaled device batch
            (24 x 64,000), the demo's (24 x 8,000), an odd shape (3 x 2,001,
            n_fft 128, hop 64) and n_fft 400, hop 160 on the scaled batch;
@@ -33,6 +38,12 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
+  configs  the reference's default model (ModelConfig(), dh 64) and the
+           named configs three_speaker, lrs2 and multihost at full width
+           and depth (seeded random weights): one eval forward at batch 2
+           each against the same model on the CPU, launches counted; one
+           train step of the default model at dropout 0 against float64
+           on the CPU.
   serve    the scaled config at full width and depth (seeded random
            weights): a Separator on the card behind a
            BatchingSeparatorServer(max_batch=8) answers 16 waveform requests
@@ -147,8 +158,9 @@ KERNEL_NAMES = {
     "flash_attn_fwd": ("flash_fwd_kernel",),
     "flash_attn_bwd": ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
                        "flash_bwd_dq_kernel"),
-    "audio_proj_fwd": ("audio_proj_kernel",),
-    "mask_decoder_fwd": ("mask_decoder_kernel",),
+    "audio_proj_fwd": ("audio_proj_conv1_kernel", "audio_proj_conv2_kernel"),
+    "mask_decoder_fwd": ("mask_decoder_hidden_kernel",
+                         "mask_decoder_mask_kernel"),
     "stft_mag_fwd": ("stft_fft_kernel",),
     "stft_mag_dft_fwd": ("stft_mag_kernel",),
 }
@@ -302,11 +314,7 @@ def _attn_inputs(b, h, tq, tk, dh, kind, gen):
 
 
 def phase_kernels(state):
-    from av_separation_torch.ops.kernels.audio_proj import (
-        audio_proj_fwd, audio_proj_fwd_torch)
     from av_separation_torch.ops.kernels.attention import mma_3xtf32_probe
-    from av_separation_torch.ops.kernels.decoder import (
-        mask_decoder_fwd, mask_decoder_fwd_torch)
 
     gen = torch.Generator().manual_seed(0)
     results = {name: [] for name in KERNELS}
@@ -366,6 +374,7 @@ def phase_kernels(state):
         ("scaled fusion cross", 8, 4, 501, 501, 128, "cross"),
         ("demo self", 4, 4, 63, 63, 32, "self"),
         ("demo cross split", 4, 4, 63, 50, 32, "split"),
+        ("default self dh64", 8, 4, 501, 501, 64, "self"),
         ("long self Tk>512", 2, 4, 1024, 1024, 128, "self"),
     ]
     for rate in (0.0, 0.1):
@@ -373,53 +382,8 @@ def phase_kernels(state):
             q, k, v = _attn_inputs(b, h, tq, tk, dh, kind, gen)
             _attn_rows(record, label, rate, q, k, v, gen)
 
-    # fused audio projection at the scaled shape and the demo shape.
-    for label, b, t, f, d in (("scaled", 8, 501, 257, 512),
-                              ("demo", 4, 63, 257, 128)):
-        x = torch.randn(b, t, f, generator=gen).abs().cuda()
-        lim1, lim2 = (3 * f) ** -0.5, (3 * d) ** -0.5
-        w1 = ((torch.rand(3, f, d, generator=gen) * 2 - 1) * lim1).cuda()
-        b1 = ((torch.rand(d, generator=gen) * 2 - 1) * lim1).cuda()
-        w2 = ((torch.rand(3, d, d, generator=gen) * 2 - 1) * lim2).cuda()
-        b2 = ((torch.rand(d, generator=gen) * 2 - 1) * lim2).cuda()
-        y_k, h_k = audio_proj_fwd(x, w1, b1, w2, b2)
-        y_p, h_p = audio_proj_fwd_torch(x, w1, b1, w2, b2)
-        torch.cuda.synchronize()
-        nbytes = 4 * (b * t * f + 3 * f * d + 3 * d * d + 2 * d
-                      + 2 * b * t * d)
-        flops = 2 * b * t * 3 * (f + d) * d
-        record("audio_proj_fwd", f"{label} B={b} T={t} F={f} D={d}",
-               max_err(y_k, y_p), 1e-4, {"h": (max_err(h_k, h_p), 1e-4)},
-               lambda: audio_proj_fwd(x, w1, b1, w2, b2),
-               lambda: audio_proj_fwd_torch(x, w1, b1, w2, b2),
-               None, nbytes, flops, 20)
-
-    # fused mask decoder at the scaled shape and the demo shape.
-    for label, b, t, d, s, f in (("scaled", 8, 501, 512, 2, 257),
-                                 ("demo", 4, 63, 128, 2, 257)):
-        x = torch.randn(b, t, d, generator=gen).cuda()
-        lim1, lim2 = d ** -0.5, (2 * d) ** -0.5
-        w1 = ((torch.rand(d, 2 * d, generator=gen) * 2 - 1) * lim1).cuda()
-        b1 = ((torch.rand(2 * d, generator=gen) * 2 - 1) * lim1).cuda()
-        w2 = ((torch.rand(2 * d, s * f, generator=gen) * 2 - 1)
-              * lim2).cuda()
-        b2 = ((torch.rand(s * f, generator=gen) * 2 - 1) * lim2).cuda()
-        mixed = (torch.randn(b, f, t, generator=gen).abs() * 10).cuda()
-        sep_k, m_k = mask_decoder_fwd(x, w1, b1, w2, b2, mixed, s)
-        sep_p, m_p = mask_decoder_fwd_torch(x, w1, b1, w2, b2, mixed, s)
-        torch.cuda.synchronize()
-        sf = s * f
-        nbytes = 4 * (b * t * d + 2 * d * d + 2 * d + 2 * d * sf + sf
-                      + b * f * t + 2 * b * sf * t)
-        flops = 2 * b * t * (d * 2 * d + 2 * d * sf)
-        sep_tol = 1e-5 * float(mixed.abs().max())
-        record("mask_decoder_fwd", f"{label} B={b} T={t} d={d} S={s} F={f}",
-               max_err(m_k, m_p), 1e-5,
-               {"separated": (max_err(sep_k, sep_p), sep_tol)},
-               lambda: mask_decoder_fwd(x, w1, b1, w2, b2, mixed, s),
-               lambda: mask_decoder_fwd_torch(x, w1, b1, w2, b2, mixed, s),
-               None, nbytes, flops, 20)
-
+    _proj_rows(record, gen)
+    _decoder_rows(record, gen)
     _stft_rows(record, gen)
 
     state["kernel_rows"] = results
@@ -487,6 +451,105 @@ def _attn_rows(record, label, rate, q, k, v, gen):
            10 * bh * tq * tk * dh, 10, dropout=rate,
            bit_identical=all(torch.equal(x, y) for x, y in zip(g_k, g_k2)),
            library="F.scaled_dot_product_attention forward + backward")
+
+
+# The projection's and decoder's shapes: (label, B, T, d, S), F 257.
+HEAD_SHAPES = (("scaled", 8, 501, 512, 2), ("demo", 4, 63, 128, 2),
+               ("three_speaker", 8, 63, 512, 3),
+               ("multihost", 16, 501, 1024, 4))
+
+
+def _proj_rows(record, gen):
+    """The fused audio projection against its plain version at the named
+    configs' shapes: float32 sums of 3 (F + D) products in another order,
+    1e-4 on y and h (O(1) values).  Library: two cuDNN conv1d with ReLU on
+    the (B, F, T) layout with torch Conv1d weights (timed only, never
+    called by the port)."""
+    import torch.nn.functional as F
+
+    from av_separation_torch.ops.kernels.audio_proj import (
+        audio_proj_fwd, audio_proj_fwd_torch, proj_rows)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, b, t, d, _ in HEAD_SHAPES:
+        f = 257
+        x = torch.randn(b, t, f, generator=gen).abs().cuda()
+        lim1, lim2 = (3 * f) ** -0.5, (3 * d) ** -0.5
+        w1 = ((torch.rand(3, f, d, generator=gen) * 2 - 1) * lim1).cuda()
+        b1 = ((torch.rand(d, generator=gen) * 2 - 1) * lim1).cuda()
+        w2 = ((torch.rand(3, d, d, generator=gen) * 2 - 1) * lim2).cuda()
+        b2 = ((torch.rand(d, generator=gen) * 2 - 1) * lim2).cuda()
+        x_bft = x.transpose(1, 2).contiguous()
+        c1, c2 = (w.permute(2, 1, 0).contiguous() for w in (w1, w2))
+
+        def lib(x_bft=x_bft, c1=c1, b1=b1, c2=c2, b2=b2):
+            return torch.relu(F.conv1d(torch.relu(F.conv1d(
+                x_bft, c1, b1, padding=1)), c2, b2, padding=1))
+
+        y_k, h_k = audio_proj_fwd(x, w1, b1, w2, b2)
+        y_p, h_p = audio_proj_fwd_torch(x, w1, b1, w2, b2)
+        y_lib = lib().transpose(1, 2)
+        torch.cuda.synchronize()
+        nbytes = 4 * (b * t * f + 3 * f * d + 3 * d * d + 2 * d
+                      + 2 * b * t * d)
+        flops = 2 * b * t * 3 * (f + d) * d
+        record("audio_proj_fwd", f"{label} B={b} T={t} F={f} D={d}",
+               max_err(y_k, y_p), 1e-4, {"h": (max_err(h_k, h_p), 1e-4)},
+               lambda: audio_proj_fwd(x, w1, b1, w2, b2),
+               lambda: audio_proj_fwd_torch(x, w1, b1, w2, b2), lib,
+               nbytes, flops, 20, rows=proj_rows(b, t, d, sms),
+               library_max_abs_err=max_err(y_lib, y_p),
+               library="relu(conv1d(relu(conv1d(x, W1)), W2)), cuDNN")
+
+
+def _decoder_rows(record, gen):
+    """The fused mask decoder against its plain version at the named
+    configs' shapes: masks 1e-5 (sigmoid outputs of float32 sums of d and
+    2d products), separated 1e-5 x the peak of mixed.  Weights in the torch
+    Linear layout, as the model passes them.  Library: F.linear, F.gelu,
+    F.linear, torch.sigmoid, the permute and the multiply (cuBLAS; timed
+    only, never called by the port)."""
+    import torch.nn.functional as F
+
+    from av_separation_torch.ops.kernels.decoder import (
+        decoder_rows, mask_decoder_fwd, mask_decoder_fwd_torch)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, b, t, d, s in HEAD_SHAPES:
+        f = 257
+        x = torch.randn(b, t, d, generator=gen).cuda()
+        lim1, lim2 = d ** -0.5, (2 * d) ** -0.5
+        w1 = ((torch.rand(2 * d, d, generator=gen) * 2 - 1) * lim1).cuda()
+        b1 = ((torch.rand(2 * d, generator=gen) * 2 - 1) * lim1).cuda()
+        w2 = ((torch.rand(s * f, 2 * d, generator=gen) * 2 - 1)
+              * lim2).cuda()
+        b2 = ((torch.rand(s * f, generator=gen) * 2 - 1) * lim2).cuda()
+        mixed = (torch.randn(b, f, t, generator=gen).abs() * 10).cuda()
+
+        def lib(x=x, w1=w1, b1=b1, w2=w2, b2=b2, mixed=mixed, b=b, t=t,
+                s=s):
+            m = torch.sigmoid(F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2))
+            m = m.reshape(b, t, s, -1).permute(0, 2, 3, 1)
+            return m * mixed[:, None], m
+
+        sep_k, m_k = mask_decoder_fwd(x, w1, b1, w2, b2, mixed, s)
+        sep_p, m_p = mask_decoder_fwd_torch(x, w1, b1, w2, b2, mixed, s)
+        torch.cuda.synchronize()
+        sf = s * f
+        nbytes = 4 * (b * t * d + 2 * d * d + 2 * d + 2 * d * sf + sf
+                      + b * f * t + 2 * b * sf * t)
+        flops = 2 * b * t * (d * 2 * d + 2 * d * sf)
+        sep_tol = 1e-5 * float(mixed.abs().max())
+        record("mask_decoder_fwd", f"{label} B={b} T={t} d={d} S={s} F={f}",
+               max_err(m_k, m_p), 1e-5,
+               {"separated": (max_err(sep_k, sep_p), sep_tol)},
+               lambda: mask_decoder_fwd(x, w1, b1, w2, b2, mixed, s),
+               lambda: mask_decoder_fwd_torch(x, w1, b1, w2, b2, mixed, s),
+               lib, nbytes, flops, 20,
+               rows=[decoder_rows(b * t, 2 * d, sms),
+                     decoder_rows(b * t, s * f, sms)],
+               library="F.linear, F.gelu, F.linear, sigmoid, permute, "
+                       "* mixed (cuBLAS)")
 
 
 def _stft_rows(record, gen):
@@ -597,6 +660,99 @@ def phase_golden(state):
     if bad:
         raise AssertionError(f"golden mismatch: {bad} {errs}")
     return {"errors": errs, "launches_per_forward": launches}
+
+
+def phase_configs(state):
+    """The reference's default model (ModelConfig(): d 256, 4 heads, dh 64)
+    and the named configs three_speaker (S 3), lrs2 (96x96 lips, T 376) and
+    multihost (d 1024, 8 heads, S 4, 12 + 8 layers), at full width and
+    depth with seeded weights: one eval forward at batch 2 on the card
+    against the same model and batch on the CPU (masks 1e-4, separated
+    1e-4 x the peak of the mixture, as `serve` holds the masks), with the
+    launches of that forward counted from 0; then one train step of the
+    default model at dropout 0 and batch 2 against float64 on the CPU, as
+    `train` holds the scaled step, with its launches counted from 0."""
+    import dataclasses
+
+    from av_separation_torch.config import ExperimentConfig, get_config
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.models.model import build_model
+    from av_separation_torch.ops import kernels
+
+    def batch_of(cfg, n=2):
+        data = dataclasses.replace(cfg.data, num_samples=n)
+        return next(batch_iterator(SyntheticAVDataset(data), n, seed=0))
+
+    out, bad = {}, []
+    total = {name: 0 for name in kernels.LAUNCHES}
+    cases = [("default", ExperimentConfig())] + [
+        (name, get_config(name))
+        for name in ("three_speaker", "lrs2", "multihost")]
+    for label, cfg in cases:
+        m = cfg.model
+        batch = batch_of(cfg)
+        mixed, frames = (torch.as_tensor(batch[k])
+                         for k in ("mixed_spec", "lip_frames"))
+        ref = build_model(m, device="cpu", seed=0)
+        card = build_model(m, device="cuda", seed=0)
+        with torch.inference_mode():
+            sep_r, mask_r = ref(mixed, frames)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            sep_c, mask_c = card(mixed.cuda(), frames.cuda())
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        del card
+        for name, n in launches.items():
+            total[name] += n
+        want = {name: 0 for name in kernels.LAUNCHES}
+        want.update(flash_attn_fwd=2 * m.num_encoder_layers
+                    + m.num_fusion_layers, audio_proj_fwd=1,
+                    mask_decoder_fwd=1)
+        mask_err = max_err(mask_c.cpu(), mask_r)
+        sep_err = max_err(sep_c.cpu(), sep_r)
+        peak = float(mixed.abs().max())
+        row = {"d_model": m.d_model, "nhead": m.nhead,
+               "dh": m.d_model // m.nhead,
+               "layers": [m.num_encoder_layers, m.num_fusion_layers],
+               "speakers": m.num_speakers,
+               "mixed": list(mixed.shape), "lips": list(frames.shape),
+               "mask_max_abs_err": [mask_err, 1e-4],
+               "separated_max_abs_err": [sep_err, 1e-4 * peak],
+               "launches": launches}
+        if tuple(mask_c.shape) != tuple(mask_r.shape) \
+                or not bool(torch.isfinite(mask_c).all()):
+            bad.append(f"{label}: masks {tuple(mask_c.shape)} not finite "
+                       f"or not {tuple(mask_r.shape)}")
+        if mask_err > 1e-4 or sep_err > 1e-4 * peak:
+            bad.append(f"{label}: vs CPU {row}")
+        if launches != want:
+            bad.append(f"{label}: launches {launches} != {want}")
+        out[label] = row
+
+    # One train step of the default model (dh 64: the flash backward at
+    # dh 64, and the decoder's kernel, which runs in training at dropout 0).
+    base = ExperimentConfig()
+    cfg0 = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, dropout=0.0),
+        train=dataclasses.replace(base.train, batch_size=2))
+    check = _train_cpu_check(bad, cfg0, batch_of(cfg0))
+    m = cfg0.model
+    per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update(flash_attn_fwd=per_step, flash_attn_bwd=per_step,
+                audio_proj_fwd=1, mask_decoder_fwd=1)
+    if check["card_launches"] != want:
+        bad.append(f"default train step: launches "
+                   f"{check['card_launches']} != {want}")
+    for name, n in check["card_launches"].items():
+        total[name] += n
+    state["launches"]["configs"] = total
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"card": state["card"], "forwards_batch2": out,
+            "default_train_step_dropout0_batch2": check}
 
 
 def phase_serve(state):
@@ -852,7 +1008,8 @@ def phase_train(state):
     step_ms = float(np.mean([r["ms"] for r in rows[1:]]))
     audio_s = cfg.train.batch_size * cfg.data.duration
 
-    check = _train_cpu_check(bad)
+    cfg0, batches0 = _scaled_train_setup(0.0, 8, 2)
+    check = _train_cpu_check(bad, cfg0, next(batches0))
     if bad:
         raise AssertionError("; ".join(bad))
     return {"config": "scaled", "card": state["card"],
@@ -863,10 +1020,11 @@ def phase_train(state):
             "cpu_check_dropout0_batch2": check}
 
 
-def _train_cpu_check(bad: list) -> dict:
-    """One step of the scaled config at dropout 0 and batch 2 through
-    make_train_step on the card, against the same weights and batch on the
-    CPU in float64 (forward, loss, backward, the same clip).
+def _train_cpu_check(bad: list, cfg0, batch0) -> dict:
+    """One step of `cfg0` (dropout 0) on `batch0` through make_train_step
+    on the card, against the same weights and batch on the CPU in float64
+    (forward, loss, backward, the same clip); the card step's launches are
+    counted from 0.
 
     Float64 is the reference because the CPU's own float32 run can be the
     noisier side (its float32 loss reductions over 257k elements); its
@@ -874,10 +1032,9 @@ def _train_cpu_check(bad: list) -> dict:
     the loss (SI-SNR in dB plus L1) to 1e-3, the global norm to 1e-4
     relative, every clipped gradient element to 1e-3 of the largest."""
     from av_separation_torch.losses import separation_loss
+    from av_separation_torch.ops import kernels
     from av_separation_torch.train import create_train_state, make_train_step
 
-    cfg0, batches0 = _scaled_train_setup(0.0, 8, 2)
-    batch0 = next(batches0)
     ref = create_train_state(cfg0, device="cpu").model.double()
     mixed, frames, clean = (torch.as_tensor(batch0[k], dtype=torch.float64)
                             for k in ("mixed_spec", "lip_frames",
@@ -894,7 +1051,12 @@ def _train_cpu_check(bad: list) -> dict:
     runs = {}
     for device in ("cuda", "cpu"):
         s0 = create_train_state(cfg0, device=device)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
         s0, met = make_train_step(cfg0)(s0, batch0)
+        torch.cuda.synchronize()
+        if device == "cuda":
+            launches = dict(kernels.LAUNCHES)
         runs[device] = (float(met["loss"]), float(met["grad_norm"]), max(
             float((p.grad.double().cpu() - g_ref[n] * clip).abs().max())
             for n, p in s0.model.named_parameters()))
@@ -910,7 +1072,8 @@ def _train_cpu_check(bad: list) -> dict:
             "grad_norm": [n_g, n_ref, 1e-4 * n_ref],
             "max_grad_err": [g_err, g_max, 1e-3 * g_max],
             "cpu_float32": {"loss": l_c, "grad_norm": n_c,
-                            "max_grad_err": g_err_c}}
+                            "max_grad_err": g_err_c},
+            "card_launches": launches}
 
 
 def phase_train_profile(state):
@@ -1221,6 +1384,7 @@ def main() -> int:
     failed = []
     for name, phase in (("env", phase_env), ("build", phase_build),
                         ("kernels", phase_kernels), ("golden", phase_golden),
+                        ("configs", phase_configs),
                         ("serve", phase_serve), ("profile", phase_profile),
                         ("train", phase_train),
                         ("train_profile", phase_train_profile),

@@ -18,7 +18,13 @@ kernels in interpret mode:
   - `csrc/flash_attn_bwd.cu`: the same 3xTF32 products in the backward's
     tiles (dK/dV over 64-key blocks and 16-query tiles, dQ over 64-row
     blocks and 16-key tiles, no atomics) with the JAX dropout mask;
-and the STFT wrapper's choice of route, plan and tile by shape.
+  - `csrc/mask_decoder.cu`: both GEMMs in 3xTF32 over the kernel's row
+    tiles, 256-column chunks (S*F padded) and 32-deep k tiles, the GELU
+    tile kept between them, the sigmoid and the transposed (S, F, T) store;
+  - `csrc/audio_proj.cu`: both convs as implicit GEMMs in 3xTF32 over the
+    kernel's frame tiles (hidden rows with their halo, zero outside
+    [0, T)), K padded per tap to a multiple of 8 (257 -> 264);
+and the wrappers' choice of route, plan and tile by shape.
 """
 
 import re
@@ -416,11 +422,13 @@ class TestThreeTf32:
     # cut to 1: 3xTF32 holds the kernel's float32 tolerances (2e-5 on o,
     # 1e-4 on lse) against the plain float32 version, 1xTF32 does not; with
     # the kernel's masking split and with cvt.rna.
+    # Also at dh 64, the reference's default model (d 256, 4 heads).
+    @pytest.mark.parametrize("dh", [128, 64])
     @pytest.mark.parametrize("kind", ["mask", "rna"])
     @pytest.mark.parametrize("rate", [0.0, 0.1])
     def test_3xtf32_holds_float32_tolerance_and_1xtf32_does_not(self, rate,
-                                                                kind):
-        t, dh = 501, 128
+                                                                kind, dh):
+        t = 501
         q, k, v = rand((t, dh), 61), rand((t, dh), 62), rand((t, dh), 63)
         o_ref, lse_ref = flash_attn_fwd_torch(
             *(torch.from_numpy(x)[None, None] for x in (q, k, v)), rate,
@@ -499,10 +507,12 @@ class TestBackwardThreeTf32:
     # The audio self-attention shape (Tq = Tk = 501, dh 128) with B and H
     # cut to 1, as the card's kernel row holds it: 3xTF32 keeps dQ, dK and
     # dV within the kernel's 2e-5 of the plain float32 version; 1xTF32 does
-    # not.
+    # not.  Also at dh 64.
+    @pytest.mark.parametrize("dh", [128, 64])
     @pytest.mark.parametrize("rate", [0.0, 0.1])
-    def test_3xtf32_holds_float32_tolerance_and_1xtf32_does_not(self, rate):
-        inputs, ref = _bwd_case(501, 501, 128, rate, (70, 71, 72, 73))
+    def test_3xtf32_holds_float32_tolerance_and_1xtf32_does_not(self, rate,
+                                                                dh):
+        inputs, ref = _bwd_case(501, 501, dh, rate, (70, 71, 72, 73))
         got = flash_bwd_tiles_emulated(*inputs, rate, SEED, 3)
         for name, g, r in zip(("dq", "dk", "dv"), got, ref):
             assert np.abs(g - r).max() <= 2e-5, name
@@ -512,22 +522,280 @@ class TestBackwardThreeTf32:
     # A ragged shape (Tq 37, Tk 45: partial tiles and blocks at both
     # edges) against the JAX vjp with the Pallas kernels in interpret mode,
     # at test_torch_kernels.py's backward tolerance.
+    @pytest.mark.parametrize("dh", [128, 64])
     @pytest.mark.parametrize("rate", [0.0, 0.3])
-    def test_matches_jax_vjp(self, rate):
+    def test_matches_jax_vjp(self, rate, dh):
         import jax
         import jax.numpy as jnp
 
         from av_separation_tpu.ops.pallas.attention import (
-            flash_attention_packed_qkv)
-        inputs, _ = _bwd_case(37, 45, 128, rate, (74, 75, 76, 77))
+            flash_attention, flash_attention_packed_qkv)
+        inputs, _ = _bwd_case(37, 45, dh, rate, (74, 75, 76, 77))
         q, k, v, o, do, lse = inputs
         seed = jnp.asarray([SEED], jnp.int32) if rate > 0 else None
+        # The packed (B, T, H*dh) kernel takes dh 128; dh 64 goes through
+        # the split (B, H, T, dh) one, as the JAX model routes it.
+        if dh % 128:
+            fn, lead = (lambda a, b, c: flash_attention(
+                a, b, c, dropout_rate=rate, dropout_seed=seed)), (1, 1)
+        else:
+            fn, lead = (lambda a, b, c: flash_attention_packed_qkv(
+                a, b, c, 1, dropout_rate=rate, dropout_seed=seed)), (1,)
         with pltpu.force_tpu_interpret_mode():
-            _, vjp = jax.vjp(lambda a, b, c: flash_attention_packed_qkv(
-                a, b, c, 1, dropout_rate=rate, dropout_seed=seed),
-                *(jnp.asarray(x[None]) for x in (q, k, v)))
-            want = vjp(jnp.asarray(do[None]))
+            _, vjp = jax.vjp(fn, *(jnp.asarray(x.reshape(lead + x.shape))
+                                   for x in (q, k, v)))
+            want = vjp(jnp.asarray(do.reshape(lead + do.shape)))
         got = flash_bwd_tiles_emulated(*inputs, rate, SEED, 3)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            np.testing.assert_allclose(g, np.asarray(w)[0], atol=5e-5,
-                                       rtol=1e-4, err_msg=name)
+            np.testing.assert_allclose(g, np.asarray(w).reshape(g.shape),
+                                       atol=5e-5, rtol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32 products in the mask decoder's and the projection's tiles.
+# ---------------------------------------------------------------------------
+
+BN = 128  # the kernels' output columns a block
+
+
+def tiled_product(a, w_rows, passes, bk=32):
+    """a (M, K) times w_rows (N, K)^T as the tiled kernels sum it: k in
+    tiles of `bk`, each tile's product added to float32 accumulators."""
+    f32 = np.float32
+    acc = np.zeros((a.shape[0], w_rows.shape[0]), f32)
+    for k0 in range(0, a.shape[1], bk):
+        acc = (acc + product(a[:, k0:k0 + bk], w_rows[:, k0:k0 + bk].T,
+                             passes)).astype(f32)
+    return acc
+
+
+def erf_gelu(v):
+    from scipy.special import erf
+    return (0.5 * v * (1.0 + erf(v / np.sqrt(2.0)))).astype(np.float32)
+
+
+def decoder_tiles_emulated(x, w1, b1, w2, b2, mixed, s, passes, rows=128):
+    """(B, T, d) -> (separated, masks) in (B, S, F, T) as mask_decoder.cu
+    computes them: over the B*T rows in blocks of `rows` (rows past B*T
+    zero) and 128 output columns (weight rows past S*F zero), the first
+    GEMM + b1 + erf GELU into the hidden buffer, the second + b2 + sigmoid,
+    each block's tile stored column by column along T (row m is frame
+    m % T of utterance m // T).  w1 (2d, d) and w2 (S*F, 2d) in the torch
+    Linear layout, as the kernel reads them."""
+    f32 = np.float32
+    b, t, d = x.shape
+    f = mixed.shape[1]
+    sf = s * f
+    m_all = b * t
+
+    def gemm(a, w, bias, act):
+        m_pad = -(-m_all // rows) * rows
+        n_pad = -(-w.shape[0] // BN) * BN
+        ap = np.zeros((m_pad, a.shape[1]), f32)
+        ap[:m_all] = a
+        wp = np.zeros((n_pad, w.shape[1]), f32)
+        wp[:w.shape[0]] = w
+        out = np.zeros((m_pad, n_pad), f32)
+        for m0 in range(0, m_pad, rows):
+            for n0 in range(0, n_pad, BN):
+                out[m0:m0 + rows, n0:n0 + BN] = tiled_product(
+                    ap[m0:m0 + rows], wp[n0:n0 + BN], passes)
+        return act((out[:m_all, :w.shape[0]] + bias).astype(f32))
+
+    hidden = gemm(x.reshape(m_all, d), w1, b1, erf_gelu)
+    masks_mo = gemm(hidden, w2, b2,
+                    lambda v: (f32(1) / (f32(1) + np.exp(-v))).astype(f32))
+    masks = np.zeros(b * sf * t, f32)
+    sep = np.zeros(b * sf * t, f32)
+    m = np.arange(m_all)[:, None]
+    o = np.arange(sf)[None, :]
+    bi, tt = m // t, m % t
+    idx = (bi * sf + o) * t + tt                 # the staged (S, F, T) store
+    masks[idx] = masks_mo
+    sep[idx] = masks_mo * mixed[bi, o % f, tt]
+    return sep.reshape(b, s, f, t), masks.reshape(b, s, f, t)
+
+
+def proj_tiles_emulated(x, w1, b1, w2, b2, passes, rows=64):
+    """(B, T, F) -> (y, h) as audio_proj.cu computes them, one launch a
+    conv: blocks of `rows` frames of one utterance stage rows + 2 input
+    frames (zero outside [0, T)), channels 16 at a time with C_in padded
+    to a multiple of 8 (257 -> 264), and sum each tap's product into float32
+    accumulators (A row r, tap k reads staged row r + k); conv2 stages h the
+    same way, so h is zero outside [0, T)."""
+    f32 = np.float32
+    b, t, _ = x.shape
+    d = w1.shape[-1]
+
+    def conv(src, w, bias):
+        cin = src.shape[-1]
+        kc = -(-cin // 8) * 8
+        t_pad = -(-t // rows) * rows
+        sp = np.zeros((b, t_pad + 2, kc), f32)  # frame tt at row tt + 1
+        sp[:, 1:t + 1, :cin] = src
+        wp = np.zeros((3, kc, d), f32)
+        wp[:, :cin] = w
+        out = np.zeros((b, t_pad, d), f32)
+        for t0 in range(0, t_pad, rows):
+            acc = np.zeros((b, rows, d), f32)
+            for c0 in range(0, kc, 16):
+                for tap in range(3):
+                    a = sp[:, t0 + tap:t0 + tap + rows, c0:c0 + 16]
+                    acc = (acc + product(a.reshape(-1, a.shape[-1]),
+                                         wp[tap, c0:c0 + 16], passes
+                                         ).reshape(acc.shape)).astype(f32)
+            out[:, t0:t0 + rows] = acc
+        return np.maximum(out[:, :t] + bias, 0).astype(f32)
+
+    h = conv(x, w1, b1)
+    return conv(h, w2, b2), h
+
+
+def _decoder_case(b, t, d, s, f, seed, mixed_scale=10.0):
+    """The card's decoder rows: x ~ N(0, 1), torch Linear initialisation,
+    mixed = 10 |N(0, 1)|; weights in the torch layout."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    lim1, lim2 = d ** -0.5, (2 * d) ** -0.5
+    x = rng.normal(size=(b, t, d)).astype(f32)
+    w1 = rng.uniform(-lim1, lim1, (2 * d, d)).astype(f32)
+    b1 = rng.uniform(-lim1, lim1, 2 * d).astype(f32)
+    w2 = rng.uniform(-lim2, lim2, (s * f, 2 * d)).astype(f32)
+    b2 = rng.uniform(-lim2, lim2, s * f).astype(f32)
+    mixed = (np.abs(rng.normal(size=(b, f, t))) * mixed_scale).astype(f32)
+    return x, w1, b1, w2, b2, mixed
+
+
+def _proj_case(b, t, f, d, seed):
+    """The card's projection rows: x = |N(0, 1)|, torch Conv1d
+    initialisation, in the flax (3, C_in, C_out) layout."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    lim1, lim2 = (3 * f) ** -0.5, (3 * d) ** -0.5
+    return (np.abs(rng.normal(size=(b, t, f))).astype(f32),
+            rng.uniform(-lim1, lim1, (3, f, d)).astype(f32),
+            rng.uniform(-lim1, lim1, d).astype(f32),
+            rng.uniform(-lim2, lim2, (3, d, d)).astype(f32),
+            rng.uniform(-lim2, lim2, d).astype(f32))
+
+
+class TestDecoderThreeTf32:
+    # F 257, S 3 (771 columns: 6 full 128-column tiles and a 3-column one)
+    # and B*T 74 (a partial block of rows across the utterance boundary),
+    # against the plain version and the Pallas kernel in interpret mode
+    # (its (in, out) weights are the transposes; its erf approximation is
+    # within 1.5e-7: test_torch_kernels.py's 2e-6 on the masks, 2e-5 on
+    # separated at |mixed| ~ 4).
+    @pytest.mark.parametrize("rows", [128, 64, 32])
+    def test_matches_plain_and_pallas(self, rows):
+        import jax.numpy as jnp
+
+        from av_separation_torch.ops.kernels.decoder import (
+            mask_decoder_fwd_torch)
+        from av_separation_tpu.ops.pallas.decoder import fused_mask_decoder
+        b, t, d, s, f = 2, 37, 64, 3, 257
+        x, w1, b1, w2, b2, mixed = _decoder_case(b, t, d, s, f, 80, 4.0)
+        sep, masks = decoder_tiles_emulated(x, w1, b1, w2, b2, mixed, s, 3,
+                                            rows)
+        sep_p, masks_p = mask_decoder_fwd_torch(
+            *(torch.from_numpy(a) for a in (x, w1, b1, w2, b2, mixed)), s)
+        np.testing.assert_allclose(masks, masks_p.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(sep, sep_p.numpy(),
+                                   atol=1e-5 * np.abs(mixed).max(), rtol=0)
+        with pltpu.force_tpu_interpret_mode():
+            sep_j, masks_j = fused_mask_decoder(
+                *(jnp.asarray(a) for a in (x, w1.T, b1, w2.T, b2, mixed)),
+                s, f)
+        np.testing.assert_allclose(masks, np.asarray(masks_j), atol=2e-6,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(sep, np.asarray(sep_j), atol=2e-5,
+                                   rtol=1e-5)
+
+    # The scaled serving shape (T 501, d 512, S 2, F 257) with B cut to 1,
+    # as the card's row holds it: 3xTF32 keeps the masks within 1e-5 and
+    # separated within 1e-5 of the peak of mixed; 1xTF32 does not.
+    def test_3xtf32_holds_float32_tolerance_and_1xtf32_does_not(self):
+        from av_separation_torch.ops.kernels.decoder import (
+            mask_decoder_fwd_torch)
+        x, w1, b1, w2, b2, mixed = _decoder_case(1, 501, 512, 2, 257, 81)
+        sep_p, masks_p = (a.numpy() for a in mask_decoder_fwd_torch(
+            *(torch.from_numpy(a) for a in (x, w1, b1, w2, b2, mixed)), 2))
+        sep_tol = 1e-5 * np.abs(mixed).max()
+        sep3, masks3 = decoder_tiles_emulated(x, w1, b1, w2, b2, mixed, 2, 3)
+        assert np.abs(masks3 - masks_p).max() <= 1e-5
+        assert np.abs(sep3 - sep_p).max() <= sep_tol
+        sep1, masks1 = decoder_tiles_emulated(x, w1, b1, w2, b2, mixed, 2, 1)
+        assert np.abs(masks1 - masks_p).max() > 1e-5 \
+            or np.abs(sep1 - sep_p).max() > sep_tol
+
+    # (B*T, columns) -> block rows on 132 SMs: the largest tile whose grid
+    # still gives every SM a block.
+    @pytest.mark.parametrize("m,n,rows", [
+        (8 * 501, 1024, 128), (8 * 501, 514, 128),      # scaled: 256, 160
+        (8 * 63, 1024, 32), (8 * 63, 771, 32),          # three_speaker
+        (16 * 501, 2048, 128), (16 * 501, 1028, 128),   # multihost
+        (4 * 63, 256, 32)])                             # demo
+    def test_rows_by_shape(self, m, n, rows):
+        from av_separation_torch.ops.kernels.decoder import decoder_rows
+        assert decoder_rows(m, n, 132) == rows
+
+
+class TestProjectionThreeTf32:
+    # F 257 (K padded to 264), T 37 (a partial block), against the plain
+    # version and the Pallas kernel in interpret mode at
+    # test_torch_kernels.py's 2e-5 + 1e-4 relative.
+    @pytest.mark.parametrize("rows", [128, 64, 32])
+    def test_matches_plain_and_pallas(self, rows):
+        import jax.numpy as jnp
+
+        from av_separation_torch.ops.kernels.audio_proj import (
+            audio_proj_fwd_torch)
+        from av_separation_tpu.ops.pallas.audio_proj import _fwd_impl
+        args = _proj_case(2, 37, 257, 64, 82)
+        y, h = proj_tiles_emulated(*args, 3, rows)
+        y_p, h_p = audio_proj_fwd_torch(*(torch.from_numpy(a) for a in args))
+        np.testing.assert_allclose(y, y_p.numpy(), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(h, h_p.numpy(), atol=1e-4, rtol=0)
+        with pltpu.force_tpu_interpret_mode():
+            y_j, h_j = _fwd_impl(*(jnp.asarray(a) for a in args))
+        np.testing.assert_allclose(y, np.asarray(y_j), atol=2e-5, rtol=1e-4)
+        np.testing.assert_allclose(h, np.asarray(h_j), atol=2e-5, rtol=1e-4)
+
+    def test_hidden_halo_is_zero_not_relu_bias(self):
+        # x = 0, b1 = 1: h = 1 inside [0, T), and conv2 at the first and
+        # last frames sees zeros beyond them: 2 taps of ones, not 3.
+        t, f, d = 70, 257, 64
+        x = np.zeros((1, t, f), np.float32)
+        w1 = np.zeros((3, f, d), np.float32)
+        w2 = np.full((3, d, d), 1.0 / d, np.float32)
+        y, h = proj_tiles_emulated(x, w1, np.ones(d, np.float32), w2,
+                                   np.zeros(d, np.float32), 3)
+        assert np.all(h == 1.0)
+        np.testing.assert_allclose(y[0, [0, t - 1]], 2.0, rtol=1e-6)
+        np.testing.assert_allclose(y[0, 1:t - 1], 3.0, rtol=1e-6)
+
+    # The scaled serving shape (T 501, F 257, D 512) with B cut to 1: 3xTF32
+    # keeps y and h within the card's 1e-4 of the plain version; 1xTF32
+    # does not.
+    def test_3xtf32_holds_float32_tolerance_and_1xtf32_does_not(self):
+        from av_separation_torch.ops.kernels.audio_proj import (
+            audio_proj_fwd_torch)
+        args = _proj_case(1, 501, 257, 512, 83)
+        y_p, h_p = (a.numpy() for a in audio_proj_fwd_torch(
+            *(torch.from_numpy(a) for a in args)))
+        y3, h3 = proj_tiles_emulated(*args, 3)
+        assert np.abs(y3 - y_p).max() <= 1e-4
+        assert np.abs(h3 - h_p).max() <= 1e-4
+        y1, h1 = proj_tiles_emulated(*args, 1)
+        assert max(np.abs(y1 - y_p).max(), np.abs(h1 - h_p).max()) > 1e-4
+
+    # (B, T, D) -> frames a block on 132 SMs.
+    @pytest.mark.parametrize("shape,rows", [
+        ((8, 501, 512), 64),      # scaled: 256 blocks (128 frames: 128)
+        ((4, 63, 128), 32),       # demo
+        ((8, 63, 512), 32),       # three_speaker
+        ((16, 501, 1024), 128),   # multihost: 512 blocks
+        ((2, 376, 512), 32)])     # lrs2, batch 2
+    def test_rows_by_shape(self, shape, rows):
+        from av_separation_torch.ops.kernels.audio_proj import proj_rows
+        assert proj_rows(*shape, 132) == rows

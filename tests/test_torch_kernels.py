@@ -126,8 +126,10 @@ class TestMaskDecoder:
         mixed = rand((b, f, t), 17)
         sep_ref, masks_ref = fused_mask_decoder(
             *(jnp.asarray(a) for a in (x, w1, b1, w2, b2, mixed)), s, f)
+        # The port takes the torch Linear layout (out, in).
         sep, masks = mask_decoder_fwd(
-            *(torch.from_numpy(a) for a in (x, w1, b1, w2, b2, mixed)), s)
+            *(torch.from_numpy(np.ascontiguousarray(a))
+              for a in (x, w1.T, b1, w2.T, b2, mixed)), s)
         assert masks.shape == (b, s, f, t)
         np.testing.assert_allclose(masks.numpy(), np.asarray(masks_ref),
                                    atol=2e-6, rtol=1e-5)
@@ -200,8 +202,8 @@ class TestDispatch:
         d = 64
         audio_proj_fwd(torch.zeros(1, 4, 8), torch.zeros(3, 8, d),
                        torch.zeros(d), torch.zeros(3, d, d), torch.zeros(d))
-        mask_decoder_fwd(torch.zeros(1, 4, d), torch.zeros(d, 2 * d),
-                         torch.zeros(2 * d), torch.zeros(2 * d, 2 * 3),
+        mask_decoder_fwd(torch.zeros(1, 4, d), torch.zeros(2 * d, d),
+                         torch.zeros(2 * d), torch.zeros(2 * 3, 2 * d),
                          torch.zeros(2 * 3), torch.zeros(1, 3, 4), 2)
         stft_magnitude_fwd(torch.zeros(2, 300), 64, 32)   # the FFT route's
         stft_magnitude_fwd(torch.zeros(2, 300), 56, 32)   # the DFT route's
@@ -211,6 +213,20 @@ class TestDispatch:
                                     "mask_decoder_fwd": 0,
                                     "stft_mag_fwd": 0,
                                     "stft_mag_dft_fwd": 0}
+
+    # The flash kernels' head dims: demo (32), the reference's default
+    # model ModelConfig() (d 256 / 4 heads = 64), every wider config (128).
+    @pytest.mark.parametrize("dh", [32, 64, 128])
+    def test_flash_checks_accept_the_configs_head_dims(self, dh):
+        from av_separation_torch.ops.kernels.attention import _check
+        q = torch.zeros(2, 4, 9, dh)
+        _check(q, q, q)
+
+    def test_flash_checks_refuse_other_head_dims(self):
+        from av_separation_torch.ops.kernels.attention import _check
+        q = torch.zeros(2, 4, 9, 96)
+        with pytest.raises(ValueError, match="head dim 96"):
+            _check(q, q, q)
 
     def test_other_devices_raise(self):
         q = torch.empty(1, 2, 5, 32, device="meta")
@@ -449,11 +465,17 @@ class TestFusedBackward:
         _, vjp = jax.vjp(lambda *a: fused_mask_decoder(*a, s, f),
                          *(jnp.asarray(a) for a in args))
         want = vjp((jnp.asarray(g_sep), jnp.asarray(g_mask)))
-        ts = [torch.from_numpy(a).requires_grad_() for a in args]
+        # The port takes the weights in the torch Linear layout (out, in)
+        # and returns their gradients in it.
+        ts = [torch.from_numpy(np.ascontiguousarray(a.T if i in (1, 3)
+                                                    else a)).requires_grad_()
+              for i, a in enumerate(args)]
         sep, masks = mask_decoder(*ts, s)
         torch.autograd.backward((sep, masks), (torch.from_numpy(g_sep),
                                                torch.from_numpy(g_mask)))
-        for name, t_, w in zip(("x", "w1", "b1", "w2", "b2", "mixed"), ts,
-                               want):
-            np.testing.assert_allclose(t_.grad.numpy(), np.asarray(w),
-                                       atol=2e-5, rtol=1e-4, err_msg=name)
+        for i, (name, t_, w) in enumerate(zip(
+                ("x", "w1", "b1", "w2", "b2", "mixed"), ts, want)):
+            got = t_.grad.numpy()
+            np.testing.assert_allclose(got.T if i in (1, 3) else got,
+                                       np.asarray(w), atol=2e-5, rtol=1e-4,
+                                       err_msg=name)
