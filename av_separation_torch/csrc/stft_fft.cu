@@ -1,45 +1,67 @@
 // STFT magnitude as a shared-memory FFT, float32, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/stft.py `_stft_kernel` (called from
-// `stft_magnitude_pallas`) for every n_fft in [8, 4096] that is a multiple
-// of 4 and whose half M = n_fft/2 has no prime factor above 5: the powers of
-// two (every config of the repository uses n_fft 512) and the speech
-// front ends' 400 (M = 200), 480, 320.  Other n_fft keep the matrix DFT of
-// stft_mag.cu, chosen by shape in ops/kernels/stft.py.  Semantics are those
-// of the Pallas kernel: symmetric Hann window, frame i starting at sample
-// i*hop, no centering, samples past N read as zero; audio (B, N) float32,
-// mag (B, F, T) float32, F = n_fft/2 + 1.
+// `stft_magnitude_pallas`) for every n_fft in [2, 4096], at any hop and any
+// number of signals.  n_fft above 4096 takes the matrix DFT of stft_mag.cu,
+// chosen by shape in ops/kernels/stft.py.  Semantics are those of the
+// Pallas kernel: symmetric Hann window, frame i starting at sample i*hop,
+// no centering, samples past N read as zero; audio (B, N) float32, mag
+// (B, F, T) float32, F = n_fft/2 + 1.
 //
-// Bound on the H100 at the scaled device batch (24 signals of 64,000
-// samples, n_fft 512, hop 128, T 501): a real FFT needs 2.5 n_fft
-// log2(n_fft) FLOPs a frame, 0.139 GFLOP in all (2 us at 67 TFLOP/s), against
-// 18.5 MB of audio in and spectra out (5.5 us at 3.35 TB/s): bound by bytes.
-// The matrix DFT of stft_mag.cu does 4 n_fft F FLOPs a frame, 50x more.
+// Bound on the H100, for the function and not this algorithm: the audio
+// read once and the spectra written once, against a real FFT's
+// 2.5 n_fft log2(n_fft) FLOPs a frame at 67 TFLOP/s.  At the scaled device
+// batch (24 signals of 64,000 samples, n_fft 512, hop 128, T 501): 18.5 MB
+// (5.5 us at 3.35 TB/s) against 0.139 GFLOP (2 us): bound by bytes, as is
+// every shape of the repository.  The matrix DFT does 4 n_fft F FLOPs a
+// frame, 50x more at n_fft 512.
 //
-// Design: a block owns one signal and a tile of `tf` frames.  It stages the
+// Design: a block owns one signal and a tile of `tf` frames (the grid folds
+// signals and tiles into x, so any number of signals runs).  It stages the
 // tile's audio span, (tf-1)*hop + n_fft samples, into shared memory once
-// with cp.async (16-byte copies when the rows allow it, else 4-byte; the
-// src-size 0 form zero-fills samples past N).  Each frame is windowed and
-// packed as a half-length complex sequence z[n] = x[2n] + i x[2n+1]
-// (M = n_fft/2 points), transformed by a mixed-radix Stockham FFT in
-// shared memory, one stage a radix of the host's plan (`Plan`: one radix-2
-// stage when M's power of two has an odd exponent, then radix 4, then 3,
-// then 5; for M = 256 four radix-4 stages, for M = 200 the radices 2, 4, 5,
-// 5); ping-pong between two buffers, one __syncthreads a stage, no digit
-// reversal, and each butterfly reads z[j + r M/R], so a warp reads
-// consecutive words.  A power-of-two M indexes its stages by shifts and
-// masks; the mixed-radix plan divides by per-stage constants (M/R, the
-// stride ns) computed on the host (`FastDiv`: a multiply and a shift), not
-// `%`.  Then
-// a split step gives the M+1 bins of the real transform:
-//     X[k] = (Z[k] + Z*[M-k]) / 2 - i W^k (Z[k] - Z*[M-k]) / 2,  Z[M] = Z[0],
-// with W = exp(-2 pi i / n_fft).  Twiddles and the window are float32
-// tables built on the host in float64; the radix-3 and radix-5 butterflies'
-// constants are float64 values rounded to float32.  Magnitudes go to a
-// (bin, frame) stage at row stride tf+1 (odd, conflict-free), from which
-// each warp stores consecutive frames of one bin: coalesced along T.  The
-// wrapper sizes `tf` (a power of two <= 8) to fit shared memory and to give
-// the grid at least two blocks per SM where the batch allows.
+// with cp.async (16-byte copies when hop and N are multiples of 4 and the
+// rows are 16-byte aligned, the span's ragged tail by 4-byte copies; else
+// 4-byte copies throughout; the src-size 0 form zero-fills samples past N).
+// Each frame is windowed and packed into complex sequences of L points:
+//   - even n_fft: z[n] = x[2n] + i x[2n+1], L = n_fft/2, one frame a
+//     sequence (pairs read as float2 at an even hop, sample by sample at
+//     an odd one), and after the FFT a split step gives the M+1 = L+1 bins:
+//       X[k] = (Z[k] + Z*[M-k]) / 2 - i W^k (Z[k] - Z*[M-k]) / 2,
+//     Z[M] = Z[0], W = exp(-2 pi i / n_fft);
+//   - odd n_fft: frames 2s and 2s+1 of the tile as the real and imaginary
+//     parts of one sequence of L = n_fft points (the second zero at
+//     tf = 1), separated after the FFT:
+//       X1[k] = (Z[k] + Z*[L-k]) / 2,  X2[k] = (Z[k] - Z*[L-k]) / 2i.
+// The L-point transform is a Stockham FFT in shared memory, one stage a
+// radix of the host's plan: a power of two 2^e in radix-8 stages after one
+// radix-2 or radix-4 stage for e mod 3 (L = 256: 4, 8, 8); another length
+// one radix-2 stage when its power of two has an odd exponent, then radix
+// 4, 3, 5 and 7 (224: 2, 4, 4, 7; 441: 3, 3, 7, 7).  A length with a prime
+// factor above 7 (L = 257,
+// 551, 4093) takes Bluestein's chirp-z transform: with the chirp
+// c[n] = exp(i pi n^2 / L), X[k] = c*[k] sum_n (z[n] c*[n]) c[k-n], a
+// circular convolution of P >= 2L-1 points (a power of two): multiply by
+// c*[n] and zero-pad to P; P-point FFT; multiply by the transform of the
+// chirp (host float64, divided by P); conjugate; P-point FFT again (the
+// inverse, as conj(FFT(conj y))); X[k] = c*[k] conj(V[k]), taken as the
+// split step reads it.  The chirp's phase n^2 mod 2L is computed in
+// integers on the host, so no float32 angle grows with n; the chirp and
+// its transform, read once an element, come from global memory through L2.
+// Every stage ping-pongs between two buffers with one __syncthreads, no
+// digit reversal; each butterfly reads z[j + r len/R], so a warp reads
+// consecutive words.  A power-of-two length indexes its stages by shifts
+// and masks; the mixed-radix plan divides by per-stage constants computed
+// on the host (`FastDiv`: a multiply and a shift), not `%`.  Twiddles,
+// window, chirp and its transform are float32 tables built on the host in
+// float64; the radix-3, -5, -7 and -8 butterflies' constants are float64
+// values rounded to float32.  Magnitudes go to a (bin, frame) stage at row
+// stride tf+1 (odd, conflict-free), from which each warp stores
+// consecutive frames of one bin: coalesced along T.  The wrapper sizes
+// `tf` (a power of two <= 8) so that four blocks share an SM where they
+// can (else two, else one) and the grid gives every SM two blocks where
+// the batch allows; one frame fits at every n_fft (the largest block, odd
+// n_fft near 4096 under Bluestein with P = 8192: two 64 KB work regions, a
+// 32 KB twiddle table and the 16 KB window).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,11 +70,18 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxStages = 12;  // M <= 2048: at most 11 radices
+constexpr int kMaxStages = 12;  // L <= 4095: at most 7 radices
+constexpr int kMaxSmem = 232448;
+constexpr int kMaxPad = 8192;   // Bluestein's P for L <= 4095
 
-// n / d for 0 <= n < 2^16 and d <= 2^12 as (n m) >> 31 with
-// m = ceil(2^31 / d): the error n (m d - 2^31) / (d 2^31) < 1/d is too
-// small to reach the next integer (d a power of two: m is exact).
+// The three transforms: a power-of-two L, a 7-smooth L (mixed radix), and
+// Bluestein's chirp-z over a power-of-two P.
+enum { kPow2 = 0, kMixed = 1, kBluestein = 2 };
+
+// n / d as (n m) >> 31 with m = ceil(2^31 / d): the error
+// n (m d - 2^31) / (d 2^31) stays below 1/d, too small to reach the next
+// integer, while n (m d - 2^31) < 2^31, so wherever n d <= 2^31 (every
+// division here: n < 2^16, d < 2^12; the host checks each range).
 struct FastDiv {
   unsigned m;
   static FastDiv of(unsigned d) { return {((1u << 31) + d - 1) / d}; }
@@ -62,18 +91,31 @@ struct FastDiv {
   }
 };
 
-// One Stockham stage of the plan, its constants computed on the host.
+// One Stockham stage of the mixed-radix plan, its constants computed on the
+// host.
 struct Stage {
   int radix;
   int ns;      // product of the earlier stages' radices
-  int tw;      // twiddle step 2M / (radix ns)
-  FastDiv mr;  // by M / radix
+  int tw;      // twiddle step 2 half / (radix ns)
+  FastDiv mr;  // by len / radix
   FastDiv by_ns;
 };
+static_assert(sizeof(Stage) == 20, "ops/kernels/stft.py STAGE_TABLE_BYTES");
 
-struct Plan {
-  int n;
-  FastDiv m, f;  // by M and by F = M + 1
+// What a launch computes, by value in the kernel's parameters.
+struct Geometry {
+  int N, T, n_fft, hop, tf, log2tf, vec;
+  int L;        // the transform's length: n_fft / 2 (even), n_fft (odd)
+  int len;      // the FFT's length: L, or Bluestein's P
+  int log2len;  // when len is a power of two
+  int half;     // the twiddle table holds W^0 .. W^half, W = exp(-pi i/half)
+  int log2q;    // log2(2 half) when len is a power of two
+  int seq;      // sequences a block: tf (even n_fft), ceil(tf / 2) (odd)
+  int F;        // n_fft / 2 + 1
+  int tiles;    // frame tiles a signal
+  int region;   // floats of each work region
+  int n_stages;
+  FastDiv by_len, by_f;
   Stage stage[kMaxStages];
 };
 
@@ -81,12 +123,15 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// W^idx, W = exp(-2 pi i / n_fft), for idx in [0, 2M) from the table of
-// W^0 .. W^M.
+__device__ __forceinline__ float2 conjugate(float2 a) {
+  return make_float2(a.x, -a.y);
+}
+
+// W^idx for idx in [0, 2 half) from the table of W^0 .. W^half.
 __device__ __forceinline__ float2 twiddle_at(const float2* sW, int idx,
-                                             int M) {
-  const float2 w = sW[idx <= M ? idx : idx - M];
-  return idx <= M ? w : make_float2(-w.x, -w.y);
+                                             int half) {
+  const float2 w = sW[idx <= half ? idx : idx - half];
+  return idx <= half ? w : make_float2(-w.x, -w.y);
 }
 
 // The R-point DFT in place, X[m] = sum_r v[r] exp(-2 pi i m r / R).
@@ -112,13 +157,20 @@ __device__ __forceinline__ void butterfly<4>(float2 (&v)[4]) {
   v[3] = make_float2(a1.x - a3.x, a1.y - a3.y);
 }
 
-// sin(2 pi / 3), cos and sin of 2 pi / 5 and 4 pi / 5, float64 rounded to
-// float32.
+// sin(2 pi / 3); cos and sin of 2 pi / 5 and 4 pi / 5; of 2 pi j / 7 for
+// j = 1, 2, 3; sin(pi / 4): float64 rounded to float32.
 constexpr float kS3 = 0.8660254037844386f;
 constexpr float kC5a = 0.30901699437494745f;
 constexpr float kC5b = -0.8090169943749475f;
 constexpr float kS5a = 0.9510565162951535f;
 constexpr float kS5b = 0.5877852522924731f;
+constexpr float kC7a = 0.6234898018587336f;
+constexpr float kC7b = -0.22252093395631434f;
+constexpr float kC7c = -0.9009688679024191f;
+constexpr float kS7a = 0.7818314824680298f;
+constexpr float kS7b = 0.9749279121818236f;
+constexpr float kS7c = 0.43388373911755823f;
+constexpr float kS8 = 0.7071067811865476f;
 
 template <>
 __device__ __forceinline__ void butterfly<3>(float2 (&v)[3]) {
@@ -153,257 +205,440 @@ __device__ __forceinline__ void butterfly<5>(float2 (&v)[5]) {
   v[3] = make_float2(c2.x - e2.x, c2.y - e2.y);
 }
 
+// Radix 7 from the pairs a_j = v_j + v_{7-j}, b_j = v_j - v_{7-j}:
+// X_m = c_m - i s_m and X_{7-m} = c_m + i s_m, with
+// c_m = v_0 + sum_j cos(2 pi m j / 7) a_j, s_m = sum_j sin(2 pi m j / 7) b_j.
+template <>
+__device__ __forceinline__ void butterfly<7>(float2 (&v)[7]) {
+  const float2 a1 = make_float2(v[1].x + v[6].x, v[1].y + v[6].y);
+  const float2 b1 = make_float2(v[1].x - v[6].x, v[1].y - v[6].y);
+  const float2 a2 = make_float2(v[2].x + v[5].x, v[2].y + v[5].y);
+  const float2 b2 = make_float2(v[2].x - v[5].x, v[2].y - v[5].y);
+  const float2 a3 = make_float2(v[3].x + v[4].x, v[3].y + v[4].y);
+  const float2 b3 = make_float2(v[3].x - v[4].x, v[3].y - v[4].y);
+  const float2 x0 = v[0];
+  const float2 c1 = make_float2(x0.x + kC7a * a1.x + kC7b * a2.x + kC7c * a3.x,
+                                x0.y + kC7a * a1.y + kC7b * a2.y + kC7c * a3.y);
+  const float2 c2 = make_float2(x0.x + kC7b * a1.x + kC7c * a2.x + kC7a * a3.x,
+                                x0.y + kC7b * a1.y + kC7c * a2.y + kC7a * a3.y);
+  const float2 c3 = make_float2(x0.x + kC7c * a1.x + kC7a * a2.x + kC7b * a3.x,
+                                x0.y + kC7c * a1.y + kC7a * a2.y + kC7b * a3.y);
+  const float2 s1 = make_float2(kS7a * b1.x + kS7b * b2.x + kS7c * b3.x,
+                                kS7a * b1.y + kS7b * b2.y + kS7c * b3.y);
+  const float2 s2 = make_float2(kS7b * b1.x - kS7c * b2.x - kS7a * b3.x,
+                                kS7b * b1.y - kS7c * b2.y - kS7a * b3.y);
+  const float2 s3 = make_float2(kS7c * b1.x - kS7a * b2.x + kS7b * b3.x,
+                                kS7c * b1.y - kS7a * b2.y + kS7b * b3.y);
+  v[0] = make_float2(x0.x + a1.x + a2.x + a3.x, x0.y + a1.y + a2.y + a3.y);
+  v[1] = make_float2(c1.x + s1.y, c1.y - s1.x);  // c - i s
+  v[6] = make_float2(c1.x - s1.y, c1.y + s1.x);  // c + i s
+  v[2] = make_float2(c2.x + s2.y, c2.y - s2.x);
+  v[5] = make_float2(c2.x - s2.y, c2.y + s2.x);
+  v[3] = make_float2(c3.x + s3.y, c3.y - s3.x);
+  v[4] = make_float2(c3.x - s3.y, c3.y + s3.x);
+}
+
+// Radix 8 as two radix-4 DFTs of the even and odd terms, E and O:
+// X_m = E_m + W8^m O_m, X_{m+4} = E_m - W8^m O_m, W8 = exp(-pi i / 4).
+template <>
+__device__ __forceinline__ void butterfly<8>(float2 (&v)[8]) {
+  float2 e[4] = {v[0], v[2], v[4], v[6]};
+  float2 o[4] = {v[1], v[3], v[5], v[7]};
+  butterfly<4>(e);
+  butterfly<4>(o);
+  const float2 t[4] = {
+      o[0],
+      make_float2(kS8 * (o[1].x + o[1].y), kS8 * (o[1].y - o[1].x)),
+      make_float2(o[2].y, -o[2].x),
+      make_float2(kS8 * (o[3].y - o[3].x), -kS8 * (o[3].x + o[3].y))};
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    v[m] = make_float2(e[m].x + t[m].x, e[m].y + t[m].y);
+    v[m + 4] = make_float2(e[m].x - t[m].x, e[m].y - t[m].y);
+  }
+}
+
 // One butterfly of a Stockham stage of radix R: reads fin[r mr]
-// (mr = M/R), multiplies by W^{r t}, t = k 2M/(R ns) (W the n_fft-th root,
-// r t < 2M), takes the R-point DFT and writes fout[r ns].
+// (mr = len/R), multiplies by W^{r t} (W = exp(-pi i / half), r t <
+// 2 half), takes the R-point DFT and writes fout[r ns].
 template <int R>
 __device__ __forceinline__ void radix_step(const float2* fin, float2* fout,
                                            const float2* sW, int mr, int ns,
-                                           int t, int M) {
+                                           int t, int half) {
   float2 v[R];
   v[0] = fin[0];
 #pragma unroll
   for (int r = 1; r < R; ++r)
-    v[r] = cmul(fin[r * mr], twiddle_at(sW, r * t, M));
+    v[r] = cmul(fin[r * mr], twiddle_at(sW, r * t, half));
   butterfly<R>(v);
 #pragma unroll
   for (int r = 0; r < R; ++r) fout[r * ns] = v[r];
 }
 
-// One Stockham stage of radix R over tf frames of M points, after stages
-// whose radices multiply to ns: butterfly j of a frame (k = j mod ns)
-// reads z[j + r M/R] and writes (j - k) R + k + r ns.  A stage of the
-// mixed-radix plan divides by its host-computed constants.
+// One Stockham stage of radix R over `seq` sequences of `len` points,
+// after stages whose radices multiply to ns: butterfly j of a sequence
+// (k = j mod ns) reads z[j + r len/R] and writes (j - k) R + k + r ns.  A
+// stage of the mixed-radix plan divides by its host-computed constants.
 template <int R>
 __device__ __forceinline__ void stage(const float2* in, float2* out,
-                                      const float2* sW, int M, const Stage st,
-                                      int tf, int tid) {
-  const int mr = M / R, ns = st.ns;
-  for (int i = tid; i < tf * mr; i += kThreads) {
+                                      const float2* sW, int len, int half,
+                                      const Stage st, int seq, int tid) {
+  const int mr = len / R, ns = st.ns;
+  for (int i = tid; i < seq * mr; i += kThreads) {
     const int f = st.mr.div(i), j = i - f * mr;
     const int q = st.by_ns.div(j), k = j - q * ns;
-    radix_step<R>(in + f * M + j, out + f * M + q * ns * R + k, sW, mr, ns,
-                  k * st.tw, M);
+    radix_step<R>(in + f * len + j, out + f * len + q * ns * R + k, sW, mr,
+                  ns, k * st.tw, half);
   }
 }
 
-// The same stage for a power-of-two M (R = 2 or 4, M = 2^log2m,
-// ns = 2^log2ns), indexed by shifts and masks (the divisions cost 8% at
-// the scaled device batch on an H100).
+// The same stage for a power-of-two length (R = 2, 4 or 8, len = 2^log2len,
+// ns = 2^log2ns, the table of order 2 half = 2^log2q), indexed by shifts
+// and masks (the divisions cost 8% at the scaled device batch on an H100).
 template <int R>
 __device__ __forceinline__ void stage_pow2(const float2* in, float2* out,
-                                           const float2* sW, int M, int log2m,
-                                           int log2ns, int tf, int tid) {
-  constexpr int kLog2R = R == 4 ? 2 : 1;
-  const int log2mr = log2m - kLog2R, ns = 1 << log2ns;
-  for (int i = tid; i < (tf << log2mr); i += kThreads) {
+                                           const float2* sW, int log2len,
+                                           int log2q, int half, int log2ns,
+                                           int seq, int tid) {
+  constexpr int kLog2R = R == 8 ? 3 : R == 4 ? 2 : 1;
+  const int log2mr = log2len - kLog2R, ns = 1 << log2ns;
+  for (int i = tid; i < (seq << log2mr); i += kThreads) {
     const int f = i >> log2mr, j = i & ((1 << log2mr) - 1);
     const int k = j & (ns - 1);
-    radix_step<R>(in + (f << log2m) + j,
-                  out + (f << log2m) + ((j - k) << kLog2R) + k, sW,
-                  1 << log2mr, ns, k << (log2m + 1 - kLog2R - log2ns), M);
+    radix_step<R>(in + (f << log2len) + j,
+                  out + (f << log2len) + ((j - k) << kLog2R) + k, sW,
+                  1 << log2mr, ns, k << (log2q - kLog2R - log2ns), half);
   }
 }
 
-// Floats of each of the two work regions: the staged span, the FFT's
-// ping-pong buffer (tf frames of M complex) and the (bin, frame) stage all
-// fit; rounded up to 4 floats so the next region stays 16-byte aligned.
-__host__ __device__ inline int region_floats(int n_fft, int hop, int tf) {
-  const int f = n_fft / 2 + 1;
-  int r = n_fft * tf;
-  const int span = (tf - 1) * hop + n_fft;
-  if (span > r) r = span;
-  if (f * (tf + 1) > r) r = f * (tf + 1);
-  return (r + 3) & ~3;
-}
-
-__host__ __device__ inline size_t smem_bytes(int n_fft, int hop, int tf) {
-  // two regions, M+1 complex twiddles, n_fft window samples
-  return sizeof(float) * (2 * (size_t)region_floats(n_fft, hop, tf) +
-                          2 * (size_t)(n_fft / 2 + 1) + n_fft);
-}
-
-// POW2: M is a power of two, and the plan's stages (one radix 2 when
-// log2(M) is odd, then radix 4) are indexed by shifts.
-template <bool POW2>
-__global__ void __launch_bounds__(kThreads) stft_fft_kernel(
-    const float* __restrict__ audio, const float* __restrict__ window,
-    const float2* __restrict__ twiddle, float* __restrict__ mag, int N, int T,
-    int n_fft, int hop, int tf, int log2tf, int vec, const Plan plan) {
-  extern __shared__ float4 smem4[];
-  const int M = n_fft >> 1;
-  const int F = M + 1;
-  const int R = region_floats(n_fft, hop, tf);
-  float* regA = reinterpret_cast<float*>(smem4);
-  float* regB = regA + R;
-  float2* sW = reinterpret_cast<float2*>(regB + R);      // M + 1
-  float* sWin = reinterpret_cast<float*>(sW + M + 1);    // n_fft
-  const int log2m = __ffs(M) - 1;                        // when POW2
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tf;
-  const long long g0 = (long long)t0 * hop;
-  const float* src = audio + (size_t)b * N;
-
-  // Stage the span [g0, g0 + span) into region B, zero past N.
-  const int span = (tf - 1) * hop + n_fft;
-  float* sSpan = regB;
-  if (vec) {
-    for (int c = tid; c < span / 4; c += kThreads) {
-      const long long g = g0 + 4 * c;
-      const bool ok = g < N;  // N % 4 == 0: a chunk is all in or all out
-      cp_async16(sSpan + 4 * c, ok ? src + g : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < span; i += kThreads) {
-      const long long g = g0 + i;
-      const bool ok = g < N;
-      cp_async4(sSpan + i, ok ? src + g : src, ok ? 4 : 0);
-    }
-  }
-  for (int i = tid; i <= M; i += kThreads) sW[i] = twiddle[i];
-  for (int i = tid; i < n_fft; i += kThreads) sWin[i] = window[i];
-  // The plan's stages into shared memory, each by its own thread (static
-  // indices keep the kernel parameter out of local memory).
-  __shared__ Stage sStage[kMaxStages];
-  if (!POW2) {
-#pragma unroll
-    for (int s = 0; s < kMaxStages; ++s)
-      if (tid == s) sStage[s] = plan.stage[s];
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Window and pack frame f into region A: z[n] = w x[2n] + i w x[2n+1].
-  {
-    const float2* span2 = reinterpret_cast<const float2*>(sSpan);
-    const float2* win2 = reinterpret_cast<const float2*>(sWin);
-    float2* z = reinterpret_cast<float2*>(regA);
-    const int hop2 = hop >> 1;
-    for (int i = tid; i < tf * M; i += kThreads) {
-      const int f = POW2 ? i >> log2m : plan.m.div(i), n = i - f * M;
-      const float2 x = span2[f * hop2 + n];
-      const float2 w = win2[n];
-      z[i] = make_float2(x.x * w.x, x.y * w.y);
-    }
-  }
-  __syncthreads();
-
-  // Stockham FFT, A -> B -> A ..., one stage a radix of the plan.
-  float2* in = reinterpret_cast<float2*>(regA);
-  float2* out = reinterpret_cast<float2*>(regB);
-  for (int s = 0, log2ns = 0; s < plan.n; ++s) {
-    if (POW2) {
-      if (log2ns == 0 && (log2m & 1)) {
-        stage_pow2<2>(in, out, sW, M, log2m, log2ns, tf, tid);
+// The FFT of every sequence, `in` -> `out` -> `in` ..., one stage a radix;
+// on return `in` holds the transform.
+template <int KIND>
+__device__ __forceinline__ void fft(float2*& in, float2*& out,
+                                    const float2* sW, const Stage* sStage,
+                                    int n_stages, int len, int log2len,
+                                    int log2q, int half, int seq, int tid) {
+  for (int s = 0, log2ns = 0; s < n_stages; ++s) {
+    if (KIND != kMixed) {
+      const int first = log2ns == 0 ? log2len % 3 : 0;
+      if (first == 1) {
+        stage_pow2<2>(in, out, sW, log2len, log2q, half, log2ns, seq, tid);
         log2ns += 1;
-      } else {
-        stage_pow2<4>(in, out, sW, M, log2m, log2ns, tf, tid);
+      } else if (first == 2) {
+        stage_pow2<4>(in, out, sW, log2len, log2q, half, log2ns, seq, tid);
         log2ns += 2;
+      } else {
+        stage_pow2<8>(in, out, sW, log2len, log2q, half, log2ns, seq, tid);
+        log2ns += 3;
       }
     } else {
       // By value, so in registers: the stage's stores to shared memory
       // cannot alias it.
       const Stage st = sStage[s];
       if (st.radix == 4)
-        stage<4>(in, out, sW, M, st, tf, tid);
+        stage<4>(in, out, sW, len, half, st, seq, tid);
       else if (st.radix == 2)
-        stage<2>(in, out, sW, M, st, tf, tid);
+        stage<2>(in, out, sW, len, half, st, seq, tid);
       else if (st.radix == 3)
-        stage<3>(in, out, sW, M, st, tf, tid);
+        stage<3>(in, out, sW, len, half, st, seq, tid);
+      else if (st.radix == 5)
+        stage<5>(in, out, sW, len, half, st, seq, tid);
       else
-        stage<5>(in, out, sW, M, st, tf, tid);
+        stage<7>(in, out, sW, len, half, st, seq, tid);
     }
     __syncthreads();
     float2* tmp = in;
     in = out;
     out = tmp;
   }
+}
 
-  // Split into the F bins of the real transform and take the magnitude;
-  // k runs fastest, so the stage writes at stride tf + 1 hit distinct banks.
+// Z[k] of a sequence's transform: the FFT's output itself, or under
+// Bluestein c*[k] conj(V[k]) (chirp[k] = c*[k]).
+template <bool BLUE>
+__device__ __forceinline__ float2 z_at(const float2* zf, int k,
+                                       const float2* __restrict__ chirp) {
+  const float2 v = zf[k];
+  return BLUE ? cmul(__ldg(chirp + k), conjugate(v)) : v;
+}
+
+// Floats of each of the two work regions: the staged span, the FFT's
+// ping-pong buffer (seq sequences of len complex) and the (bin, frame)
+// stage all fit; rounded up to 4 floats so the next region stays 16-byte
+// aligned.
+inline int region_floats(int n_fft, int hop, int tf, int seq, int len) {
+  const int f = n_fft / 2 + 1;
+  long long r = 2LL * seq * len;
+  const long long span = (long long)(tf - 1) * hop + n_fft;
+  if (span > r) r = span;
+  if ((long long)f * (tf + 1) > r) r = (long long)f * (tf + 1);
+  r = (r + 3) & ~3LL;
+  return r > kMaxSmem ? kMaxSmem : static_cast<int>(r);
+}
+
+// ODD: n_fft is odd (two frames a sequence).  KIND: kPow2, kMixed or
+// kBluestein (which transforms len = P points by shifts, as kPow2 does).
+template <int KIND, bool ODD>
+__global__ void __launch_bounds__(kThreads) stft_fft_kernel(
+    const float* __restrict__ audio, const float* __restrict__ window,
+    const float2* __restrict__ twiddle, const float2* __restrict__ split,
+    const float2* __restrict__ chirp, const float2* __restrict__ chirp_fft,
+    float* __restrict__ mag, const Geometry g) {
+  constexpr bool kBlue = KIND == kBluestein;
+  constexpr bool kShifts = KIND != kMixed;
+  constexpr bool kOwnSplit = kBlue && !ODD;  // else the split is sW
+  extern __shared__ float4 smem4[];
+  const int n_fft = g.n_fft, hop = g.hop, tf = g.tf, F = g.F;
+  float* regA = reinterpret_cast<float*>(smem4);
+  float* regB = regA + g.region;
+  float2* sW = reinterpret_cast<float2*>(regB + g.region);  // half + 1
+  float2* sSplit = kOwnSplit ? sW + g.half + 1 : sW;        // F (even)
+  float* sWin = reinterpret_cast<float*>(kOwnSplit ? sSplit + F
+                                                   : sW + g.half + 1);
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / g.tiles;
+  const int t0 = (blockIdx.x - b * g.tiles) * tf;
+  const long long g0 = (long long)t0 * hop;
+  const float* src = audio + (size_t)b * g.N;
+
+  // Stage the span [g0, g0 + span) into region B, zero past N.
+  const int span = (tf - 1) * hop + n_fft;
+  float* sSpan = regB;
+  int scalar_from = 0;
+  if (g.vec) {
+    // g0 and N are multiples of 4: a chunk is all in or all out.
+    const int chunks = span >> 2;
+    for (int c = tid; c < chunks; c += kThreads) {
+      const long long at = g0 + 4 * c;
+      const bool ok = at < g.N;
+      cp_async16(sSpan + 4 * c, ok ? src + at : src, ok ? 16 : 0);
+    }
+    scalar_from = chunks << 2;
+  }
+  for (int i = scalar_from + tid; i < span; i += kThreads) {
+    const long long at = g0 + i;
+    const bool ok = at < g.N;
+    cp_async4(sSpan + i, ok ? src + at : src, ok ? 4 : 0);
+  }
+  for (int i = tid; i <= g.half; i += kThreads) sW[i] = twiddle[i];
+  if (kOwnSplit)
+    for (int i = tid; i < F; i += kThreads) sSplit[i] = split[i];
+  for (int i = tid; i < n_fft; i += kThreads) sWin[i] = window[i];
+  // The plan's stages into shared memory, each by its own thread (static
+  // indices keep the kernel parameter out of local memory).
+  __shared__ Stage sStage[kMaxStages];
+  if (KIND == kMixed) {
+#pragma unroll
+    for (int s = 0; s < kMaxStages; ++s)
+      if (tid == s) sStage[s] = g.stage[s];
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Window and pack into region A: seq sequences of len points (under
+  // Bluestein times the chirp c*[n], zero from L to P).
+  {
+    float2* z = reinterpret_cast<float2*>(regA);
+    const int L = g.L, len = g.len;
+    const bool pairs = !ODD && (hop & 1) == 0;  // float2 reads of (x0, x1)
+    for (int i = tid; i < g.seq * len; i += kThreads) {
+      const int s = kShifts ? i >> g.log2len : g.by_len.div(i);
+      const int n = i - s * len;
+      float2 v = make_float2(0.f, 0.f);
+      if (!kBlue || n < L) {
+        if (!ODD) {
+          const float* x = sSpan + s * hop + 2 * n;
+          const float2 w = reinterpret_cast<const float2*>(sWin)[n];
+          const float2 xv =
+              pairs ? *reinterpret_cast<const float2*>(x)
+                    : make_float2(x[0], x[1]);
+          v = make_float2(xv.x * w.x, xv.y * w.y);
+        } else {
+          const float w = sWin[n];
+          const int f = 2 * s;
+          v.x = sSpan[f * hop + n] * w;
+          if (f + 1 < tf) v.y = sSpan[(f + 1) * hop + n] * w;
+        }
+        if (kBlue) v = cmul(v, __ldg(chirp + n));
+      }
+      z[i] = v;
+    }
+  }
+  __syncthreads();
+
+  float2* in = reinterpret_cast<float2*>(regA);
+  float2* out = reinterpret_cast<float2*>(regB);
+  fft<KIND>(in, out, sW, sStage, g.n_stages, g.len, g.log2len, g.log2q,
+            g.half, g.seq, tid);
+  if (kBlue) {
+    // conj(V * chirp_fft): the second FFT then gives the conjugated
+    // inverse transform.
+    for (int i = tid; i < g.seq * g.len; i += kThreads)
+      in[i] = conjugate(cmul(in[i], __ldg(chirp_fft + (i & (g.len - 1)))));
+    __syncthreads();
+    fft<KIND>(in, out, sW, sStage, g.n_stages, g.len, g.log2len, g.log2q,
+              g.half, g.seq, tid);
+  }
+
+  // The F bins of each frame and their magnitudes; k runs fastest, so the
+  // stage writes at stride tf + 1 hit distinct banks.
   const float2* Z = in;
   float* sMag = reinterpret_cast<float*>(out);
   const int ms = tf + 1;
-  for (int i = tid; i < tf * F; i += kThreads) {
-    const int f = plan.f.div(i), k = i - f * F;
-    const float2* zf = Z + f * M;
-    const float2 zk = zf[k == M ? 0 : k];
-    const float2 zm = zf[k == 0 ? 0 : M - k];
-    const float ar = zk.x + zm.x, ai = zk.y - zm.y;  // Z[k] + Z*[M-k]
-    const float br = zk.x - zm.x, bi = zk.y + zm.y;  // Z[k] - Z*[M-k]
-    const float2 w = sW[k];
-    const float wbr = w.x * br - w.y * bi, wbi = w.x * bi + w.y * br;
-    const float xr = 0.5f * (ar + wbi), xi = 0.5f * (ai - wbr);
-    sMag[k * ms + f] = sqrtf(xr * xr + xi * xi);
+  for (int i = tid; i < g.seq * F; i += kThreads) {
+    const int s = g.by_f.div(i), k = i - s * F;
+    const float2* zf = Z + s * g.len;
+    if (!ODD) {
+      const int M = g.L;
+      const float2 zk = z_at<kBlue>(zf, k == M ? 0 : k, chirp);
+      const float2 zm = z_at<kBlue>(zf, k == 0 ? 0 : M - k, chirp);
+      const float ar = zk.x + zm.x, ai = zk.y - zm.y;  // Z[k] + Z*[M-k]
+      const float br = zk.x - zm.x, bi = zk.y + zm.y;  // Z[k] - Z*[M-k]
+      const float2 w = sSplit[k];
+      const float wbr = w.x * br - w.y * bi, wbi = w.x * bi + w.y * br;
+      const float xr = 0.5f * (ar + wbi), xi = 0.5f * (ai - wbr);
+      sMag[k * ms + s] = sqrtf(xr * xr + xi * xi);
+    } else {
+      const float2 a = z_at<kBlue>(zf, k, chirp);
+      const float2 c = z_at<kBlue>(zf, k == 0 ? 0 : g.L - k, chirp);
+      const float pr = a.x + c.x, pi = a.y - c.y;  // Z[k] + Z*[L-k]
+      const float qr = a.x - c.x, qi = a.y + c.y;  // Z[k] - Z*[L-k]
+      sMag[k * ms + 2 * s] = 0.5f * sqrtf(pr * pr + pi * pi);
+      if (2 * s + 1 < tf)
+        sMag[k * ms + 2 * s + 1] = 0.5f * sqrtf(qr * qr + qi * qi);
+    }
   }
   __syncthreads();
 
   // Store: consecutive threads take consecutive frames of one bin.
-  float* dst = mag + (size_t)b * F * T;
-  for (int i = tid; i < (F << log2tf); i += kThreads) {
-    const int k = i >> log2tf, f = i & (tf - 1);
+  float* dst = mag + (size_t)b * F * g.T;
+  for (int i = tid; i < (F << g.log2tf); i += kThreads) {
+    const int k = i >> g.log2tf, f = i & (tf - 1);
     const int t = t0 + f;
-    if (t < T) dst[(size_t)k * T + t] = sMag[k * ms + f];
+    if (t < g.T) dst[(size_t)k * g.T + t] = sMag[k * ms + f];
   }
+}
+
+int log2_exact(int n) {  // log2(n) for a power of two n >= 1, else -1
+  if (n < 1 || (n & (n - 1)) != 0) return -1;
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+// FastDiv by d exact over [0, top] (the bound in FastDiv's note).
+bool exact(unsigned d, long long top) {
+  if (d < 1) return false;
+  const unsigned long long m = ((1ull << 31) + d - 1) / d;
+  return top * (long long)(m * d - (1ull << 31)) < (1ll << 31);
 }
 
 }  // namespace
 
-// Launch over B signals of N samples; window is n_fft floats, twiddle
-// n_fft/2 + 1 complex (float2) values exp(-2 pi i k / n_fft); `radices`
-// (n_stages of 2, 3, 4, 5) multiply to n_fft/2, and for a power of two are
-// one 2 when log2(n_fft/2) is odd, then 4s.  `tf` (frames a block) is a
+// Launch over B signals of N samples.  window is n_fft floats; twiddle
+// half + 1 complex (float2) values exp(-pi i j / half), half = L (the
+// planned transform of L points) or P/2 (Bluestein); split (even n_fft
+// under Bluestein) n_fft/2 + 1 values exp(-2 pi i k / n_fft), else unused;
+// chirp (L values exp(-i pi (n^2 mod 2L) / L)) and chirp_fft (P values:
+// the P-point FFT of the chirp's conjugate over |m| < L, divided by P)
+// under Bluestein, else unused.  `radices` (n_stages of 2, 3, 4, 5, 7, 8)
+// multiply to L, or to `pad` = P (0: no Bluestein); for a power of two 2^e
+// they are one 2 (e mod 3 = 1) or one 4 (e mod 3 = 2), then 8s, and
+// otherwise one 2 when the power of two's exponent is odd, then 4s, 3s,
+// 5s and 7s.  `tf` (frames a block) is a
 // power of two in [1, 32]; `vec` asks for 16-byte copies and needs
-// N % 4 == 0 and a 16-byte aligned audio pointer.  Returns a cudaError_t
-// (0 on success).
+// hop % 4 == 0, N % 4 == 0 and a 16-byte aligned audio pointer.  Returns a
+// cudaError_t (0 on success).
 extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
-                                  const void* twiddle, void* mag, int B, int N,
-                                  int T, int n_fft, int hop, int tf, int vec,
-                                  const int* radices, int n_stages, int device,
-                                  void* stream) {
-  Plan plan = {};
-  plan.n = n_stages;
-  const int M = n_fft / 2;
-  const bool pow2 = M > 0 && (M & (M - 1)) == 0;
-  int ns = 1;
-  bool ok = n_stages >= 1 && n_stages <= kMaxStages && M >= 4;
-  for (int s = 0; ok && s < n_stages; ++s) {
-    const int r = radices[s];
-    ok = r >= 2 && r <= 5 && M % (ns * r) == 0 &&
-         (!pow2 || r == ((s == 0 && (__builtin_ctz(M) & 1)) ? 2 : 4));
-    if (!ok) break;
-    plan.stage[s] = {r, ns, 2 * M / (r * ns), FastDiv::of(M / r),
-                     FastDiv::of(ns)};
-    ns *= r;
-  }
-  plan.m = FastDiv::of(M);
-  plan.f = FastDiv::of(M + 1);
-  int log2tf = 0;
-  while ((1 << log2tf) < tf) ++log2tf;
-  if (!ok || ns != M || n_fft < 8 || n_fft > 4096 ||
-      n_fft % 4 != 0 || tf < 1 || tf > 32 || (1 << log2tf) != tf ||
-      hop % 4 != 0 || hop < 4 || B < 1 || B > 65535 || N < 1 || T < 1 ||
-      (vec && (N % 4 != 0 ||
+                                  const void* twiddle, const void* split,
+                                  const void* chirp, const void* chirp_fft,
+                                  void* mag, int B, int N, int T, int n_fft,
+                                  int hop, int tf, int vec,
+                                  const int* radices, int n_stages, int pad,
+                                  int device, void* stream) {
+  if (n_fft < 2 || n_fft > 4096 || hop < 1 || B < 1 || N < 1 || T < 1 ||
+      tf < 1 || tf > 32 || log2_exact(tf) < 0 || n_stages < 0 ||
+      n_stages > kMaxStages ||
+      (vec && (hop % 4 != 0 || N % 4 != 0 ||
                reinterpret_cast<uintptr_t>(audio) % 16 != 0)))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n_fft, hop, tf);
+  const bool odd = n_fft & 1;
+  Geometry g = {};
+  g.N = N;
+  g.T = T;
+  g.n_fft = n_fft;
+  g.hop = hop;
+  g.tf = tf;
+  g.log2tf = log2_exact(tf);
+  g.vec = vec;
+  g.L = odd ? n_fft : n_fft / 2;
+  g.len = pad ? pad : g.L;
+  g.log2len = log2_exact(g.len);
+  g.half = pad ? pad / 2 : g.L;
+  g.log2q = log2_exact(2 * g.half);
+  g.seq = odd ? (tf + 1) / 2 : tf;
+  g.F = n_fft / 2 + 1;
+  g.n_stages = n_stages;
+  const int kind = pad ? kBluestein : g.log2len >= 0 ? kPow2 : kMixed;
+  if (pad && (g.log2len < 0 || pad < 2 * g.L - 1 || pad > kMaxPad ||
+              chirp == nullptr || chirp_fft == nullptr ||
+              (!odd && split == nullptr)))
+    return cudaErrorInvalidValue;
+  // The plan: it multiplies to len; a power of two's is one 2 or one 4
+  // for log2(len) mod 3, then 8s.
+  int ns = 1;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    const int first = g.log2len % 3;
+    const bool pow2_ok =
+        r == (s > 0 || first == 0 ? 8 : first == 1 ? 2 : 4);
+    const bool mixed_ok = r >= 2 && r <= 7 && r != 6;
+    if (g.len % (ns * r) != 0 || !(kind == kMixed ? mixed_ok : pow2_ok))
+      return cudaErrorInvalidValue;
+    g.stage[s] = {r, ns, 2 * g.half / (r * ns), FastDiv::of(g.len / r),
+                  FastDiv::of(ns)};
+    if (kind == kMixed && (!exact(g.len / r, (long long)g.seq * g.len / r) ||
+                           !exact(ns, g.len / r)))
+      return cudaErrorInvalidValue;
+    ns *= r;
+  }
+  if (ns != g.len) return cudaErrorInvalidValue;
+  g.by_len = FastDiv::of(g.len);
+  g.by_f = FastDiv::of(g.F);
+  if (!exact(g.len, (long long)g.seq * g.len) ||
+      !exact(g.F, (long long)g.seq * g.F))
+    return cudaErrorInvalidValue;
+  g.region = region_floats(n_fft, hop, tf, g.seq, g.len);
+  const long long tiles = (T + tf - 1) / tf;
+  if (tiles * B > 0x7fffffffLL) return cudaErrorInvalidValue;
+  g.tiles = static_cast<int>(tiles);
+  const size_t smem =
+      sizeof(float) * (2 * (size_t)g.region + n_fft) +
+      sizeof(float2) * ((size_t)g.half + 1 + (pad && !odd ? g.F : 0));
+  if (smem + sizeof(Stage) * kMaxStages > kMaxSmem)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto kernel = pow2 ? stft_fft_kernel<true> : stft_fft_kernel<false>;
+  const auto kernel =
+      kind == kPow2  ? stft_fft_kernel<kPow2, false>
+      : kind == kMixed ? (odd ? stft_fft_kernel<kMixed, true>
+                              : stft_fft_kernel<kMixed, false>)
+                       : (odd ? stft_fft_kernel<kBluestein, true>
+                              : stft_fft_kernel<kBluestein, false>);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((T + tf - 1) / tf, B);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(tiles * B), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), static_cast<const float*>(window),
-      static_cast<const float2*>(twiddle), static_cast<float*>(mag), N, T,
-      n_fft, hop, tf, log2tf, vec, plan);
+      static_cast<const float2*>(twiddle), static_cast<const float2*>(split),
+      static_cast<const float2*>(chirp),
+      static_cast<const float2*>(chirp_fft), static_cast<float*>(mag), g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,11 @@
 // Fused STFT magnitude as a matrix DFT, float32, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/stft.py `_stft_kernel` (called from
-// `stft_magnitude_pallas`) for an n_fft that is not a power of two in
-// [8, 4096] (a multiple of 4): the route for non-power-of-two n_fft, chosen
-// by shape in ops/kernels/stft.py, launches counted as `stft_mag_dft_fwd`.
-// Power-of-two n_fft, every config of the repository, take the FFT of
-// stft_fft.cu.  Computes, with the reference's semantics
+// `stft_magnitude_pallas`) for n_fft above 4096 (a multiple of 4, at a hop
+// that is one): the route for n_fft above 4096, chosen by shape in
+// ops/kernels/stft.py, launches counted as `stft_mag_dft_fwd`.  Every n_fft
+// in [2, 4096] takes the FFT of stft_fft.cu.  Computes, with the
+// reference's semantics
 // (symmetric Hann window, frame i starting at sample i*hop, no centering,
 // samples past N read as zero),
 //     mag[b, k, i] = | sum_n audio[b, i*hop + n] * w[n] * exp(-2 pi j k n / n_fft) |
@@ -19,8 +19,9 @@
 // 400, hop 160 on 24 x 64,000 samples (T 401, F 201), 13.9 MB at
 // 3.35 TB/s, 4.1 us.  This
 // matrix DFT does 4 n_fft F FLOPs a frame (O(n_fft^2)), so at 67 TFLOP/s
-// float32 it stays far above that bound; it is kept for the shapes the FFT
-// does not take.
+// float32 it stays far above that bound; it is kept for the n_fft above
+// 4096, where the FFT's block no longer fits shared memory (the Pallas
+// kernel itself holds 2 n_fft F_pad float32 bases in VMEM there).
 //
 // Design: a block owns one signal, a tile of kTile = 32 frames and a group of
 // frequency bins (one bin per thread, at most 128 threads).  It stages the

@@ -12,12 +12,16 @@ STFT.
 
 Two routes on the card, chosen by shape (not a fallback: an error in either
 raises):
-  - n_fft a multiple of 4 in [8, 4096] whose half has no prime factor above
-    5 (every config: 512; the speech front ends' 400): `stft_fft.cu`, a
-    half-length mixed-radix complex FFT in shared memory plus the real
-    split step; launches count under `stft_mag_fwd`.
-  - any other n_fft (a multiple of 4, such as 448): `stft_mag.cu`, the
-    matrix DFT against windowed cos/sin bases; launches count under
+  - n_fft in [2, 4096], at any hop and any number of signals:
+    `stft_fft.cu`, an FFT in shared memory.  An even n_fft transforms
+    L = n_fft / 2 points (two samples packed into one complex value, then
+    the real split step), an odd one L = n_fft points (two frames packed
+    into one complex sequence, then separated).  A 7-smooth L takes a
+    Stockham FFT of radices 2, 3, 4, 5, 7 and 8; any other L takes
+    Bluestein's chirp-z transform through a power-of-two FFT of
+    P >= 2L - 1 points.  Launches count under `stft_mag_fwd`.
+  - n_fft above 4096: `stft_mag.cu`, the matrix DFT against windowed
+    cos/sin bases (n_fft and hop multiples of 4); launches count under
     `stft_mag_dft_fwd`.
 """
 
@@ -26,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +41,14 @@ from av_separation_torch.ops.stft import (dft_basis, hann_symmetric,
                                           stft_magnitude)
 
 TILE_FRAMES = 32            # frames per block of the DFT route (stft_mag.cu)
-MAX_SMEM_BYTES = 232448     # dynamic shared memory a block may use (H100)
-FFT_SIZES = (8, 4096)       # n_fft the FFT route takes
-MAX_GRID_Y = 65535          # signals: the FFT route's grid.y
+MAX_SMEM_BYTES = 232448     # shared memory a block may use (H100)
+# A block's share of an SM's 233,472 bytes (less 1 KB a block) when four,
+# two or one blocks reside on it (H100).
+SMEM_SHARES = (57344, 115712, MAX_SMEM_BYTES)
+FFT_SIZES = (2, 4096)       # n_fft the FFT route takes; above, the DFT's
+FFT_TILES = (8, 4, 2, 1)    # frames a block of the FFT route
+MAX_STAGES = 12             # kMaxStages in stft_fft.cu
+STAGE_TABLE_BYTES = 20 * MAX_STAGES  # its static shared Stage table
 
 
 def stft_magnitude_fwd_torch(audio: torch.Tensor, n_fft: int, hop: int,
@@ -48,29 +57,52 @@ def stft_magnitude_fwd_torch(audio: torch.Tensor, n_fft: int, hop: int,
     return stft_magnitude(audio, n_fft, hop, num_frames)
 
 
-def fft_plan(n_fft: int) -> Tuple[int, ...]:
-    """The radices of the FFT route's Stockham stages over M = n_fft / 2
-    points: one 2 when M's power of two has an odd exponent, then 4s, 3s
-    and 5s (M = 256: 4, 4, 4, 4; M = 200: 2, 4, 5, 5).  Empty when M has
-    another prime factor."""
-    m, twos = n_fft // 2, 0
-    while m > 1 and m % 2 == 0:
-        m //= 2
+class FftPlan(NamedTuple):
+    """What the FFT route runs for one n_fft."""
+    length: int                # L: the complex transform's length
+    radices: Tuple[int, ...]   # the Stockham stages, over L or over `pad`
+    pad: int                   # Bluestein's P (2^k >= 2L - 1), else 0
+
+
+def radices(n: int) -> Optional[Tuple[int, ...]]:
+    """The Stockham stages of an n-point FFT: for a power of two 2^e, one 2
+    (e mod 3 = 1) or one 4 (e mod 3 = 2), then 8s (256: 4, 8, 8; 1024: 2,
+    8, 8, 8); otherwise one 2 when n's power of two has an odd exponent,
+    then 4s, 3s, 5s and 7s (200: 2, 4, 5, 5; 441: 3, 3, 7, 7).  None when
+    n has a prime factor above 7."""
+    twos = 0
+    while n > 1 and n % 2 == 0:
+        n //= 2
         twos += 1
+    if n == 1:
+        return (2,) * (twos % 3 == 1) + (4,) * (twos % 3 == 2) \
+            + (8,) * (twos // 3)
     plan = [2] * (twos % 2) + [4] * (twos // 2)
-    for r in (3, 5):
-        while m % r == 0:
-            m //= r
+    for r in (3, 5, 7):
+        while n % r == 0:
+            n //= r
             plan.append(r)
-    return tuple(plan) if m == 1 else ()
+    return tuple(plan) if n == 1 else None
+
+
+def fft_plan(n_fft: int) -> FftPlan:
+    """The FFT route's transform of one n_fft: L = n_fft / 2 (even) or
+    n_fft (odd); L's own radices when it is 7-smooth, else Bluestein over
+    the power of two P >= 2L - 1 (n_fft 448: L 224, radices 2, 4, 4, 7;
+    514: L 257, P 1024)."""
+    length = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    plan = radices(length)
+    if plan is not None:
+        return FftPlan(length, plan, 0)
+    pad = 1 << (2 * length - 2).bit_length()
+    return FftPlan(length, radices(pad), pad)
 
 
 def route(n_fft: int) -> str:
-    """'fft' for a multiple of 4 in [8, 4096] whose half has no prime
-    factor above 5, else 'dft'."""
+    """'fft' for n_fft in [2, 4096], 'dft' above (and below, where no
+    route serves it and the checks raise)."""
     lo, hi = FFT_SIZES
-    ok = lo <= n_fft <= hi and n_fft % 4 == 0 and fft_plan(n_fft)
-    return "fft" if ok else "dft"
+    return "fft" if lo <= n_fft <= hi else "dft"
 
 
 def launch_shape(n_fft: int) -> Tuple[int, int]:
@@ -83,30 +115,56 @@ def launch_shape(n_fft: int) -> Tuple[int, int]:
     return threads, groups * threads
 
 
-def fft_smem_bytes(n_fft: int, hop: int, tile: int) -> int:
-    """Shared memory of one FFT block (`smem_bytes` in stft_fft.cu): two
-    work regions that each hold the staged span, tile frames of n_fft/2
-    complex values and the (bin, frame) stage, then the twiddles and the
-    window."""
+def fft_sequences(n_fft: int, tile: int) -> int:
+    """Complex sequences of one FFT block: one a frame (even n_fft), one a
+    pair of frames (odd)."""
+    return (tile + 1) // 2 if n_fft % 2 else tile
+
+
+def fft_region_floats(n_fft: int, hop: int, tile: int) -> int:
+    """Floats of each of the FFT block's two work regions
+    (`region_floats` in stft_fft.cu): the staged span, the sequences of
+    the FFT's ping-pong and the (bin, frame) stage all fit; rounded up to
+    4 so the next region stays 16-byte aligned."""
+    plan = fft_plan(n_fft)
     f = n_fft // 2 + 1
-    r = max(n_fft * tile, (tile - 1) * hop + n_fft, f * (tile + 1))
-    r = -(-r // 4) * 4
-    return 4 * (2 * r + 2 * f + n_fft)
+    r = max(2 * fft_sequences(n_fft, tile) * (plan.pad or plan.length),
+            (tile - 1) * hop + n_fft, f * (tile + 1))
+    return -(-r // 4) * 4
+
+
+def fft_smem_bytes(n_fft: int, hop: int, tile: int) -> int:
+    """Shared memory of one FFT block (`smem_bytes` in stft_fft.cu plus
+    the static stage table): two work regions, the FFT's twiddle table,
+    the split step's (even n_fft under Bluestein; otherwise it is the
+    twiddle table), the window."""
+    plan = fft_plan(n_fft)
+    half = plan.pad // 2 if plan.pad else plan.length
+    split = n_fft // 2 + 1 if plan.pad and n_fft % 2 == 0 else 0
+    return (4 * 2 * fft_region_floats(n_fft, hop, tile)
+            + 8 * (half + 1 + split) + 4 * n_fft + STAGE_TABLE_BYTES)
 
 
 def fft_tile_frames(n_fft: int, hop: int, signals: int, num_frames: int,
                     sm_count: int) -> int:
-    """Frames a block of the FFT route: the largest power of two <= 8
-    whose block fits shared memory and whose grid gives every SM at least
-    two blocks; if none does, the smallest that fits.  (At the scaled
-    device batch, 8 frames a block ran faster than 16 on an H100.)"""
-    # One frame always fits: at n_fft 4096 its block takes 65.5 KB.
-    fits = [t for t in (8, 4, 2, 1)
-            if fft_smem_bytes(n_fft, hop, t) <= MAX_SMEM_BYTES]
-    for t in fits:
-        if signals * -(-num_frames // t) >= 2 * sm_count:
-            return t
-    return fits[-1]
+    """Frames a block of the FFT route, a power of two <= 8.  Among the
+    tiles whose blocks let four share an SM (else two, else one), the
+    largest whose grid gives every SM at least two blocks, or the smallest
+    (for an odd n_fft, whose sequence holds two frames, 2 rather than 1).
+    On an H100 (`tools/torch_stft_sweep.py tiles`) four resident blocks
+    beat larger tiles at n_fft 1102, 514 and 401, and 8 frames beat 16 at
+    512.  One frame fits at every n_fft in [2, 4096] and every hop."""
+    for share in SMEM_SHARES:
+        tiles = [t for t in FFT_TILES
+                 if fft_smem_bytes(n_fft, hop, t) <= share]
+        if n_fft % 2 and 2 in tiles:
+            tiles.remove(1)
+        for t in tiles:
+            if signals * -(-num_frames // t) >= 2 * sm_count:
+                return t
+        if tiles:
+            return tiles[-1]
+    raise ValueError(f"no FFT tile fits shared memory at n_fft {n_fft}")
 
 
 @functools.lru_cache(maxsize=8)
@@ -121,22 +179,59 @@ def _bases(n_fft: int, device: torch.device
             torch.as_tensor(np.pad(sin_np, pad), device=device))
 
 
-def fft_tables(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
-    """FFT route: the float32 window (n_fft,) and twiddles (n_fft/2 + 1, 2)
-    = exp(-2 pi i k / n_fft) as (re, im), both computed in float64."""
-    k = np.arange(n_fft // 2 + 1, dtype=np.float64)
-    ang = -2.0 * np.pi * k / n_fft
-    twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=1)
-    return (hann_symmetric(n_fft).astype(np.float32),
-            np.ascontiguousarray(twiddle.astype(np.float32)))
+class FftTables(NamedTuple):
+    """The FFT route's constant tables, float32, each computed in float64
+    (complex values as (re, im) rows)."""
+    window: np.ndarray     # (n_fft,) the symmetric Hann window
+    twiddle: np.ndarray    # (h + 1, 2) exp(-2 pi i j / 2h), h = L, or P / 2
+    split: np.ndarray      # (n_fft/2 + 1, 2) exp(-2 pi i k / n_fft): even
+    #                        n_fft (the twiddle table itself when L is
+    #                        planned); empty for odd n_fft
+    chirp: np.ndarray      # (L, 2) exp(-i pi (n^2 mod 2L) / L): Bluestein
+    chirp_fft: np.ndarray  # (P, 2) P-point FFT of exp(i pi m^2 / L) over
+    #                        |m| < L (circular), divided by P: Bluestein
+
+
+def _unit(phase_num: np.ndarray, phase_den: int) -> np.ndarray:
+    """exp(-2 pi i num / den) as float32 (re, im) rows, from float64."""
+    ang = -2.0 * np.pi * phase_num.astype(np.float64) / phase_den
+    return np.ascontiguousarray(
+        np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32))
+
+
+def fft_tables(n_fft: int) -> FftTables:
+    """The tables of one n_fft (see `FftTables`).  Bluestein's chirp phase
+    n^2 mod 2L is taken in integers, so no angle grows with n."""
+    plan = fft_plan(n_fft)
+    length, pad = plan.length, plan.pad
+    half = pad // 2 if pad else length
+    twiddle = _unit(np.arange(half + 1), 2 * half)
+    empty = np.zeros((0, 2), np.float32)
+    if n_fft % 2:
+        split = empty
+    elif pad:
+        split = _unit(np.arange(n_fft // 2 + 1), n_fft)
+    else:
+        split = twiddle
+    chirp, chirp_fft = empty, empty
+    if pad:
+        n = np.arange(length, dtype=np.int64)
+        sq = (n * n) % (2 * length)
+        chirp = _unit(sq, 2 * length)               # exp(-i pi n^2 / L)
+        c = np.exp(1j * np.pi * sq / length)        # exp(+i pi n^2 / L)
+        b = np.zeros(pad, np.complex128)
+        b[:length] = c
+        b[pad - length + 1:] = c[1:][::-1]
+        spec = np.fft.fft(b) / pad
+        chirp_fft = np.ascontiguousarray(
+            np.stack([spec.real, spec.imag], axis=1).astype(np.float32))
+    return FftTables(hann_symmetric(n_fft).astype(np.float32), twiddle,
+                     split, chirp, chirp_fft)
 
 
 @functools.lru_cache(maxsize=8)
-def _fft_tables(n_fft: int, device: torch.device
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    window, twiddle = fft_tables(n_fft)
-    return (torch.as_tensor(window, device=device),
-            torch.as_tensor(twiddle, device=device))
+def _fft_tables(n_fft: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(t, device=device) for t in fft_tables(n_fft))
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,8 +248,8 @@ def _entry():
 def _fft_entry():
     lib = _build.load("stft_fft")
     fn = lib.avsep_stft_fft_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -175,24 +270,24 @@ def _check(audio: torch.Tensor, n_fft: int, hop: int, num_frames: int,
         raise ValueError("audio must be contiguous")
     if audio.dim() < 1 or audio.shape[-1] < 1:
         raise ValueError(f"audio must be (..., N), got {tuple(audio.shape)}")
-    # float4 broadcasts of frame samples (DFT) and 16-byte copies of the
-    # span (FFT) need both to be multiples of 4.
-    if n_fft % 4 or n_fft < 4:
-        raise ValueError(f"n_fft {n_fft} must be a positive multiple of 4")
-    if hop % 4 or hop < 4:
-        raise ValueError(f"hop {hop} must be a positive multiple of 4")
+    if hop < 1:
+        raise ValueError(f"hop {hop} must be positive")
     if num_frames < 1:
         raise ValueError(f"num_frames {num_frames} must be positive")
-    if kind == "dft":
-        if 4 * ((TILE_FRAMES - 1) * hop + n_fft) > MAX_SMEM_BYTES:
-            raise ValueError(f"a tile of {TILE_FRAMES} frames at hop {hop} "
-                             f"and n_fft {n_fft} does not fit in shared "
-                             f"memory")
-    elif route(n_fft) != "fft":
-        raise ValueError(f"n_fft {n_fft} is not in {FFT_SIZES} with a half "
-                         f"whose prime factors are 2, 3 and 5")
-    elif math.prod(audio.shape[:-1]) > MAX_GRID_Y:
-        raise ValueError(f"more than {MAX_GRID_Y} signals")
+    if kind == "fft":
+        lo, hi = FFT_SIZES
+        if not lo <= n_fft <= hi:
+            raise ValueError(f"n_fft {n_fft} is outside the FFT route's "
+                             f"[{lo}, {hi}]")
+        return
+    # float4 broadcasts of frame samples need both to be multiples of 4.
+    if n_fft % 4 or n_fft < 4:
+        raise ValueError(f"n_fft {n_fft} must be a positive multiple of 4")
+    if hop % 4:
+        raise ValueError(f"hop {hop} must be a positive multiple of 4")
+    if 4 * ((TILE_FRAMES - 1) * hop + n_fft) > MAX_SMEM_BYTES:
+        raise ValueError(f"a tile of {TILE_FRAMES} frames at hop {hop} "
+                         f"and n_fft {n_fft} does not fit in shared memory")
 
 
 def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
@@ -200,7 +295,7 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
     """|STFT| of (..., N) float32 audio -> (..., n_fft // 2 + 1, T).
 
     CPU tensors take the plain version; CUDA tensors launch the FFT kernel
-    where `route` says 'fft' and the matrix-DFT kernel for any other n_fft.
+    for n_fft in [2, 4096] and the matrix-DFT kernel above.
     """
     if audio.device.type == "cpu":
         return stft_magnitude_fwd_torch(audio, n_fft, hop, num_frames)
@@ -221,14 +316,16 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
     index = audio.device.index
     stream = torch.cuda.current_stream(audio.device).cuda_stream
     if kind == "fft":
-        window, twiddle = _fft_tables(n_fft, audio.device)
+        tables = _fft_tables(n_fft, audio.device)
         tile = fft_tile_frames(n_fft, hop, b, num_frames, _sm_count(index))
-        vec = int(n % 4 == 0 and audio.data_ptr() % 16 == 0)
+        vec = int(hop % 4 == 0 and n % 4 == 0
+                  and audio.data_ptr() % 16 == 0)
         plan = fft_plan(n_fft)
         lib, fn = _fft_entry()
-        rc = fn(audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+        rc = fn(audio.data_ptr(), *(t.data_ptr() for t in tables),
                 out.data_ptr(), b, n, num_frames, n_fft, hop, tile, vec,
-                (ctypes.c_int * len(plan))(*plan), len(plan), index, stream)
+                (ctypes.c_int * len(plan.radices))(*plan.radices),
+                len(plan.radices), plan.pad, index, stream)
         _build.check(lib, rc, "stft_mag_fwd")
         kernels.LAUNCHES["stft_mag_fwd"] += 1
     else:

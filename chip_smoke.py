@@ -29,12 +29,12 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            decoder (both in 3xTF32) at the scaled, demo, three_speaker
            and multihost shapes; their library yardsticks are two cuDNN
            conv1d and F.linear / F.gelu / F.linear / sigmoid (cuBLAS).
-           The STFT magnitude on its FFT route
-           (mixed radix 2, 3, 4, 5) at the scaled device batch
-           (24 x 64,000), the demo's (24 x 8,000), an odd shape (3 x 2,001,
-           n_fft 128, hop 64) and n_fft 400, hop 160 on the scaled batch;
-           its matrix-DFT route at n_fft 448, hop 112 (a half with the
-           prime factor 7); its library yardstick is torch.stft (cuFFT).
+           The STFT magnitude on its FFT route at every kind of length
+           (radix 2-8, Bluestein, odd n_fft, odd hops) on the scaled,
+           44.1 kHz and demo device batches, an odd shape and 70,000
+           signals (more than 65,535); its matrix-DFT route, for n_fft
+           above 4096, at 8192 / 1024; its library yardstick is
+           torch.stft (cuFFT).
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
@@ -66,12 +66,14 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            grad norm and the largest gradient error against stated
            tolerances (the CPU's float32 errors are printed beside them).
   train_profile  where the time of one train step goes (torch.profiler).
-  device_data  the scaled config's batches generated on the card
-           (data/device_synthetic.py generate_batch, batch 8): exactly one
-           STFT launch per batch, shapes, finite values, lips in [0, 1];
-           the same variates through `synthesize` on the CPU (spectra atol
-           1e-3 + rtol 1e-5, lips 1e-5); ms per generated batch (CUDA
-           events) beside the host batch_iterator's ms per batch of 8.
+  device_data  batches generated on the card (data/device_synthetic.py
+           generate_batch, batch 8) at the scaled config and two
+           DataConfigs derived from it (44.1 kHz: n_fft 882, hop 441;
+           n_fft 514, Bluestein): exactly one STFT launch per batch on the
+           FFT route, shapes, finite values, lips in [0, 1]; the same
+           variates through `synthesize` on the CPU (spectra atol 1e-3 +
+           rtol 1e-5, lips 1e-5); ms per generated batch (CUDA events),
+           for scaled beside the host batch_iterator's ms per batch of 8.
   train_device  `python -m av_separation_torch.cli train` in process on
            the scaled config at full width and depth, dropout 0.1, batch 8,
            --data device: --fused --steps 20, then --steps 6; the final
@@ -150,7 +152,7 @@ KERNELS = {
         "source": "av_separation_torch/csrc/stft_mag.cu",
         "replaces": PALLAS + "stft.py:95",
         "also_replaces": [],
-        "note": "the route for n_fft whose half has a prime factor above 5",
+        "note": "the route for n_fft above 4096",
     },
 }
 # The device kernels each wrapper launches, by name (torch.profiler).
@@ -259,11 +261,24 @@ def phase_env(state):
 
 
 def phase_build(state):
+    """Builds every kernel; fails if an instance of the STFT's FFT kernel
+    (one per transform: power of two, mixed radix and Bluestein, even and
+    odd n_fft) spills or is missing."""
+    import re
+
     from av_separation_torch.ops.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build(ptxas_verbose=True)
     secs = time.perf_counter() - t0
     usage = {name: _ptxas_usage(log) for name, log in logs.items()}
+    fft = {k: v for k, v in usage.get("stft_fft", {}).items()
+           if k.startswith("stft_fft_kernel")}
+    spills = {k: [int(n) for ln in v
+                  for n in re.findall(r"(\d+) bytes spill", ln)]
+              for k, v in fft.items()}
+    if logs.get("stft_fft") and (len(fft) != 5 or any(
+            sum(n) for n in spills.values())):
+        raise AssertionError(f"stft_fft_kernel instances {fft}")
     return {"build_s": round(secs, 2), "ptxas": usage}
 
 
@@ -313,25 +328,9 @@ def _attn_inputs(b, h, tq, tk, dh, kind, gen):
     return split_heads(q, h), split_heads(k, h), split_heads(v, h)
 
 
-def phase_kernels(state):
-    from av_separation_torch.ops.kernels.attention import mma_3xtf32_probe
-
-    gen = torch.Generator().manual_seed(0)
-    results = {name: [] for name in KERNELS}
-    failures = []
-
-    # The m16n8k8 TF32 fragment layouts the flash kernels build on: one
-    # 3xTF32 product against float64 on the host.  Sums of 8 products of
-    # unit normals: 3xTF32 keeps ~2^-20 relative, so 1e-5 (a wrong layout
-    # gives O(1) errors, 1xTF32 ~1e-3).
-    a = torch.randn(16, 8, generator=gen)
-    b = torch.randn(8, 8, generator=gen)
-    c = mma_3xtf32_probe(a.cuda(), b.cuda()).cpu().double()
-    probe_err = max_err(c, a.double() @ b.double())
-    emit({"mma_3xtf32_probe": "m16n8k8 against float64",
-          "max_abs_err": probe_err, "tol": 1e-5})
-    if probe_err > 1e-5:
-        failures.append(f"mma_3xtf32_probe {probe_err}")
+def make_record(results, failures):
+    """The `kernels` phase's row recorder: appends each row to
+    results[name] and each failure to `failures`."""
 
     def record(name, shape, err, tol, extra_errs, fn_k, fn_p, fn_lib,
                nbytes, flops, iters, op_rate="3xTF32", **extra):
@@ -365,6 +364,31 @@ def phase_kernels(state):
         if any(t < bound_ms for t in measured):
             failures.append(f"{name} {shape}: a time below its bound "
                             f"{bound_ms} ms, so the bound is wrong")
+
+    return record
+
+
+def phase_kernels(state):
+    from av_separation_torch.ops.kernels.attention import mma_3xtf32_probe
+
+    gen = torch.Generator().manual_seed(0)
+    results = {name: [] for name in KERNELS}
+    failures = []
+
+    # The m16n8k8 TF32 fragment layouts the flash kernels build on: one
+    # 3xTF32 product against float64 on the host.  Sums of 8 products of
+    # unit normals: 3xTF32 keeps ~2^-20 relative, so 1e-5 (a wrong layout
+    # gives O(1) errors, 1xTF32 ~1e-3).
+    a = torch.randn(16, 8, generator=gen)
+    b = torch.randn(8, 8, generator=gen)
+    c = mma_3xtf32_probe(a.cuda(), b.cuda()).cpu().double()
+    probe_err = max_err(c, a.double() @ b.double())
+    emit({"mma_3xtf32_probe": "m16n8k8 against float64",
+          "max_abs_err": probe_err, "tol": 1e-5})
+    if probe_err > 1e-5:
+        failures.append(f"mma_3xtf32_probe {probe_err}")
+
+    record = make_record(results, failures)
 
     # flash attention: the scaled path's three shapes (serving at dropout
     # 0, training at 0.1), demo, split, long; forward, then backward.
@@ -552,16 +576,39 @@ def _decoder_rows(record, gen):
                        "* mixed (cuBLAS)")
 
 
+# The DataConfigs the device_data phase generates on the card, derived
+# from `scaled`: a 44.1 kHz front end (20 ms window, 10 ms hop: n_fft 882,
+# an odd hop 441) and n_fft 514 (L 257, a prime: Bluestein).
+DATA_VARIANTS = {"scaled": {},
+                 "44.1 kHz": dict(sample_rate=44100, n_fft=882,
+                                  hop_length=441),
+                 "n_fft 514 (Bluestein)": dict(n_fft=514)}
+
+
+def _data_config(variant):
+    import dataclasses
+
+    from av_separation_torch.config import get_config
+    return dataclasses.replace(get_config("scaled").data,
+                               **DATA_VARIANTS[variant])
+
+
 def _stft_rows(record, gen):
-    """The STFT magnitude against its plain version: the scaled and demo
-    device batches (B 8: [mixed; 2 clean] = 24 signals of generated tones),
-    an odd shape of noise, and the scaled batch at n_fft 400 (the mixed-radix
-    FFT) and 448 (the matrix DFT).  Float32 sums of n_fft
-    windowed samples in another order (peaks ~100 on the tones): max abs
-    error 2e-4, tighter everywhere than atol 2e-4 with rtol 1e-5.  Bound:
-    the audio read once and the spectra written once, against the least
-    work of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame (the DFT
-    route's matrix DFT does 4 n_fft F).  Library: torch.stft with the symmetric
+    """The STFT magnitude against its plain version.  Device batches of
+    generated tones (B 8: [mixed; 2 clean] = 24 signals): scaled (n_fft
+    512, and the mixed radix 400 / 160, radix 7 448 / 112, Bluestein
+    514 / 128, odd n_fft 401 / 160), the 44.1 kHz one (882 / 441, L 441 =
+    3^2 7^2 at an odd hop; Bluestein 1102 / 441) and demo's (512; Bluestein
+    62 / 30); noise at an odd shape (3 x 2,001, n_fft 128, hop 64) and
+    beyond grid.y's 65,535 (70,000 x 1,024, 128 / 64).  The DFT route at
+    n_fft 8192, hop 1024 on the scaled batch.  Float32 sums of n_fft
+    windowed samples in another order: max abs error 2e-4 on the
+    tone rows of 16 kHz and 8 kHz and the odd shape (peaks ~90-120), 2e-4
+    x max(1, peak / 100) on the others; and against float64 (torch.stft in float64) within
+    tests/test_kernels.py's 5e-4 + 1e-4 relative.  Bound: the
+    audio read once and the spectra written once, against the least work
+    of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame (the DFT route's
+    matrix DFT does 4 n_fft F).  Library: torch.stft with the symmetric
     Hann window, no centering, on the zero-padded signal, then abs (cuFFT;
     timed only, never called by the port)."""
     import torch.nn.functional as F
@@ -571,24 +618,39 @@ def _stft_rows(record, gen):
                                                            draw_variates,
                                                            step_generator)
     from av_separation_torch.ops.kernels.stft import (
-        route, stft_magnitude_fwd, stft_magnitude_fwd_torch)
+        fft_plan, route, stft_magnitude_fwd, stft_magnitude_fwd_torch)
 
-    def tones(name):
-        cfg = get_config(name).data
+    def tones(cfg):
         v = draw_variates(step_generator(0, 0, "cuda"), cfg, 8)
         clean = clean_waveforms(v, cfg)
         audio = torch.cat([clean.sum(dim=1, keepdim=True), clean], dim=1)
-        return audio.reshape(-1, cfg.num_samples_audio).contiguous(), cfg
+        return audio.reshape(-1, cfg.num_samples_audio).contiguous()
 
-    scaled, cfg_s = tones("scaled")
-    demo, cfg_d = tones("demo")
+    scaled = tones(_data_config("scaled"))
+    k44 = tones(_data_config("44.1 kHz"))
+    demo = tones(get_config("demo").data)
     odd = torch.randn(3, 2001, generator=gen).cuda()  # N % 4: 4-byte copies
-    cases = [("scaled device batch", scaled, cfg_s.n_fft, cfg_s.hop_length),
-             ("demo device batch", demo, cfg_d.n_fft, cfg_d.hop_length),
-             ("odd", odd, 128, 64),
-             ("scaled device batch, mixed radix", scaled, 400, 160),
-             ("scaled device batch, DFT route", scaled, 448, 112)]
-    for label, audio, n_fft, hop in cases:
+    many = torch.randn(70000, 1024, generator=gen).cuda()
+    # (label, audio, n_fft, hop, iters, tolerance rule): "flat" 2e-4, or
+    # "peak", 2e-4 scaled by the peak over 100.
+    cases = [("scaled device batch", scaled, 512, 128, 20, "flat"),
+             ("demo device batch", demo, 512, 128, 20, "flat"),
+             ("odd", odd, 128, 64, 20, "flat"),
+             ("scaled device batch, mixed radix", scaled, 400, 160, 20,
+              "flat"),
+             ("scaled device batch, radix 7", scaled, 448, 112, 20, "flat"),
+             ("44.1 kHz device batch, radix 7, odd hop", k44, 882, 441, 20,
+              "peak"),
+             ("scaled device batch, odd n_fft", scaled, 401, 160, 20,
+              "peak"),
+             ("scaled device batch, Bluestein", scaled, 514, 128, 20, "peak"),
+             ("44.1 kHz device batch, Bluestein, odd hop", k44, 1102, 441,
+              20, "peak"),
+             ("demo device batch, Bluestein", demo, 62, 30, 20, "peak"),
+             ("70,000 signals", many, 128, 64, 20, "peak"),
+             ("scaled device batch, DFT route", scaled, 8192, 1024, 5,
+              "peak")]
+    for label, audio, n_fft, hop, iters, rule in cases:
         b, n = audio.shape
         t = 1 + n // hop
         f = n_fft // 2 + 1
@@ -603,17 +665,32 @@ def _stft_rows(record, gen):
         k = stft_magnitude_fwd(audio, n_fft, hop)
         p = stft_magnitude_fwd_torch(audio, n_fft, hop)
         lib_out = lib()
+        # float64 through cuFFT: tests/test_kernels.py's tolerance for the
+        # Pallas kernel against float64 numpy, 5e-4 + 1e-4 relative.
+        ref64 = lib(audio.double(), window=window.double())
+        over64 = float(((k.double() - ref64).abs()
+                        - 1e-4 * ref64.abs()).max())
         torch.cuda.synchronize()
+        peak = float(p.max())
+        tol = 2e-4 * (max(1.0, peak / 100.0) if rule == "peak" else 1.0)
         nbytes = 4 * (b * n + b * f * t)
         flops = 2.5 * n_fft * np.log2(n_fft) * t * b
         name = {"fft": "stft_mag_fwd", "dft": "stft_mag_dft_fwd"}[route(n_fft)]
+        plan = fft_plan(n_fft) if name == "stft_mag_fwd" else None
         record(name, f"{label} B={b} N={n} n_fft={n_fft} hop={hop} T={t}",
-               max_err(k, p), 2e-4, {}, lambda: stft_magnitude_fwd(
-                   audio, n_fft, hop),
+               max_err(k, p), tol,
+               {"float64 excess over 1e-4 rel": (over64, 5e-4)},
+               lambda: stft_magnitude_fwd(audio, n_fft, hop),
                lambda: stft_magnitude_fwd_torch(audio, n_fft, hop), lib,
-               nbytes, flops, 20, op_rate="float32",
-               peak=float(p.max()), library_max_abs_err=max_err(lib_out, p),
+               nbytes, flops, iters, op_rate="float32",
+               peak=peak, tol_rule="2e-4" if rule == "flat"
+               else "2e-4 x max(1, peak / 100)",
+               transform=None if plan is None else {
+                   "length": plan.length, "radices": list(plan.radices),
+                   "bluestein_pad": plan.pad},
+               library_max_abs_err=max_err(lib_out, p),
                library="torch.stft(center=False, symmetric Hann).abs()")
+        del k, p, lib_out, ref64
 
 
 def phase_golden(state):
@@ -1098,11 +1175,11 @@ def phase_train_profile(state):
 
 
 def phase_device_data(state):
-    """Batches generated on the card: launches, contract, the CPU check on
-    the same variates, and ms per batch beside the host pipeline's."""
+    """Batches generated on the card at each of DATA_VARIANTS: launches,
+    contract, the CPU check on the same variates, and ms per batch; for
+    the scaled config beside the host pipeline's."""
     import dataclasses
 
-    from av_separation_torch.config import get_config
     from av_separation_torch.data.device_synthetic import (draw_variates,
                                                            generate_batch,
                                                            step_generator,
@@ -1111,65 +1188,74 @@ def phase_device_data(state):
     from av_separation_torch.data.synthetic import SyntheticAVDataset
     from av_separation_torch.ops import kernels
 
-    cfg, bs = get_config("scaled").data, 8
-    s, f, t = cfg.num_speakers, cfg.freq_bins, cfg.num_stft_frames
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    batch = generate_batch(step_generator(0, 0, "cuda"), cfg, bs)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    state["launches"]["device_data"] = launches
-    bad = []
-    want = {name: 0 for name in kernels.LAUNCHES}
-    want["stft_mag_fwd"] = 1
-    if launches != want:
-        bad.append(f"launches {launches} != {want}")
-    shapes = {"mixed_spec": (bs, f, t), "clean_specs": (bs, s, f, t),
-              "lip_frames": (bs, s * cfg.num_frames, cfg.frame_h,
-                             cfg.frame_w)}
-    for name, shape in shapes.items():
-        x = batch[name]
-        if tuple(x.shape) != shape or x.device.type != "cuda" \
-                or not bool(torch.isfinite(x).all()):
-            bad.append(f"{name}: {tuple(x.shape)} on {x.device}, "
-                       f"finite {bool(torch.isfinite(x).all())}")
-    lips = batch["lip_frames"]
-    lip_range = [float(lips.min()), float(lips.max())]
-    if lip_range[0] < 0.0 or lip_range[1] > 1.0:
-        bad.append(f"lip frames outside [0, 1]: {lip_range}")
+    bs, bad = 8, []
+    out = {"card": state["card"], "batch": bs}
+    for variant in DATA_VARIANTS:
+        cfg = _data_config(variant)
+        key = "device_data" if variant == "scaled" else \
+            f"device_data {variant}"
+        s, f, t = cfg.num_speakers, cfg.freq_bins, cfg.num_stft_frames
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        batch = generate_batch(step_generator(0, 0, "cuda"), cfg, bs)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        state["launches"][key] = launches
+        want = {name: 0 for name in kernels.LAUNCHES}
+        want["stft_mag_fwd"] = 1
+        if launches != want:
+            bad.append(f"{variant}: launches {launches} != {want}")
+        shapes = {"mixed_spec": (bs, f, t), "clean_specs": (bs, s, f, t),
+                  "lip_frames": (bs, s * cfg.num_frames, cfg.frame_h,
+                                 cfg.frame_w)}
+        for name, shape in shapes.items():
+            x = batch[name]
+            if tuple(x.shape) != shape or x.device.type != "cuda" \
+                    or not bool(torch.isfinite(x).all()):
+                bad.append(f"{variant} {name}: {tuple(x.shape)} on "
+                           f"{x.device}, finite "
+                           f"{bool(torch.isfinite(x).all())}")
+        lips = batch["lip_frames"]
+        lip_range = [float(lips.min()), float(lips.max())]
+        if lip_range[0] < 0.0 or lip_range[1] > 1.0:
+            bad.append(f"{variant}: lip frames outside [0, 1]: {lip_range}")
 
-    # The same variates (redrawn from the same generator seed), on the CPU.
-    variates = draw_variates(step_generator(0, 0, "cuda"), cfg, bs)
-    ref = synthesize({k: v.cpu() for k, v in variates.items()}, cfg)
-    errs = {}
-    for name, atol, rtol in (("mixed_spec", 1e-3, 1e-5),
-                             ("clean_specs", 1e-3, 1e-5),
-                             ("lip_frames", 1e-5, 0.0)):
-        got, want_ = batch[name].cpu(), ref[name]
-        errs[name] = {"max_abs_err": max_err(got, want_), "atol": atol,
-                      "rtol": rtol}
-        if not within(got.numpy(), want_.numpy(), atol, rtol):
-            bad.append(f"{name} card vs CPU {errs[name]}")
+        # The same variates (redrawn from the same generator seed), on the
+        # CPU.
+        variates = draw_variates(step_generator(0, 0, "cuda"), cfg, bs)
+        ref = synthesize({k: v.cpu() for k, v in variates.items()}, cfg)
+        errs = {}
+        for name, atol, rtol in (("mixed_spec", 1e-3, 1e-5),
+                                 ("clean_specs", 1e-3, 1e-5),
+                                 ("lip_frames", 1e-5, 0.0)):
+            got, want_ = batch[name].cpu(), ref[name]
+            errs[name] = {"max_abs_err": max_err(got, want_), "atol": atol,
+                          "rtol": rtol}
+            if not within(got.numpy(), want_.numpy(), atol, rtol):
+                bad.append(f"{variant} {name} card vs CPU {errs[name]}")
+        gen = step_generator(0, 1, "cuda")
+        out[variant] = {
+            "sample_rate": cfg.sample_rate, "n_fft": cfg.n_fft,
+            "hop": cfg.hop_length, "N": cfg.num_samples_audio, "F": f,
+            "T": t, "launches": launches, "lip_range": lip_range,
+            "peak_spectrum": float(batch["mixed_spec"].max()),
+            "cpu_check": errs,
+            "device_ms_per_batch": cuda_ms(
+                lambda: generate_batch(gen, cfg, bs), iters=20)}
     if bad:
         raise AssertionError("; ".join(bad))
 
-    gen = step_generator(0, 1, "cuda")
-    device_ms = cuda_ms(lambda: generate_batch(gen, cfg, bs), iters=20)
-    host_cfg = dataclasses.replace(cfg, num_samples=bs)
+    host_cfg = dataclasses.replace(_data_config("scaled"), num_samples=bs)
     t0 = time.perf_counter()
     host = batch_iterator(SyntheticAVDataset(host_cfg), bs, seed=0)
     next(host)
-    host_first_ms = (time.perf_counter() - t0) * 1e3
+    out["host_ms_per_batch_generated"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     for _ in range(10):
         next(host)
-    host_cut_ms = (time.perf_counter() - t0) / 10 * 1e3
-    return {"config": "scaled", "card": state["card"], "batch": bs,
-            "launches": launches, "lip_range": lip_range,
-            "peak_spectrum": float(batch["mixed_spec"].max()),
-            "cpu_check": errs, "device_ms_per_batch": device_ms,
-            "host_ms_per_batch_generated": host_first_ms,
-            "host_ms_per_batch_cut_from_memory": host_cut_ms}
+    out["host_ms_per_batch_cut_from_memory"] = \
+        (time.perf_counter() - t0) / 10 * 1e3
+    return out
 
 
 def _run_cli(args):

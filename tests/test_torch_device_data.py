@@ -40,6 +40,11 @@ GEOMETRIES = {
     "demo 8 kHz, n_fft 512": dict(num_samples=8, sample_rate=8000,
                                   duration=1.0, n_fft=512, hop_length=128,
                                   num_frames=25),
+    # A 44.1 kHz front end: 20 ms window, 10 ms hop (an odd hop, n_fft
+    # 2 mod 4), the shape chip_smoke.py's device_data phase runs on the card.
+    "44.1 kHz, n_fft 882, hop 441": dict(num_samples=8, sample_rate=44100,
+                                         duration=0.25, n_fft=882,
+                                         hop_length=441, num_frames=25),
 }
 
 

@@ -6,11 +6,13 @@ their plain versions there).  These tests hold, in numpy, the algorithms the
 kernels implement, against the port's plain versions and the JAX Pallas
 kernels in interpret mode:
 
-  - `csrc/stft_fft.cu`: the half-length complex FFT (mixed-radix Stockham
-    over the host's plan of radices 2, 4, 3 and 5, the kernel's own float32
-    twiddle table, butterfly constants and index arithmetic: shifts and
-    masks for a power-of-two M, multiply-and-shift divisions otherwise)
-    plus the split step into the bins of the real transform;
+  - `csrc/stft_fft.cu`: the FFT of every n_fft in [2, 4096] (half-length
+    packing of an even n_fft, two frames a sequence for an odd one;
+    Stockham stages over the host's plan of radices 2, 3, 4, 5, 7 and 8,
+    or Bluestein's chirp-z transform over a power of two; the kernel's own
+    float32 tables, butterfly constants and index arithmetic: shifts and
+    masks for a power of two, multiply-and-shift divisions otherwise)
+    plus the split or separation step into the bins of the real transform;
   - `csrc/flash_attn_fwd.cu`: 3xTF32 products (TF32 big and small parts
     by the kernel's mask, or by cvt.rna.tf32.f32; big*small + small*big +
     big*big) inside the kernel's tile-by-tile online softmax; 1xTF32 does
@@ -38,9 +40,13 @@ from jax.experimental.pallas import tpu as pltpu
 from av_separation_torch.ops.kernels.attention import (flash_attn_bwd_torch,
                                                        flash_attn_fwd_torch,
                                                        keep_mask)
-from av_separation_torch.ops.kernels.stft import (MAX_SMEM_BYTES, _check,
-                                                  fft_plan, fft_smem_bytes,
-                                                  fft_tables, fft_tile_frames,
+from av_separation_torch.ops.kernels.stft import (FFT_SIZES, FFT_TILES,
+                                                  MAX_SMEM_BYTES, MAX_STAGES,
+                                                  SMEM_SHARES,
+                                                  _check, fft_plan,
+                                                  fft_sequences,
+                                                  fft_smem_bytes, fft_tables,
+                                                  fft_tile_frames, radices,
                                                   route,
                                                   stft_magnitude_fwd_torch)
 
@@ -55,20 +61,43 @@ def rand(shape, seed, scale=1.0):
 
 
 # ---------------------------------------------------------------------------
-# The STFT magnitude as a half-length complex FFT.
+# The STFT magnitude as an FFT: half-length packing (even n_fft) or two
+# frames a sequence (odd), mixed radix 2-7 or Bluestein.
 # ---------------------------------------------------------------------------
 
 def fast_div(n, d):
-    """The kernel's `FastDiv`: n // d as (n * ceil(2^31 / d)) >> 31, exact
-    for n < 2^16 and d <= 2^12."""
+    """The kernel's `FastDiv`: n // d as (n * m) >> 31, m = ceil(2^31 / d),
+    exact while n (m d - 2^31) < 2^31 (so wherever n d <= 2^31)."""
     m = ((1 << 31) + d - 1) // d
     return (np.asarray(n, np.uint64) * np.uint64(m)) >> np.uint64(31)
+
+
+def kernel_divisions(n_fft, tile):
+    """Every (divisor, largest numerator) the kernel divides by FastDiv at
+    one n_fft and tile: the sequence index by the FFT length (a planned
+    length that is not a power of two), each mixed-radix stage's butterfly
+    index by len / R and the butterfly by the stride ns, and the split
+    step's index by F.  Powers of two use shifts."""
+    plan = fft_plan(n_fft)
+    seq, f = fft_sequences(n_fft, tile), n_fft // 2 + 1
+    out = [(f, seq * f - 1)]
+    n = plan.length
+    if not plan.pad and n & (n - 1):
+        out.append((n, seq * n - 1))
+        ns = 1
+        for r in plan.radices:
+            out += [(n // r, seq * n // r - 1), (ns, n // r - 1)]
+            ns *= r
+    return out
 
 
 # The kernel's butterfly constants, float64 rounded to float32.
 C5A, C5B = np.float32(np.cos(2 * np.pi / 5)), np.float32(np.cos(4 * np.pi / 5))
 S5A, S5B = np.float32(np.sin(2 * np.pi / 5)), np.float32(np.sin(4 * np.pi / 5))
 S3 = np.float32(np.sin(2 * np.pi / 3))
+C7 = [np.float32(np.cos(2 * np.pi * j / 7)) for j in (1, 2, 3)]
+S7 = [np.float32(np.sin(2 * np.pi * j / 7)) for j in (1, 2, 3)]
+S8 = np.float32(np.sin(np.pi / 4))
 
 
 def butterfly(vr, vi):
@@ -84,12 +113,46 @@ def butterfly(vr, vi):
         a3r, a3i = vi[1] - vi[3], vr[3] - vr[1]          # -i (v1 - v3)
         return ([a0r + a2r, a1r + a3r, a0r - a2r, a1r - a3r],
                 [a0i + a2i, a1i + a3i, a0i - a2i, a1i - a3i])
+    if r == 8:
+        # Two radix-4 DFTs of the even and odd terms: X_m = E_m + W8^m O_m,
+        # X_{m+4} = E_m - W8^m O_m.
+        er, ei = butterfly(vr[0::2], vi[0::2])
+        o_r, o_i = butterfly(vr[1::2], vi[1::2])
+        tr = [o_r[0], S8 * (o_r[1] + o_i[1]), o_i[2], S8 * (o_i[3] - o_r[3])]
+        ti = [o_i[0], S8 * (o_i[1] - o_r[1]), -o_r[2],
+              -(S8 * (o_r[3] + o_i[3]))]
+        return ([er[m] + tr[m] for m in range(4)]
+                + [er[m] - tr[m] for m in range(4)],
+                [ei[m] + ti[m] for m in range(4)]
+                + [ei[m] - ti[m] for m in range(4)])
     if r == 3:
         tr, ti = vr[1] + vr[2], vi[1] + vi[2]
         dr, di = vr[1] - vr[2], vi[1] - vi[2]
         cr, ci = vr[0] - f32(0.5) * tr, vi[0] - f32(0.5) * ti
         mr, mi = S3 * di, -S3 * dr                       # -i sin(2pi/3) d
         return [vr[0] + tr, cr + mr, cr - mr], [vi[0] + ti, ci + mi, ci - mi]
+    if r == 7:
+        # Pairs v_j +- v_{7-j}; X_m = c_m - i s_m, X_{7-m} = c_m + i s_m,
+        # c_m = v0 + sum_j cos(2 pi m j / 7) a_j, s_m = sum_j sin(..) b_j.
+        ar = [vr[j] + vr[7 - j] for j in (1, 2, 3)]
+        ai = [vi[j] + vi[7 - j] for j in (1, 2, 3)]
+        br = [vr[j] - vr[7 - j] for j in (1, 2, 3)]
+        bi = [vi[j] - vi[7 - j] for j in (1, 2, 3)]
+        c1, c2, c3 = C7
+        s1, s2, s3 = S7
+        cos_rows = [(c1, c2, c3), (c2, c3, c1), (c3, c1, c2)]
+        sin_rows = [(s1, s2, s3), (s2, -s3, -s1), (s3, -s1, s2)]
+        outr, outi = [vr[0] + ar[0] + ar[1] + ar[2]] + [None] * 6, \
+            [vi[0] + ai[0] + ai[1] + ai[2]] + [None] * 6
+        for m in (1, 2, 3):
+            (p, q, t), (u, v, w) = cos_rows[m - 1], sin_rows[m - 1]
+            cr = vr[0] + p * ar[0] + q * ar[1] + t * ar[2]
+            ci = vi[0] + p * ai[0] + q * ai[1] + t * ai[2]
+            sr = u * br[0] + v * br[1] + w * br[2]
+            si = u * bi[0] + v * bi[1] + w * bi[2]
+            outr[m], outi[m] = cr + si, ci - sr          # c - i s
+            outr[7 - m], outi[7 - m] = cr - si, ci + sr  # c + i s
+        return outr, outi
     a1r, a1i = vr[1] + vr[4], vi[1] + vi[4]
     b1r, b1i = vr[1] - vr[4], vi[1] - vi[4]
     a2r, a2i = vr[2] + vr[3], vi[2] + vi[3]
@@ -102,51 +165,43 @@ def butterfly(vr, vi):
             [vi[0] + a1i + a2i, c1i + e1i, c2i + e2i, c2i - e2i, c1i - e1i])
 
 
-def fft_stft_emulated(audio: np.ndarray, n_fft: int, hop: int,
-                      num_frames: int) -> np.ndarray:
-    """(B, N) float32 -> (B, F, T) float32 by the steps of stft_fft.cu, in
-    float32: window, pack z[n] = x[2n] + i x[2n+1], the plan's Stockham
-    stages with the kernel's twiddle indices (shifts and masks for a
-    power-of-two M, `fast_div` by the host's per-stage constants
-    otherwise), split step, magnitude."""
-    f32 = np.float32
-    window, tw = fft_tables(n_fft)
-    m = n_fft // 2
-    pow2 = m & (m - 1) == 0
-    log2m = m.bit_length() - 1
-    b, n = audio.shape
-    pad = max(0, (num_frames - 1) * hop + n_fft - n)
-    padded = np.pad(audio, ((0, 0), (0, pad)))
-    idx = np.arange(num_frames)[:, None] * hop + np.arange(n_fft)[None, :]
-    x = padded[:, idx] * window                      # (B, T, n_fft) float32
-    zr, zi = x[..., 0::2].copy(), x[..., 1::2].copy()
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
 
-    def twiddle_at(idx):  # W^idx for idx in [0, 2M) from W^0 .. W^M
-        sign = np.where(idx <= m, f32(1), f32(-1))
-        idx = np.where(idx <= m, idx, idx - m)
+
+def stockham(zr, zi, plan_radices, tw, half):
+    """The kernel's Stockham stages over the last axis (length n = the
+    product of the radices), float32, with its twiddle indices: shifts and
+    masks for a power of two, `fast_div` by the host's per-stage constants
+    otherwise.  `tw` holds W^0 .. W^half of W = exp(-2 pi i / 2 half)."""
+    f32 = np.float32
+    n = zr.shape[-1]
+    pow2 = n & (n - 1) == 0
+    log2n, log2q = n.bit_length() - 1, (2 * half).bit_length() - 1
+
+    def twiddle_at(idx):  # W^idx for idx in [0, 2 half)
+        sign = np.where(idx <= half, f32(1), f32(-1))
+        idx = np.where(idx <= half, idx, idx - half)
         return sign * tw[idx, 0], sign * tw[idx, 1]
 
-    def cmul(ar, ai, br, bi):
-        return ar * br - ai * bi, ar * bi + ai * br
-
     ns, log2ns = 1, 0
-    for r in fft_plan(n_fft):
-        mr = m // r
-        j = np.arange(mr)       # the butterflies of one frame
+    for r in plan_radices:
+        mr = n // r
+        j = np.arange(mr)       # the butterflies of one sequence
         if pow2:
-            log2r = 2 if r == 4 else 1
+            log2r = {2: 1, 4: 2, 8: 3}[r]
             k = j & (ns - 1)
-            t = k << (log2m + 1 - log2r - log2ns)
+            t = k << (log2q - log2r - log2ns)
             dst = ((j - k) << log2r) + k
         else:
             q = fast_div(j, ns).astype(np.int64)
             k = j - q * ns
-            t = k * (2 * m // (r * ns))
+            t = k * (2 * half // (r * ns))
             dst = q * ns * r + k
         vr, vi = [zr[..., j]], [zi[..., j]]
         for i in range(1, r):
-            vr_i, vi_i = cmul(zr[..., j + i * mr], zi[..., j + i * mr],
-                              *twiddle_at(i * t))
+            vr_i, vi_i = _cmul(zr[..., j + i * mr], zi[..., j + i * mr],
+                               *twiddle_at(i * t))
             vr.append(vr_i)
             vi.append(vi_i)
         vr, vi = butterfly(vr, vi)
@@ -155,19 +210,92 @@ def fft_stft_emulated(audio: np.ndarray, n_fft: int, hop: int,
             outr[..., dst + i * ns], outi[..., dst + i * ns] = vr[i], vi[i]
         zr, zi = outr, outi
         ns *= r
-        log2ns += 2 if r == 4 else 1
-    k = np.arange(m + 1)
-    kk = np.where(k == m, 0, k)
-    km = np.where(k == 0, 0, m - k)
-    zkr, zki = zr[..., kk], zi[..., kk]
-    zmr, zmi = zr[..., km], zi[..., km]
-    ar, ai = zkr + zmr, zki - zmi
-    br, bi = zkr - zmr, zki + zmi
-    wr, wi = tw[:, 0], tw[:, 1]
-    wbr, wbi = wr * br - wi * bi, wr * bi + wi * br
-    xr, xi = f32(0.5) * (ar + wbi), f32(0.5) * (ai - wbr)
-    mag = np.sqrt(xr * xr + xi * xi).astype(f32)
-    return np.swapaxes(mag, -1, -2)
+        log2ns += {2: 1, 4: 2, 8: 3}.get(r, 0)
+    assert ns == n
+    return zr, zi
+
+
+def fft_stft_emulated(audio: np.ndarray, n_fft: int, hop: int,
+                      num_frames: int, tile: int = 2) -> np.ndarray:
+    """(B, N) float32 -> (B, F, T) float32 by the steps of stft_fft.cu, in
+    float32: window; pack (even n_fft: z[n] = x[2n] + i x[2n+1], sample by
+    sample, as the kernel reads at an odd hop; odd n_fft: frames 2s and
+    2s + 1 of a tile as the real and imaginary parts, alone at tile 1);
+    the FFT of L points by the plan's Stockham stages or, under Bluestein,
+    z chirp, P-point FFT, times the chirp's transform, conjugate, P-point
+    FFT, conjugate times the chirp; then the real split step (even) or the
+    separation of the two frames (odd); magnitude."""
+    f32 = np.float32
+    tables = fft_tables(n_fft)
+    plan = fft_plan(n_fft)
+    length, pad = plan.length, plan.pad
+    half = pad // 2 if pad else length
+    odd = n_fft % 2 == 1
+    b, n = audio.shape
+    frames = -(-num_frames // tile) * tile
+    extra = max(0, (frames - 1) * hop + n_fft - n)
+    padded = np.pad(audio, ((0, 0), (0, extra)))
+    idx = np.arange(frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    x = padded[:, idx] * tables.window               # (B, frames, n_fft)
+    if not odd:
+        zr, zi = x[..., 0::2].copy(), x[..., 1::2].copy()
+    elif tile > 1:
+        zr, zi = x[:, 0::2].copy(), x[:, 1::2].copy()
+    else:
+        zr, zi = x.copy(), np.zeros_like(x)
+    if pad:
+        cr, ci = tables.chirp[:, 0], tables.chirp[:, 1]
+        zr, zi = _cmul(zr, zi, cr, ci)
+        zr = np.concatenate([zr, np.zeros(zr.shape[:-1] + (pad - length,),
+                                          f32)], axis=-1)
+        zi = np.concatenate([zi, np.zeros(zi.shape[:-1] + (pad - length,),
+                                          f32)], axis=-1)
+        zr, zi = stockham(zr, zi, plan.radices, tables.twiddle, half)
+        yr, yi = _cmul(zr, zi, tables.chirp_fft[:, 0], tables.chirp_fft[:, 1])
+        zr, zi = stockham(yr, -yi, plan.radices, tables.twiddle, half)
+        zr, zi = _cmul(cr, ci, zr[..., :length], -zi[..., :length])
+    else:
+        zr, zi = stockham(zr, zi, plan.radices, tables.twiddle, half)
+    k = np.arange(n_fft // 2 + 1)
+    if not odd:
+        m = length
+        kk, km = np.where(k == m, 0, k), np.where(k == 0, 0, m - k)
+        zkr, zki, zmr, zmi = zr[..., kk], zi[..., kk], zr[..., km], zi[..., km]
+        ar, ai = zkr + zmr, zki - zmi
+        br, bi = zkr - zmr, zki + zmi
+        wr, wi = tables.split[:, 0], tables.split[:, 1]
+        wbr, wbi = wr * br - wi * bi, wr * bi + wi * br
+        xr, xi = f32(0.5) * (ar + wbi), f32(0.5) * (ai - wbr)
+        mag = np.sqrt(xr * xr + xi * xi).astype(f32)
+    else:
+        km = np.where(k == 0, 0, length - k)
+        ar, ai, br, bi = zr[..., k], zi[..., k], zr[..., km], zi[..., km]
+        pr, pi = ar + br, ai - bi                        # a + conj(b)
+        qr, qi = ar - br, ai + bi                        # a - conj(b)
+        first = f32(0.5) * np.sqrt(pr * pr + pi * pi)
+        if tile == 1:
+            mag = first
+        else:
+            second = f32(0.5) * np.sqrt(qr * qr + qi * qi)
+            mag = np.stack([first, second], axis=2).reshape(
+                b, frames, -1)
+    return np.swapaxes(mag[:, :num_frames], -1, -2).astype(f32)
+
+
+def plain_tol(peak):
+    """The kernel's tolerance against its plain version: 2e-4 at the
+    peaks of the tones (~100), scaled by the peak beyond that (float32
+    sums of n_fft samples in another order)."""
+    return 2e-4 * max(1.0, float(peak) / 100.0)
+
+
+# Every kind of length: even n_fft under Bluestein (62: L 31; 514: L 257;
+# 1102: L 551 = 19 29, at an odd hop), planned with radix 7 (448: L 224 =
+# 2^5 7; 882: L 441 = 3^2 7^2, at an odd hop); odd n_fft under Bluestein
+# (401; 4093 with P 8192, the largest block) and planned (441 = 3^2 7^2).
+KINDS = [(62, 30, 600), (401, 160, 2000), (448, 112, 2000), (514, 128, 2000),
+         (882, 441, 4000), (1102, 441, 4000), (4093, 1000, 6000),
+         (441, 147, 3000)]
 
 
 class TestFftStft:
@@ -197,6 +325,41 @@ class TestFftStft:
         np.testing.assert_allclose(ours, plain, atol=2e-4, rtol=0)
         np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=0)
 
+    # Every kind of length the FFT route now serves, against the plain
+    # version (2e-4, scaled by the peak over 100), the Pallas kernel in
+    # interpret mode and float64 numpy at tests/test_kernels.py's
+    # tolerance for the Pallas kernel (5e-4 + 1e-4 rel).
+    @pytest.mark.parametrize("n_fft,hop,n", KINDS)
+    def test_every_kind_matches_plain_pallas_and_float64(self, n_fft, hop,
+                                                         n):
+        from av_separation_torch.data.synthetic import stft_magnitude_np
+        from av_separation_tpu.ops.pallas.stft import stft_magnitude_pallas
+        audio = rand((2, n), 60 + n_fft)
+        frames = 1 + n // hop
+        tile = fft_tile_frames(n_fft, hop, 2, frames, 132)
+        ours = fft_stft_emulated(audio, n_fft, hop, frames, tile)
+        plain = stft_magnitude_fwd_torch(torch.from_numpy(audio), n_fft,
+                                         hop).numpy()
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(stft_magnitude_pallas(audio, n_fft, hop))
+        want = np.stack([stft_magnitude_np(a, n_fft, hop, frames)
+                         for a in audio])
+        assert ours.shape == plain.shape == (2, n_fft // 2 + 1, frames)
+        tol = plain_tol(want.max())
+        np.testing.assert_allclose(ours, plain, atol=tol, rtol=0)
+        np.testing.assert_allclose(ours, ref, atol=5e-4, rtol=1e-4)
+        np.testing.assert_allclose(ours, want, atol=5e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("n_fft", [3, 9, 401])
+    def test_odd_n_fft_one_frame_a_tile(self, n_fft):
+        # Tile 1: one frame in the real part, zeros in the imaginary.
+        from av_separation_torch.data.synthetic import stft_magnitude_np
+        audio = rand((1, 900), 61 + n_fft)
+        frames = 1 + 900 // 7
+        ours = fft_stft_emulated(audio, n_fft, 7, frames, tile=1)
+        want = stft_magnitude_np(audio[0], n_fft, 7, frames)
+        np.testing.assert_allclose(ours[0], want, atol=5e-4, rtol=1e-4)
+
     def test_tail_frame_and_split_edges(self):
         # The last frame starts at N and reads only zeros; bins 0 and M come
         # from Z[0] alone (Z[M] = Z[0]) and are the real sums of the even
@@ -206,7 +369,7 @@ class TestFftStft:
         frames = 1 + n // hop
         ours = fft_stft_emulated(audio, n_fft, hop, frames)
         assert np.all(ours[..., -1] == 0.0)
-        window, _ = fft_tables(n_fft)
+        window = fft_tables(n_fft).window
         x = (audio[0, :n_fft] * window).astype(np.float64)
         np.testing.assert_allclose(ours[0, 0, 0], abs(x.sum()), rtol=1e-5)
         np.testing.assert_allclose(ours[0, -1, 0],
@@ -214,34 +377,37 @@ class TestFftStft:
                                    rtol=1e-5, atol=1e-5)
 
     def test_fast_div_is_exact_where_the_kernel_divides(self):
-        # Every divisor the kernel takes (M, M + 1, M / R and the strides
-        # ns of each n_fft on the FFT route) over n < 2^16.
-        n = np.arange(1 << 16)
-        divisors = set()
-        for n_fft in range(8, 4097, 4):
-            if route(n_fft) != "fft":
-                continue
-            m, ns = n_fft // 2, 1
-            divisors |= {m, m + 1}
-            for r in fft_plan(n_fft):
-                divisors |= {m // r, ns}
-                ns *= r
-        assert max(divisors) == 2049
-        for d in sorted(divisors):
+        # Every divisor the kernel takes, at every n_fft of the FFT route
+        # and every tile that fits, over its whole range of numerators:
+        # checked at each q d - 1 (the largest remainder, where an error
+        # would show first) and at the range's end.
+        reach = {}
+        for n_fft in range(FFT_SIZES[0], FFT_SIZES[1] + 1):
+            for tile in FFT_TILES:
+                if fft_smem_bytes(n_fft, 1, tile) > MAX_SMEM_BYTES:
+                    continue
+                for d, top in kernel_divisions(n_fft, tile):
+                    reach[d] = max(reach.get(d, 0), top)
+        assert max(reach) == 3969 and max(reach.values()) < 1 << 16
+        for d, top in sorted(reach.items()):
+            n = np.append(np.arange(d - 1, top + 1, d), top)
             np.testing.assert_array_equal(fast_div(n, d), n // d,
                                           err_msg=str(d))
+            m = ((1 << 31) + d - 1) // d
+            assert top * (m * d - (1 << 31)) < 1 << 31, d
 
     def test_butterfly_constants_are_rounded_from_float64(self):
         src = (CSRC / "stft_fft.cu").read_text()
         consts = dict(re.findall(r"constexpr float (k\w+) = ([-0-9.e]+)f;",
                                  src))
         want = {"kS3": S3, "kC5a": C5A, "kC5b": C5B, "kS5a": S5A,
-                "kS5b": S5B}
+                "kS5b": S5B, "kC7a": C7[0], "kC7b": C7[1], "kC7c": C7[2],
+                "kS7a": S7[0], "kS7b": S7[1], "kS7c": S7[2], "kS8": S8}
         assert set(consts) == set(want)
         for name, value in consts.items():
             assert np.float32(float(value)) == want[name], name
 
-    @pytest.mark.parametrize("r", [2, 3, 4, 5])
+    @pytest.mark.parametrize("r", [2, 3, 4, 5, 7, 8])
     def test_butterfly_is_the_r_point_dft(self, r):
         v = rand((2, r, 16), 52 + r)
         got_r, got_i = butterfly(list(v[0]), list(v[1]))
@@ -250,39 +416,97 @@ class TestFftStft:
         np.testing.assert_allclose(np.array(got_i), want.imag, atol=1e-5)
 
     def test_twiddle_table_is_rounded_from_float64(self):
-        window, tw = fft_tables(512)
+        tables = fft_tables(512)
+        window, tw = tables.window, tables.twiddle
         assert window.dtype == tw.dtype == np.float32
         assert tw.shape == (257, 2) and tw.flags.c_contiguous
         k = np.arange(257)
         np.testing.assert_array_equal(
             tw[:, 0], np.cos(-2 * np.pi * k / 512).astype(np.float32))
         assert tw[0, 1] == 0.0 and tw[256, 0] == -1.0
+        assert tables.split is tw and tables.chirp.shape == (0, 2)
+
+    @pytest.mark.parametrize("n_fft", [514, 4093])
+    def test_bluestein_tables_are_rounded_from_float64(self, n_fft):
+        # The chirp from the integer phase n^2 mod 2L; the chirp's
+        # transform, divided by P, such that the convolution it makes is
+        # the DFT: chirp-z of a unit impulse at n gives exp(-2 pi i n k/L).
+        tables = fft_tables(n_fft)
+        plan = fft_plan(n_fft)
+        length, pad = plan.length, plan.pad
+        assert tables.chirp.shape == (length, 2)
+        assert tables.chirp_fft.shape == (pad, 2)
+        assert tables.twiddle.shape == (pad // 2 + 1, 2)
+        n = np.arange(length)
+        want = np.exp(-1j * np.pi * (n.astype(np.float64) ** 2) / length)
+        got = tables.chirp[:, 0] + 1j * tables.chirp[:, 1].astype(np.float64)
+        np.testing.assert_allclose(got, want, atol=1e-7)
+        z = np.zeros(length)
+        z[5] = 1.0
+        a = np.zeros(pad, complex)
+        a[:length] = z * want
+        spec = tables.chirp_fft[:, 0] + 1j * tables.chirp_fft[:, 1].astype(
+            np.float64)
+        y = np.fft.ifft(np.fft.fft(a) * spec) * pad
+        np.testing.assert_allclose(want * y[:length],
+                                   np.exp(-2j * np.pi * 5 * n / length),
+                                   atol=1e-5)
 
 
 class TestStftRoute:
-    # The FFT route: a multiple of 4 in [8, 4096] whose half has no prime
-    # factor above 5 (448: 224 = 2^5 7; 8192: past the shared memory's
-    # reach at its hop; 4: below the smallest plan).
+    # The FFT route: every n_fft in [2, 4096], whatever its factors (448:
+    # L 224 = 2^5 7; 402: L 201 = 3 67); the matrix DFT above (8192).
     @pytest.mark.parametrize("n_fft,want", [
-        (8, "fft"), (128, "fft"), (512, "fft"), (4096, "fft"), (4, "dft"),
+        (8, "fft"), (128, "fft"), (512, "fft"), (4096, "fft"), (4, "fft"),
         (400, "fft"), (12, "fft"), (8192, "dft"), (480, "fft"),
-        (448, "dft"), (402, "dft")])
+        (448, "fft"), (402, "fft")])
     def test_route_by_n_fft(self, n_fft, want):
         assert route(n_fft) == want
 
+    # A power of two in radix 8 after one 2 or 4; other lengths in 2, 4,
+    # 3, 5, 7.
     @pytest.mark.parametrize("n_fft,plan", [
-        (8, (4,)), (16, (2, 4)), (512, (4, 4, 4, 4)),
-        (4096, (2, 4, 4, 4, 4, 4)), (400, (2, 4, 5, 5)),
-        (480, (4, 4, 3, 5)), (12, (2, 3)), (448, ())])
+        (8, (4,)), (16, (8,)), (512, (4, 8, 8)),
+        (4096, (4, 8, 8, 8)), (400, (2, 4, 5, 5)),
+        (480, (4, 4, 3, 5)), (12, (2, 3)), (448, (2, 4, 4, 7)),
+        (882, (3, 3, 7, 7)), (2, ())])
     def test_plan_by_n_fft(self, n_fft, plan):
-        assert fft_plan(n_fft) == plan
-        if plan:
-            assert np.prod(plan) == n_fft // 2
+        got = fft_plan(n_fft)
+        assert got.radices == plan and got.pad == 0
+        assert np.prod(plan) == got.length
+
+    @pytest.mark.parametrize("n_fft,length,pad", [
+        (514, 257, 1024), (1102, 551, 2048), (62, 31, 64), (401, 401, 1024),
+        (4093, 4093, 8192), (4094, 2047, 4096)])
+    def test_bluestein_by_n_fft(self, n_fft, length, pad):
+        plan = fft_plan(n_fft)
+        assert (plan.length, plan.pad) == (length, pad)
+        assert np.prod(plan.radices) == pad and pad >= 2 * length - 1
+        assert radices(length) is None
 
     def test_plans_fit_the_kernel(self):
-        plans = [fft_plan(n) for n in range(8, 4097, 4) if route(n) == "fft"]
-        assert max(len(p) for p in plans) <= 12  # kMaxStages
-        assert len(plans) == 86
+        plans = [fft_plan(n) for n in range(2, 4097) if route(n) == "fft"]
+        assert max(len(p.radices) for p in plans) <= MAX_STAGES
+        assert len(plans) == 4095
+
+    # Every n_fft in [2, 4096]: the FFT route; a plan that multiplies out
+    # to the transform length (or to Bluestein's P >= 2L - 1); one frame a
+    # block fits shared memory at hop 1, n_fft and 4 n_fft.
+    @pytest.mark.parametrize("hop_of", ["1", "n_fft", "4 n_fft"])
+    def test_every_length_takes_the_fft(self, hop_of):
+        for n_fft in range(2, 4097):
+            assert route(n_fft) == "fft", n_fft
+            plan = fft_plan(n_fft)
+            assert plan.length == (n_fft if n_fft % 2 else n_fft // 2)
+            if plan.pad:
+                assert radices(plan.length) is None
+                assert np.prod(plan.radices) == plan.pad >= \
+                    2 * plan.length - 1 > plan.pad // 2
+            else:
+                assert np.prod(plan.radices) == plan.length, n_fft
+            hop = {"1": 1, "n_fft": n_fft, "4 n_fft": 4 * n_fft}[hop_of]
+            assert fft_smem_bytes(n_fft, hop, 1) <= MAX_SMEM_BYTES, n_fft
+            assert fft_tile_frames(n_fft, hop, 1, 1, 132) in FFT_TILES
 
     @pytest.mark.parametrize("signals,frames,tile", [
         (24, 501, 8),    # scaled device batch: 1,512 blocks
@@ -300,22 +524,48 @@ class TestStftRoute:
         assert tile == 8
         f = n_fft // 2 + 1
         assert fft_smem_bytes(n_fft, hop, tile) == 4 * (
-            2 * max(n_fft * 8, 7 * hop + n_fft, f * 9) + 2 * f + n_fft)
+            2 * max(n_fft * 8, 7 * hop + n_fft, f * 9) + 2 * f + n_fft) \
+            + 20 * MAX_STAGES
+
+    # Odd n_fft: a sequence holds two frames, so one frame a block is
+    # never chosen where two fit.  Tiles whose blocks let four share an SM
+    # come first (882: 8 frames take 62 KB; 1102: 2 frames 81 KB).
+    @pytest.mark.parametrize("n_fft,hop,signals,frames,tile", [
+        (401, 160, 3, 32, 2), (4093, 1000, 1, 4, 2), (4093, 4093, 1, 4, 2),
+        (882, 441, 24, 401, 4), (514, 128, 24, 501, 2),
+        (1102, 441, 24, 401, 1), (401, 160, 24, 401, 4)])
+    def test_tile_for_odd_and_bluestein(self, n_fft, hop, signals, frames,
+                                        tile):
+        assert fft_tile_frames(n_fft, hop, signals, frames, 132) == tile
+        assert fft_smem_bytes(n_fft, hop, tile) <= MAX_SMEM_BYTES
 
     def test_tile_fits_shared_memory_at_4096(self):
+        # No tile lets four blocks share an SM; 2 frames let two (96 KB);
+        # 4 frames fit (160 KB) alone; 8 do not fit.
+        four, two, one = SMEM_SHARES
         tile = fft_tile_frames(4096, 1024, 4096, 501, 132)
-        assert tile == 4
-        assert fft_smem_bytes(4096, 1024, tile) <= MAX_SMEM_BYTES
-        assert fft_smem_bytes(4096, 1024, 2 * tile) > MAX_SMEM_BYTES
+        assert tile == 2
+        assert four < fft_smem_bytes(4096, 1024, 1)
+        assert fft_smem_bytes(4096, 1024, tile) <= two
+        assert two < fft_smem_bytes(4096, 1024, 4) <= one == MAX_SMEM_BYTES \
+            < fft_smem_bytes(4096, 1024, 8)
 
     @pytest.mark.parametrize("audio,n_fft,hop,match", [
-        (torch.zeros(2, 300), 448, 32, "prime factors"),
+        (torch.zeros(2, 300), 4097, 32, "n_fft 4097"),
         (torch.zeros(2, 300, dtype=torch.float64), 512, 128, "float32"),
-        (torch.zeros(65536, 8), 8, 4, "signals"),
-        (torch.zeros(2, 300), 64, 30, "hop 30")])
+        (torch.zeros(2, 300), 1, 1, "n_fft 1"),
+        (torch.zeros(2, 300), 64, 0, "hop 0")])
     def test_fft_route_inputs_are_checked(self, audio, n_fft, hop, match):
         with pytest.raises(ValueError, match=match):
-            _check(audio, n_fft, hop, 1 + audio.shape[-1] // hop, "fft")
+            _check(audio, n_fft, hop, 1 + audio.shape[-1] // max(hop, 1),
+                   "fft")
+
+    def test_fft_route_takes_any_hop_and_signal_count(self):
+        # Odd hops and n_fft, hops that are no multiple of 4, and more
+        # than 65,535 signals (more than a grid's y dimension holds).
+        for n_fft, hop in ((882, 441), (401, 160), (64, 30), (2, 1)):
+            _check(torch.zeros(2, 900), n_fft, hop, 1 + 900 // hop, "fft")
+        _check(torch.zeros(70000, 8), 8, 4, 3, "fft")
 
     def test_dft_route_keeps_its_checks(self):
         # A shape the DFT route refuses (its 32-frame tile) is one the FFT
@@ -324,6 +574,8 @@ class TestStftRoute:
         with pytest.raises(ValueError, match="shared memory"):
             _check(audio, 512, 2048, 1, "dft")
         _check(audio, 512, 2048, 1, "fft")
+        with pytest.raises(ValueError, match="hop 30"):
+            _check(audio, 8192, 30, 1, "dft")
 
 
 # ---------------------------------------------------------------------------

@@ -206,7 +206,8 @@ class TestDispatch:
                          torch.zeros(2 * d), torch.zeros(2 * 3, 2 * d),
                          torch.zeros(2 * 3), torch.zeros(1, 3, 4), 2)
         stft_magnitude_fwd(torch.zeros(2, 300), 64, 32)   # the FFT route's
-        stft_magnitude_fwd(torch.zeros(2, 300), 56, 32)   # the DFT route's
+        stft_magnitude_fwd(torch.zeros(2, 300), 56, 32)   # the FFT route's
+        stft_magnitude_fwd(torch.zeros(2, 300), 4100, 32)  # the DFT route's
         assert kernels.LAUNCHES == {"flash_attn_fwd": 0,
                                     "flash_attn_bwd": 0,
                                     "audio_proj_fwd": 0,
