@@ -1,19 +1,21 @@
-"""Command line: train, evaluate and separate (port of
+"""Command line: train, evaluate, separate and serve (port of
 `av_separation_tpu/cli.py`).
 
     python -m av_separation_torch.cli train --config demo --steps 100
     python -m av_separation_torch.cli train --config scaled --data device --fused
     python -m av_separation_torch.cli eval --config demo --checkpoint-dir ckpt
     python -m av_separation_torch.cli separate --config demo --checkpoint-dir ckpt
+    python -m av_separation_torch.cli serve --config scaled --serve-port 8571
 
 Every command runs on the CUDA device and raises without one; `--cpu` runs
 it on the CPU (the kernels' plain versions).  The JSON lines are the JAX
 CLI's: one per logged step, eval lines between them, and a final
 {"final_step", "loss", "audio_s_per_s"} line, whose loss is printed
-unrounded so that two runs can be compared.  Not yet ported, and refused
-by the argument parser: the mesh and multi-host flags, `--impl`, `--dtype`,
-`--data native|files` (`--data-root`, `--dynamic-mix`), `--debug-nans`,
-`--mode`, and the `serve` and `bench` commands.
+unrounded so that two runs can be compared.  `serve` takes the JAX CLI's
+`--serve-*` flags and `AVSEP_AUTH_TOKEN`, and stops on SIGINT.  Not yet
+ported, and refused by the argument parser: the mesh and multi-host flags,
+`--impl`, `--dtype`, `--data native|files` (`--data-root`,
+`--dynamic-mix`), `--debug-nans`, `--mode`, and the `bench` command.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import sys
 
 
@@ -237,6 +240,22 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def _separator(cfg, device, what: str):
+    """A Separator over --checkpoint-dir, else over the seeded untrained
+    init (`build_model` from --seed)."""
+    from av_separation_torch.inference import Separator
+    from av_separation_torch.models.model import build_model
+
+    if cfg.train.checkpoint_dir:
+        return Separator.from_checkpoint(cfg.train.checkpoint_dir, cfg.model,
+                                         cfg.data, device=device)
+    weights = build_model(cfg.model, device="cpu",
+                          seed=cfg.train.seed).state_dict()
+    print(f"{what}: no --checkpoint-dir, using untrained init",
+          file=sys.stderr)
+    return Separator(cfg.model, weights, cfg.data, device=device)
+
+
 def cmd_separate(args) -> int:
     """Serving-path smoke: synthetic mixtures (deterministic per index)
     through `Separator.separate_waveform`, with the waveform SI-SNR against
@@ -246,21 +265,10 @@ def cmd_separate(args) -> int:
     import torch
 
     from av_separation_torch.data.synthetic import SyntheticAVDataset
-    from av_separation_torch.inference import Separator
-    from av_separation_torch.models.model import build_model
     from av_separation_torch.ops.istft import permutation_si_snr_waveform
 
     cfg = _build_config(args)
-    device = _device(args)
-    if cfg.train.checkpoint_dir:
-        sep = Separator.from_checkpoint(cfg.train.checkpoint_dir, cfg.model,
-                                        cfg.data, device=device)
-    else:
-        weights = build_model(cfg.model, device="cpu",
-                              seed=cfg.train.seed).state_dict()
-        sep = Separator(cfg.model, weights, cfg.data, device=device)
-        print("separate: no --checkpoint-dir, using untrained init",
-              file=sys.stderr)
+    sep = _separator(cfg, _device(args), "separate")
 
     ds = SyntheticAVDataset(cfg.data)
     n = args.batch or 4
@@ -279,13 +287,65 @@ def cmd_separate(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The micro-batching HTTP separation server (`serving.serve_forever`)
+    until SIGINT; then one JSON line of the kernel launches the process
+    made (warm-up included)."""
+    from av_separation_torch.ops import kernels
+    from av_separation_torch.serving import serve_forever
+
+    cfg = _build_config(args)
+    sep = _separator(cfg, _device(args), "serve")
+    warmup = tuple(int(b) for b in args.serve_warmup.split(",") if b)
+    try:
+        serve_forever(sep, host=args.serve_host, port=args.serve_port,
+                      max_batch=args.serve_max_batch,
+                      max_delay_ms=args.serve_max_delay_ms,
+                      auth_token=args.serve_auth_token
+                      or os.environ.get("AVSEP_AUTH_TOKEN"),
+                      max_request_bytes=args.serve_max_request_mb << 20,
+                      certfile=args.serve_certfile,
+                      keyfile=args.serve_keyfile, warmup_batches=warmup,
+                      max_pending=args.serve_max_pending)
+    except KeyboardInterrupt:
+        print("avsep: interrupted, stopped serving", file=sys.stderr,
+              flush=True)
+    print(json.dumps({"kernel_launches": dict(kernels.LAUNCHES)}),
+          flush=True)
+    return 0
+
+
+def _add_serve(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's --serve-* flags."""
+    p.add_argument("--serve-host", default="0.0.0.0")
+    p.add_argument("--serve-port", type=int, default=8571)
+    p.add_argument("--serve-max-batch", type=int, default=32)
+    p.add_argument("--serve-max-delay-ms", type=float, default=5.0)
+    p.add_argument("--serve-auth-token", default=None,
+                   help="bearer token required on every endpoint except "
+                        "/healthz (or env AVSEP_AUTH_TOKEN)")
+    p.add_argument("--serve-max-request-mb", type=int, default=64,
+                   help="refuse request bodies above this size (413)")
+    p.add_argument("--serve-certfile", default=None,
+                   help="PEM certificate: serve TLS")
+    p.add_argument("--serve-keyfile", default=None)
+    p.add_argument("--serve-max-pending", type=int, default=1024,
+                   help="pending-request queue depth; beyond it requests "
+                        "are shed with 503 + Retry-After")
+    p.add_argument("--serve-warmup", default="",
+                   help="comma-separated batch sizes to run through both "
+                        "APIs before accepting traffic, e.g. '1,8,32'")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m av_separation_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
     for name, fn in (("train", cmd_train), ("eval", cmd_eval),
-                     ("separate", cmd_separate)):
+                     ("separate", cmd_separate), ("serve", cmd_serve)):
         p = sub.add_parser(name)
         _add_common(p)
+        if name == "serve":
+            _add_serve(p)
         p.set_defaults(fn=fn)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -249,7 +249,9 @@ extern "C" int avsep_audio_proj_fwd(const void* x, const void* w1,
                                     const void* b2, void* y, void* h,
                                     int B, int T, int F, int D, int rows,
                                     int device, void* stream) {
-  if (D % 8 != 0 || D < 64 || D > 1024) return cudaErrorInvalidValue;
+  // Any width from 64 up, in steps of 8 (the wrapper pads others): the
+  // grid tiles the channels, and the k loop runs over any count.
+  if (D % 8 != 0 || D < 64) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* xf = static_cast<const float*>(x);

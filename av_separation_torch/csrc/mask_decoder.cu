@@ -281,7 +281,9 @@ extern "C" int avsep_mask_decoder_fwd(const void* x, const void* w1,
                                       int B, int T, int d, int S, int F,
                                       int rows1, int rows2, int device,
                                       void* stream) {
-  if (d % 8 != 0 || d < 64 || d > 1024) return cudaErrorInvalidValue;
+  // Any width from 64 up, in steps of 8 (the wrapper pads others): the
+  // grid tiles the channels, and the k loop runs over any count.
+  if (d % 8 != 0 || d < 64) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -8,6 +8,8 @@ those: plain-version calls never touch it.
 
 from typing import Callable, Sequence
 
+import torch
+
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
             "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0}
 
@@ -26,3 +28,26 @@ def gemm_rows(blocks: Callable[[int], int], sms: int,
         if blocks(rows) >= sms:
             return rows
     return min(options)
+
+
+def kernel_width(d: int) -> int:
+    """The channel count the projection and decoder kernels run a width of
+    `d` at: d rounded up to a multiple of 8, and at least 64."""
+    return max(64, -(-d // 8) * 8)
+
+
+def zero_padded(t: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """`t` zero-padded at the end of each dim to `shape`.  The copy is kept
+    on `t` for its current version, so a weight is padded once until it is
+    updated in place (an inference tensor, which has no version, is padded
+    each call)."""
+    shape = tuple(shape)
+    key = None if t.is_inference() else (shape, t._version)
+    cached = getattr(t, "_avsep_zero_padded", None)
+    if key is not None and cached is not None and cached[0] == key:
+        return cached[1]
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    if key is not None:
+        t._avsep_zero_padded = (key, out)
+    return out

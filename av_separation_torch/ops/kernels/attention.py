@@ -12,6 +12,11 @@ reaches the kernels as (B, H, T, dh) views whose strides say where each
 gradients are written into packed (B, T, H, dh) memory and returned as
 (B, H, T, dh) views, so a packed caller gets (B, T, H*dh) back without a copy.
 
+The kernels are built for head dims 32, 64 and 128.  Any other head dim up
+to 128 is zero-padded to the next of those (`padded_fwd`, `padded_bwd`) and
+run at the softmax scale of its true width: zero columns change neither
+q k^T nor the kept columns of p v, and the gradients are sliced back.
+
 Attention dropout is the JAX package's stateless murmur3-finalizer hash
 (`_keep_mask`, attention.py:147-160, the path its kernels take under the
 interpreter) over the tile coordinates of the Pallas grid: tile
@@ -29,6 +34,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from av_separation_torch.ops import kernels
 from av_separation_torch.ops.kernels import _build
@@ -102,16 +108,66 @@ def _packed_empty(like: torch.Tensor) -> torch.Tensor:
                        device=like.device).transpose(1, 2)
 
 
+def padded_head_dim(dh: int) -> int:
+    """The built head dim a head dim of `dh` runs at: the next of
+    HEAD_DIMS.  Above 128 there is none: a dh-256 tile needs a design of
+    its own (the dK/dV kernel already holds 255 registers at 128)."""
+    for built in HEAD_DIMS:
+        if dh <= built:
+            return built
+    raise ValueError(f"head dim {dh} exceeds the flash kernels' largest, "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def _pad_dh(t: torch.Tensor, width: int) -> torch.Tensor:
+    return F.pad(t, (0, width - t.shape[-1]))
+
+
+def padded_fwd(fwd, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               rate: float = 0.0, seed: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fwd` (a flash forward taking `scale`) at any head dim <= 128: q, k
+    and v zero-padded along dh to `padded_head_dim`, the softmax scale of
+    the true dh, o sliced back.  The dropout hash does not read dh, so the
+    keep masks are those of the unpadded call."""
+    dh = q.shape[-1]
+    width = padded_head_dim(dh)
+    if width == dh:
+        return fwd(q, k, v, rate, seed)
+    o, lse = fwd(_pad_dh(q, width), _pad_dh(k, width), _pad_dh(v, width),
+                 rate, seed, scale=1.0 / math.sqrt(dh))
+    return o[..., :dh], lse
+
+
+def padded_bwd(bwd, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+               rate: float = 0.0, seed: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`bwd` (a flash backward taking `scale`) at any head dim <= 128, as
+    `padded_fwd`: the padded columns of o and dO are zero, so delta is
+    unchanged, and dq, dk, dv are sliced back."""
+    dh = q.shape[-1]
+    width = padded_head_dim(dh)
+    if width == dh:
+        return bwd(q, k, v, o, do, lse, rate, seed)
+    grads = bwd(*(_pad_dh(t, width) for t in (q, k, v, o, do)), lse, rate,
+                seed, scale=1.0 / math.sqrt(dh))
+    return tuple(g[..., :dh] for g in grads)
+
+
 def flash_attn_fwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         rate: float = 0.0, seed: int = 0
+                         rate: float = 0.0, seed: int = 0,
+                         scale: Optional[float] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (B, H, Tq, dh), (B, H, Tk, dh) -> (o, lse (B, H, Tq)).
 
     The Pallas kernel's arithmetic: s = q k^T * scale, p = exp(s - max),
     l = sum(p) over the undropped p, dropped p zeroed before PV,
-    o = (p v) / (l * (1 - rate)), lse = max + log(l).
+    o = (p v) / (l * (1 - rate)), lse = max + log(l).  `scale` defaults to
+    1 / sqrt(dh).
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -126,7 +182,8 @@ def flash_attn_fwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attn_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
-                         rate: float = 0.0, seed: int = 0
+                         rate: float = 0.0, seed: int = 0,
+                         scale: Optional[float] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward: -> (dq, dk, dv), shaped like q, k, v.
 
@@ -135,7 +192,8 @@ def flash_attn_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kept, dV = pd^T dO with pd = keep ? p / (1 - rate) : 0,
     ds = p (dp - delta) scale, dQ = ds K, dK = ds^T Q.
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     delta = (do * o).sum(dim=-1, keepdim=True)
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.unsqueeze(-1))
@@ -237,12 +295,21 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (o, lse): o (B, H, Tq, dh) as a view of packed (B, Tq, H, dh)
     memory, lse (B, H, Tq) float32.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel.
+    CUDA tensors launch the kernel, at a head dim other than 32, 64 or 128
+    through `padded_fwd` (and then o is a slice of the padded memory).
     """
     if not _device(q):
         return flash_attn_fwd_torch(q, k, v, rate, seed)
+    return padded_fwd(_launch_fwd, q, k, v, rate, seed)
+
+
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                rate: float, seed: int, scale: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(q, k, v)
     b, h, tq, dh = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
     tk = k.shape[2]
     o = _packed_empty(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -251,8 +318,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, tq, tk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], 1.0 / math.sqrt(dh),
-            *_dropout_args(rate, seed, tq, tk), q.device.index, stream)
+            *o.stride()[:3], scale, *_dropout_args(rate, seed, tq, tk),
+            q.device.index, stream)
     _build.check(lib, rc, "flash_attn_fwd")
     kernels.LAUNCHES["flash_attn_fwd"] += 1
     return o, lse
@@ -296,10 +363,16 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the three
     kernels of `csrc/flash_attn_bwd.cu` (delta, dK/dV, dQ): no atomics, so
-    two runs give bit-identical gradients.
+    two runs give bit-identical gradients.  Head dims other than 32, 64 and
+    128 go through `padded_bwd`.
     """
     if not _device(q):
         return flash_attn_bwd_torch(q, k, v, o, do, lse, rate, seed)
+    return padded_bwd(_launch_bwd, q, k, v, o, do, lse, rate, seed)
+
+
+def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
+                scale: Optional[float] = None):
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape:
@@ -308,6 +381,8 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_rows(name, t, q)
     b, h, tq, dh = q.shape
     tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
     if lse.shape != (b, h, tq) or not lse.is_contiguous() \
             or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError("lse must be a contiguous float32 (B, H, Tq) tensor")
@@ -320,7 +395,7 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dh,
             (ctypes.c_longlong * len(strides))(*strides),
-            1.0 / math.sqrt(dh), *_dropout_args(rate, seed, tq, tk),
+            scale, *_dropout_args(rate, seed, tq, tk),
             q.device.index, stream)
     _build.check(lib, rc, "flash_attn_bwd")
     kernels.LAUNCHES["flash_attn_bwd"] += 1

@@ -10,6 +10,9 @@ weights into it (the kernel's k-major weight tiles read that layout
 directly; the Conv1d layout (out, in, k) would put the taps innermost).
 The backward is the JAX package's framed-einsum rule
 (`audio_proj.py:126-158`, XLA there), as plain matmuls on either device.
+The kernel takes widths D that are multiples of 8 from 64 up; any other D
+runs zero-padded to the next (`padded_proj`): ReLU(0) = 0, so the padded
+channels of h are zero, add nothing to conv2, and are sliced off.
 """
 
 from __future__ import annotations
@@ -77,9 +80,25 @@ def _check(x, w1, b1, w2, b2) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
-    if d % 8 or not 64 <= d <= 1024:
-        raise ValueError(f"channel count {d} must be a multiple of 8 in "
-                         f"[64, 1024]")
+    if d != kernels.kernel_width(d):
+        raise ValueError(f"channel count {d} must be a multiple of 8 "
+                         f"from 64 up")
+
+
+def padded_proj(fwd, x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fwd` (a projection forward) at any width D: the D channels of w1,
+    both of w2, b1 and b2 zero-padded to `kernels.kernel_width(D)`, y and h
+    sliced back."""
+    f, d = w1.shape[1:]
+    width = kernels.kernel_width(d)
+    if width == d:
+        return fwd(x, w1, b1, w2, b2)
+    pad = kernels.zero_padded
+    y, h = fwd(x, pad(w1, (3, f, width)), pad(b1, (width,)),
+               pad(w2, (3, width, width)), pad(b2, (width,)))
+    return y[..., :d], h[..., :d]
 
 
 def audio_proj_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -87,12 +106,17 @@ def audio_proj_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """relu(conv3(relu(conv3(x, w1) + b1), w2) + b2) -> (y, h).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, at
+    a width it is not built for through `padded_proj`.
     """
     if x.device.type == "cpu":
         return audio_proj_fwd_torch(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return padded_proj(_launch, x, w1, b1, w2, b2)
+
+
+def _launch(x, w1, b1, w2, b2) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x, w1, b1, w2, b2)
     b, t, f = x.shape
     d = w1.shape[-1]

@@ -77,9 +77,24 @@ def _check(x, w1, b1, w2, b2, mixed, num_speakers) -> None:
         if not ten.is_contiguous() or ten.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
-    if d % 8 or not 64 <= d <= 1024:
-        raise ValueError(f"model width {d} must be a multiple of 8 in "
-                         f"[64, 1024]")
+    if d != kernels.kernel_width(d):
+        raise ValueError(f"model width {d} must be a multiple of 8 from 64 "
+                         f"up")
+
+
+def padded_decoder(fwd, x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, mixed: torch.Tensor,
+                   num_speakers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fwd` (a decoder forward) at any width d, padded to
+    `kernels.kernel_width(d)`; the outputs need no slicing."""
+    d = x.shape[-1]
+    width = kernels.kernel_width(d)
+    if width == d:
+        return fwd(x, w1, b1, w2, b2, mixed, num_speakers)
+    pad = kernels.zero_padded
+    return fwd(F.pad(x, (0, width - d)), pad(w1, (2 * width, width)),
+               pad(b1, (2 * width,)), pad(w2, (w2.shape[0], 2 * width)), b2,
+               mixed, num_speakers)
 
 
 def mask_decoder_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -87,12 +102,18 @@ def mask_decoder_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                      num_speakers: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused mask head -> (separated, masks), each (B, S, F, T).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, at
+    a width it is not built for through `padded_decoder`.
     """
     if x.device.type == "cpu":
         return mask_decoder_fwd_torch(x, w1, b1, w2, b2, mixed, num_speakers)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return padded_decoder(_launch, x, w1, b1, w2, b2, mixed, num_speakers)
+
+
+def _launch(x, w1, b1, w2, b2, mixed, num_speakers: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x, w1, b1, w2, b2, mixed, num_speakers)
     b, t, d = x.shape
     f = mixed.shape[1]

@@ -20,9 +20,9 @@ raises):
     Stockham FFT of radices 2, 3, 4, 5, 7 and 8; any other L takes
     Bluestein's chirp-z transform through a power-of-two FFT of
     P >= 2L - 1 points.  Launches count under `stft_mag_fwd`.
-  - n_fft above 4096: `stft_mag.cu`, the matrix DFT against windowed
-    cos/sin bases (n_fft and hop multiples of 4); launches count under
-    `stft_mag_dft_fwd`.
+  - n_fft above 4096, at any hop and any number of signals: `stft_mag.cu`,
+    the matrix DFT against windowed cos/sin bases, 32 frames a block
+    (`dft_plan`); launches count under `stft_mag_dft_fwd`.
 """
 
 from __future__ import annotations
@@ -42,6 +42,9 @@ from av_separation_torch.ops.stft import (dft_basis, hann_symmetric,
 
 TILE_FRAMES = 32            # frames per block of the DFT route (stft_mag.cu)
 MAX_SMEM_BYTES = 232448     # shared memory a block may use (H100)
+DFT_STATIC_SMEM = 32 * 12   # stft_mag.cu's per-frame offsets and lengths
+STAGE_STRIDE = 33           # its (bin, frame) stage's row stride
+MAX_GRID_X = 2 ** 31 - 1
 # A block's share of an SM's 233,472 bytes (less 1 KB a block) when four,
 # two or one blocks reside on it (H100).
 SMEM_SHARES = (57344, 115712, MAX_SMEM_BYTES)
@@ -113,6 +116,47 @@ def launch_shape(n_fft: int) -> Tuple[int, int]:
     groups = -(-warps // 4)
     threads = 32 * -(-warps // groups)
     return threads, groups * threads
+
+
+class DftPlan(NamedTuple):
+    """How the DFT route (`stft_mag.cu`) runs one call."""
+    kind: str                # "staged_vec", "staged" or "global"
+    threads: int             # bins a block, one a thread
+    f_pad: int               # bins padded to a multiple of `threads`
+    grid: Tuple[int, int]    # (tiles of 32 frames, bin groups)
+    smem_bytes: int          # dynamic shared memory a block
+
+
+DFT_KINDS = ("staged_vec", "staged", "global")  # stft_mag.cu's KIND order
+
+
+def dft_plan(n_fft: int, hop: int, signals: int, num_frames: int) -> DftPlan:
+    """The DFT route's launch.  A signal of at least 32 frames whose
+    32-frame span, 31 hop + n_fft samples, fits in shared memory stages
+    that span (four samples a load where n_fft and hop are multiples of 4):
+    a block is 32 frames of one signal.  Otherwise a block reads 32
+    consecutive frames of the flattened (signal, frame) index from global
+    memory (a large hop, or fewer than 32 frames a signal: n_fft 4098 at
+    one frame over 66,000 signals).  Signals fold into grid x."""
+    if n_fft < 2 or hop < 1 or signals < 1 or num_frames < 1:
+        raise ValueError(f"no DFT launch for n_fft {n_fft}, hop {hop}, "
+                         f"{signals} signals of {num_frames} frames")
+    threads, f_pad = launch_shape(n_fft)
+    stage = threads * STAGE_STRIDE
+    span = (TILE_FRAMES - 1) * hop + n_fft
+    if num_frames >= TILE_FRAMES and \
+            4 * max(span, stage) + DFT_STATIC_SMEM <= MAX_SMEM_BYTES:
+        kind = "staged" if n_fft % 4 or hop % 4 else "staged_vec"
+        floats = max(span, stage)
+        blocks = signals * -(-num_frames // TILE_FRAMES)
+    else:
+        kind, floats = "global", stage
+        blocks = -(-signals * num_frames // TILE_FRAMES)
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"{blocks} blocks of {TILE_FRAMES} frames exceed "
+                         f"the grid's {MAX_GRID_X}")
+    return DftPlan(kind, threads, f_pad, (blocks, f_pad // threads),
+                   4 * floats)
 
 
 def fft_sequences(n_fft: int, tile: int) -> int:
@@ -238,7 +282,7 @@ def _fft_tables(n_fft: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
 def _entry():
     lib = _build.load("stft_mag")
     fn = lib.avsep_stft_mag_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -280,14 +324,11 @@ def _check(audio: torch.Tensor, n_fft: int, hop: int, num_frames: int,
             raise ValueError(f"n_fft {n_fft} is outside the FFT route's "
                              f"[{lo}, {hi}]")
         return
-    # float4 broadcasts of frame samples need both to be multiples of 4.
-    if n_fft % 4 or n_fft < 4:
-        raise ValueError(f"n_fft {n_fft} must be a positive multiple of 4")
-    if hop % 4:
-        raise ValueError(f"hop {hop} must be a positive multiple of 4")
-    if 4 * ((TILE_FRAMES - 1) * hop + n_fft) > MAX_SMEM_BYTES:
-        raise ValueError(f"a tile of {TILE_FRAMES} frames at hop {hop} "
-                         f"and n_fft {n_fft} does not fit in shared memory")
+    if n_fft < 2:
+        raise ValueError(f"n_fft {n_fft} must be at least 2")
+    signals = math.prod(audio.shape[:-1])
+    if signals:
+        dft_plan(n_fft, hop, signals, num_frames)
 
 
 def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
@@ -329,12 +370,13 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
         _build.check(lib, rc, "stft_mag_fwd")
         kernels.LAUNCHES["stft_mag_fwd"] += 1
     else:
-        threads, f_pad = launch_shape(n_fft)
+        plan = dft_plan(n_fft, hop, b, num_frames)
         cos_b, sin_b = _bases(n_fft, audio.device)
         lib, fn = _entry()
         rc = fn(audio.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
                 out.data_ptr(), b, n, num_frames, n_fft, hop, freq_bins,
-                f_pad, threads, index, stream)
+                plan.f_pad, plan.threads, DFT_KINDS.index(plan.kind), index,
+                stream)
         _build.check(lib, rc, "stft_mag_dft_fwd")
         kernels.LAUNCHES["stft_mag_dft_fwd"] += 1
     return out.reshape(*lead, freq_bins, num_frames)

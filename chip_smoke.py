@@ -24,23 +24,27 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            dropout 0 and 0.1, forward and backward (both on the tensor
            cores in 3xTF32; the backward's bound counts its 5 least
            products), at dh 128, 32 and 64 (the reference's default
-           model); each backward is run twice and must give
-           bit-identical gradients.  The audio projection and the mask
-           decoder (both in 3xTF32) at the scaled, demo, three_speaker
-           and multihost shapes; their library yardsticks are two cuDNN
-           conv1d and F.linear / F.gelu / F.linear / sigmoid (cuBLAS).
-           The STFT magnitude on its FFT route at every kind of length
-           (radix 2-8, Bluestein, odd n_fft, odd hops) on the scaled,
-           44.1 kHz and demo device batches, an odd shape and 70,000
-           signals (more than 65,535); its matrix-DFT route, for n_fft
-           above 4096, at 8192 / 1024; its library yardstick is
-           torch.stft (cuFFT).
+           model) and dh 49 (zero-padded to 64 by the wrapper); each
+           backward is run twice and must give bit-identical gradients.
+           The audio projection and the mask decoder (both in 3xTF32) at
+           the scaled, demo, three_speaker and multihost shapes, and at
+           d 196 (padded to 200) and d 1536; their library yardsticks
+           are two cuDNN conv1d and F.linear / F.gelu / F.linear /
+           sigmoid (cuBLAS).  The STFT magnitude on its FFT route at
+           every kind of length (radix 2-8, Bluestein, odd n_fft, odd
+           hops) on the scaled, 44.1 kHz and demo device batches, an odd
+           shape and 70,000 signals (more than 65,535); its matrix-DFT
+           route, for n_fft above 4096, at 8192 / 1024, at 4410 / 441 on
+           the 44.1 kHz batch (scalar loads), and at 4098 / 4098 over
+           66,000 signals of one frame (frames read from global memory);
+           its library yardstick is torch.stft (cuFFT).
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
-  configs  the reference's default model (ModelConfig(), dh 64) and the
-           named configs three_speaker, lrs2 and multihost at full width
-           and depth (seeded random weights): one eval forward at batch 2
+  configs  the reference's default model (ModelConfig(), dh 64), the
+           named configs three_speaker, lrs2 and multihost, and odd_width
+           (ModelConfig() at d 196, 4 heads: dh 49) at full width and
+           depth (seeded random weights): one eval forward at batch 2
            each against the same model on the CPU, launches counted; one
            train step of the default model at dropout 0 against float64
            on the CPU.
@@ -52,6 +56,23 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            launch 16 attention, 1 projection and 1 decoder kernel.  One
            batch is checked against the same model on the CPU.  No
            backward kernel may launch.
+  stream   the scaled config at full width and depth (seeded weights):
+           2 mixtures of 60 s with 2 x 1,500 lip frames each through
+           Separator.separate_waveform_streaming on the card (chunk 4 s,
+           overlap 1 s: 20 chunks); 16 attention, 1 projection and 1
+           decoder launch a chunk; the output against a numpy overlap-add
+           of the card's own per-chunk separate_waveform and its
+           single-chunk regions against the isolated chunks (1e-6 x
+           peak); a 10 s mixture (3 chunks) against the CPU (first chunk's
+           masks 1e-4, waves 1e-3 x peak); wall s and audio-s/s.
+  serve_http  `python3 -m av_separation_torch.cli serve --config scaled`
+           as a process (max batch 8, warm-up 1, 2, 4, 8, a bearer token):
+           16 POST /separate_waveform of 4 s and 4 POST /separate from 4
+           client threads, all 200; /stats shows coalescing; 401 without
+           the token, 413 over the size cap, 400 on Content-Length -1; 8
+           responses against a CPU Separator on the same seeded weights
+           (masks 1e-4, waves 1e-3 x peak); SIGINT stops it within 30 s;
+           over-the-wire audio-s/s and latency p50 / p95.
   profile  where the time of one served batch of 8 goes: host-clock batch
            time, then a torch.profiler trace summed per kernel name and
            group, and the device's busy share.
@@ -399,6 +420,7 @@ def phase_kernels(state):
         ("demo self", 4, 4, 63, 63, 32, "self"),
         ("demo cross split", 4, 4, 63, 50, 32, "split"),
         ("default self dh64", 8, 4, 501, 501, 64, "self"),
+        ("odd width self dh49", 8, 4, 501, 501, 49, "self"),
         ("long self Tk>512", 2, 4, 1024, 1024, 128, "self"),
     ]
     for rate in (0.0, 0.1):
@@ -478,9 +500,12 @@ def _attn_rows(record, label, rate, q, k, v, gen):
 
 
 # The projection's and decoder's shapes: (label, B, T, d, S), F 257.
+# d 196 runs zero-padded to 200; d 1536 is above the 1024 the kernels
+# once capped.
 HEAD_SHAPES = (("scaled", 8, 501, 512, 2), ("demo", 4, 63, 128, 2),
                ("three_speaker", 8, 63, 512, 3),
-               ("multihost", 16, 501, 1024, 4))
+               ("multihost", 16, 501, 1024, 4),
+               ("odd width", 2, 501, 196, 2), ("wide", 2, 501, 1536, 2))
 
 
 def _proj_rows(record, gen):
@@ -491,6 +516,7 @@ def _proj_rows(record, gen):
     called by the port)."""
     import torch.nn.functional as F
 
+    from av_separation_torch.ops.kernels import kernel_width
     from av_separation_torch.ops.kernels.audio_proj import (
         audio_proj_fwd, audio_proj_fwd_torch, proj_rows)
 
@@ -521,7 +547,8 @@ def _proj_rows(record, gen):
                max_err(y_k, y_p), 1e-4, {"h": (max_err(h_k, h_p), 1e-4)},
                lambda: audio_proj_fwd(x, w1, b1, w2, b2),
                lambda: audio_proj_fwd_torch(x, w1, b1, w2, b2), lib,
-               nbytes, flops, 20, rows=proj_rows(b, t, d, sms),
+               nbytes, flops, 20,
+               rows=proj_rows(b, t, kernel_width(d), sms),
                library_max_abs_err=max_err(y_lib, y_p),
                library="relu(conv1d(relu(conv1d(x, W1)), W2)), cuDNN")
 
@@ -535,6 +562,7 @@ def _decoder_rows(record, gen):
     only, never called by the port)."""
     import torch.nn.functional as F
 
+    from av_separation_torch.ops.kernels import kernel_width
     from av_separation_torch.ops.kernels.decoder import (
         decoder_rows, mask_decoder_fwd, mask_decoder_fwd_torch)
 
@@ -570,7 +598,7 @@ def _decoder_rows(record, gen):
                lambda: mask_decoder_fwd(x, w1, b1, w2, b2, mixed, s),
                lambda: mask_decoder_fwd_torch(x, w1, b1, w2, b2, mixed, s),
                lib, nbytes, flops, 20,
-               rows=[decoder_rows(b * t, 2 * d, sms),
+               rows=[decoder_rows(b * t, 2 * kernel_width(d), sms),
                      decoder_rows(b * t, s * f, sms)],
                library="F.linear, F.gelu, F.linear, sigmoid, permute, "
                        "* mixed (cuBLAS)")
@@ -601,11 +629,13 @@ def _stft_rows(record, gen):
     3^2 7^2 at an odd hop; Bluestein 1102 / 441) and demo's (512; Bluestein
     62 / 30); noise at an odd shape (3 x 2,001, n_fft 128, hop 64) and
     beyond grid.y's 65,535 (70,000 x 1,024, 128 / 64).  The DFT route at
-    n_fft 8192, hop 1024 on the scaled batch.  Float32 sums of n_fft
+    n_fft 8192, hop 1024 on the scaled batch (staged, float4), at 4410 /
+    441 on the 44.1 kHz batch (staged, scalar loads) and at 4098 / 4098
+    over 66,000 signals of one frame (frames read from global memory).  Float32 sums of n_fft
     windowed samples in another order: max abs error 2e-4 on the
     tone rows of 16 kHz and 8 kHz and the odd shape (peaks ~90-120), 2e-4
-    x max(1, peak / 100) on the others; and against float64 (torch.stft in float64) within
-    tests/test_kernels.py's 5e-4 + 1e-4 relative.  Bound: the
+    x max(1, peak / 100) on the others; and against float64 (torch.stft
+    in float64) within tests/test_kernels.py's 5e-4 + 1e-4 relative.  Bound: the
     audio read once and the spectra written once, against the least work
     of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame (the DFT route's
     matrix DFT does 4 n_fft F).  Library: torch.stft with the symmetric
@@ -618,7 +648,8 @@ def _stft_rows(record, gen):
                                                            draw_variates,
                                                            step_generator)
     from av_separation_torch.ops.kernels.stft import (
-        fft_plan, route, stft_magnitude_fwd, stft_magnitude_fwd_torch)
+        dft_plan, fft_plan, route, stft_magnitude_fwd,
+        stft_magnitude_fwd_torch)
 
     def tones(cfg):
         v = draw_variates(step_generator(0, 0, "cuda"), cfg, 8)
@@ -631,8 +662,12 @@ def _stft_rows(record, gen):
     demo = tones(get_config("demo").data)
     odd = torch.randn(3, 2001, generator=gen).cuda()  # N % 4: 4-byte copies
     many = torch.randn(70000, 1024, generator=gen).cuda()
-    # (label, audio, n_fft, hop, iters, tolerance rule): "flat" 2e-4, or
-    # "peak", 2e-4 scaled by the peak over 100.
+    # 66,000 signals of one 4,098-sample frame (1.1 GB), drawn on the card.
+    frames1 = torch.randn(66000, 4098, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(1))
+    # (label, audio, n_fft, hop, iters, tolerance rule[, frames]): "flat"
+    # 2e-4, or "peak", 2e-4 scaled by the peak over 100; frames default to
+    # 1 + N // hop.
     cases = [("scaled device batch", scaled, 512, 128, 20, "flat"),
              ("demo device batch", demo, 512, 128, 20, "flat"),
              ("odd", odd, 128, 64, 20, "flat"),
@@ -649,21 +684,27 @@ def _stft_rows(record, gen):
              ("demo device batch, Bluestein", demo, 62, 30, 20, "peak"),
              ("70,000 signals", many, 128, 64, 20, "peak"),
              ("scaled device batch, DFT route", scaled, 8192, 1024, 5,
-              "peak")]
-    for label, audio, n_fft, hop, iters, rule in cases:
+              "peak"),
+             ("44.1 kHz device batch, DFT route, 100 ms window", k44, 4410,
+              441, 5, "peak"),
+             ("66,000 signals, DFT route, one frame each", frames1, 4098,
+              4098, 5, "peak", 1)]
+    for label, audio, n_fft, hop, iters, rule, *frames in cases:
         b, n = audio.shape
-        t = 1 + n // hop
+        frames = frames[0] if frames else None
+        t = frames or 1 + n // hop
         f = n_fft // 2 + 1
         window = torch.hann_window(n_fft, periodic=False, device="cuda")
         pad = max(0, (t - 1) * hop + n_fft - n)
 
-        def lib(audio=audio, n_fft=n_fft, hop=hop, window=window, pad=pad):
+        def lib(audio=audio, n_fft=n_fft, hop=hop, window=window, pad=pad,
+                t=t):
             return torch.stft(F.pad(audio, (0, pad)), n_fft, hop,
                               window=window, center=False,
-                              return_complex=True).abs()
+                              return_complex=True)[..., :t].abs()
 
-        k = stft_magnitude_fwd(audio, n_fft, hop)
-        p = stft_magnitude_fwd_torch(audio, n_fft, hop)
+        k = stft_magnitude_fwd(audio, n_fft, hop, frames)
+        p = stft_magnitude_fwd_torch(audio, n_fft, hop, frames)
         lib_out = lib()
         # float64 through cuFFT: tests/test_kernels.py's tolerance for the
         # Pallas kernel against float64 numpy, 5e-4 + 1e-4 relative.
@@ -680,17 +721,20 @@ def _stft_rows(record, gen):
         record(name, f"{label} B={b} N={n} n_fft={n_fft} hop={hop} T={t}",
                max_err(k, p), tol,
                {"float64 excess over 1e-4 rel": (over64, 5e-4)},
-               lambda: stft_magnitude_fwd(audio, n_fft, hop),
-               lambda: stft_magnitude_fwd_torch(audio, n_fft, hop), lib,
-               nbytes, flops, iters, op_rate="float32",
+               lambda: stft_magnitude_fwd(audio, n_fft, hop, frames),
+               lambda: stft_magnitude_fwd_torch(audio, n_fft, hop, frames),
+               lib, nbytes, flops, iters, op_rate="float32",
                peak=peak, tol_rule="2e-4" if rule == "flat"
                else "2e-4 x max(1, peak / 100)",
-               transform=None if plan is None else {
+               transform={"dft_block": dft_plan(n_fft, hop, b, t).kind}
+               if plan is None else {
                    "length": plan.length, "radices": list(plan.radices),
                    "bluestein_pad": plan.pad},
                library_max_abs_err=max_err(lib_out, p),
                library="torch.stft(center=False, symmetric Hann).abs()")
         del k, p, lib_out, ref64
+    del cases, frames1, many
+    torch.cuda.empty_cache()
 
 
 def phase_golden(state):
@@ -740,10 +784,12 @@ def phase_golden(state):
 
 
 def phase_configs(state):
-    """The reference's default model (ModelConfig(): d 256, 4 heads, dh 64)
-    and the named configs three_speaker (S 3), lrs2 (96x96 lips, T 376) and
-    multihost (d 1024, 8 heads, S 4, 12 + 8 layers), at full width and
-    depth with seeded weights: one eval forward at batch 2 on the card
+    """The reference's default model (ModelConfig(): d 256, 4 heads, dh
+    64), the named configs three_speaker (S 3), lrs2 (96x96 lips, T 376)
+    and multihost (d 1024, 8 heads, S 4, 12 + 8 layers), and odd_width
+    (ModelConfig() at d 196, 4 heads: dh 49 and widths the kernels run
+    zero-padded), at full width and depth with seeded weights: one eval
+    forward at batch 2 on the card
     against the same model and batch on the CPU (masks 1e-4, separated
     1e-4 x the peak of the mixture, as `serve` holds the masks), with the
     launches of that forward counted from 0; then one train step of the
@@ -763,9 +809,13 @@ def phase_configs(state):
 
     out, bad = {}, []
     total = {name: 0 for name in kernels.LAUNCHES}
-    cases = [("default", ExperimentConfig())] + [
+    default = ExperimentConfig()
+    odd = dataclasses.replace(default, model=dataclasses.replace(
+        default.model, d_model=196, nhead=4))  # dh 49, padded to 64
+    cases = [("default", default)] + [
         (name, get_config(name))
-        for name in ("three_speaker", "lrs2", "multihost")]
+        for name in ("three_speaker", "lrs2", "multihost")] + [
+        ("odd_width", odd)]
     for label, cfg in cases:
         m = cfg.model
         batch = batch_of(cfg)
@@ -963,6 +1013,339 @@ def phase_profile(state):
             "card": state["card"], "batch_ms": batch_ms,
             "traced_batch_ms": traced_ms,
             **device_split(prof, iters, traced_ms, "batch")}
+
+
+def _long_requests(cfg, rows: int, segments: int):
+    """`rows` mixtures of `segments` consecutive synthetic utterances each
+    (the dataset's samples in order), with their lip streams in the
+    dataset's layout: (rows, segments x N) audio and (rows, S x segments x
+    N_f, H, W) frames."""
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+
+    ds = SyntheticAVDataset(cfg.data)
+    d, s = cfg.data, cfg.model.num_speakers
+    audio, lips = [], []
+    for row in range(rows):
+        parts, per = [], []
+        for j in range(segments):
+            clean, rng = ds.clean_audios(row * segments + j)
+            parts.append(clean.sum(axis=0))
+            per.append(ds.lip_stream(clean, rng).reshape(
+                s, d.num_frames, d.frame_h, d.frame_w))
+        audio.append(np.concatenate(parts))
+        lips.append(np.concatenate(per, axis=1).reshape(
+            -1, d.frame_h, d.frame_w))
+    return np.stack(audio).astype(np.float32), np.stack(lips)
+
+
+def phase_stream(state):
+    """Streaming separation of 60 s mixtures at the scaled config's full
+    width and depth (see the module docstring)."""
+    from av_separation_torch.config import get_config
+    from av_separation_torch.inference import Separator
+    from av_separation_torch.models.model import build_model
+    from av_separation_torch.ops import kernels
+
+    cfg = get_config("scaled")
+    m, d = cfg.model, cfg.data
+    if (m.d_model, m.nhead, m.num_encoder_layers, m.num_fusion_layers) \
+            != (512, 4, 6, 4):
+        raise AssertionError(f"not the scaled config: {m}")
+    weights = build_model(m, device="cpu", seed=0).state_dict()
+    sep = Separator(m, weights, d, device="cuda")
+    audio, lips = _long_requests(cfg, 2, 15)          # 2 x 60 s
+    b, n = audio.shape
+    spf = d.num_samples_audio // d.num_frames
+    chunk, overlap = 4 * d.sample_rate, d.sample_rate  # 4 s, 1 s
+    stride = chunk - overlap
+    bad = []
+
+    # A 10 s cut (3 chunks) on the card and on the CPU; the card's run
+    # also warms the chunk shape up.
+    short = int(10 * d.sample_rate)
+    short_lips = lips.reshape(b, 2, -1, d.frame_h, d.frame_w)[
+        :, :, :short // spf].reshape(b, -1, d.frame_h, d.frame_w)
+    got10 = sep.separate_waveform_streaming(audio[:, :short], short_lips,
+                                            4.0, 1.0)
+    cpu = Separator(m, weights, d, device="cpu")
+    ref10 = cpu.separate_waveform_streaming(audio[:, :short], short_lips,
+                                            4.0, 1.0)
+    first = (audio[:, :chunk], short_lips.reshape(
+        b, 2, -1, d.frame_h, d.frame_w)[:, :, :chunk // spf].reshape(
+        b, -1, d.frame_h, d.frame_w))
+    mask_err = float(np.abs(sep.separate_waveform(*first)["masks"]
+                            - cpu.separate_waveform(*first)["masks"]).max())
+    peak10 = float(np.abs(ref10["waveforms"]).max())
+    wave_err10 = float(np.abs(got10["waveforms"]
+                              - ref10["waveforms"]).max())
+    if int(got10["num_chunks"]) != 3 or int(ref10["num_chunks"]) != 3:
+        bad.append(f"10 s: {got10['num_chunks']} chunks on the card, "
+                   f"{ref10['num_chunks']} on the CPU, not 3")
+    if mask_err > 1e-4 or wave_err10 > 1e-3 * peak10:
+        bad.append(f"10 s vs CPU: masks {mask_err} (1e-4), waves "
+                   f"{wave_err10} (1e-3 x {peak10})")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sep.separate_waveform_streaming(audio, lips, 4.0, 1.0)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    state["launches"]["stream"] = launches
+    waves, n_chunks = out["waveforms"], int(out["num_chunks"])
+    if waves.shape != (b, m.num_speakers, n) or n_chunks != 20 \
+            or not np.isfinite(waves).all():
+        bad.append(f"output {waves.shape}, {n_chunks} chunks, finite "
+                   f"{bool(np.isfinite(waves).all())}")
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update(flash_attn_fwd=16 * n_chunks, audio_proj_fwd=n_chunks,
+                mask_decoder_fwd=n_chunks)
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+
+    # The same chunks one by one through separate_waveform on the card,
+    # overlap-added in numpy under the same cross-fade.
+    padded_n = (n_chunks - 1) * stride + chunk
+    audio_p = np.pad(audio, ((0, 0), (0, padded_n - n)))
+    lips_p = lips.reshape(b, 2, -1, d.frame_h, d.frame_w)
+    lips_p = np.pad(lips_p, ((0, 0), (0, 0),
+                             (0, padded_n // spf - lips_p.shape[2]),
+                             (0, 0), (0, 0)))
+    win = np.ones(chunk, np.float32)
+    ramp = (np.arange(overlap, dtype=np.float32) + 1.0) / (overlap + 1)
+    win[:overlap], win[-overlap:] = ramp, ramp[::-1]
+    stitched = np.zeros((b, m.num_speakers, padded_n), np.float32)
+    wsum = np.zeros(padded_n, np.float32)
+    single = 0.0
+    for k in range(n_chunks):
+        a0 = k * stride
+        alone = sep.separate_waveform(
+            audio_p[:, a0:a0 + chunk],
+            lips_p[:, :, a0 // spf:(a0 + chunk) // spf].reshape(
+                b, -1, d.frame_h, d.frame_w))["waveforms"]
+        stitched[:, :, a0:a0 + chunk] += alone * win
+        wsum[a0:a0 + chunk] += win
+        hi = min(chunk - overlap, n - a0)
+        single = max(single, float(np.abs(
+            waves[..., a0 + overlap:a0 + hi] - alone[..., overlap:hi]).max()))
+    stitched = (stitched / np.maximum(wsum, 1e-8))[:, :, :n]
+    peak = float(np.abs(stitched).max())
+    stitch_err = float(np.abs(waves - stitched).max())
+    if stitch_err > 1e-6 * peak or single > 1e-6 * peak:
+        bad.append(f"stitching {stitch_err}, single-chunk regions {single} "
+                   f"(1e-6 x {peak})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    rate = {"stream_rate": {"card": state["card"], "wall_s": wall,
+                            "audio_s_per_s": b * n / d.sample_rate / wall,
+                            "chunks_per_s": n_chunks / wall}}
+    emit(rate)
+    return {"config": "scaled", "card": state["card"], "batch": b,
+            "seconds_each": n / d.sample_rate, "chunk_s": 4.0,
+            "overlap_s": 1.0, "num_chunks": n_chunks, "launches": launches,
+            **rate["stream_rate"],
+            "stitch_max_abs_err": [stitch_err, 1e-6 * peak],
+            "single_chunk_max_abs_err": [single, 1e-6 * peak],
+            "cpu_check_10s": {"num_chunks": int(got10["num_chunks"]),
+                              "first_chunk_mask_max_abs_err":
+                                  [mask_err, 1e-4],
+                              "wave_max_abs_err": [wave_err10,
+                                                   1e-3 * peak10]}}
+
+
+def _http(port, method, path, body=None, headers=None, timeout=120.0):
+    """One request to 127.0.0.1 -> (status, body bytes)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _raw_status(port, head: bytes, body: bytes = b"") -> str:
+    """Bytes over a plain socket -> the status code of the reply."""
+    import socket
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sk:
+        sk.sendall(head + body)
+        return sk.makefile("rb").readline().decode().split()[1]
+
+
+def _npz(**arrays) -> bytes:
+    import io
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def phase_serve_http(state):
+    """`cli serve` as a process on the card, driven over HTTP (see the
+    module docstring)."""
+    import io
+    import os
+    import signal
+    import socket
+
+    from av_separation_torch.config import get_config
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.inference import Separator
+    from av_separation_torch.models.model import build_model
+
+    cfg = get_config("scaled")
+    token = "chip-smoke-token"
+    auth = {"Authorization": f"Bearer {token}"}
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "av_separation_torch.cli", "serve",
+         "--config", "scaled", "--serve-host", "127.0.0.1", "--serve-port",
+         str(port), "--serve-max-batch", "8", "--serve-warmup", "1,2,4,8",
+         "--serve-auth-token", token],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"cli serve exited {proc.returncode} "
+                                     f"before /healthz")
+            try:
+                if _http(port, "GET", "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError("no /healthz within 180 s")
+            time.sleep(0.25)
+        startup_s = time.perf_counter() - t0
+
+        ds = SyntheticAVDataset(cfg.data)
+        waves_in = []
+        for i in range(16):
+            clean, rng = ds.clean_audios(i)
+            waves_in.append((clean.sum(axis=0).astype(np.float32),
+                             ds.lip_stream(clean, rng)))
+        specs_in = [(ds[i]["mixed_spec"], ds[i]["lip_frames"])
+                    for i in range(16, 20)]
+        results, lat, errors = {}, {}, []
+
+        def client(tid):
+            try:
+                jobs = [("wave", i) for i in range(tid, 16, 4)] \
+                    + [("spec", tid)]
+                for kind, i in jobs:
+                    if kind == "wave":
+                        path = "/separate_waveform"
+                        body = _npz(mixed_audio=waves_in[i][0],
+                                    lip_frames=waves_in[i][1])
+                    else:
+                        path = "/separate"
+                        body = _npz(mixed_spec=specs_in[i][0],
+                                    lip_frames=specs_in[i][1])
+                    t1 = time.perf_counter()
+                    status, reply = _http(port, "POST", path, body, auth)
+                    lat[(kind, i)] = (time.perf_counter() - t1) * 1e3
+                    results[(kind, i)] = (status, reply)
+            except Exception:  # noqa: BLE001 — reported by the phase
+                errors.append(traceback.format_exc())
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t1
+        bad = [f"client: {e}" for e in errors]
+        codes = {f"{k} {i}": st for (k, i), (st, _) in results.items()}
+        if len(codes) != 20 or any(c != 200 for c in codes.values()):
+            bad.append(f"statuses {codes}")
+        status, body = _http(port, "GET", "/stats", headers=auth)
+        stats = json.loads(body) if status == 200 else {}
+        if stats.get("max_batch", 0) <= 1:
+            bad.append(f"/stats {status} {stats}: no coalescing")
+        refusals = {
+            "401 without token": _http(port, "GET", "/stats")[0],
+            "413 over the cap": int(_raw_status(
+                port, ("POST /separate_waveform HTTP/1.1\r\nHost: x\r\n"
+                       f"Authorization: Bearer {token}\r\nContent-Length: "
+                       f"{(64 << 20) + 1}\r\n\r\n").encode(),
+                b"x" * (1 << 20))),
+            "400 on Content-Length -1": int(_raw_status(
+                port, ("POST /separate HTTP/1.1\r\nHost: x\r\n"
+                       f"Authorization: Bearer {token}\r\n"
+                       "Content-Length: -1\r\n\r\n").encode()))}
+        if [refusals[k] for k in refusals] != [401, 413, 400]:
+            bad.append(f"refusals {refusals}")
+
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=30)
+        shutdown_s = time.perf_counter() - t2
+    finally:
+        if proc.poll() is None:  # not stopped by SIGINT: returncode -9
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        bad.append(f"cli serve exit {proc.returncode}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    launches = next((ln["kernel_launches"] for ln in lines
+                     if "kernel_launches" in ln), None)
+    state["launches"]["serve_http"] = launches or {}
+    warm = next((ln for ln in out.splitlines()
+                 if ln.startswith("avsep warmup:")), "")
+    # Every forward of the process (warm-up batches and served ones)
+    # launches 16 attention, 1 projection and 1 decoder kernel.
+    forwards = stats.get("batches", 0) + int(warm.split()[2] or 0) \
+        if warm else None
+    want = {"flash_attn_fwd": 16 * forwards, "flash_attn_bwd": 0,
+            "audio_proj_fwd": forwards, "mask_decoder_fwd": forwards,
+            "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0} if forwards else None
+    if launches is None or launches != want:
+        bad.append(f"server launches {launches} != {want}")
+
+    # Eight responses against a CPU Separator on cli serve's weights.
+    state_dict = build_model(cfg.model, device="cpu",
+                             seed=cfg.train.seed).state_dict()
+    cpu = Separator(cfg.model, state_dict, cfg.data, device="cpu")
+    ref = cpu.separate_waveform(np.stack([w for w, _ in waves_in[:8]]),
+                                np.stack([lp for _, lp in waves_in[:8]]))
+    got_w, got_m = [], []
+    for i in range(8):
+        reply = results.get(("wave", i), (0, b""))[1]
+        if not reply.startswith(b"PK"):
+            bad.append(f"response {i} is no npz")
+            break
+        with np.load(io.BytesIO(reply)) as z:
+            got_w.append(z["waveforms"])
+            got_m.append(z["masks"])
+    mask_err = wave_err = peak = None
+    if len(got_w) == 8:
+        mask_err = float(np.abs(np.stack(got_m) - ref["masks"]).max())
+        peak = float(np.abs(ref["waveforms"]).max())
+        wave_err = float(np.abs(np.stack(got_w) - ref["waveforms"]).max())
+        if mask_err > 1e-4 or wave_err > 1e-3 * peak:
+            bad.append(f"vs CPU: masks {mask_err}, waves {wave_err} "
+                       f"(1e-3 x {peak})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    wave_lat = sorted(lat[("wave", i)] for i in range(16))
+    return {"config": "scaled", "card": state["card"], "requests": 20,
+            "client_threads": 4, "startup_s": startup_s,
+            "shutdown_s": shutdown_s, "warmup": warm,
+            "over_the_wire_audio_s_per_s": 20 * cfg.data.duration / wall,
+            "wall_s": wall,
+            "wave_latency_ms_p50": float(np.percentile(wave_lat, 50)),
+            "wave_latency_ms_p95": float(np.percentile(wave_lat, 95)),
+            "server_stats": stats, "refusals": refusals,
+            "launches": launches,
+            "cpu_check": {"requests": 8, "mask_max_abs_err": mask_err,
+                          "wave_max_abs_err": wave_err, "wave_peak": peak}}
 
 
 def _group(name: str) -> str:
@@ -1472,6 +1855,8 @@ def main() -> int:
                         ("kernels", phase_kernels), ("golden", phase_golden),
                         ("configs", phase_configs),
                         ("serve", phase_serve), ("profile", phase_profile),
+                        ("stream", phase_stream),
+                        ("serve_http", phase_serve_http),
                         ("train", phase_train),
                         ("train_profile", phase_train_profile),
                         ("device_data", phase_device_data),

@@ -117,7 +117,7 @@ def test_eval_and_separate_read_the_checkpoint(capsys, tmp_path):
     ["train", "--data", "native"], ["train", "--data", "files"],
     ["train", "--mesh-data", "2"], ["train", "--impl", "pallas"],
     ["train", "--dtype", "bfloat16"], ["train", "--debug-nans"],
-    ["serve"], ["bench"]])
+    ["bench"]])
 def test_flags_and_commands_still_to_port_are_refused(argv):
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--cpu"])
@@ -127,9 +127,73 @@ def test_flags_and_commands_still_to_port_are_refused(argv):
 def test_commands_need_a_card_without_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for cmd in ("train", "eval", "separate"):
+    for cmd in ("train", "eval", "separate", "serve"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([cmd, "--config", "demo", "--steps", "1"])
+
+
+def test_serve_answers_over_http_and_stops_on_sigint():
+    """`cli serve --cpu` as a process: /healthz, one /separate_waveform of
+    the demo config's shape, then SIGINT stops it cleanly."""
+    import io
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "av_separation_torch.cli", "serve", "--config",
+         "demo", "--cpu", "--serve-host", "127.0.0.1", "--serve-port",
+         str(port)], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, proc.communicate()
+            try:
+                with urllib.request.urlopen(f"{base}/healthz",
+                                            timeout=5) as resp:
+                    assert resp.status == 200
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                assert time.monotonic() < deadline, "no /healthz"
+                time.sleep(0.2)
+        d = get_config("demo").data
+        rng = np.random.default_rng(0)
+        buf = io.BytesIO()
+        np.savez(buf, mixed_audio=rng.normal(
+            size=d.num_samples_audio).astype(np.float32),
+            lip_frames=rng.uniform(size=(d.total_lip_frames, d.frame_h,
+                                         d.frame_w)).astype(np.float32))
+        req = urllib.request.Request(f"{base}/separate_waveform",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            assert resp.status == 200
+            with np.load(io.BytesIO(resp.read())) as z:
+                assert z["waveforms"].shape == (2, d.num_samples_audio)
+                assert np.isfinite(z["waveforms"]).all()
+                assert z["masks"].shape == (2, d.freq_bins,
+                                            d.num_stft_frames)
+    finally:
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=30)
+    assert proc.returncode == 0, err
+    assert f"avsep serving on http://127.0.0.1:{port}" in out
+    assert json.loads(out.splitlines()[-1]) == {"kernel_launches": {
+        name: 0 for name in ("flash_attn_fwd", "flash_attn_bwd",
+                             "audio_proj_fwd", "mask_decoder_fwd",
+                             "stft_mag_fwd", "stft_mag_dft_fwd")}}
+    assert "untrained init" in err
 
 
 # ---------------------------------------------------------------------------

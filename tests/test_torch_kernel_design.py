@@ -26,6 +26,11 @@ kernels in interpret mode:
   - `csrc/audio_proj.cu`: both convs as implicit GEMMs in 3xTF32 over the
     kernel's frame tiles (hidden rows with their halo, zero outside
     [0, T)), K padded per tap to a multiple of 8 (257 -> 264);
+  - the widths the projection and decoder kernels are not built for, run
+    zero-padded to the next one they are;
+  - `csrc/stft_mag.cu`: the DFT route's blocks (32 frames of one signal
+    staged in shared memory, or 32 frames of the flattened (signal, frame)
+    index read from global memory) and the frames each block reads;
 and the wrappers' choice of route, plan and tile by shape.
 """
 
@@ -40,15 +45,18 @@ from jax.experimental.pallas import tpu as pltpu
 from av_separation_torch.ops.kernels.attention import (flash_attn_bwd_torch,
                                                        flash_attn_fwd_torch,
                                                        keep_mask)
-from av_separation_torch.ops.kernels.stft import (FFT_SIZES, FFT_TILES,
+from av_separation_torch.ops.kernels.stft import (DFT_STATIC_SMEM,
+                                                  FFT_SIZES, FFT_TILES,
                                                   MAX_SMEM_BYTES, MAX_STAGES,
-                                                  SMEM_SHARES,
-                                                  _check, fft_plan,
+                                                  SMEM_SHARES, STAGE_STRIDE,
+                                                  TILE_FRAMES,
+                                                  _check, dft_plan, fft_plan,
                                                   fft_sequences,
                                                   fft_smem_bytes, fft_tables,
                                                   fft_tile_frames, radices,
                                                   route,
                                                   stft_magnitude_fwd_torch)
+from av_separation_torch.ops.stft import dft_basis
 
 CSRC = Path(__file__).resolve().parents[1] / "av_separation_torch" / "csrc"
 
@@ -568,14 +576,137 @@ class TestStftRoute:
         _check(torch.zeros(70000, 8), 8, 4, 3, "fft")
 
     def test_dft_route_keeps_its_checks(self):
-        # A shape the DFT route refuses (its 32-frame tile) is one the FFT
-        # route serves: the check goes with the route.
+        # The DFT route now takes the shapes it once refused (a 32-frame
+        # span beyond shared memory, a hop or n_fft that is no multiple of
+        # 4); it still refuses other dtypes, n_fft below 2 and more blocks
+        # than grid x holds.
         audio = torch.zeros(2, 300)
-        with pytest.raises(ValueError, match="shared memory"):
-            _check(audio, 512, 2048, 1, "dft")
-        _check(audio, 512, 2048, 1, "fft")
-        with pytest.raises(ValueError, match="hop 30"):
-            _check(audio, 8192, 30, 1, "dft")
+        _check(audio, 512, 2048, 1, "dft")
+        _check(audio, 8192, 30, 1 + 300 // 30, "dft")
+        _check(audio, 4410, 441, 1, "dft")
+        with pytest.raises(ValueError, match="float32"):
+            _check(audio.double(), 8192, 32, 10, "dft")
+        with pytest.raises(ValueError, match="n_fft 1"):
+            _check(audio, 1, 1, 301, "dft")
+        with pytest.raises(ValueError, match="grid"):
+            _check(torch.empty(2 ** 31, 40, device="meta"), 8192, 1, 41,
+                   "dft")
+
+
+def dft_blocks_emulated(audio: np.ndarray, n_fft: int, hop: int,
+                        frames: int):
+    """(B, N) -> (B, F, T) as stft_mag.cu's blocks produce it under
+    `dft_plan`: each block and lane finds its (signal, frame) and the
+    samples it reads (the staged span, zero past N, or the frame's own
+    offset and length), the DFT of those samples goes to (signal, :, frame)
+    (in float64 against the float32 bases), and every output is written
+    exactly once."""
+    b, n = audio.shape
+    plan = dft_plan(n_fft, hop, b, frames)
+    cos_b, sin_b = (x.astype(np.float64) for x in dft_basis(n_fft))
+    out = np.full((b, n_fft // 2 + 1, frames), np.nan)
+    tiles = -(-frames // TILE_FRAMES)
+    rows, where = [], []
+    for blk in range(plan.grid[0]):
+        if plan.kind == "global":
+            f0 = blk * TILE_FRAMES
+            for lane in range(TILE_FRAMES):
+                fb, ft = divmod(f0 + lane, frames)
+                if fb >= b:
+                    continue
+                start = ft * hop
+                length = max(0, n - start)
+                row = np.zeros(n_fft)
+                row[:min(n_fft, length)] = audio[fb, start:start + n_fft]
+                rows.append(row)
+                where.append((fb, ft))
+        else:
+            sb, t0 = divmod(blk, tiles)
+            t0 *= TILE_FRAMES
+            span = (TILE_FRAMES - 1) * hop + n_fft
+            assert 4 * span <= plan.smem_bytes
+            staged = np.zeros(span)
+            got = audio[sb, t0 * hop:t0 * hop + span]
+            staged[:len(got)] = got
+            for lane in range(TILE_FRAMES):
+                if t0 + lane < frames:
+                    rows.append(staged[lane * hop:lane * hop + n_fft])
+                    where.append((sb, t0 + lane))
+    rows = np.stack(rows)
+    mag = np.sqrt((rows @ cos_b) ** 2 + (rows @ sin_b) ** 2)
+    for (fb, ft), m in zip(where, mag):
+        assert np.isnan(out[fb, :, ft]).all(), "a frame written twice"
+        out[fb, :, ft] = m
+    assert not np.isnan(out).any(), "a frame never written"
+    return out, plan
+
+
+class TestDftRoute:
+    # n_fft above 4096 at any hop and signal count: the launch plan (block
+    # kind, bins a block, grid, shared memory) fits the card and covers
+    # every bin and frame.
+    @pytest.mark.parametrize("hop", [1, 441, 4410])
+    @pytest.mark.parametrize("n_fft", [4098, 4410, 16384])
+    def test_plan_fits_and_covers(self, n_fft, hop):
+        f = n_fft // 2 + 1
+        span = (TILE_FRAMES - 1) * hop + n_fft
+        for signals, n in ((1, 64000), (70000, 64000), (70000, n_fft),
+                           (3, 100)):
+            frames = 1 + n // hop
+            plan = dft_plan(n_fft, hop, signals, frames)
+            assert plan.threads % 32 == 0 and plan.threads <= 128
+            assert plan.f_pad >= f and plan.f_pad % plan.threads == 0
+            assert plan.grid[1] == plan.f_pad // plan.threads <= 65535
+            assert plan.grid[0] < 2 ** 31
+            assert plan.smem_bytes + DFT_STATIC_SMEM <= MAX_SMEM_BYTES
+            stage = 4 * plan.threads * STAGE_STRIDE
+            if plan.kind == "global":
+                assert plan.smem_bytes == stage
+                blocks = -(-signals * frames // TILE_FRAMES)
+                assert frames < TILE_FRAMES or max(
+                    4 * span, stage) + DFT_STATIC_SMEM > MAX_SMEM_BYTES
+            else:
+                assert frames >= TILE_FRAMES
+                assert plan.smem_bytes == max(4 * span, stage)
+                assert (plan.kind == "staged_vec") == \
+                    (n_fft % 4 == 0 and hop % 4 == 0)
+                blocks = signals * -(-frames // TILE_FRAMES)
+            assert plan.grid[0] == blocks
+
+    @pytest.mark.parametrize("n_fft,hop,shape,kind", [
+        (4410, 441, (2, 17640), "staged"),       # 41 frames, 18,081 floats
+        (4410, 441, (3, 8820), "global"),        # 21 frames a signal
+        (4098, 4098, (40, 4098), "global"),      # 2 frames a signal
+        (8192, 1024, (2, 40000), "staged_vec"),  # the card's 8192 row's
+        (4098, 2048, (2, 70000), "global")])     # a span beyond 227 KB
+    def test_blocks_read_the_reference_frames(self, n_fft, hop, shape,
+                                              kind):
+        audio = rand(shape, 95)
+        frames = 1 + shape[1] // hop
+        got, plan = dft_blocks_emulated(audio, n_fft, hop, frames)
+        assert plan.kind == kind
+        want = stft_magnitude_fwd_torch(torch.from_numpy(audio), n_fft,
+                                        hop).numpy()
+        np.testing.assert_allclose(got, want,
+                                   atol=2e-4 * max(1.0, want.max() / 100))
+
+    def test_plain_matches_pallas_at_4410_441(self):
+        # The 44.1 kHz 100 ms window (n_fft 4410, hop 441): the plain
+        # version against the Pallas kernel in interpret mode (float32
+        # sums of 4410 windowed samples in another order: 2e-4 x the peak
+        # over 100, as the card's rows).
+        import jax.numpy as jnp
+
+        from av_separation_tpu.ops.pallas.stft import stft_magnitude_pallas
+        audio = rand((2, 17640), 96)
+        want = stft_magnitude_fwd_torch(torch.from_numpy(audio), 4410,
+                                        441).numpy()
+        with pltpu.force_tpu_interpret_mode():
+            got = np.asarray(stft_magnitude_pallas(jnp.asarray(audio), 4410,
+                                                   441))
+        assert got.shape == want.shape == (2, 2206, 41)
+        np.testing.assert_allclose(got, want,
+                                   atol=2e-4 * max(1.0, want.max() / 100))
 
 
 # ---------------------------------------------------------------------------
@@ -1051,3 +1182,93 @@ class TestProjectionThreeTf32:
     def test_rows_by_shape(self, shape, rows):
         from av_separation_torch.ops.kernels.audio_proj import proj_rows
         assert proj_rows(*shape, 132) == rows
+
+
+class TestPaddedWidths:
+    # Widths the projection and decoder kernels are not built for (below
+    # 64, or not a multiple of 8) run zero-padded to `kernel_width(d)`;
+    # widths above 1024 run as they are.  The padded route through the
+    # plain versions and through the numpy emulation of the kernels' 3xTF32
+    # GEMMs, against the unpadded plain version and the JAX Pallas kernels
+    # in interpret mode: y and h within 1e-4 (the card's rows), masks
+    # within 1e-5 and separated within 1e-5 of the peak of mixed.
+    @pytest.mark.parametrize("d,width", [(8, 64), (36, 64), (64, 64),
+                                         (196, 200), (1536, 1536)])
+    def test_kernel_width(self, d, width):
+        from av_separation_torch.ops.kernels import kernel_width
+        assert kernel_width(d) == width
+
+    @pytest.mark.parametrize("d", [36, 196, 1536])
+    def test_projection(self, d):
+        import jax.numpy as jnp
+
+        from av_separation_torch.ops.kernels import kernel_width
+        from av_separation_torch.ops.kernels.audio_proj import (
+            audio_proj_fwd_torch, padded_proj)
+        from av_separation_tpu.ops.pallas.audio_proj import _fwd_impl
+        args = _proj_case(1, 21, 65, d, 90)
+        ts = [torch.from_numpy(a) for a in args]
+        widths = []
+
+        def emulated(*a):
+            widths.append(a[1].shape[-1])
+            return tuple(torch.from_numpy(r) for r in proj_tiles_emulated(
+                *(t.numpy() for t in a), 3, 32))
+
+        y_u, h_u = audio_proj_fwd_torch(*ts)
+        with pltpu.force_tpu_interpret_mode():
+            y_j, h_j = (np.asarray(r)
+                        for r in _fwd_impl(*(jnp.asarray(a) for a in args)))
+        for y, h in (padded_proj(audio_proj_fwd_torch, *ts),
+                     padded_proj(emulated, *ts)):
+            assert y.shape == h.shape == (1, 21, d)
+            for got, u, j in ((y, y_u, y_j), (h, h_u, h_j)):
+                np.testing.assert_allclose(got.numpy(), u.numpy(), atol=1e-4,
+                                           rtol=0)
+                np.testing.assert_allclose(got.numpy(), j, atol=1e-4, rtol=0)
+        assert widths == [kernel_width(d)]
+
+    @pytest.mark.parametrize("d", [36, 196, 1536])
+    def test_decoder(self, d):
+        import jax.numpy as jnp
+
+        from av_separation_torch.ops.kernels import kernel_width
+        from av_separation_torch.ops.kernels.decoder import (
+            mask_decoder_fwd_torch, padded_decoder)
+        from av_separation_tpu.ops.pallas.decoder import fused_mask_decoder
+        b, t, s, f = 1, 21, 2, 65
+        args = _decoder_case(b, t, d, s, f, 91, 4.0)
+        x, w1, b1, w2, b2, mixed = args
+        ts = [torch.from_numpy(a) for a in args]
+        widths = []
+
+        def emulated(*a):
+            widths.append(a[0].shape[-1])
+            return tuple(torch.from_numpy(r) for r in decoder_tiles_emulated(
+                *(t.numpy() for t in a[:6]), s, 3, 32))
+
+        sep_u, masks_u = mask_decoder_fwd_torch(*ts, s)
+        with pltpu.force_tpu_interpret_mode():
+            sep_j, masks_j = (np.asarray(r) for r in fused_mask_decoder(
+                *(jnp.asarray(a) for a in (x, w1.T, b1, w2.T, b2, mixed)),
+                s, f))
+        sep_tol = 1e-5 * np.abs(mixed).max()
+        for sep, masks in (padded_decoder(mask_decoder_fwd_torch, *ts, s),
+                           padded_decoder(emulated, *ts, s)):
+            assert masks.shape == sep.shape == (b, s, f, t)
+            for got, u, j, tol in ((masks, masks_u, masks_j, 1e-5),
+                                   (sep, sep_u, sep_j, sep_tol)):
+                np.testing.assert_allclose(got.numpy(), u.numpy(), atol=tol,
+                                           rtol=0)
+                np.testing.assert_allclose(got.numpy(), j, atol=tol, rtol=0)
+        assert widths == [kernel_width(d)]
+
+    def test_padded_weights_are_kept_per_version(self):
+        from av_separation_torch.ops.kernels import zero_padded
+        w = torch.ones(3, 5)
+        first = zero_padded(w, (4, 8))
+        assert zero_padded(w, (4, 8)) is first
+        assert torch.equal(first[:3, :5], w) and float(first.sum()) == 15
+        w.mul_(2)  # an in-place update, as an optimizer step
+        again = zero_padded(w, (4, 8))
+        assert again is not first and float(again.sum()) == 30

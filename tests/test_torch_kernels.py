@@ -21,8 +21,12 @@ from av_separation_torch.ops.attention import (draw_seed, merge_heads,
                                                split_heads)
 from av_separation_torch.ops.kernels.attention import (flash_attention,
                                                        flash_attn_bwd,
+                                                       flash_attn_bwd_torch,
                                                        flash_attn_fwd,
-                                                       keep_mask)
+                                                       flash_attn_fwd_torch,
+                                                       keep_mask, padded_bwd,
+                                                       padded_fwd,
+                                                       padded_head_dim)
 from av_separation_torch.ops.kernels.audio_proj import (audio_proj_fwd,
                                                         audio_projection)
 from av_separation_torch.ops.kernels.decoder import (mask_decoder,
@@ -176,9 +180,11 @@ class TestStft:
     @pytest.mark.parametrize("audio,n_fft,hop,match", [
         (torch.zeros(2, 300, dtype=torch.float64), 64, 32, "float32"),
         (torch.zeros(300, 2).t(), 64, 32, "contiguous"),
-        (torch.zeros(2, 300), 62, 32, "n_fft 62"),
-        (torch.zeros(2, 300), 64, 30, "hop 30"),
-        (torch.zeros(2, 300), 512, 2048, "shared memory")])
+        (torch.zeros(2, 300), 1, 32, "n_fft 1"),
+        (torch.zeros(2, 0), 8192, 32, "audio must be"),
+        # 2^31 signals of 41 frames: more blocks of 32 frames than grid x
+        # holds (a meta tensor: no memory).
+        (torch.empty(2 ** 31, 40, device="meta"), 8192, 1, "grid")])
     def test_kernel_inputs_are_checked(self, audio, n_fft, hop, match):
         from av_separation_torch.ops.kernels.stft import _check
         with pytest.raises(ValueError, match=match):
@@ -229,6 +235,15 @@ class TestDispatch:
         with pytest.raises(ValueError, match="head dim 96"):
             _check(q, q, q)
 
+    @pytest.mark.parametrize("dh,width", [(1, 32), (17, 32), (32, 32),
+                                          (49, 64), (100, 128), (128, 128)])
+    def test_head_dims_pad_to_the_next_built_one(self, dh, width):
+        assert padded_head_dim(dh) == width
+
+    def test_head_dims_above_128_are_refused(self):
+        with pytest.raises(ValueError, match="head dim 256 exceeds"):
+            padded_head_dim(256)
+
     def test_other_devices_raise(self):
         q = torch.empty(1, 2, 5, 32, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
@@ -242,6 +257,74 @@ class TestDispatch:
             mask_decoder_fwd(x, x, x, x, x, x, 2)
         with pytest.raises(ValueError, match="unsupported device"):
             stft_magnitude_fwd(torch.empty(2, 300, device="meta"), 64, 32)
+
+
+class TestHeadDimPadding:
+    # Head dims the kernels are not built for run zero-padded to the next
+    # built one at the true dh's scale (`padded_fwd`, `padded_bwd`).  Here
+    # the padding goes around the plain versions; the results are held
+    # against the unpadded plain version and the JAX packed Pallas kernel
+    # (`_flash_packed_call`, and its backward rule through jax.vjp) in
+    # interpret mode, with the same dropout bits: float32 sums in another
+    # order, 2e-5 on o and gradients (5e-5 on the gradients against JAX, as
+    # test_backward_matches_jax_vjp), 1e-4 on lse.
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    @pytest.mark.parametrize("dh", [1, 17, 49, 100])
+    def test_padded_route_matches_unpadded_and_pallas(self, dh, rate):
+        from av_separation_tpu.ops.pallas import attention as pa
+        b, h, tq, tk = 2, 2, 37, 50
+        q, k, v = rand((b, h, tq, dh), 40), rand((b, h, tk, dh), 41), \
+            rand((b, h, tk, dh), 42)
+        do = rand((b, h, tq, dh), 43)
+        tq_, tk_, tv_, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+        o, lse = padded_fwd(flash_attn_fwd_torch, tq_, tk_, tv_, rate, SEED)
+        o_u, lse_u = flash_attn_fwd_torch(tq_, tk_, tv_, rate, SEED)
+        assert o.shape == (b, h, tq, dh)
+        np.testing.assert_allclose(o.numpy(), o_u.numpy(), atol=2e-5)
+        np.testing.assert_allclose(lse.numpy(), lse_u.numpy(), atol=1e-4)
+
+        bq, bk = -(-tq // 16) * 16, -(-tk // 128) * 128
+        qf = pa._pad_to(jnp.asarray(q.reshape(b * h, tq, dh)), 1, bq)
+        kf, vf = (pa._pad_to(jnp.asarray(x.reshape(b * h, tk, dh)), 1, bk)
+                  for x in (k, v))
+        seed = jnp.asarray([SEED], jnp.int32)
+        o_j, lse_j = pa._flash_packed_call(
+            qf, kf, vf, seed, 1.0 / np.sqrt(dh), tk, rate, False,
+            pa._pick_heads_per_block(b * h, bq, bk, dh, 4))
+        np.testing.assert_allclose(
+            o.numpy(), np.asarray(o_j)[:, :tq].reshape(b, h, tq, dh),
+            atol=2e-5)
+        np.testing.assert_allclose(
+            lse.numpy(), np.asarray(lse_j)[:, 0, :tq].reshape(b, h, tq),
+            atol=1e-4)
+
+        grads = padded_bwd(flash_attn_bwd_torch, tq_, tk_, tv_, o, tdo, lse,
+                           rate, SEED)
+        want_u = flash_attn_bwd_torch(tq_, tk_, tv_, o_u, tdo, lse_u, rate,
+                                      SEED)
+        _, vjp = jax.vjp(lambda *a: pa.flash_attention(
+            *a, dropout_rate=rate, dropout_seed=seed),
+            *(jnp.asarray(x) for x in (q, k, v)))
+        want_j = vjp(jnp.asarray(do))
+        for name, g, u, j in zip("qkv", grads, want_u, want_j):
+            assert g.shape == u.shape
+            np.testing.assert_allclose(g.numpy(), u.numpy(), atol=2e-5,
+                                       err_msg=name)
+            np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=5e-5,
+                                       err_msg=name)
+
+    def test_padding_reaches_a_kernel_of_a_built_head_dim(self):
+        # What the CUDA wrappers hand their kernels: dh 64 tensors and the
+        # softmax scale of dh 49.
+        seen = []
+
+        def fwd(q, k, v, rate, seed, scale=None):
+            seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+            return flash_attn_fwd_torch(q, k, v, rate, seed, scale)
+
+        q = torch.from_numpy(rand((1, 2, 5, 49), 44))
+        padded_fwd(fwd, q, q, q)
+        assert seen == [(64, 64, 64, 1.0 / np.sqrt(49))]
 
 
 # ---------------------------------------------------------------------------
