@@ -1,21 +1,26 @@
-"""Command line: train, evaluate, separate and serve (port of
+"""Command line: train, evaluate, separate, serve and bench (port of
 `av_separation_tpu/cli.py`).
 
     python -m av_separation_torch.cli train --config demo --steps 100
     python -m av_separation_torch.cli train --config scaled --data device --fused
+    python -m av_separation_torch.cli train --config scaled --dtype bfloat16
     python -m av_separation_torch.cli eval --config demo --checkpoint-dir ckpt
     python -m av_separation_torch.cli separate --config demo --checkpoint-dir ckpt
     python -m av_separation_torch.cli serve --config scaled --serve-port 8571
+    python -m av_separation_torch.cli bench [--mode per_step] [--dtype float32]
 
 Every command runs on the CUDA device and raises without one; `--cpu` runs
-it on the CPU (the kernels' plain versions).  The JSON lines are the JAX
-CLI's: one per logged step, eval lines between them, and a final
-{"final_step", "loss", "audio_s_per_s"} line, whose loss is printed
-unrounded so that two runs can be compared.  `serve` takes the JAX CLI's
-`--serve-*` flags and `AVSEP_AUTH_TOKEN`, and stops on SIGINT.  Not yet
+it on the CPU (the kernels' plain versions).  `--dtype` sets the model's
+compute dtype.  The JSON lines are the JAX CLI's: one per logged step, eval
+lines between them, and a final {"final_step", "loss", "audio_s_per_s"}
+line, whose loss is printed unrounded so that two runs can be compared.
+`serve` takes the JAX CLI's `--serve-*` flags and `AVSEP_AUTH_TOKEN`, and
+stops on SIGINT.  `bench` is `av_separation_torch.bench` (its flags
+`--config --steps --batch --dtype --mode --cpu`, the JAX bench's defaults:
+demo, 250, 128, bfloat16, fused) and prints its one JSON line.  Not yet
 ported, and refused by the argument parser: the mesh and multi-host flags,
-`--impl`, `--dtype`, `--data native|files` (`--data-root`,
-`--dynamic-mix`), `--debug-nans`, `--mode`, and the `bench` command.
+`--impl`, `--data native|files` (`--data-root`, `--dynamic-mix`) and
+`--debug-nans`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "multihost")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: the CUDA device)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
+                   help="compute dtype (default: the config's, float32)")
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
@@ -62,6 +69,9 @@ def _build_config(args):
         sys.exit(f"avsep: unknown config '{args.config}'. "
                  f"Available: {', '.join(sorted(NAMED_CONFIGS))}")
     cfg = get_config(args.config)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=args.dtype))
     train_kw = {}
     for field, attr in (("batch_size", "batch"), ("steps", "steps"),
                         ("checkpoint_dir", "checkpoint_dir"),
@@ -347,6 +357,10 @@ def main(argv=None) -> int:
         if name == "serve":
             _add_serve(p)
         p.set_defaults(fn=fn)
+    p = sub.add_parser("bench")
+    from av_separation_torch import bench
+    bench.add_flags(p)
+    p.set_defaults(fn=bench.cmd)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -6,10 +6,11 @@ A copy of the model, data, loss and training parts of
 tensor on the card goes through the hand-written kernel and a tensor on the
 CPU through the kernel's plain PyTorch version, so there is nothing to
 select.  The five named configs keep the reference's widths, depths, data
-geometry and training constants field for field, and `TrainConfig` carries
-the host and device data pipelines and the checkpoint fields; the mesh, the
-native and file pipelines, `rng_impl` and remat come with the slices that
-use them.
+geometry and training constants field for field (`multihost` with remat, as
+in JAX), `ModelConfig` carries the compute dtype and remat, and
+`TrainConfig` carries the host and device data pipelines and the
+checkpoint fields; the mesh, the native and file pipelines and `rng_impl`
+come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -30,8 +31,12 @@ class ModelConfig:
     num_fusion_layers: int = 2
     num_speakers: int = 2
     dropout: float = 0.1
-    # Only "float32" is served by this package; the model raises on others.
+    # 'float32' | 'bfloat16': the dtype activations are computed in;
+    # parameters, gradients and Adam stay float32 (models/model.py).
     compute_dtype: str = "float32"
+    # Recompute each encoder and fusion layer in the backward instead of
+    # keeping its activations (models/layers.py `remat_layer`).
+    remat: bool = False
 
 
 @dataclass(frozen=True)
@@ -176,7 +181,7 @@ def multihost_config() -> ExperimentConfig:
         name="multihost",
         model=ModelConfig(freq_bins=257, d_model=1024, nhead=8,
                           num_encoder_layers=12, num_fusion_layers=8,
-                          num_speakers=4, dropout=0.1),
+                          num_speakers=4, dropout=0.1, remat=True),
         data=DataConfig(num_samples=10000, sample_rate=16000, duration=4.0,
                         n_fft=512, hop_length=128, num_frames=100,
                         frame_h=32, frame_w=32,

@@ -1,5 +1,5 @@
 // Audio input projection forward, float32 on the tensor cores in 3xTF32,
-// for Hopper (sm_90a).
+// with a float32 or bfloat16 input and outputs, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/audio_proj.py `_proj_kernel`
 // (called from `_fwd_impl`).  Computes, with torch's zero padding of both
@@ -14,7 +14,8 @@
 // 2*B*T*3*(F + D)*D = 9.5 GFLOP against 25 MB (x, W1, W2, y, h).  Float32
 // products at float32 accuracy run on the tensor cores in 3xTF32 at
 // 495/3 = 165 TFLOP/s: 57 us, against 7.5 us of bytes, so bound by
-// operations.
+// operations; with a bf16 x, y and h (float32 math and weights) the bytes
+// drop to 4.5 us and the bound stays the products'.
 //
 // Design: one launch a conv, each an implicit GEMM.
 // - Why two launches.  A fused kernel (the TPU kernel's shape: the hidden
@@ -41,9 +42,18 @@
 //   with 16-byte ones.
 // - Stores.  y and h go from the C fragments straight to device memory:
 //   each quarter-warp writes 32 contiguous bytes of a row, whole sectors.
+// - bfloat16 (the Pallas kernel at a bf16 x, audio_proj.py:39-58, :87):
+//   the math stays float32 (x cast up, float32 weights) and y and h are
+//   stored in bf16.  x is staged as float32 (plain loads and a convert:
+//   its 514-byte rows fit no 4-byte copy), and a bf16 value is exact in
+//   TF32, so conv1's 3xTF32 product needs two products, x w_big +
+//   x w_small.  conv2 reads the float32 h, as the Pallas kernel's does:
+//   conv1 writes it to a float32 scratch beside the bf16 h, which is only
+//   the backward's residual.
 // - Bank conflicts.  Weight rows are 136 floats apart (8 mod 32): B loads
 //   (k = t, n = g) hit bank 8t + g; staged input rows 20 apart: A loads hit
 //   20g + t; 32 distinct banks a load.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_3xtf32.cuh"
@@ -67,15 +77,21 @@ struct Tile {
 
 __device__ __forceinline__ float relu(float v) { return fmaxf(v, 0.f); }
 
+// How conv_block stages its input rows.
+enum Src { kF32Rows4, kF32Rows16, kBf16Rows };
+
 // out[b, t0 + r, n0 + c] = relu(bias + sum_tap sum_ci src[b, t0 + r + tap
 // - 1, ci] W[tap, ci, n0 + c]) for the block's BM frames and 128 channels;
-// src (B, T, cin), zero outside [0, T).  VEC: src rows are 16-byte aligned.
-template <int BM, bool VEC>
-__device__ __forceinline__ void conv_block(const float* __restrict__ src,
+// src (B, T, cin), zero outside [0, T): float32 rows 4-byte or 16-byte
+// aligned, or bf16 rows.  The result goes to `out` (float32) where OUT_F32
+// and to `outh` (bf16, rounded to nearest) where OUT_BF16.
+template <int BM, Src SRC, bool OUT_F32, bool OUT_BF16>
+__device__ __forceinline__ void conv_block(const void* __restrict__ src_,
                                            const float* __restrict__ W,
                                            const float* __restrict__ bias,
-                                           float* __restrict__ out, int T,
-                                           int cin, int D) {
+                                           float* __restrict__ out,
+                                           __nv_bfloat16* __restrict__ outh,
+                                           int T, int cin, int D) {
   constexpr int kMT = Tile<BM>::kMT;
   constexpr int kStage = Tile<BM>::kStage;
   extern __shared__ float4 smem4[];
@@ -85,7 +101,10 @@ __device__ __forceinline__ void conv_block(const float* __restrict__ src,
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const int t0 = blockIdx.x * BM, n0 = blockIdx.y * kBN, b = blockIdx.z;
+  const float* src = static_cast<const float*>(src_);
   const float* sb = src + (size_t)b * T * cin;
+  const __nv_bfloat16* sbh =
+      static_cast<const __nv_bfloat16*>(src_) + (size_t)b * T * cin;
   const int kc = (cin + 7) / 8 * 8;  // K a tap, padded to a multiple of 8
   const int nk = (kc + kBK - 1) / kBK;
 
@@ -94,7 +113,16 @@ __device__ __forceinline__ void conv_block(const float* __restrict__ src,
     float* sw = sa + Tile<BM>::kA;
     const int c0 = j * kBK;
     // Input frames t0 - 1 .. t0 + BM, channels c0 .. c0 + 15.
-    if (VEC) {
+    if (SRC == kBf16Rows) {
+      // Plain loads, converted to float32 as they are staged.
+      for (int i = tid; i < (BM + 2) * kBK; i += kThreads) {
+        const int r = i / kBK, c = i % kBK;
+        const int tt = t0 - 1 + r;
+        const bool ok = tt >= 0 && tt < T && c0 + c < cin;
+        sa[r * kAS + c] =
+            ok ? __bfloat162float(sbh[(size_t)tt * cin + c0 + c]) : 0.f;
+      }
+    } else if (SRC == kF32Rows16) {
       for (int i = tid; i < (BM + 2) * (kBK / 4); i += kThreads) {
         const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
         const int tt = t0 - 1 + r;
@@ -154,9 +182,19 @@ __device__ __forceinline__ void conv_block(const float* __restrict__ src,
           if (c0 + kk * 8 >= kc) break;
           unsigned ab[kMT][4], as[kMT][4];
 #pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            load_a_frag(sa + (wm * (BM / 2) + mt * 16 + tap) * kAS + kk * 8,
-                        kAS, g, t, ab[mt], as[mt]);
+          for (int mt = 0; mt < kMT; ++mt) {
+            const float* ap =
+                sa + (wm * (BM / 2) + mt * 16 + tap) * kAS + kk * 8;
+            if (SRC == kBf16Rows) {
+              // A bf16 value is its own TF32 big part; no small part.
+              ab[mt][0] = __float_as_uint(ap[g * kAS + t]);
+              ab[mt][1] = __float_as_uint(ap[(g + 8) * kAS + t]);
+              ab[mt][2] = __float_as_uint(ap[g * kAS + t + 4]);
+              ab[mt][3] = __float_as_uint(ap[(g + 8) * kAS + t + 4]);
+            } else {
+              load_a_frag(ap, kAS, g, t, ab[mt], as[mt]);
+            }
+          }
 #pragma unroll
           for (int n = 0; n < 4; ++n) {
             const float* bp =
@@ -165,8 +203,14 @@ __device__ __forceinline__ void conv_block(const float* __restrict__ src,
             split(bp[0], bb[0], bs[0]);
             split(bp[4 * kBS], bb[1], bs[1]);
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt)
-              mma_3xtf32(acc[mt][n], ab[mt], as[mt], bb, bs);
+            for (int mt = 0; mt < kMT; ++mt) {
+              if (SRC == kBf16Rows) {
+                mma_tf32(acc[mt][n], ab[mt], bs);
+                mma_tf32(acc[mt][n], ab[mt], bb);
+              } else {
+                mma_3xtf32(acc[mt][n], ab[mt], as[mt], bb, bs);
+              }
+            }
           }
         }
       }
@@ -175,6 +219,7 @@ __device__ __forceinline__ void conv_block(const float* __restrict__ src,
   cp_async_wait<0>();
 
   float* ob = out + (size_t)b * T * D;
+  __nv_bfloat16* obh = outh + (size_t)b * T * D;
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     const int col = n0 + wn * 32 + n * 8 + 2 * t;
@@ -185,33 +230,44 @@ __device__ __forceinline__ void conv_block(const float* __restrict__ src,
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int tt = t0 + wm * (BM / 2) + mt * 16 + g + 8 * hf;
-        if (tt < T)
+        if (tt >= T) continue;
+        const float v0 = relu(acc[mt][n][2 * hf] + c0);
+        const float v1 = relu(acc[mt][n][2 * hf + 1] + c1);
+        if (OUT_F32)
           *reinterpret_cast<float2*>(ob + (size_t)tt * D + col) =
-              make_float2(relu(acc[mt][n][2 * hf] + c0),
-                          relu(acc[mt][n][2 * hf + 1] + c1));
+              make_float2(v0, v1);
+        if (OUT_BF16)
+          *reinterpret_cast<__nv_bfloat162*>(obh + (size_t)tt * D + col) =
+              __floats2bfloat162_rn(v0, v1);
       }
     }
   }
 }
 
-// h = relu(conv3(x, W1) + b1): x rows of F floats, 4-byte aligned.
-template <int BM>
+// h = relu(conv3(x, W1) + b1).  BF16: x is bf16, h goes to the float32
+// scratch h32 (conv2's input) and to the bf16 h; else x rows of F floats,
+// 4-byte aligned, and h (float32) is conv2's input itself.
+template <int BM, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
-audio_proj_conv1_kernel(const float* __restrict__ x,
+audio_proj_conv1_kernel(const void* __restrict__ x,
                         const float* __restrict__ w1,
-                        const float* __restrict__ b1, float* __restrict__ h,
-                        int T, int F, int D) {
-  conv_block<BM, false>(x, w1, b1, h, T, F, D);
+                        const float* __restrict__ b1,
+                        float* __restrict__ h32,
+                        __nv_bfloat16* __restrict__ hb, int T, int F,
+                        int D) {
+  conv_block<BM, BF16 ? kBf16Rows : kF32Rows4, true, BF16>(x, w1, b1, h32,
+                                                           hb, T, F, D);
 }
 
-// y = relu(conv3(h, W2) + b2): h rows of D floats, 16-byte aligned.
-template <int BM>
+// y = relu(conv3(h, W2) + b2): h rows of D floats, 16-byte aligned; y in
+// float32 or (BF16) bf16.
+template <int BM, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
 audio_proj_conv2_kernel(const float* __restrict__ h,
                         const float* __restrict__ w2,
                         const float* __restrict__ b2, float* __restrict__ y,
-                        int T, int D) {
-  conv_block<BM, true>(h, w2, b2, y, T, D, D);
+                        __nv_bfloat16* __restrict__ yb, int T, int D) {
+  conv_block<BM, kF32Rows16, !BF16, BF16>(h, w2, b2, y, yb, T, D, D);
 }
 
 template <typename Kernel>
@@ -221,53 +277,74 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int BM>
-cudaError_t launch(const float* x, const float* w1, const float* b1,
-                   const float* w2, const float* b2, float* y, float* h,
-                   int B, int T, int F, int D, cudaStream_t s) {
+template <int BM, bool BF16>
+cudaError_t launch(const void* x, const float* w1, const float* b1,
+                   const float* w2, const float* b2, void* y, void* h,
+                   float* h32, int B, int T, int F, int D, cudaStream_t s) {
   constexpr size_t kBytes = Tile<BM>::kBytes;
-  cudaError_t err = prepare(audio_proj_conv1_kernel<BM>, kBytes);
+  cudaError_t err = prepare(audio_proj_conv1_kernel<BM, BF16>, kBytes);
   if (err != cudaSuccess) return err;
-  err = prepare(audio_proj_conv2_kernel<BM>, kBytes);
+  err = prepare(audio_proj_conv2_kernel<BM, BF16>, kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BM - 1) / BM, (D + kBN - 1) / kBN, B);
-  audio_proj_conv1_kernel<BM><<<grid, kThreads, kBytes, s>>>(x, w1, b1, h, T,
-                                                             F, D);
+  // At float32, h is conv2's float32 input; at bf16, h32 is.
+  float* hf = BF16 ? h32 : static_cast<float*>(h);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  audio_proj_conv1_kernel<BM, BF16><<<grid, kThreads, kBytes, s>>>(
+      x, w1, b1, hf, hb, T, F, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  audio_proj_conv2_kernel<BM><<<grid, kThreads, kBytes, s>>>(h, w2, b2, y, T,
-                                                             D);
+  audio_proj_conv2_kernel<BM, BF16><<<grid, kThreads, kBytes, s>>>(
+      hf, w2, b2, static_cast<float*>(y), static_cast<__nv_bfloat16*>(y), T,
+      D);
   return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t dispatch(const void* x, const float* w1, const float* b1,
+                     const float* w2, const float* b2, void* y, void* h,
+                     float* h32, int B, int T, int F, int D, int rows,
+                     cudaStream_t s) {
+  switch (rows) {
+    case 128:
+      return launch<128, BF16>(x, w1, b1, w2, b2, y, h, h32, B, T, F, D, s);
+    case 64:
+      return launch<64, BF16>(x, w1, b1, w2, b2, y, h, h32, B, T, F, D, s);
+    case 32:
+      return launch<32, BF16>(x, w1, b1, w2, b2, y, h, h32, B, T, F, D, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // rows: the frames a block computes, 128, 64 or 32 (`gemm_rows` in
-// ops/kernels/__init__.py).
+// ops/kernels/__init__.py).  dtype 0: x, y and h float32 (h32 unused);
+// dtype 1: x, y and h bf16, h32 a float32 (B, T, D) scratch.
 extern "C" int avsep_audio_proj_fwd(const void* x, const void* w1,
                                     const void* b1, const void* w2,
                                     const void* b2, void* y, void* h,
-                                    int B, int T, int F, int D, int rows,
-                                    int device, void* stream) {
+                                    void* h32, int B, int T, int F, int D,
+                                    int rows, int dtype, int device,
+                                    void* stream) {
   // Any width from 64 up, in steps of 8 (the wrapper pads others): the
   // grid tiles the channels, and the k loop runs over any count.
   if (D % 8 != 0 || D < 64) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* xf = static_cast<const float*>(x);
   const auto* w1f = static_cast<const float*>(w1);
   const auto* b1f = static_cast<const float*>(b1);
   const auto* w2f = static_cast<const float*>(w2);
   const auto* b2f = static_cast<const float*>(b2);
-  auto* yo = static_cast<float*>(y);
-  auto* ho = static_cast<float*>(h);
+  auto* scratch = static_cast<float*>(h32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == 128)
-    err = launch<128>(xf, w1f, b1f, w2f, b2f, yo, ho, B, T, F, D, s);
-  else if (rows == 64)
-    err = launch<64>(xf, w1f, b1f, w2f, b2f, yo, ho, B, T, F, D, s);
-  else if (rows == 32)
-    err = launch<32>(xf, w1f, b1f, w2f, b2f, yo, ho, B, T, F, D, s);
+  if (dtype == 0)
+    err = dispatch<false>(x, w1f, b1f, w2f, b2f, y, h, scratch, B, T, F, D,
+                          rows, s);
+  else if (dtype == 1 && h32 != nullptr)
+    err = dispatch<true>(x, w1f, b1f, w2f, b2f, y, h, scratch, B, T, F, D,
+                         rows, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

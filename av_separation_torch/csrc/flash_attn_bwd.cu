@@ -1,5 +1,5 @@
-// Flash attention backward, float32 on the tensor cores in 3xTF32, for
-// Hopper (sm_90a).
+// Flash attention backward, float32 on the tensor cores in 3xTF32 and
+// bfloat16 in bf16 products, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_bwd_hpacked_kernel`
 // (packed (B, T, H*dh) layout, `_flash_hpacked_bwd_rule`),
@@ -24,7 +24,8 @@
 // (QK^T, dO V^T, dV, dQ, dK), 10.3 GFLOP, against 57 MB of q, k, v, o, dO,
 // lse in and dQ, dK, dV out.  Float32 products at float32 accuracy run on
 // the tensor cores in 3xTF32 at 495/3 = 165 TFLOP/s: 62 us, against 17 us
-// of bytes at 3.35 TB/s, so bound by operations.  These kernels do 7
+// of bytes at 3.35 TB/s, so bound by operations (in bfloat16: 10.4 us at
+// 989 TFLOP/s against 9.8 us for 33 MB, still operations).  These do 7
 // products (the dQ kernel recomputes QK^T and dO V^T), so as to need no
 // atomics: two runs give bit-identical gradients.
 //
@@ -58,7 +59,10 @@
 //   with ds as the A operand and K read as the forward reads V.
 // - Registers.  A dK/dV warp carries 16 x dh accumulators of each, 128
 //   floats a thread at dh 128; the K and V A fragments are re-read from
-//   shared memory for every query tile rather than held.
+//   shared memory for every query tile rather than held.  The ring is
+//   addressed in elements of T, the stage's lse / delta / hash words
+//   behind its rows: addressed in bytes, the float32 8-warp instance at dh
+//   128 spilled 40 bytes at 254 registers.
 // - Filling 132 SMs.  Audio self-attention and fusion give 256 blocks of
 //   4 warps (101 KB of shared memory at dh 128, 2 blocks an SM).  A grid of
 //   at most one block an SM (visual self-attention at T 200, the long T 1024
@@ -66,6 +70,19 @@
 //   tiles (query tiles in dK/dV, key tiles in dQ), and the second hands its
 //   accumulators to the first through the idle ring, which adds them in a
 //   fixed order.
+// - bfloat16 (the Pallas rules at bf16, attention.py:238-263, :418-443,
+//   :711-810): the same kernels with bf16 operands in mma.sync.m16n8k16
+//   products and float32 accumulators; delta = sum(dO * O) in float32; the
+//   operands the Pallas kernels round are rounded here: pd to bf16 for
+//   dV = pd^T dO, ds to bf16 for dQ = ds K and dK = ds^T Q.  A 16-query
+//   (16-key) tile is one k16 step; two C fragments are its A fragment as
+//   they stand (mma_bf16.cuh).  dQ, dK and dV are stored in bf16.
+// - Head dims above 128 (a column split, as the forward): dh is padded to
+//   256 and each dK/dV (dQ) block owns one group of 128 output columns
+//   (blockIdx.z).  It recomputes S and dP over all 256 columns (K, V, Q
+//   and dO staged at full width) and accumulates only its own columns, so
+//   a warp holds the accumulators of dh 128.  200 KB of shared memory at
+//   float32: one 4-warp block an SM.
 // - Rows past T are zero-filled by the copies; a query past Tq gets lse
 //   +inf in the dK/dV kernel (p = 0), a key past Tk gets p = 0 in the dQ
 //   kernel, and neither is stored.
@@ -75,8 +92,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "dropout_hash.cuh"
 #include "mma_3xtf32.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -84,35 +104,37 @@ constexpr int kWarps = 4;               // warps of a group
 constexpr int kBlock = 16 * kWarps;     // keys (dK/dV) or rows (dQ) a block
 constexpr int kTile = 16;               // query (dK/dV) or key (dQ) tile
 constexpr int kDeltaThreads = 128;
+constexpr int kGroup = 128;             // output columns a block above 128
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* o;
-  const float* dout;
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
   const float* lse;
   float* delta;
-  float* dq;
-  float* dk;
-  float* dv;
+  void* dq;
+  void* dk;
+  void* dv;
   int H, Tq, Tk;
-  // (batch, head, time) strides of q, k, v, o, dO, dQ, dK, dV.
+  // (batch, head, time) strides of q, k, v, o, dO, dQ, dK, dV (elements).
   long long sq[3], sk[3], sv[3], so[3], sdo[3], sdq[3], sdk[3], sdv[3];
   float scale;
   float keep;  // 1 - rate
   DropoutHash drop;
 };
 
-__device__ __forceinline__ const float* head(const float* base,
-                                             const long long* s, int b,
-                                             int h) {
-  return base + b * s[0] + h * s[1];
+template <typename T>
+__device__ __forceinline__ const T* head(const void* base, const long long* s,
+                                         int b, int h) {
+  return static_cast<const T*>(base) + b * s[0] + h * s[1];
 }
 
-__device__ __forceinline__ float* head(float* base, const long long* s, int b,
-                                       int h) {
-  return base + b * s[0] + h * s[1];
+template <typename T>
+__device__ __forceinline__ T* head(void* base, const long long* s, int b,
+                                   int h) {
+  return static_cast<T*>(base) + b * s[0] + h * s[1];
 }
 
 // The 3xTF32 A fragment of rows [0, 16) and columns [c, c + 8) of a tile
@@ -140,37 +162,34 @@ __device__ __forceinline__ void c_as_a(const float (&c)[4], unsigned (&ab)[4],
   split(c[3], ab[3], as[3]);
 }
 
-// Accumulators (16 x DH a warp, as C fragments) to rows [r0, r0 + 16) of a
-// (time, dh) output: staged in `st`, this warp's own 16 rows of a shared
-// tile at stride DH + 4, then stored as 16-byte row chunks.
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
-                                           float* st, float* out,
-                                           long long stride, int r0, int n,
-                                           int lane) {
-  constexpr int kS = DH + 4;
+// Accumulators (16 x N*8 a warp, as C fragments) to rows [r0, r0 + 16) of
+// a (time, dh) output: staged in `st`, this warp's own 16 rows of a shared
+// tile at row stride S, in T, then stored as 16-byte row chunks.
+template <typename T, int N, int S>
+__device__ __forceinline__ void store_rows(const float (&acc)[N][4], T* st,
+                                           T* out, long long stride, int r0,
+                                           int n, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d) {
-    *reinterpret_cast<float2*>(st + g * kS + d * 8 + 2 * t) =
-        make_float2(acc[d][0], acc[d][1]);
-    *reinterpret_cast<float2*>(st + (g + 8) * kS + d * 8 + 2 * t) =
-        make_float2(acc[d][2], acc[d][3]);
+  for (int d = 0; d < N; ++d) {
+    store2(st + g * S + d * 8 + 2 * t, acc[d][0], acc[d][1]);
+    store2(st + (g + 8) * S + d * 8 + 2 * t, acc[d][2], acc[d][3]);
   }
   __syncwarp();
-  constexpr int kChunks = DH / 4;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = N * 8 / kVec;
 #pragma unroll 4
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const int r = i / kChunks, c = (i % kChunks) * kVec;
     if (r0 + r < n)
       *reinterpret_cast<float4*>(out + (r0 + r) * stride + c) =
-          *reinterpret_cast<const float4*>(st + r * kS + c);
+          *reinterpret_cast<const float4*>(st + r * S + c);
   }
 }
 
-// A split block's second warp group hands its accumulators to the first
-// through `x` (4 * 32 * N floats a warp), after the block's last
-// __syncthreads; the first adds them after the next one.
+// A split block's second warp group hands one set of accumulators to the
+// first through `x` (4 * 32 * N floats a warp) between two
+// __syncthreads; the first adds them.
 template <int N>
 __device__ __forceinline__ void hand_over(const float (&acc)[N][4], float* x,
                                           int lane) {
@@ -194,9 +213,9 @@ __device__ __forceinline__ void take_over(float (&acc)[N][4], const float* x,
 }
 
 // ---------------------------------------------------------------------------
-// delta = rowsum(dO * O): one warp per query row.
+// delta = rowsum(dO * O) in float32: one warp per query row.
 // ---------------------------------------------------------------------------
-template <int DH>
+template <typename T, int DQK>
 __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
@@ -204,11 +223,12 @@ flash_bwd_delta_kernel(const Params p) {
   const int b = bh / p.H, h = bh % p.H;
   const int t = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
   if (t >= p.Tq) return;
-  const float* orow = head(p.o, p.so, b, h) + t * p.so[2];
-  const float* drow = head(p.dout, p.sdo, b, h) + t * p.sdo[2];
+  const T* orow = head<T>(p.o, p.so, b, h) + t * p.so[2];
+  const T* drow = head<T>(p.dout, p.sdo, b, h) + t * p.sdo[2];
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < DH; d += 32) acc = fmaf(drow[d], orow[d], acc);
+  for (int d = lane; d < DQK; d += 32)
+    acc = fmaf(to_float(drow[d]), to_float(orow[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -216,33 +236,42 @@ flash_bwd_delta_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: a block owns kBlock keys and walks the query tiles.
+// dK, dV: a block owns kBlock keys (and DV output columns) and walks the
+// query tiles.
 // ---------------------------------------------------------------------------
-template <int DH, int SPLIT>
+template <typename T, int DQK, int DV, int SPLIT>
 struct DkvLayout {
   static constexpr int kThreads = 32 * kWarps * SPLIT;
-  static constexpr int kS = DH + 4;          // operand row stride (floats)
+  static constexpr int kS = DQK + 16 / sizeof(T);  // operand row stride
   static constexpr int kRows = kTile * SPLIT;  // query rows a stage
-  static constexpr int kKV = kBlock * kS;    // one of K, V
-  // A stage: Q rows, dO rows, then lse, delta and the hash's row part
-  // (tile and row terms) of each row.
-  static constexpr int kStage = 2 * kRows * kS + 4 * kRows;
-  static constexpr size_t kBytes = (2 * kKV + 2 * kStage) * sizeof(float);
+  static constexpr int kKV = kBlock * kS;    // one of K, V (elements)
+  // A stage (elements of T): Q rows, dO rows, then lse, delta and the
+  // hash's row part (tile and row terms) of each row (4-byte words).
+  static constexpr int kOperands = 2 * kRows * kS;  // elements of T
+  static constexpr int kStage = kOperands + 4 * kRows * (4 / sizeof(T));
+  static constexpr size_t kBytes = (2 * kKV + 2 * kStage) * sizeof(T);
+  // The split block hands dK, then dV (4 * 32 * DV / 8 floats a warp
+  // each) over through the idle ring: bf16's ring holds one at a time.
+  static_assert(SPLIT == 1 || 2 * kStage * sizeof(T) >=
+                kWarps * 32 * 4 * (DV / 8) * sizeof(float),
+                "hand-over does not fit the ring");
 };
 
-template <int DH, int SPLIT>
-__global__ void __launch_bounds__(DkvLayout<DH, SPLIT>::kThreads, 3 - SPLIT)
+template <typename T, int DQK, int DV, int SPLIT>
+__global__ void __launch_bounds__(DkvLayout<T, DQK, DV, SPLIT>::kThreads,
+                                  DQK > DV ? 1 : 3 - SPLIT)
 flash_bwd_dkv_kernel(const Params p) {
-  using L = DkvLayout<DH, SPLIT>;
+  using L = DkvLayout<T, DQK, DV, SPLIT>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kS = L::kS;
   constexpr int kRows = L::kRows;
   constexpr int kThreads = L::kThreads;
-  constexpr int kDN = DH / 8;      // 8-wide column tiles of dK, dV; k-steps
-  constexpr int kQN = kTile / 8;   // 8-query tiles of S^T; dK/dV k-steps
+  constexpr int kDN = DV / 8;      // 8-wide column tiles of dK, dV
+  constexpr int kQN = kTile / 8;   // 8-query tiles of S^T
   extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + L::kKV;
-  float* sRing = sV + L::kKV;
+  T* sK = reinterpret_cast<T*>(smem4);
+  T* sV = sK + L::kKV;
+  T* sRing = sV + L::kKV;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -253,21 +282,24 @@ flash_bwd_dkv_kernel(const Params p) {
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const int k0 = blockIdx.x * kBlock;
+  // This block's columns of dK, dV (a constant 0 up to dh 128).
+  const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
-  const float* qb = head(p.q, p.sq, b, h);
-  const float* ob = head(p.dout, p.sdo, b, h);
+  const T* qb = head<T>(p.q, p.sq, b, h);
+  const T* ob = head<T>(p.dout, p.sdo, b, h);
   const float* lse = p.lse + (long long)bh * p.Tq;
   const float* delta = p.delta + (long long)bh * p.Tq;
   const int n_stages = (p.Tq + kRows - 1) / kRows;
 
   auto load_stage = [&](int j) {
-    float* st = sRing + (j & 1) * L::kStage;
+    T* st = sRing + (j & 1) * L::kStage;
     const int r0 = j * kRows;
-    load_rows<DH, kRows, kThreads>(st, qb, p.sq[2], r0, p.Tq, tid);
-    load_rows<DH, kRows, kThreads>(st + kRows * kS, ob, p.sdo[2], r0, p.Tq,
-                                   tid);
+    load_tile<T, DQK, kS, kRows, kThreads>(st, qb, p.sq[2], r0, p.Tq, tid);
+    load_tile<T, DQK, kS, kRows, kThreads>(st + kRows * kS, ob, p.sdo[2], r0,
+                                           p.Tq, tid);
     if (tid < kRows) {
-      float* sl = st + 2 * kRows * kS;
+      float* sl =
+          reinterpret_cast<float*>(st + L::kOperands);
       const int row = r0 + tid;
       if (row < p.Tq) {
         cp_async4(sl + tid, lse + row, 4);
@@ -284,10 +316,10 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   };
 
-  load_rows<DH, kBlock, kThreads>(sK, head(p.k, p.sk, b, h), p.sk[2], k0,
-                                  p.Tk, tid);
-  load_rows<DH, kBlock, kThreads>(sV, head(p.v, p.sv, b, h), p.sv[2], k0,
-                                  p.Tk, tid);
+  load_tile<T, DQK, kS, kBlock, kThreads>(sK, head<T>(p.k, p.sk, b, h),
+                                          p.sk[2], k0, p.Tk, tid);
+  load_tile<T, DQK, kS, kBlock, kThreads>(sV, head<T>(p.v, p.sv, b, h),
+                                          p.sv[2], k0, p.Tk, tid);
   load_stage(0);
   cp_async_commit();
 
@@ -301,8 +333,8 @@ flash_bwd_dkv_kernel(const Params p) {
     hc0 = hash_col(p.drop, k0 + kw * 16 + g);
     hc1 = hash_col(p.drop, k0 + kw * 16 + g + 8);
   }
-  const float* kt = sK + kw * 16 * kS;
-  const float* vt = sV + kw * 16 * kS;
+  const T* kt = sK + kw * 16 * kS;
+  const T* vt = sV + kw * 16 * kS;
   const float inv_keep = 1.f / p.keep;
 
   for (int j = 0; j < n_stages; ++j) {
@@ -314,13 +346,14 @@ flash_bwd_dkv_kernel(const Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* st = sRing + (j & 1) * L::kStage;
+    const T* st = sRing + (j & 1) * L::kStage;
     const int c0 = part * kTile;  // this group's rows of the stage
 
     if (j * kRows + c0 < p.Tq) {
-      const float* sQ = st + c0 * kS;
-      const float* sO = st + (kRows + c0) * kS;
-      const float* sl = st + 2 * kRows * kS + c0;
+      const T* sQ = st + c0 * kS;
+      const T* sO = st + (kRows + c0) * kS;
+      const float* sl = reinterpret_cast<const float*>(
+                            st + L::kOperands) + c0;
       const unsigned* sh = reinterpret_cast<const unsigned*>(sl);
 
       // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys.
@@ -329,28 +362,49 @@ flash_bwd_dkv_kernel(const Params p) {
       for (int n = 0; n < kQN; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      // Two k-steps at a time, one in the split block (the second
-      // spilled there).
+      if constexpr (kF32) {
+        // Two k-steps at a time, one in the split block (the second
+        // spilled there).
 #pragma unroll(SPLIT == 1 ? 2 : 1)
-      for (int kk = 0; kk < kDN; ++kk) {
-        unsigned ab[4], as[4];
-        load_a<kS>(kt, kk * 8, g, t, ab, as);
+        for (int kk = 0; kk < DQK / 8; ++kk) {
+          unsigned ab[4], as[4];
+          load_a<kS>(kt, kk * 8, g, t, ab, as);
 #pragma unroll
-        for (int n = 0; n < kQN; ++n) {
-          const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
-          unsigned bb[2], bs[2];
-          split(qr[0], bb[0], bs[0]);
-          split(qr[4], bb[1], bs[1]);
-          mma_3xtf32(s[n], ab, as, bb, bs);
+          for (int n = 0; n < kQN; ++n) {
+            const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(qr[0], bb[0], bs[0]);
+            split(qr[4], bb[1], bs[1]);
+            mma_3xtf32(s[n], ab, as, bb, bs);
+          }
+          load_a<kS>(vt, kk * 8, g, t, ab, as);
+#pragma unroll
+          for (int n = 0; n < kQN; ++n) {
+            const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(orow[0], bb[0], bs[0]);
+            split(orow[4], bb[1], bs[1]);
+            mma_3xtf32(dp[n], ab, as, bb, bs);
+          }
         }
-        load_a<kS>(vt, kk * 8, g, t, ab, as);
+      } else {
+#pragma unroll 2
+        for (int kk = 0; kk < DQK / 16; ++kk) {
+          unsigned a[4];
+          load_a_bf16<kS>(kt, kk * 16, g, t, a);
 #pragma unroll
-        for (int n = 0; n < kQN; ++n) {
-          const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
-          unsigned bb[2], bs[2];
-          split(orow[0], bb[0], bs[0]);
-          split(orow[4], bb[1], bs[1]);
-          mma_3xtf32(dp[n], ab, as, bb, bs);
+          for (int n = 0; n < kQN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kS>(sQ, n * 8, kk * 16, g, t, bb);
+            mma_bf16(s[n], a, bb);
+          }
+          load_a_bf16<kS>(vt, kk * 16, g, t, a);
+#pragma unroll
+          for (int n = 0; n < kQN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kS>(sO, n * 8, kk * 16, g, t, bb);
+            mma_bf16(dp[n], a, bb);
+          }
         }
       }
 
@@ -381,28 +435,48 @@ flash_bwd_dkv_kernel(const Params p) {
         }
       }
 
-      // dV += Pd^T dO, dK += dS^T Q: the C fragments as A operands, the
-      // dO and Q rows n * 8 + 2t, + 1 as B.
+      if constexpr (kF32) {
+        // dV += Pd^T dO, dK += dS^T Q: the C fragments as A operands, the
+        // dO and Q rows n * 8 + 2t, + 1 as B.
 #pragma unroll
-      for (int n = 0; n < kQN; ++n) {
-        unsigned ab[4], as[4];
-        c_as_a(s[n], ab, as);
-        const float* orow = sO + (n * 8 + 2 * t) * kS + g;
+        for (int n = 0; n < kQN; ++n) {
+          unsigned ab[4], as[4];
+          c_as_a(s[n], ab, as);
+          const float* orow = sO + (n * 8 + 2 * t) * kS + col0 + g;
 #pragma unroll
-        for (int dn = 0; dn < kDN; ++dn) {
-          unsigned bb[2], bs[2];
-          split(orow[dn * 8], bb[0], bs[0]);
-          split(orow[kS + dn * 8], bb[1], bs[1]);
-          mma_3xtf32(dv[dn], ab, as, bb, bs);
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(orow[dn * 8], bb[0], bs[0]);
+            split(orow[kS + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(dv[dn], ab, as, bb, bs);
+          }
+          c_as_a(dp[n], ab, as);
+          const float* qr = sQ + (n * 8 + 2 * t) * kS + col0 + g;
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(qr[dn * 8], bb[0], bs[0]);
+            split(qr[kS + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(dk[dn], ab, as, bb, bs);
+          }
         }
-        c_as_a(dp[n], ab, as);
-        const float* qr = sQ + (n * 8 + 2 * t) * kS + g;
+      } else {
+        // dV += bf16(Pd)^T dO, dK += bf16(dS)^T Q: the 16 queries of the
+        // tile are one k16 step.
+        unsigned a[4];
+        c_pair_as_a(s[0], s[1], a);
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
-          unsigned bb[2], bs[2];
-          split(qr[dn * 8], bb[0], bs[0]);
-          split(qr[kS + dn * 8], bb[1], bs[1]);
-          mma_3xtf32(dk[dn], ab, as, bb, bs);
+          unsigned bb[2];
+          load_b_cols<kS>(sO, 0, col0 + dn * 8, g, t, bb);
+          mma_bf16(dv[dn], a, bb);
+        }
+        c_pair_as_a(dp[0], dp[1], a);
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2];
+          load_b_cols<kS>(sQ, 0, col0 + dn * 8, g, t, bb);
+          mma_bf16(dk[dn], a, bb);
         }
       }
     }
@@ -410,48 +484,56 @@ flash_bwd_dkv_kernel(const Params p) {
   }
 
   if (SPLIT == 2) {
-    constexpr int kX = 32 * 4 * kDN;
-    float* x = sRing + kw * 2 * kX;
-    if (part == 1) {
-      hand_over(dk, x, lane);
-      hand_over(dv, x + kX, lane);
-    }
+    // dK, then dV, through the idle ring, added in a fixed order.
+    float* x = reinterpret_cast<float*>(sRing) + kw * 32 * 4 * kDN;
+    if (part == 1) hand_over(dk, x, lane);
+    __syncthreads();
+    if (part == 0) take_over(dk, x, lane);
+    __syncthreads();
+    if (part == 1) hand_over(dv, x, lane);
     __syncthreads();
     if (part == 1) return;
-    take_over(dk, x, lane);
-    take_over(dv, x + kX, lane);
+    take_over(dv, x, lane);
   }
-  store_rows<DH>(dk, sK + kw * 16 * kS, head(p.dk, p.sdk, b, h), p.sdk[2],
-                 k0 + kw * 16, p.Tk, lane);
-  store_rows<DH>(dv, sV + kw * 16 * kS, head(p.dv, p.sdv, b, h), p.sdv[2],
-                 k0 + kw * 16, p.Tk, lane);
+  store_rows<T, kDN, kS>(dk, sK + kw * 16 * kS,
+                         head<T>(p.dk, p.sdk, b, h) + col0, p.sdk[2],
+                         k0 + kw * 16, p.Tk, lane);
+  store_rows<T, kDN, kS>(dv, sV + kw * 16 * kS,
+                         head<T>(p.dv, p.sdv, b, h) + col0, p.sdv[2],
+                         k0 + kw * 16, p.Tk, lane);
 }
 
 // ---------------------------------------------------------------------------
-// dQ: a block owns kBlock query rows and walks the key tiles.
+// dQ: a block owns kBlock query rows (and DV output columns) and walks the
+// key tiles.
 // ---------------------------------------------------------------------------
-template <int DH, int SPLIT>
+template <typename T, int DQK, int DV, int SPLIT>
 struct DqLayout {
   static constexpr int kThreads = 32 * kWarps * SPLIT;
-  static constexpr int kS = DH + 4;           // operand row stride (floats)
+  static constexpr int kS = DQK + 16 / sizeof(T);  // operand row stride
   static constexpr int kKeys = kTile * SPLIT;  // keys a stage
   static constexpr int kQ = kBlock * kS;      // one of Q, dO
   static constexpr int kKV = kKeys * kS;      // one of K, V of a stage
-  static constexpr size_t kBytes = (2 * kQ + 4 * kKV) * sizeof(float);
+  static constexpr size_t kBytes = (2 * kQ + 4 * kKV) * sizeof(T);
+  static_assert(SPLIT == 1 || 4 * kKV * sizeof(T) >=
+                kWarps * 32 * 4 * (DV / 8) * sizeof(float),
+                "hand-over does not fit the ring");
 };
 
-template <int DH, int SPLIT>
-__global__ void __launch_bounds__(DqLayout<DH, SPLIT>::kThreads, 3 - SPLIT)
+template <typename T, int DQK, int DV, int SPLIT>
+__global__ void __launch_bounds__(DqLayout<T, DQK, DV, SPLIT>::kThreads,
+                                  DQK > DV ? 1 : 3 - SPLIT)
 flash_bwd_dq_kernel(const Params p) {
-  using L = DqLayout<DH, SPLIT>;
+  using L = DqLayout<T, DQK, DV, SPLIT>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kS = L::kS;
   constexpr int kThreads = L::kThreads;
-  constexpr int kDN = DH / 8;      // 8-wide column tiles of dQ; k-steps
-  constexpr int kKN = kTile / 8;   // 8-key tiles of S; dQ k-steps
+  constexpr int kDN = DV / 8;      // 8-wide column tiles of dQ
+  constexpr int kKN = kTile / 8;   // 8-key tiles of S
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + L::kQ;   // dO rows
-  float* sKV = sO + L::kQ;  // stage s: K at sKV + 2 s kKV, V after it
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* sO = sQ + L::kQ;   // dO rows
+  T* sKV = sO + L::kQ;  // stage s: K at sKV + 2 s kKV, V after it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -462,17 +544,20 @@ flash_bwd_dq_kernel(const Params p) {
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * kBlock;
+  // This block's columns of dQ (a constant 0 up to dh 128).
+  const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
-  const float* kb = head(p.k, p.sk, b, h);
-  const float* vb = head(p.v, p.sv, b, h);
+  const T* kb = head<T>(p.k, p.sk, b, h);
+  const T* vb = head<T>(p.v, p.sv, b, h);
   const int n_stages = (p.Tk + L::kKeys - 1) / L::kKeys;
 
-  load_rows<DH, kBlock, kThreads>(sQ, head(p.q, p.sq, b, h), p.sq[2], q0,
-                                  p.Tq, tid);
-  load_rows<DH, kBlock, kThreads>(sO, head(p.dout, p.sdo, b, h), p.sdo[2],
-                                  q0, p.Tq, tid);
-  load_rows<DH, L::kKeys, kThreads>(sKV, kb, p.sk[2], 0, p.Tk, tid);
-  load_rows<DH, L::kKeys, kThreads>(sKV + L::kKV, vb, p.sv[2], 0, p.Tk, tid);
+  load_tile<T, DQK, kS, kBlock, kThreads>(sQ, head<T>(p.q, p.sq, b, h),
+                                          p.sq[2], q0, p.Tq, tid);
+  load_tile<T, DQK, kS, kBlock, kThreads>(sO, head<T>(p.dout, p.sdo, b, h),
+                                          p.sdo[2], q0, p.Tq, tid);
+  load_tile<T, DQK, kS, L::kKeys, kThreads>(sKV, kb, p.sk[2], 0, p.Tk, tid);
+  load_tile<T, DQK, kS, L::kKeys, kThreads>(sKV + L::kKV, vb, p.sv[2], 0,
+                                            p.Tk, tid);
   cp_async_commit();
 
   const int row0 = q0 + rw * 16 + g;  // and row0 + 8
@@ -489,17 +574,18 @@ flash_bwd_dq_kernel(const Params p) {
   float dq[kDN][4];
 #pragma unroll
   for (int n = 0; n < kDN; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  const float* qw = sQ + rw * 16 * kS;
-  const float* ow = sO + rw * 16 * kS;
+  const T* qw = sQ + rw * 16 * kS;
+  const T* ow = sO + rw * 16 * kS;
   const float inv_keep = 1.f / p.keep;
 
   for (int j = 0; j < n_stages; ++j) {
     if (j + 1 < n_stages) {
-      float* next = sKV + ((j + 1) & 1) * 2 * L::kKV;
+      T* next = sKV + ((j + 1) & 1) * 2 * L::kKV;
       const int r0 = (j + 1) * L::kKeys;
-      load_rows<DH, L::kKeys, kThreads>(next, kb, p.sk[2], r0, p.Tk, tid);
-      load_rows<DH, L::kKeys, kThreads>(next + L::kKV, vb, p.sv[2], r0, p.Tk,
-                                        tid);
+      load_tile<T, DQK, kS, L::kKeys, kThreads>(next, kb, p.sk[2], r0, p.Tk,
+                                                tid);
+      load_tile<T, DQK, kS, L::kKeys, kThreads>(next + L::kKV, vb, p.sv[2],
+                                                r0, p.Tk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -507,8 +593,8 @@ flash_bwd_dq_kernel(const Params p) {
     }
     __syncthreads();
     const int kt0 = j * L::kKeys + part * kTile;
-    const float* sK = sKV + (j & 1) * 2 * L::kKV + part * kTile * kS;
-    const float* sV = sK + L::kKV;
+    const T* sK = sKV + (j & 1) * 2 * L::kKV + part * kTile * kS;
+    const T* sV = sK + L::kKV;
 
     if (kt0 < p.Tk) {
       // S = Q K^T and dP = dO V^T for this warp's 16 rows and the tile.
@@ -517,22 +603,39 @@ flash_bwd_dq_kernel(const Params p) {
       for (int n = 0; n < kKN; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      if constexpr (kF32) {
 #pragma unroll 2
-      for (int kk = 0; kk < kDN; ++kk) {
-        unsigned qab[4], qas[4], oab[4], oas[4];
-        load_a<kS>(qw, kk * 8, g, t, qab, qas);
-        load_a<kS>(ow, kk * 8, g, t, oab, oas);
+        for (int kk = 0; kk < DQK / 8; ++kk) {
+          unsigned qab[4], qas[4], oab[4], oas[4];
+          load_a<kS>(qw, kk * 8, g, t, qab, qas);
+          load_a<kS>(ow, kk * 8, g, t, oab, oas);
 #pragma unroll
-        for (int n = 0; n < kKN; ++n) {
-          const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
-          const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
-          unsigned bb[2], bs[2];
-          split(kr[0], bb[0], bs[0]);
-          split(kr[4], bb[1], bs[1]);
-          mma_3xtf32(s[n], qab, qas, bb, bs);
-          split(vr[0], bb[0], bs[0]);
-          split(vr[4], bb[1], bs[1]);
-          mma_3xtf32(dp[n], oab, oas, bb, bs);
+          for (int n = 0; n < kKN; ++n) {
+            const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+            const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(kr[0], bb[0], bs[0]);
+            split(kr[4], bb[1], bs[1]);
+            mma_3xtf32(s[n], qab, qas, bb, bs);
+            split(vr[0], bb[0], bs[0]);
+            split(vr[4], bb[1], bs[1]);
+            mma_3xtf32(dp[n], oab, oas, bb, bs);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int kk = 0; kk < DQK / 16; ++kk) {
+          unsigned qa[4], oa[4];
+          load_a_bf16<kS>(qw, kk * 16, g, t, qa);
+          load_a_bf16<kS>(ow, kk * 16, g, t, oa);
+#pragma unroll
+          for (int n = 0; n < kKN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kS>(sK, n * 8, kk * 16, g, t, bb);
+            mma_bf16(s[n], qa, bb);
+            load_b_rows<kS>(sV, n * 8, kk * 16, g, t, bb);
+            mma_bf16(dp[n], oa, bb);
+          }
         }
       }
 
@@ -556,18 +659,30 @@ flash_bwd_dq_kernel(const Params p) {
         }
       }
 
-      // dQ += ds K: ds as the A operand, K rows n * 8 + 2t, + 1 as B.
+      if constexpr (kF32) {
+        // dQ += ds K: ds as the A operand, K rows n * 8 + 2t, + 1 as B.
 #pragma unroll
-      for (int n = 0; n < kKN; ++n) {
-        unsigned ab[4], as[4];
-        c_as_a(s[n], ab, as);
-        const float* kr = sK + (n * 8 + 2 * t) * kS + g;
+        for (int n = 0; n < kKN; ++n) {
+          unsigned ab[4], as[4];
+          c_as_a(s[n], ab, as);
+          const float* kr = sK + (n * 8 + 2 * t) * kS + col0 + g;
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(kr[dn * 8], bb[0], bs[0]);
+            split(kr[kS + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(dq[dn], ab, as, bb, bs);
+          }
+        }
+      } else {
+        // dQ += bf16(ds) K: the 16 keys of the tile are one k16 step.
+        unsigned a[4];
+        c_pair_as_a(s[0], s[1], a);
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
-          unsigned bb[2], bs[2];
-          split(kr[dn * 8], bb[0], bs[0]);
-          split(kr[kS + dn * 8], bb[1], bs[1]);
-          mma_3xtf32(dq[dn], ab, as, bb, bs);
+          unsigned bb[2];
+          load_b_cols<kS>(sK, 0, col0 + dn * 8, g, t, bb);
+          mma_bf16(dq[dn], a, bb);
         }
       }
     }
@@ -575,15 +690,16 @@ flash_bwd_dq_kernel(const Params p) {
   }
 
   if (SPLIT == 2) {
-    float* x = sKV + rw * (32 * 4 * kDN);
+    float* x = reinterpret_cast<float*>(sKV) + rw * (32 * 4 * kDN);
     if (part == 1) hand_over(dq, x, lane);
     __syncthreads();
     if (part == 1) return;
     take_over(dq, x, lane);
   }
   // This warp's Q rows are its alone now: stage dQ there.
-  store_rows<DH>(dq, sQ + rw * 16 * kS, head(p.dq, p.sdq, b, h), p.sdq[2],
-                 q0 + rw * 16, p.Tq, lane);
+  store_rows<T, kDN, kS>(dq, sQ + rw * 16 * kS,
+                         head<T>(p.dq, p.sdq, b, h) + col0, p.sdq[2],
+                         q0 + rw * 16, p.Tq, lane);
 }
 
 template <typename Kernel>
@@ -597,63 +713,89 @@ cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int DH, int SPLIT>
+template <typename T, int DQK, int DV, int SPLIT>
 cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
-  using L = DkvLayout<DH, SPLIT>;
-  return launch_one(flash_bwd_dkv_kernel<DH, SPLIT>,
-                    dim3((p.Tk + kBlock - 1) / kBlock, bh), L::kThreads,
-                    L::kBytes, stream, p);
+  using L = DkvLayout<T, DQK, DV, SPLIT>;
+  return launch_one(flash_bwd_dkv_kernel<T, DQK, DV, SPLIT>,
+                    dim3((p.Tk + kBlock - 1) / kBlock, bh, DQK / DV),
+                    L::kThreads, L::kBytes, stream, p);
 }
 
-template <int DH, int SPLIT>
+template <typename T, int DQK, int DV, int SPLIT>
 cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
-  using L = DqLayout<DH, SPLIT>;
-  return launch_one(flash_bwd_dq_kernel<DH, SPLIT>,
-                    dim3((p.Tq + kBlock - 1) / kBlock, bh), L::kThreads,
-                    L::kBytes, stream, p);
+  using L = DqLayout<T, DQK, DV, SPLIT>;
+  return launch_one(flash_bwd_dq_kernel<T, DQK, DV, SPLIT>,
+                    dim3((p.Tq + kBlock - 1) / kBlock, bh, DQK / DV),
+                    L::kThreads, L::kBytes, stream, p);
 }
 
 // A grid of at most one 4-warp block an SM leaves half the warps the SMs
-// could hold idle: split each block's walk over two warp groups instead.
-template <int DH>
+// could hold idle: split each block's walk over two warp groups instead
+// (not above 128, whose block holds an SM's shared memory).
+template <typename T, int DQK, int DV>
 cudaError_t launch(const Params& p, int B, int sms, cudaStream_t stream) {
   const int bh = B * p.H;
   cudaError_t err = launch_one(
-      flash_bwd_delta_kernel<DH>,
+      flash_bwd_delta_kernel<T, DQK>,
       dim3((p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), bh),
       kDeltaThreads, 0, stream, p);
   if (err != cudaSuccess) return err;
-  const long long dkv_blocks = (long long)((p.Tk + kBlock - 1) / kBlock) * bh;
-  err = dkv_blocks <= sms ? launch_dkv<DH, 2>(p, bh, stream)
-                          : launch_dkv<DH, 1>(p, bh, stream);
-  if (err != cudaSuccess) return err;
-  const long long dq_blocks = (long long)((p.Tq + kBlock - 1) / kBlock) * bh;
-  return dq_blocks <= sms ? launch_dq<DH, 2>(p, bh, stream)
-                          : launch_dq<DH, 1>(p, bh, stream);
+  if constexpr (DQK > DV) {
+    err = launch_dkv<T, DQK, DV, 1>(p, bh, stream);
+    if (err != cudaSuccess) return err;
+    return launch_dq<T, DQK, DV, 1>(p, bh, stream);
+  } else {
+    const long long dkv_blocks =
+        (long long)((p.Tk + kBlock - 1) / kBlock) * bh;
+    err = dkv_blocks <= sms ? launch_dkv<T, DQK, DV, 2>(p, bh, stream)
+                            : launch_dkv<T, DQK, DV, 1>(p, bh, stream);
+    if (err != cudaSuccess) return err;
+    const long long dq_blocks =
+        (long long)((p.Tq + kBlock - 1) / kBlock) * bh;
+    return dq_blocks <= sms ? launch_dq<T, DQK, DV, 2>(p, bh, stream)
+                            : launch_dq<T, DQK, DV, 1>(p, bh, stream);
+  }
+}
+
+// The head dims the wrapper pads to: 32 (demo), 64 (the reference's
+// default model), 128 (the rest), 256 (any dh in (128, 256], as two column
+// groups).
+template <typename T>
+cudaError_t dispatch(const Params& p, int B, int dh, int sms,
+                     cudaStream_t s) {
+  switch (dh) {
+    case 32: return launch<T, 32, 32>(p, B, sms, s);
+    case 64: return launch<T, 64, 64>(p, B, sms, s);
+    case 128: return launch<T, 128, 128>(p, B, sms, s);
+    case 256: return launch<T, 256, kGroup>(p, B, sms, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// dtype: 0 float32, 1 bfloat16 (q, k, v, o, dO and dQ, dK, dV; lse and
+// delta are float32 at both).
 extern "C" int avsep_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int H, int Tq, int Tk, int dh,
     const long long* strides,  // 3 each for q, k, v, o, dO, dQ, dK, dV
     float scale, float keep, unsigned threshold, unsigned seed, int hq,
-    int hk, int dropout, int device, void* stream) {
+    int hk, int dropout, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<const float*>(o);
-  p.dout = static_cast<const float*>(dout);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
-  p.dq = static_cast<float*>(dq);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
   p.H = H; p.Tq = Tq; p.Tk = Tk;
   long long* dst[8] = {p.sq, p.sk, p.sv, p.so, p.sdo, p.sdq, p.sdk, p.sdv};
   for (int i = 0; i < 8; ++i)
@@ -669,14 +811,12 @@ extern "C" int avsep_flash_attn_bwd(
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // The head dims of the configs: 32 (demo), 64 (the reference's default
-  // model), 128 (the rest).
-  switch (dh) {
-    case 32: err = launch<32>(p, B, sms, s); break;
-    case 64: err = launch<64>(p, B, sms, s); break;
-    case 128: err = launch<128>(p, B, sms, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    err = dispatch<float>(p, B, dh, sms, s);
+  else if (dtype == 1)
+    err = dispatch<bf16>(p, B, dh, sms, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

@@ -1,5 +1,5 @@
-// Flash attention forward, float32 on the tensor cores in 3xTF32, for
-// Hopper (sm_90a).
+// Flash attention forward, float32 on the tensor cores in 3xTF32 and
+// bfloat16 in bf16 products, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_fwd_hpacked_kernel`
 // (packed (B, T, H*dh) layout, called from `_flash_hpacked_call`),
@@ -22,7 +22,8 @@
 // float32 products against 33 MB of q/k/v/o.  Float32 products at float32
 // accuracy run on the tensor cores in 3xTF32 (three TF32 products each), at
 // 495/3 = 165 TFLOP/s: 25 us, against 10 us of bytes, so bound by
-// operations.
+// operations.  In bfloat16 the same 4.1 GFLOP take 4.2 us at 989 TFLOP/s
+// against 4.9 us for the 16 MB of bf16 q/k/v/o: bound by bytes.
 //
 // Design:
 // - Products.  Both QK^T and PV are mma.sync.m16n8k8 TF32 products in
@@ -56,26 +57,46 @@
 // - Bank conflicts.  Q, K and V rows are dh+4 floats apart: the A loads of
 //   Q and the B loads of K hit bank 4g + t, the B loads of V (rows 2t,
 //   2t+1) bank 8t + g (+4): 32 distinct banks per load.
+// - bfloat16 (the JAX package's bf16 compute, attention.py:206-218,
+//   :389-398, :600-645): the same tiles with bf16 operands, one
+//   mma.sync.m16n8k16 product where float32 takes three, float32
+//   accumulators, online-softmax statistics and lse.  p is rounded to bf16
+//   before PV, as the Pallas kernels do (`p.astype(v.dtype)`); l sums the
+//   unrounded float32 p; o = acc / (l (1 - rate)) is stored in bf16.  Two C
+//   fragments of S (16 keys) are the A fragment of PV as they stand
+//   (mma_bf16.cuh); V's B fragment takes two 16-bit loads a register.
+//   Rows are DH + 8 bf16 apart (16 bytes of pad, as the float rows' 4).
+// - Head dims above 128 (a column split): dh is zero-padded to 256 by the
+//   wrapper and a block owns one group of 128 output columns
+//   (blockIdx.z).  Every block computes S = Q K^T over all 256 columns (Q
+//   and K staged at full width), and PV over its own 128 columns of V
+//   only, so a warp holds the O accumulators of dh 128.  The blocks of a
+//   row block compute the same m and l; the group-0 block writes lse.  At
+//   float32 that is 167 KB of shared memory, one 4-warp block an SM.
 // - Output.  Each warp writes its O rows into its own (now unused) Q rows
 //   of shared memory and stores them as 16-byte row chunks, packed
 //   (B, T, H, dh) memory through the o strides.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "dropout_hash.cuh"
 #include "mma_3xtf32.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 constexpr int kRowWarps = 4;              // warps over the query rows
 constexpr int kBlockQ = 16 * kRowWarps;   // 64 query rows per block
 constexpr int kBlockK = 32;               // keys per warp per tile
+constexpr int kGroup = 128;               // output columns a block above 128
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
   float* lse;
   int H, Tq, Tk;
   long long sqb, sqh, sqt;
@@ -87,16 +108,26 @@ struct Params {
   DropoutHash drop;
 };
 
-// SPLIT warp groups of 4 share the block's 64 rows and take SPLIT
-// consecutive 32-key tiles of each stage, one each.
-template <int DH, int SPLIT>
+// DQK: the head dim of Q K^T; DV: the columns of O (and V) a block owns,
+// DQK itself up to 128, one group of 128 above.  SPLIT warp groups of 4
+// share the block's 64 rows and take SPLIT consecutive 32-key tiles of
+// each stage, one each.
+template <typename T, int DQK, int DV, int SPLIT>
 struct Layout {
+  static constexpr int kPad = 16 / sizeof(T);  // 16 bytes a row
   static constexpr int kThreads = 32 * kRowWarps * SPLIT;
-  static constexpr int kS = DH + 4;  // row stride of the Q, K and V tiles
+  static constexpr int kSQ = DQK + kPad;  // row stride of the Q and K tiles
+  static constexpr int kSV = DV + kPad;   // row stride of the V tile
   static constexpr int kKeys = kBlockK * SPLIT;  // keys per stage
-  static constexpr int kQ = kBlockQ * kS;
-  static constexpr int kKV = kKeys * kS;
-  static constexpr size_t kBytes = (kQ + 4 * kKV) * sizeof(float);
+  static constexpr int kQ = kBlockQ * kSQ;
+  static constexpr int kK = kKeys * kSQ;
+  static constexpr int kStage = kK + kKeys * kSV;  // K rows, then V rows
+  static constexpr size_t kBytes = (kQ + 2 * kStage) * sizeof(T);
+  // The split block's hand-over (O fragments, m and l of the second
+  // group) goes through the idle ring.
+  static_assert(SPLIT == 1 || 2 * kStage * sizeof(T) >=
+                kRowWarps * (32 * 4 * (DV / 8) + 4 * 32) * sizeof(float),
+                "hand-over does not fit the ring");
 };
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -109,17 +140,20 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int DH, int SPLIT>
-__global__ void __launch_bounds__(Layout<DH, SPLIT>::kThreads, 3 - SPLIT)
+template <typename T, int DQK, int DV, int SPLIT>
+__global__ void __launch_bounds__(Layout<T, DQK, DV, SPLIT>::kThreads,
+                                  DQK > DV ? 1 : 3 - SPLIT)
 flash_fwd_kernel(const Params p) {
-  using L = Layout<DH, SPLIT>;
-  constexpr int kS = L::kS;
+  using L = Layout<T, DQK, DV, SPLIT>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kSQ = L::kSQ;
+  constexpr int kSV = L::kSV;
   constexpr int kThreads = L::kThreads;
-  constexpr int kDN = DH / 8;       // 8-wide column tiles of O; QK^T k-steps
-  constexpr int kKN = kBlockK / 8;  // 8-key tiles of S; PV k-steps
+  constexpr int kDN = DV / 8;       // 8-wide column tiles of O
+  constexpr int kKN = kBlockK / 8;  // 8-key tiles of S
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sKV = sQ + L::kQ;  // stage s: K at sKV + 2 s kKV, V after it
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* sKV = sQ + L::kQ;  // stage s: K at sKV + s kStage, V after it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -131,15 +165,18 @@ flash_fwd_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = blockIdx.x * kBlockQ;
+  // This block's columns of O and V (a constant 0 up to dh 128).
+  const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
-  const float* qb = p.q + b * p.sqb + h * p.sqh;
-  const float* kb = p.k + b * p.skb + h * p.skh;
-  const float* vb = p.v + b * p.svb + h * p.svh;
+  const T* qb = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.svb + h * p.svh + col0;
   const int n_stages = (p.Tk + L::kKeys - 1) / L::kKeys;
 
-  load_rows<DH, kBlockQ, kThreads>(sQ, qb, p.sqt, q0, p.Tq, tid);
-  load_rows<DH, L::kKeys, kThreads>(sKV, kb, p.skt, 0, p.Tk, tid);
-  load_rows<DH, L::kKeys, kThreads>(sKV + L::kKV, vb, p.svt, 0, p.Tk, tid);
+  load_tile<T, DQK, kSQ, kBlockQ, kThreads>(sQ, qb, p.sqt, q0, p.Tq, tid);
+  load_tile<T, DQK, kSQ, L::kKeys, kThreads>(sKV, kb, p.skt, 0, p.Tk, tid);
+  load_tile<T, DV, kSV, L::kKeys, kThreads>(sKV + L::kK, vb, p.svt, 0, p.Tk,
+                                            tid);
   cp_async_commit();
 
   float o[kDN][4];
@@ -153,15 +190,16 @@ flash_fwd_kernel(const Params p) {
     hr0 = hash_row(p.drop, bh, row0);
     hr1 = hash_row(p.drop, bh, row0 + 8);
   }
-  const float* qw = sQ + rw * 16 * kS;
+  const T* qw = sQ + rw * 16 * kSQ;
 
   for (int j = 0; j < n_stages; ++j) {
     if (j + 1 < n_stages) {
-      float* next = sKV + ((j + 1) & 1) * 2 * L::kKV;
+      T* next = sKV + ((j + 1) & 1) * L::kStage;
       const int r0 = (j + 1) * L::kKeys;
-      load_rows<DH, L::kKeys, kThreads>(next, kb, p.skt, r0, p.Tk, tid);
-      load_rows<DH, L::kKeys, kThreads>(next + L::kKV, vb, p.svt, r0, p.Tk,
-                                        tid);
+      load_tile<T, DQK, kSQ, L::kKeys, kThreads>(next, kb, p.skt, r0, p.Tk,
+                                                 tid);
+      load_tile<T, DV, kSV, L::kKeys, kThreads>(next + L::kK, vb, p.svt, r0,
+                                                p.Tk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -169,8 +207,8 @@ flash_fwd_kernel(const Params p) {
     }
     __syncthreads();
     const int k0 = j * L::kKeys + part * kBlockK;
-    const float* sK = sKV + (j & 1) * 2 * L::kKV + part * kBlockK * kS;
-    const float* sV = sK + L::kKV;
+    const T* sK = sKV + (j & 1) * L::kStage + part * kBlockK * kSQ;
+    const T* sV = sKV + (j & 1) * L::kStage + L::kK + part * kBlockK * kSV;
 
     if (k0 < p.Tk) {
       // S = Q K^T for this warp's 16 rows and its 32 keys.
@@ -178,17 +216,31 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int n = 0; n < kKN; ++n)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      if constexpr (kF32) {
 #pragma unroll 4
-      for (int kk = 0; kk < kDN; ++kk) {
-        unsigned ab[4], as[4];
-        load_a_frag(qw + kk * 8, kS, g, t, ab, as);
+        for (int kk = 0; kk < DQK / 8; ++kk) {
+          unsigned ab[4], as[4];
+          load_a_frag(qw + kk * 8, kSQ, g, t, ab, as);
 #pragma unroll
-        for (int n = 0; n < kKN; ++n) {
-          const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
-          unsigned bb[2], bs[2];
-          split(kr[0], bb[0], bs[0]);
-          split(kr[4], bb[1], bs[1]);
-          mma_3xtf32(s[n], ab, as, bb, bs);
+          for (int n = 0; n < kKN; ++n) {
+            const float* kr = sK + (n * 8 + g) * kSQ + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(kr[0], bb[0], bs[0]);
+            split(kr[4], bb[1], bs[1]);
+            mma_3xtf32(s[n], ab, as, bb, bs);
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int kk = 0; kk < DQK / 16; ++kk) {
+          unsigned a[4];
+          load_a_bf16<kSQ>(qw, kk * 16, g, t, a);
+#pragma unroll
+          for (int n = 0; n < kKN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kSQ>(sK, n * 8, kk * 16, g, t, bb);
+            mma_bf16(s[n], a, bb);
+          }
         }
       }
 
@@ -237,21 +289,37 @@ flash_fwd_kernel(const Params p) {
         o[n][3] *= alpha1;
       }
 
-      // O += P V: A's k = t, t + 4 are keys 2t, 2t + 1 of each 8-key tile.
+      if constexpr (kF32) {
+        // O += P V: A's k = t, t + 4 are keys 2t, 2t + 1 of each 8-key
+        // tile.
 #pragma unroll
-      for (int n = 0; n < kKN; ++n) {
-        unsigned ab[4], as[4];
-        split(s[n][0], ab[0], as[0]);
-        split(s[n][2], ab[1], as[1]);
-        split(s[n][1], ab[2], as[2]);
-        split(s[n][3], ab[3], as[3]);
-        const float* vr = sV + (n * 8 + 2 * t) * kS + g;
+        for (int n = 0; n < kKN; ++n) {
+          unsigned ab[4], as[4];
+          split(s[n][0], ab[0], as[0]);
+          split(s[n][2], ab[1], as[1]);
+          split(s[n][1], ab[2], as[2]);
+          split(s[n][3], ab[3], as[3]);
+          const float* vr = sV + (n * 8 + 2 * t) * kSV + g;
 #pragma unroll
-        for (int dn = 0; dn < kDN; ++dn) {
-          unsigned bb[2], bs[2];
-          split(vr[dn * 8], bb[0], bs[0]);
-          split(vr[kS + dn * 8], bb[1], bs[1]);
-          mma_3xtf32(o[dn], ab, as, bb, bs);
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(vr[dn * 8], bb[0], bs[0]);
+            split(vr[kSV + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(o[dn], ab, as, bb, bs);
+          }
+        }
+      } else {
+        // O += P V over 16 keys a product, p rounded to bf16.
+#pragma unroll
+        for (int kb2 = 0; kb2 < kKN / 2; ++kb2) {
+          unsigned a[4];
+          c_pair_as_a(s[2 * kb2], s[2 * kb2 + 1], a);
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2];
+            load_b_cols<kSV>(sV, kb2 * 16, dn * 8, g, t, bb);
+            mma_bf16(o[dn], a, bb);
+          }
         }
       }
     }
@@ -265,7 +333,7 @@ flash_fwd_kernel(const Params p) {
     // ring; the first merges them: m = max of the two, each side rescaled
     // by exp(m_side - m).  A group that saw no key has m = -inf, l = 0.
     constexpr int kX = 32 * 4 * kDN;
-    float* xo = sKV + rw * (kX + 4 * 32);
+    float* xo = reinterpret_cast<float*>(sKV) + rw * (kX + 4 * 32);
     if (part == 1) {
 #pragma unroll
       for (int n = 0; n < kDN; ++n)
@@ -298,44 +366,74 @@ flash_fwd_kernel(const Params p) {
   }
 
   const float inv0 = 1.f / (l0 * p.keep), inv1 = 1.f / (l1 * p.keep);
-  // This warp's Q rows are its alone: stage O there, then store rows.
-  float* ow = sQ + rw * 16 * kS;
+  // This warp's Q rows are its alone: stage O there (in T), then store
+  // 16-byte row chunks of the block's DV columns.
+  T* ow = sQ + rw * 16 * kSQ;
 #pragma unroll
   for (int n = 0; n < kDN; ++n) {
-    *reinterpret_cast<float2*>(ow + g * kS + n * 8 + 2 * t) =
-        make_float2(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<float2*>(ow + (g + 8) * kS + n * 8 + 2 * t) =
-        make_float2(o[n][2] * inv1, o[n][3] * inv1);
+    store2(ow + g * kSQ + n * 8 + 2 * t, o[n][0] * inv0, o[n][1] * inv0);
+    store2(ow + (g + 8) * kSQ + n * 8 + 2 * t, o[n][2] * inv1,
+           o[n][3] * inv1);
   }
   __syncwarp();
-  float* ob = p.o + b * p.sob + h * p.soh;
-  constexpr int kChunks = DH / 4;
+  T* ob = static_cast<T*>(p.o) + b * p.sob + h * p.soh + col0;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = DV / kVec;
 #pragma unroll 4
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const int r = i / kChunks, c = (i % kChunks) * kVec;
     const int row = q0 + rw * 16 + r;
     if (row < p.Tq)
       *reinterpret_cast<float4*>(ob + row * p.sot + c) =
-          *reinterpret_cast<const float4*>(ow + r * kS + c);
+          *reinterpret_cast<const float4*>(ow + r * kSQ + c);
   }
-  if (t == 0) {
+  if (t == 0 && blockIdx.z == 0) {
     if (row0 < p.Tq) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(l0);
     if (row0 + 8 < p.Tq)
       p.lse[(long long)bh * p.Tq + row0 + 8] = m1 + logf(l1);
   }
 }
 
-template <int DH, int SPLIT>
+template <typename T, int DQK, int DV, int SPLIT>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using L = Layout<DH, SPLIT>;
+  using L = Layout<T, DQK, DV, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH, SPLIT>,
+      flash_fwd_kernel<T, DQK, DV, SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, B * p.H);
-  flash_fwd_kernel<DH, SPLIT><<<grid, L::kThreads, L::kBytes, stream>>>(p);
+  const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, B * p.H, DQK / DV);
+  flash_fwd_kernel<T, DQK, DV, SPLIT>
+      <<<grid, L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The head dims the wrapper pads to: 32 (demo), 64 (the reference's
+// default model), 128 (the rest), 256 (any dh in (128, 256], as two
+// column groups).  A grid of at most one 4-warp block an SM leaves half
+// the warps the SMs could hold idle: split each block's keys over two warp
+// groups instead (not at 256, whose block holds an SM's shared memory).
+template <typename T>
+cudaError_t dispatch(const Params& p, int B, int dh, int sms,
+                     cudaStream_t s) {
+  const long long blocks =
+      (long long)((p.Tq + kBlockQ - 1) / kBlockQ) * B * p.H;
+  const bool split = blocks <= sms;
+  switch (dh) {
+    case 32:
+      return split ? launch<T, 32, 32, 2>(p, B, s)
+                   : launch<T, 32, 32, 1>(p, B, s);
+    case 64:
+      return split ? launch<T, 64, 64, 2>(p, B, s)
+                   : launch<T, 64, 64, 1>(p, B, s);
+    case 128:
+      return split ? launch<T, 128, 128, 2>(p, B, s)
+                   : launch<T, 128, 128, 1>(p, B, s);
+    case 256:
+      return launch<T, 256, kGroup, 1>(p, B, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // One m16n8k8 product in 3xTF32 by one warp, for checking the fragment
@@ -361,6 +459,7 @@ __global__ void mma_3xtf32_probe_kernel(const float* a, const float* b,
 
 }  // namespace
 
+// dtype: 0 float32, 1 bfloat16 (q, k, v and o; lse is float32 at both).
 extern "C" int avsep_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int H, int Tq, int Tk, int dh,
@@ -369,14 +468,14 @@ extern "C" int avsep_flash_attn_fwd(
     long long svb, long long svh, long long svt,
     long long sob, long long soh, long long sot,
     float scale, float keep, unsigned threshold, unsigned seed, int hq,
-    int hk, int dropout, int device, void* stream) {
+    int hk, int dropout, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<float*>(o);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
   p.lse = static_cast<float*>(lse);
   p.H = H; p.Tq = Tq; p.Tk = Tk;
   p.sqb = sqb; p.sqh = sqh; p.sqt = sqt;
@@ -394,18 +493,10 @@ extern "C" int avsep_flash_attn_fwd(
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // A grid of at most one 4-warp block an SM leaves half the warps the SMs
-  // could hold idle: split each block's keys over two warp groups instead.
-  const long long blocks = (long long)((Tq + kBlockQ - 1) / kBlockQ) * B * H;
-  const int split = blocks <= sms ? 2 : 1;
-  // The head dims of the configs: 32 (demo), 64 (the reference's default
-  // model), 128 (the rest).  Rows are DH + 4 floats apart at each.
-  if (dh == 32)
-    err = split == 2 ? launch<32, 2>(p, B, s) : launch<32, 1>(p, B, s);
-  else if (dh == 64)
-    err = split == 2 ? launch<64, 2>(p, B, s) : launch<64, 1>(p, B, s);
-  else if (dh == 128)
-    err = split == 2 ? launch<128, 2>(p, B, s) : launch<128, 1>(p, B, s);
+  if (dtype == 0)
+    err = dispatch<float>(p, B, dh, sms, s);
+  else if (dtype == 1)
+    err = dispatch<bf16>(p, B, dh, sms, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -31,11 +31,13 @@ PASS_DB = 35.0
 
 
 def run(device: str = "cuda", steps: int = 100, pit: str = "global",
-        log=print) -> Dict[str, float]:
-    """Train the demo config; returns the numbers the gate reads."""
+        log=print, dtype: str = "float32") -> Dict[str, float]:
+    """Train the demo config at compute dtype `dtype`; returns the numbers
+    the gate reads."""
     cfg = get_config("demo")
     cfg = dataclasses.replace(
-        cfg, train=dataclasses.replace(cfg.train, steps=steps),
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype),
+        train=dataclasses.replace(cfg.train, steps=steps),
         loss=dataclasses.replace(cfg.loss, pit_mode=pit))
     t0 = time.perf_counter()
     ds = SyntheticAVDataset(cfg.data)
@@ -46,7 +48,7 @@ def run(device: str = "cuda", steps: int = 100, pit: str = "global",
     state = create_train_state(cfg, device=device)
     n_params = sum(p.numel() for p in state.model.parameters())
     log(f"model: d_model={cfg.model.d_model} params={n_params:,} "
-        f"device={device}")
+        f"device={device} dtype={dtype}")
     eval_fn = make_eval_step()
     pre = eval_fn(state.model, ebatch)
     in_snr = float(pre["input_snr"])

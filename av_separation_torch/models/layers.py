@@ -10,6 +10,15 @@ kernels' dropout seeds and a generator on the model's device for the
 residual and FFN dropout bits.  The draw sites are the JAX package's: PE
 dropout, attention dropout, `drop1`, the fused ReLU + dropout of the FFN and
 `drop2`.
+
+Compute dtype (`ModelConfig.compute_dtype`): modules take the flax
+`dtype` argument, None for float32 (tensors pass as they come, so a
+float64 reference run stays float64) or torch.bfloat16.  Parameters stay
+float32 and are cast at use: `Linear` computes x.bf16 @ w.bf16 + b.bf16,
+as a flax Dense with dtype does; `LayerNorm` computes in float32 and
+rounds its output to the dtype; the PE table is added in x's dtype.  With
+`remat`, `TransformerEncoder` recomputes each layer in the backward
+(`remat_layer`), replaying the layer's own dropout draws.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from av_separation_torch.ops.activations import relu_dropout
 from av_separation_torch.ops.attention import multi_head_attention
@@ -54,6 +64,99 @@ def train_rate(module: nn.Module, rate: float,
     return rate
 
 
+def at(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """t in a module's compute dtype: cast where one is set, as it is."""
+    return t if dtype is None else t.to(dtype)
+
+
+def remat_layer(layer: nn.Module, gens: Optional[Generators],
+                *xs: torch.Tensor) -> torch.Tensor:
+    """layer(*xs, gens) under `torch.utils.checkpoint`: its activations are
+    recomputed in the backward instead of kept, as `nn.remat` does.
+
+    A recompute must see the dropout draws of the first run, and
+    `checkpoint` restores only the global RNG states.  So the states of
+    both explicit generators are taken before the first run, which
+    advances them as an unchecked call would, and the recompute draws from
+    copies of those states: the same seeds and bits, hence the same
+    masks, and `gens` is not advanced twice."""
+    if gens is None:
+        return checkpoint(layer, *xs, None, use_reentrant=False,
+                          preserve_rng_state=False)
+    snap = (gens.seeds.get_state(), gens.bits.get_state())
+    ran = []
+
+    def run(*inner: torch.Tensor) -> torch.Tensor:
+        if not ran:
+            ran.append(True)
+            return layer(*inner, gens)
+        replay = Generators(
+            torch.Generator().set_state(snap[0]),
+            torch.Generator(device=gens.bits.device).set_state(snap[1]))
+        return layer(*inner, replay)
+
+    return checkpoint(run, *xs, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def call_layers(layers, remat: bool, gens: Optional[Generators],
+                x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
+    """x through `layers` in turn, each as layer(x, *rest, gens); with
+    `remat`, each layer of a training forward that builds a graph is
+    recomputed in the backward (`remat_layer`)."""
+    for layer in layers:
+        if remat and layer.training and torch.is_grad_enabled():
+            x = remat_layer(layer, gens, x, *rest)
+        else:
+            x = layer(x, *rest, gens)
+    return x
+
+
+class Linear(nn.Linear):
+    """nn.Linear (its parameters and state-dict names) computed in `dtype`:
+    input, weight and bias cast at use, as a flax Dense with dtype does."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return F.linear(at(x, cd), at(self.weight, cd), at(self.bias, cd))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computed in `dtype`, as a flax Conv with dtype."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return self._conv_forward(at(x, cd), at(self.weight, cd),
+                                  at(self.bias, cd))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm as a flax LayerNorm with `dtype`: statistics and the
+    affine map in float32 (or wider), the output in `dtype`, else in the
+    promoted input dtype (a bf16 input gives float32, as flax's
+    LayerNorm without a dtype does)."""
+
+    def __init__(self, d: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(d, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wide = torch.promote_types(x.dtype, torch.float32)
+        y = F.layer_norm(x.to(wide), self.normalized_shape,
+                         self.weight.to(wide), self.bias.to(wide), self.eps)
+        return at(y, self.compute_dtype)
+
+
 def sinusoidal_pe(seq_len: int, d_model: int,
                   device: torch.device | str = "cpu") -> torch.Tensor:
     """Interleaved sin/cos PE table (seq_len, d_model), float32.
@@ -83,7 +186,8 @@ class PositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
-        x = x + sinusoidal_pe(x.shape[-2], self.d_model, x.device)
+        pe = sinusoidal_pe(x.shape[-2], self.d_model, x.device)
+        x = x + pe.to(x.dtype)  # in x's dtype, as the JAX table is made
         return self.dropout(x, bits(gens))
 
 
@@ -93,7 +197,9 @@ class TorchBatchNorm(nn.Module):
     `TorchBatchNorm`: y = (x - mean) * (rsqrt(var + eps) * weight) + bias.
     In training, mean and the biased variance of the batch normalise, and
     the running stats move by momentum 0.1 towards the mean and the
-    unbiased variance; in eval, the running stats normalise."""
+    unbiased variance; in eval, the running stats normalise.  Statistics
+    and the map run in float32 (or wider) and the output is in x's dtype,
+    as the JAX module computes a bf16 x."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -107,7 +213,8 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_in: torch.Tensor) -> torch.Tensor:
+        x = x_in.to(torch.promote_types(x_in.dtype, torch.float32))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
@@ -123,7 +230,8 @@ class TorchBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        return y.to(x_in.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -131,29 +239,32 @@ class MultiHeadAttention(nn.Module):
     (`in_proj_weight` (3d, d), `in_proj_bias`, `out_proj`), computed by the
     port's own attention op with in-kernel probability dropout.
     Self-attention (q_in is kv_in) projects Q, K and V in one matmul; the
-    kernel reads the three column slices in place."""
+    kernel reads the three column slices in place.  `dtype` is the compute
+    dtype of the projections and the attention (None: float32)."""
 
-    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_model = d_model
         self.nhead = nhead
         self.dropout = dropout
+        self.compute_dtype = dtype
         bound = 1.0 / math.sqrt(d_model)  # the JAX q/k/v Dense init
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * d_model, d_model).uniform_(-bound, bound))
         self.in_proj_bias = nn.Parameter(
             torch.empty(3 * d_model).uniform_(-bound, bound))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model, dtype)
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
-        d = self.d_model
-        w, b = self.in_proj_weight, self.in_proj_bias
+        d, cd = self.d_model, self.compute_dtype
+        w, b = at(self.in_proj_weight, cd), at(self.in_proj_bias, cd)
         if q_in is kv_in:
-            q, k, v = F.linear(q_in, w, b).split(d, dim=-1)
+            q, k, v = F.linear(at(q_in, cd), w, b).split(d, dim=-1)
         else:
-            q = F.linear(q_in, w[:d], b[:d])
-            k, v = F.linear(kv_in, w[d:], b[d:]).split(d, dim=-1)
+            q = F.linear(at(q_in, cd), w[:d], b[:d])
+            k, v = F.linear(at(kv_in, cd), w[d:], b[d:]).split(d, dim=-1)
         rate = train_rate(self, self.dropout, gens)
         out = multi_head_attention(q, k, v, self.nhead, rate, seeds(gens))
         return self.out_proj(out)
@@ -164,14 +275,15 @@ class TransformerEncoderLayer(nn.Module):
     (norm_first=True, ffn 4d, ReLU) semantics (reference model.py:48-52),
     with the JAX layer's dropout sites."""
 
-    def __init__(self, d_model: int, nhead: int, dropout: float = 0.1):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
-        self.linear1 = nn.Linear(d_model, 4 * d_model)
-        self.linear2 = nn.Linear(4 * d_model, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout, dtype)
+        self.linear1 = Linear(d_model, 4 * d_model, dtype)
+        self.linear2 = Linear(4 * d_model, d_model, dtype)
+        self.norm1 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.norm2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
         self.drop1 = Dropout(dropout)
         self.drop2 = Dropout(dropout)
 
@@ -185,17 +297,19 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of pre-norm encoder layers with no final norm."""
+    """Stack of pre-norm encoder layers with no final norm; with `remat`,
+    each layer is recomputed in the backward (`nn.remat` in the JAX
+    package, layers.py:259-272)."""
 
     def __init__(self, d_model: int, nhead: int, num_layers: int,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, nhead, dropout)
+            TransformerEncoderLayer(d_model, nhead, dropout, dtype)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
-        for layer in self.layers:
-            x = layer(x, gens)
-        return x
+        return call_layers(self.layers, self.remat, gens, x)

@@ -11,7 +11,16 @@ its state dict loads as it is.  The audio projection and the mask decoder
 hold their weights in the reference's `nn.Sequential` slots but run as the
 fused kernels of `ops/kernels/`, with their backward rules; attention runs
 through `ops/attention.py`.  The visual conv stem is `F.conv2d`, as it is
-XLA's convolution in the JAX package.  Float32 only.
+XLA's convolution in the JAX package.
+
+`compute_dtype` "bfloat16" follows the JAX model's rules: parameters stay
+float32 and are cast at use; the spectrogram and the lip frames are cast
+at entry; the encoders and the fusion layers compute in bf16 (the flash
+kernels and the projection kernel at bf16, LayerNorm and BatchNorm
+statistics in float32); the fusion's final LayerNorm returns float32, so
+the decoder runs in float32 on the float32 mixture; the outputs are
+float32.  `remat` recomputes each encoder and fusion layer in the
+backward, replaying its dropout draws.
 
 Eval mode serves; training mode applies dropout (from the `Generators`
 passed to `forward`) and BatchNorm batch statistics, as the JAX model does
@@ -30,12 +39,16 @@ import torch.nn as nn
 
 from av_separation_torch.config import ModelConfig
 from av_separation_torch.models.layers import (
+    Conv2d,
     Generators,
+    LayerNorm,
+    Linear,
     MultiHeadAttention,
     PositionalEncoding,
     TorchBatchNorm,
     TransformerEncoder,
     bits,
+    call_layers,
     train_rate,
 )
 from av_separation_torch.ops.activations import gelu_dropout
@@ -43,6 +56,15 @@ from av_separation_torch.ops.dropout import Dropout
 from av_separation_torch.ops.interpolate import interpolate_time_linear
 from av_separation_torch.ops.kernels.audio_proj import audio_projection
 from av_separation_torch.ops.kernels.decoder import mask_decoder
+
+
+def _cdt(cfg: ModelConfig) -> Optional[torch.dtype]:
+    """The modules' dtype argument: None keeps float32 (the JAX `_cdt`),
+    else torch.bfloat16."""
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 or "
+                         f"bfloat16")
+    return None if cfg.compute_dtype == "float32" else torch.bfloat16
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -68,12 +90,14 @@ class AudioEncoder(nn.Module):
         self.pos_enc = PositionalEncoding(d, cfg.dropout)
         self.transformer = TransformerEncoder(d, cfg.nhead,
                                               cfg.num_encoder_layers,
-                                              cfg.dropout)
+                                              cfg.dropout, _cdt(cfg),
+                                              cfg.remat)
 
     def forward(self, x: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
         conv1, conv2 = self.input_proj[0], self.input_proj[2]
-        # torch Conv1d weights (out, in, k) -> the kernel's (k, in, out).
+        # torch Conv1d weights (out, in, k) -> the kernel's (k, in, out);
+        # x in the compute dtype, y and h in x's.
         y = audio_projection(x.transpose(1, 2).contiguous(),
                              conv1.weight.permute(2, 1, 0).contiguous(),
                              conv1.bias,
@@ -89,16 +113,17 @@ class VisualEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        dt = _cdt(cfg)
         layers = []
         for cin, cout in ((1, 32), (32, 64), (64, 128)):
-            layers += [nn.Conv2d(cin, cout, 3, stride=2, padding=1),
+            layers += [Conv2d(cin, cout, 3, stride=2, padding=1, dtype=dt),
                        TorchBatchNorm(cout), nn.ReLU()]
         self.conv = nn.Sequential(*layers)
-        self.frame_proj = nn.Linear(128, cfg.d_model)
+        self.frame_proj = Linear(128, cfg.d_model, dt)
         self.pos_enc = PositionalEncoding(cfg.d_model, cfg.dropout)
         self.transformer = TransformerEncoder(cfg.d_model, cfg.nhead,
                                               cfg.num_encoder_layers,
-                                              cfg.dropout)
+                                              cfg.dropout, dt, cfg.remat)
 
     def forward(self, frames: torch.Tensor, target_len: int,
                 gens: Optional[Generators] = None) -> torch.Tensor:
@@ -118,13 +143,13 @@ class CrossAttentionLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        d = cfg.d_model
+        d, dt = cfg.d_model, _cdt(cfg)
         self.dropout = cfg.dropout
-        self.cross_attn = MultiHeadAttention(d, cfg.nhead, cfg.dropout)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
-        self.ff = nn.Sequential(nn.Linear(d, 4 * d), nn.GELU(),
-                                Dropout(cfg.dropout), nn.Linear(4 * d, d))
+        self.cross_attn = MultiHeadAttention(d, cfg.nhead, cfg.dropout, dt)
+        self.norm1 = LayerNorm(d, eps=1e-5, dtype=dt)
+        self.norm2 = LayerNorm(d, eps=1e-5, dtype=dt)
+        self.ff = nn.Sequential(Linear(d, 4 * d, dt), nn.GELU(),
+                                Dropout(cfg.dropout), Linear(4 * d, d, dt))
         self.drop1 = Dropout(cfg.dropout)
         self.drop2 = Dropout(cfg.dropout)
 
@@ -138,19 +163,22 @@ class CrossAttentionLayer(nn.Module):
 
 
 class CrossModalFusion(nn.Module):
-    """Cross-attention stack + final LayerNorm (reference model.py:124-149)."""
+    """Cross-attention stack + final LayerNorm (reference model.py:124-149);
+    the layers are recomputed in the backward with `remat` (the JAX
+    model.py:262-264).  The final norm has no dtype, as the JAX one: a
+    bf16 stream comes out float32."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.layers = nn.ModuleList(
             CrossAttentionLayer(cfg) for _ in range(cfg.num_fusion_layers))
-        self.norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
+        self.norm = LayerNorm(cfg.d_model, eps=1e-5)
 
     def forward(self, audio: torch.Tensor, visual: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
-        for layer in self.layers:
-            audio = layer(audio, visual, gens)
-        return self.norm(audio)
+        return self.norm(call_layers(self.layers, self.remat, gens, audio,
+                                     visual))
 
 
 class SeparationDecoder(nn.Module):
@@ -192,10 +220,6 @@ class AVSeparationTransformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r}: only float32 is "
-                f"served so far")
         self.cfg = cfg
         self.audio_encoder = AudioEncoder(cfg)
         self.visual_encoder = VisualEncoder(cfg)
@@ -205,11 +229,20 @@ class AVSeparationTransformer(nn.Module):
     def forward(self, mixed_spec: torch.Tensor, lip_frames: torch.Tensor,
                 gens: Optional[Generators] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """In training mode with dropout > 0, `gens` must be given."""
-        audio = self.audio_encoder(mixed_spec, gens)
-        visual = self.visual_encoder(lip_frames, mixed_spec.shape[-1], gens)
+        """In training mode with dropout > 0, `gens` must be given.  The
+        inputs are cast to the compute dtype at entry; the decoder runs on
+        the float32 mixture; the outputs are float32."""
+        dt = _cdt(self.cfg)
+        audio = self.audio_encoder(
+            mixed_spec if dt is None else mixed_spec.to(dt), gens)
+        visual = self.visual_encoder(
+            lip_frames if dt is None else lip_frames.to(dt),
+            mixed_spec.shape[-1], gens)
         fused = self.fusion(audio, visual, gens)
-        return self.decoder(fused, mixed_spec, gens)
+        if dt is None:
+            return self.decoder(fused, mixed_spec, gens)
+        separated, masks = self.decoder(fused.float(), mixed_spec, gens)
+        return separated.float(), masks.float()
 
 
 @torch.no_grad()

@@ -9,8 +9,10 @@
                 mask and recomputes the GELU derivative in backward.
 
 Both take the quantized uint8 mask of `ops/dropout.py` (same n/256
-threshold, same survivor scale).  Rate 0 or no generator means the plain
-activation.
+threshold, same survivor scale, rounded to the tensor's dtype).  Rate 0 or
+no generator means the plain activation.  In bf16 the GELU and its
+derivative are computed in float32 and rounded to bf16, as the JAX
+`_gelu_exact` / `_gelu_grad` do.
 """
 
 from __future__ import annotations
@@ -21,8 +23,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from av_separation_torch.ops import upcast
 from av_separation_torch.ops.dropout import (keep_bits, keep_scale,
                                              quantized_rate)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU computed in float32 (or wider), in x's dtype."""
+    return F.gelu(upcast(x)).to(x.dtype)
 
 
 def gelu_grad(x: torch.Tensor) -> torch.Tensor:
@@ -51,13 +59,13 @@ class _GeluDropout(torch.autograd.Function):
     def forward(ctx, x, keep, scale: float):
         ctx.save_for_backward(x, keep)
         ctx.scale = scale
-        return torch.where(keep, F.gelu(x) * scale, 0.0)
+        return torch.where(keep, gelu(x) * scale, 0.0)
 
     @staticmethod
     def backward(ctx, g):
         x, keep = ctx.saved_tensors
-        return (torch.where(keep, g * gelu_grad(x) * ctx.scale, 0.0),
-                None, None)
+        dgelu = gelu_grad(upcast(x)).to(x.dtype)
+        return (torch.where(keep, g * dgelu * ctx.scale, 0.0), None, None)
 
 
 def relu_dropout(x: torch.Tensor, rate: float,
@@ -67,7 +75,7 @@ def relu_dropout(x: torch.Tensor, rate: float,
         return torch.relu(x)
     n = quantized_rate(rate)
     return _ReluDropout.apply(x, keep_bits(x.shape, n, generator, x.device),
-                              keep_scale(n))
+                              keep_scale(n, x.dtype))
 
 
 def gelu_dropout(x: torch.Tensor, rate: float,
@@ -75,7 +83,7 @@ def gelu_dropout(x: torch.Tensor, rate: float,
     """exact gelu -> dropout(rate); rate 0 or no generator means plain
     gelu."""
     if rate == 0.0 or generator is None:
-        return F.gelu(x)
+        return gelu(x)
     n = quantized_rate(rate)
     return _GeluDropout.apply(x, keep_bits(x.shape, n, generator, x.device),
-                              keep_scale(n))
+                              keep_scale(n, x.dtype))

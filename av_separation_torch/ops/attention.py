@@ -43,7 +43,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          nhead: int, dropout_rate: float = 0.0,
                          generator: Optional[torch.Generator] = None
                          ) -> torch.Tensor:
-    """Packed (B, Tq, d), (B, Tk, d), (B, Tk, d) -> (B, Tq, d).
+    """Packed (B, Tq, d), (B, Tk, d), (B, Tk, d) -> (B, Tq, d), in the
+    inputs' dtype (float32 or bfloat16).
 
     Attention-probability dropout at `dropout_rate` runs in the kernels,
     seeded from the CPU `generator`; without a generator there is no

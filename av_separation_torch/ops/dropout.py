@@ -4,8 +4,10 @@
 The keep probability is quantized to 1/256: n = clamp(round(rate * 256), 1,
 255), an element is kept when its random uint8 is >= n, and survivors are
 scaled by 1 / (1 - n/256), so the output stays exactly mean-unbiased (0.1 ->
-26/256).  The bits come from the caller's `torch.Generator` on the tensor's
-device; they match the JAX package's in distribution only.  The backward
+26/256).  The scale is rounded to the tensor's dtype first, as the JAX
+`_keep_scale(n, x.dtype)` does (1.109375 in bf16).  The bits come from the
+caller's `torch.Generator` on the tensor's device; they match the JAX
+package's in distribution only.  The backward
 applies the forward's mask, saved as a bool tensor (the JAX package redraws
 the bits from the saved key instead).
 """
@@ -23,8 +25,10 @@ def quantized_rate(rate: float) -> int:
     return min(max(int(round(rate * 256.0)), 1), 255)
 
 
-def keep_scale(n: int) -> float:
-    return 1.0 / (1.0 - n / 256.0)
+def keep_scale(n: int, dtype: torch.dtype = torch.float32) -> float:
+    """The survivor scale 1 / (1 - n/256), rounded to `dtype`: x * scale
+    then rounds once to x's dtype, as a product in that dtype does."""
+    return float(torch.tensor(1.0 / (1.0 - n / 256.0), dtype=dtype))
 
 
 def keep_bits(shape, n: int, generator: torch.Generator,
@@ -55,7 +59,7 @@ def fast_dropout(x: torch.Tensor, rate: float,
     """Dropout at `rate`, quantized to n/256, bits from `generator`."""
     n = quantized_rate(rate)
     keep = keep_bits(x.shape, n, generator, x.device)
-    return _MaskedScale.apply(x, keep, keep_scale(n))
+    return _MaskedScale.apply(x, keep, keep_scale(n, x.dtype))
 
 
 class Dropout(nn.Module):

@@ -5,7 +5,8 @@ of `av_separation_tpu/ops/interpolate.py`).
 output index ``i`` reads source coordinate ``(i + 0.5) * N_in / N_out - 0.5``,
 clamped at 0, blended between ``floor`` and ``floor + 1`` (right-clamped).
 The indices and weights are computed in float64 NumPy, as in the reference,
-so both packages round them identically.
+so both packages round them identically.  The blend runs in float32 and is
+rounded to x's dtype, as the JAX blend of a bf16 x with float32 weights.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def interpolate_time_linear(x: torch.Tensor, target_len: int) -> torch.Tensor:
     dev = x.device
     lo_t = torch.as_tensor(lo, device=dev)
     hi_t = torch.as_tensor(hi, device=dev)
-    w_lo_t = torch.as_tensor(w_lo, device=dev)[:, None].to(x.dtype)
-    w_hi_t = torch.as_tensor(w_hi, device=dev)[:, None].to(x.dtype)
+    wdt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    w_lo_t = torch.as_tensor(w_lo, device=dev)[:, None].to(wdt)
+    w_hi_t = torch.as_tensor(w_hi, device=dev)[:, None].to(wdt)
     return (x.index_select(-2, lo_t) * w_lo_t
-            + x.index_select(-2, hi_t) * w_hi_t)
+            + x.index_select(-2, hi_t) * w_hi_t).to(x.dtype)

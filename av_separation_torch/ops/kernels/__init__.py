@@ -2,21 +2,32 @@
 
 Every wrapper dispatches on the device of the tensors it is given: a CUDA
 tensor launches the kernel (or the call raises), a CPU tensor runs the plain
-PyTorch version.  `LAUNCHES` counts kernel launches per wrapper, and only
-those: plain-version calls never touch it.
+PyTorch version.  `LAUNCHES` counts kernel launches per wrapper and dtype
+(the bfloat16 instances under `name[bf16]`), and only those: plain-version
+calls never touch it.
 """
 
 from typing import Callable, Sequence
 
 import torch
 
+# The C entry points' dtype argument (flash attention, the projection).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
-            "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0}
+            "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0,
+            "flash_attn_fwd[bf16]": 0, "flash_attn_bwd[bf16]": 0,
+            "audio_proj_fwd[bf16]": 0}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str, dtype: torch.dtype) -> None:
+    """One launch of wrapper `name`'s kernel instance for `dtype`."""
+    LAUNCHES[name + ("[bf16]" if dtype == torch.bfloat16 else "")] += 1
 
 
 def gemm_rows(blocks: Callable[[int], int], sms: int,

@@ -12,10 +12,16 @@ reaches the kernels as (B, H, T, dh) views whose strides say where each
 gradients are written into packed (B, T, H, dh) memory and returned as
 (B, H, T, dh) views, so a packed caller gets (B, T, H*dh) back without a copy.
 
-The kernels are built for head dims 32, 64 and 128.  Any other head dim up
-to 128 is zero-padded to the next of those (`padded_fwd`, `padded_bwd`) and
+The kernels are built for head dims 32, 64, 128 and 256 (two column groups
+of 128, each a block's), in float32 and in bfloat16.  Any other head dim up
+to 256 is zero-padded to the next of those (`padded_fwd`, `padded_bwd`) and
 run at the softmax scale of its true width: zero columns change neither
 q k^T nor the kept columns of p v, and the gradients are sliced back.
+
+In bfloat16 (q, k, v and the cotangent bf16; lse float32) the kernels and
+the plain versions round where the Pallas kernels do: products of bf16
+operands summed in float32, p rounded to bf16 before p v, pd and ds
+rounded to bf16 before their products, and o, dq, dk, dv stored in bf16.
 
 Attention dropout is the JAX package's stateless murmur3-finalizer hash
 (`_keep_mask`, attention.py:147-160, the path its kernels take under the
@@ -36,11 +42,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from av_separation_torch.ops import kernels
+from av_separation_torch.ops import kernels, upcast
 from av_separation_torch.ops.kernels import _build
 
-# demo (d 128, 4 heads), ModelConfig() (d 256, 4 heads), every wider config
-HEAD_DIMS = (32, 64, 128)
+# demo (d 128, 4 heads), ModelConfig() (d 256, 4 heads), every wider config,
+# and ModelConfig(d_model=512, nhead=2) (dh 256, as two column groups)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_HASH_BLOCK = 512   # the Pallas kernels' DEFAULT_BLOCK_Q / _K
 _M32 = 0xFFFFFFFF
 
@@ -110,8 +117,11 @@ def _packed_empty(like: torch.Tensor) -> torch.Tensor:
 
 def padded_head_dim(dh: int) -> int:
     """The built head dim a head dim of `dh` runs at: the next of
-    HEAD_DIMS.  Above 128 there is none: a dh-256 tile needs a design of
-    its own (the dK/dV kernel already holds 255 registers at 128)."""
+    HEAD_DIMS.  Above 128 that is 256, run as two column groups of 128
+    (each block owns one group of the output and recomputes q k^T over
+    both), so a warp holds no more accumulators than at 128.  Above 256
+    the full-width q and k tiles no longer fit a block's shared memory in
+    float32, and the wrapper refuses."""
     for built in HEAD_DIMS:
         if dh <= built:
             return built
@@ -126,7 +136,7 @@ def _pad_dh(t: torch.Tensor, width: int) -> torch.Tensor:
 def padded_fwd(fwd, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                rate: float = 0.0, seed: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`fwd` (a flash forward taking `scale`) at any head dim <= 128: q, k
+    """`fwd` (a flash forward taking `scale`) at any head dim <= 256: q, k
     and v zero-padded along dh to `padded_head_dim`, the softmax scale of
     the true dh, o sliced back.  The dropout hash does not read dh, so the
     keep masks are those of the unpadded call."""
@@ -143,7 +153,7 @@ def padded_bwd(bwd, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                rate: float = 0.0, seed: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`bwd` (a flash backward taking `scale`) at any head dim <= 128, as
+    """`bwd` (a flash backward taking `scale`) at any head dim <= 256, as
     `padded_fwd`: the padded columns of o and dO are zero, so delta is
     unchanged, and dq, dk, dv are sliced back."""
     dh = q.shape[-1]
@@ -164,11 +174,14 @@ def flash_attn_fwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The Pallas kernel's arithmetic: s = q k^T * scale, p = exp(s - max),
     l = sum(p) over the undropped p, dropped p zeroed before PV,
     o = (p v) / (l * (1 - rate)), lse = max + log(l).  `scale` defaults to
-    1 / sqrt(dh).
+    1 / sqrt(dh).  In bf16 the products take bf16 operands (exact in
+    float32) and sum in float32, p is rounded to bf16 before PV, and o is
+    returned in bf16; lse is float32.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    qf, kf, vf = upcast(q), upcast(k), upcast(v)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -176,8 +189,14 @@ def flash_attn_fwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, h, tq, _ = q.shape
         keep = keep_mask(seed, b, h, tq, k.shape[2], rate, q.device)
         p = torch.where(keep, p, 0.0)
-    o = torch.matmul(p, v) / (l * (1.0 - rate))
-    return _as_packed(o), (m + torch.log(l)).squeeze(-1)
+    o = torch.matmul(_rounded(p, v.dtype), vf) / (l * (1.0 - rate))
+    return _as_packed(o.to(q.dtype)), (m + torch.log(l)).squeeze(-1)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 x rounded to bf16 (nearest even) and back, the operand a
+    bf16 product reads; x itself at float32 and float64."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
 
 
 def flash_attn_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,25 +209,29 @@ def flash_attn_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The Pallas arithmetic (`_bwd_hpacked_kernel`): delta = rowsum(dO * O),
     p = exp(s - lse), dp = dO V^T masked and divided by (1 - rate) where
     kept, dV = pd^T dO with pd = keep ? p / (1 - rate) : 0,
-    ds = p (dp - delta) scale, dQ = ds K, dK = ds^T Q.
+    ds = p (dp - delta) scale, dQ = ds K, dK = ds^T Q.  In bf16, delta and
+    every product sum in float32, pd and ds are rounded to bf16 before
+    their products, and dq, dk, dv are returned in bf16.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    delta = (do * o).sum(dim=-1, keepdim=True)
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    dt = q.dtype
+    qf, kf, vf, of, dof = (upcast(t) for t in (q, k, v, o, do))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.unsqueeze(-1))
-    dp = torch.matmul(do, v.transpose(-1, -2))
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
     pd = p
     if rate > 0.0:
         b, h, tq, _ = q.shape
         keep = keep_mask(seed, b, h, tq, k.shape[2], rate, q.device)
         pd = torch.where(keep, p / (1.0 - rate), 0.0)
         dp = torch.where(keep, dp / (1.0 - rate), 0.0)
-    dv = torch.matmul(pd.transpose(-1, -2), do)
-    ds = p * (dp - delta) * scale
-    dq = torch.matmul(ds, k)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
-    return _as_packed(dq), _as_packed(dk), _as_packed(dv)
+    dv = torch.matmul(_rounded(pd, dt).transpose(-1, -2), dof)
+    ds = _rounded(p * (dp - delta) * scale, dt)
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return tuple(_as_packed(g.to(dt)) for g in (dq, dk, dv))
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,7 +242,8 @@ def _fwd_entry():
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -232,21 +256,25 @@ def _bwd_entry():
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
     """Head dim contiguous and every (batch, head, time) row 16-byte
-    aligned, as the kernels' float4 loads need."""
+    aligned, as the kernels' 16-byte copies need."""
+    vec = 16 // t.element_size()
     return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and not any(
-        t.stride(i) % 4 for i in range(3) if t.shape[i] > 1)
+        t.stride(i) % vec for i in range(3) if t.shape[i] > 1)
 
 
 def _check_rows(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
-    if t.device != like.device or t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32 on {like.device}")
+    if t.device != like.device or t.dtype != like.dtype \
+            or t.dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"{name} must be float32 or bfloat16, as q, on "
+                         f"{like.device}")
     if not _rows_ok(t):
         raise ValueError(f"{name} rows must have a contiguous head dim and "
                          f"be 16-byte aligned")
@@ -293,10 +321,11 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(dh)) v over (B, H, T, dh) views, with attention
     dropout at `rate` keyed by the int32 `seed`.
 
-    Returns (o, lse): o (B, H, Tq, dh) as a view of packed (B, Tq, H, dh)
-    memory, lse (B, H, Tq) float32.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel, at a head dim other than 32, 64 or 128
-    through `padded_fwd` (and then o is a slice of the padded memory).
+    Returns (o, lse): o (B, H, Tq, dh) in q's dtype (float32 or bfloat16)
+    as a view of packed (B, Tq, H, dh) memory, lse (B, H, Tq) float32.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, at a
+    head dim other than 32, 64, 128 or 256 through `padded_fwd` (and then o
+    is a slice of the padded memory).
     """
     if not _device(q):
         return flash_attn_fwd_torch(q, k, v, rate, seed)
@@ -319,9 +348,9 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), b, h, tq, tk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], scale, *_dropout_args(rate, seed, tq, tk),
-            q.device.index, stream)
+            kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
     _build.check(lib, rc, "flash_attn_fwd")
-    kernels.LAUNCHES["flash_attn_fwd"] += 1
+    kernels.count_launch("flash_attn_fwd", q.dtype)
     return o, lse
 
 
@@ -363,8 +392,9 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the three
     kernels of `csrc/flash_attn_bwd.cu` (delta, dK/dV, dQ): no atomics, so
-    two runs give bit-identical gradients.  Head dims other than 32, 64 and
-    128 go through `padded_bwd`.
+    two runs give bit-identical gradients.  Head dims other than 32, 64,
+    128 and 256 go through `padded_bwd`.  The gradients come back in q's
+    dtype.
     """
     if not _device(q):
         return flash_attn_bwd_torch(q, k, v, o, do, lse, rate, seed)
@@ -396,9 +426,9 @@ def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
             dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dh,
             (ctypes.c_longlong * len(strides))(*strides),
             scale, *_dropout_args(rate, seed, tq, tk),
-            q.device.index, stream)
+            kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
     _build.check(lib, rc, "flash_attn_bwd")
-    kernels.LAUNCHES["flash_attn_bwd"] += 1
+    kernels.count_launch("flash_attn_bwd", q.dtype)
     return dq, dk, dv
 
 

@@ -13,6 +13,13 @@ The backward is the JAX package's framed-einsum rule
 The kernel takes widths D that are multiples of 8 from 64 up; any other D
 runs zero-padded to the next (`padded_proj`): ReLU(0) = 0, so the padded
 channels of h are zero, add nothing to conv2, and are sliced off.
+
+x may be float32 or bfloat16; the weights are float32.  At bf16 the math
+stays float32, as the Pallas kernel's (`x.astype(float32)`,
+audio_proj.py:39-58): y and h are stored in bf16, and conv2 reads the
+float32 h (the bf16 h is only the backward's residual).  The backward
+rounds where the JAX rule does: its cotangents come back in the inputs'
+dtypes (dx bf16, the weight and bias gradients float32).
 """
 
 from __future__ import annotations
@@ -24,14 +31,15 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from av_separation_torch.ops import kernels
+from av_separation_torch.ops import kernels, upcast
 from av_separation_torch.ops.kernels import _build
 
 
 def audio_proj_fwd_torch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: x (B, T, F) -> (y, h), each (B, T, D)."""
+    """Plain version: x (B, T, F) -> (y, h), each (B, T, D) in x's dtype,
+    computed in float32."""
     def conv_relu(src, w, bias):
         t = src.shape[1]
         padded = F.pad(src, (0, 0, 1, 1))  # zero frame on each side of T
@@ -40,8 +48,8 @@ def audio_proj_fwd_torch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             acc = acc + torch.matmul(padded[:, tap:tap + t], w[tap])
         return torch.relu(acc)
 
-    h = conv_relu(x, w1, b1)
-    return conv_relu(h, w2, b2), h
+    h = conv_relu(upcast(x), w1, b1)
+    return conv_relu(h, w2, b2).to(x.dtype), h.to(x.dtype)
 
 
 BLOCK_COLS = 128  # output channels a block (audio_proj.cu kBN)
@@ -58,7 +66,7 @@ def proj_rows(b: int, t: int, d: int, sms: int) -> int:
 def _entry():
     lib = _build.load("audio_proj")
     fn = lib.avsep_audio_proj_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -75,8 +83,10 @@ def _check(x, w1, b1, w2, b2) -> None:
         if name != "x" and tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 on {x.device}")
+        dtypes = kernels.DTYPE_CODES if name == "x" else (torch.float32,)
+        if t.device != x.device or t.dtype not in dtypes:
+            raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}"
+                             f" on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
@@ -122,14 +132,19 @@ def _launch(x, w1, b1, w2, b2) -> Tuple[torch.Tensor, torch.Tensor]:
     d = w1.shape[-1]
     y = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     h = torch.empty_like(y)
+    # At bf16, conv1 also writes the float32 h conv2 reads.
+    h32 = None if x.dtype == torch.float32 else torch.empty(
+        (b, t, d), dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib, fn = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), y.data_ptr(), h.data_ptr(), b, t, f, d,
-            proj_rows(b, t, d, sms), x.device.index, stream)
+            b2.data_ptr(), y.data_ptr(), h.data_ptr(),
+            None if h32 is None else h32.data_ptr(), b, t, f, d,
+            proj_rows(b, t, d, sms), kernels.DTYPE_CODES[x.dtype],
+            x.device.index, stream)
     _build.check(lib, rc, "audio_proj_fwd")
-    kernels.LAUNCHES["audio_proj_fwd"] += 1
+    kernels.count_launch("audio_proj_fwd", x.dtype)
     return y, h
 
 
@@ -144,7 +159,10 @@ def _frames3(t: torch.Tensor) -> torch.Tensor:
 class AudioProjection(torch.autograd.Function):
     """y = audio_proj_fwd(x, w1, b1, w2, b2)[0]; the backward reads the
     ReLU masks from the saved h and y and does each conv's dgrad and wgrad
-    as one einsum over a 3-tap framed view (`_bwd_rule`, audio_proj.py)."""
+    as one einsum over a 3-tap framed view (`_bwd_rule`, audio_proj.py).
+    At bf16 it rounds where that rule does: the pre-activation cotangents
+    and the weights of the dgrads to bf16, every product summed in
+    float32 (bf16 operands are exact in float32), dx rounded to bf16."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
@@ -155,15 +173,18 @@ class AudioProjection(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, h, y, w1, w2 = ctx.saved_tensors
-        gp = g * (y > 0)                                   # d_preact2
+        dt = g.dtype
+        rnd = (lambda t: t.to(dt).float()) if dt == torch.bfloat16 \
+            else (lambda t: t)
+        gp = rnd(upcast(g) * (y > 0))                      # d_preact2
         db2 = gp.sum(dim=(0, 1))
-        dw2 = torch.einsum("btkf,btd->kfd", _frames3(h), gp)
-        dh = torch.einsum("btkd,kfd->btf", _frames3(gp).flip(2), w2)
-        gp1 = dh * (h > 0)                                 # d_preact1
+        dw2 = torch.einsum("btkf,btd->kfd", _frames3(upcast(h)), gp)
+        dh = torch.einsum("btkd,kfd->btf", _frames3(gp).flip(2), rnd(w2))
+        gp1 = rnd(dh * (h > 0))                            # d_preact1
         db1 = gp1.sum(dim=(0, 1))
-        dw1 = torch.einsum("btkf,btd->kfd", _frames3(x), gp1)
-        dx = torch.einsum("btkd,kfd->btf", _frames3(gp1).flip(2), w1)
-        return dx, dw1, db1, dw2, db2
+        dw1 = torch.einsum("btkf,btd->kfd", _frames3(upcast(x)), gp1)
+        dx = torch.einsum("btkd,kfd->btf", _frames3(gp1).flip(2), rnd(w1))
+        return dx.to(x.dtype), dw1, db1, dw2, db2
 
 
 def audio_projection(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

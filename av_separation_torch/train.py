@@ -9,8 +9,10 @@ demo.py:88,103).  The step runs eagerly and updates the model and the
 optimizer state in place (torch's idiom; the JAX step returns a new state).
 `make_fused_train_steps` runs K steps whose batches are generated on the
 model's device (`data/device_synthetic.py`), with no read back to the host
-in between.  The mesh, remat, bf16 and CUDA graphs of the fused steps come
-with later slices.
+in between.  Both run at the config's compute dtype (float32 or bfloat16:
+parameters, gradients and the Adam state stay float32, the loss is taken
+on float32 outputs) and with its remat.  The mesh and CUDA graphs of the
+fused steps come with later slices.
 """
 
 from __future__ import annotations

@@ -7,8 +7,10 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   env      card name and power limit (nvidia-smi); TF32 off for matmuls and
            cuDNN convolutions, so every float32 product is a float32 product.
   build    nvcc builds every kernel of `av_separation_torch/csrc/` (in
-           parallel) into build/torch_kernels/; prints the build seconds and
-           each kernel's registers and spills.
+           parallel) into build/torch_kernels/; prints the build seconds,
+           each kernel instance's registers and spills (for example
+           flash_bwd_dkv_kernel<bf16,256,128,1>) and the instances that
+           spill.
   kernels  first one m16n8k8 3xTF32 tensor-core product against float64
            (the fragment layouts of the flash kernels).  Then each kernel
            against its plain PyTorch version on the card, at the shapes the
@@ -24,13 +26,21 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            dropout 0 and 0.1, forward and backward (both on the tensor
            cores in 3xTF32; the backward's bound counts its 5 least
            products), at dh 128, 32 and 64 (the reference's default
-           model) and dh 49 (zero-padded to 64 by the wrapper); each
+           model) and dh 49 (zero-padded to 64 by the wrapper), dh 256
+           and dh 200 (padded to 256: two column groups of 128); each
            backward is run twice and must give bit-identical gradients.
+           The same in bfloat16 ([bf16] rows) at the scaled audio
+           self-attention (dh 128), the default model's dh 64, T 1024 and
+           dh 256: o and the gradients within 2 bf16 ulps of the plain
+           version at their peak, the bound at bf16's 989 TFLOP/s, SDPA in
+           bf16 as the yardstick.
            The audio projection and the mask decoder (both in 3xTF32) at
            the scaled, demo, three_speaker and multihost shapes, and at
            d 196 (padded to 200) and d 1536; their library yardsticks
            are two cuDNN conv1d and F.linear / F.gelu / F.linear /
-           sigmoid (cuBLAS).  The STFT magnitude on its FFT route at
+           sigmoid (cuBLAS).  The projection with a bf16 input at the
+           scaled shape (float32 math, bf16 y and h), against cuDNN
+           conv1d in bf16.  The STFT magnitude on its FFT route at
            every kind of length (radix 2-8, Bluestein, odd n_fft, odd
            hops) on the scaled, 44.1 kHz and demo device batches, an odd
            shape and 70,000 signals (more than 65,535); its matrix-DFT
@@ -42,12 +52,16 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
   configs  the reference's default model (ModelConfig(), dh 64), the
-           named configs three_speaker, lrs2 and multihost, and odd_width
-           (ModelConfig() at d 196, 4 heads: dh 49) at full width and
+           named configs three_speaker, lrs2 and multihost, odd_width
+           (ModelConfig() at d 196, 4 heads: dh 49) and wide_head
+           (ModelConfig(d_model=512, nhead=2): dh 256) at full width and
            depth (seeded random weights): one eval forward at batch 2
            each against the same model on the CPU, launches counted; one
-           train step of the default model at dropout 0 against float64
-           on the CPU.
+           train step of the default model and of wide_head at dropout 0
+           against float64 on the CPU; one train step each of
+           three_speaker, lrs2 and multihost at their own batch and
+           dropout 0.1, multihost with remat (its config) and without:
+           loss and grad norm within 1e-6 relative, peak memory of each.
   serve    the scaled config at full width and depth (seeded random
            weights): a Separator on the card behind a
            BatchingSeparatorServer(max_batch=8) answers 16 waveform requests
@@ -106,6 +120,16 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   train_device_profile  host-data steps against fused device-data steps
            in turns (host clock), then where the time of a fused step goes
            (torch.profiler over two fused steps).
+  bf16     bfloat16 compute: a scaled serving batch of 8 through a bf16
+           Separator (against the port's bf16 forward on the CPU and the
+           card's float32 output), a scaled bf16 train step at dropout
+           0.1 (within 2e-3 relative of the float32 step's loss and grad
+           norm; two faulted steps must fall outside), the 100-step demo
+           at bf16 (+35 dB gate); each run launches only the [bf16]
+           instances of the flash pair and the projection.
+  bench    `python -m av_separation_torch.cli bench` in process at the
+           JAX bench's defaults (demo, batch 128, bf16, fused, 250
+           steps), per_step and float32 at 50 steps: each JSON line.
   demo     `av_separation_torch.demo`: 100 steps of the demo config on the
            card; fails below +35 dB or with masks outside [0, 1].
 Then the kernel summary line, the card line, and the last line
@@ -134,8 +158,11 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 # float32 accuracy run on the tensor cores in 3xTF32 (three TF32 products
 # each, CUTLASS's OpMultiplyAddFastF32, as SDPA's float32 kernel does), so
 # their least time is at 495 / 3 TFLOP/s; other float32 work (the FFT) at
-# the 67 TFLOP/s outside the tensor cores.
-RATES = {"3xTF32": 495e12 / 3, "float32": 67e12}
+# the 67 TFLOP/s outside the tensor cores.  A bf16 operand is exact in
+# TF32, so its product with a float32 one at float32 accuracy takes two
+# TF32 products (2xTF32, the bf16 projection's conv1).
+RATES = {"3xTF32": 495e12 / 3, "2xTF32": 495e12 / 2, "float32": 67e12,
+         "bf16": 989e12}
 
 PALLAS = "av_separation_tpu/ops/pallas/"
 KERNELS = {
@@ -176,6 +203,12 @@ KERNELS = {
         "note": "the route for n_fft above 4096",
     },
 }
+# The bfloat16 instances of three kernels: the same sources and wrappers
+# (`wrapper` names the profiler's kernels); their rows apart, and their
+# launches, which each wrapper counts under `name[bf16]`.
+for _name in ("flash_attn_fwd", "flash_attn_bwd", "audio_proj_fwd"):
+    KERNELS[_name + "[bf16]"] = dict(KERNELS[_name], wrapper=_name,
+                                     dtype="bfloat16")
 # The device kernels each wrapper launches, by name (torch.profiler).
 KERNEL_NAMES = {
     "flash_attn_fwd": ("flash_fwd_kernel",),
@@ -251,14 +284,26 @@ def device_ms(fn, iters: int, names=None):
     return "not measured"
 
 
-def bound(nbytes: float, flops: float, rate: str):
+def bound(nbytes: float, flops, rate: str):
+    """The least time in ms and what sets it.  `flops` is a count at
+    `rate`, or a {rate: count} dict whose times add."""
+    parts = flops if isinstance(flops, dict) else {rate: flops}
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / RATES[rate] * 1e3
+    t_ops = sum(n / RATES[r] for r, n in parts.items()) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def want_launches(counts: dict) -> dict:
+    """Launch counts with every kernel entry 0 (the [bf16] instances too)
+    but those in `counts`."""
+    from av_separation_torch.ops import kernels
+
+    return {name: 0 for name in kernels.LAUNCHES} | counts
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a - b).abs().max())
+    """Largest |a - b|, taken in float64 (exact for float32 and bf16)."""
+    return float((a.double() - b.double()).abs().max())
 
 
 def within(a, b, atol: float, rtol: float = 0.0) -> bool:
@@ -300,13 +345,41 @@ def phase_build(state):
     if logs.get("stft_fft") and (len(fft) != 5 or any(
             sum(n) for n in spills.values())):
         raise AssertionError(f"stft_fft_kernel instances {fft}")
-    return {"build_s": round(secs, 2), "ptxas": usage}
+    spilling = {k: n for u in usage.values() for k, v in u.items()
+                if (n := sum(int(x) for ln in v
+                             for x in re.findall(r"(\d+) bytes spill", ln)))}
+    return {"build_s": round(secs, 2), "spilling_instances": spilling,
+            "ptxas": usage}
+
+
+def _template_args(rest: str) -> list:
+    """The template arguments of a mangled name's I...E list: float (f),
+    bf16 (a class name holding bfloat16) and integer or bool literals
+    (L<type><value>E)."""
+    import re
+    args, i = [], 1  # past the I
+    while i < len(rest) and rest[i] != "E":
+        if rest[i] == "f":
+            args.append("float")
+            i += 1
+        elif rest[i] == "L":
+            j = rest.index("E", i)
+            args.append(re.sub(r"^L[a-z]+", "", rest[i:j]))
+            i = j + 1
+        elif (m := re.match(r"\d+", rest[i:])):
+            n, start = int(m.group()), i + len(m.group())
+            cls = rest[start:start + n]
+            args.append("bf16" if "bfloat16" in cls else cls)
+            i = start + n
+        else:
+            break
+    return args
 
 
 def _ptxas_usage(log: str) -> dict:
     """Registers and spills per device function from `nvcc -Xptxas -v`,
     keyed by the kernel's name and template arguments as mangled (for
-    example flash_bwd_dkv_kernel<128,1>)."""
+    example flash_bwd_dkv_kernel<bf16,128,128,1>)."""
     import re
     usage, name = {}, None
     for ln in log.splitlines():
@@ -318,25 +391,23 @@ def _ptxas_usage(log: str) -> dict:
                 n = int(k.group(1))
                 parts.append(rest[len(k.group(1)):len(k.group(1)) + n])
                 rest = rest[len(k.group(1)) + n:]
-            args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
             name = parts[-1] if parts else m.group(1)
-            if args:
-                name += "<" + ",".join(
-                    re.findall(r"L[a-z]+(\d+)E", args.group(1))) + ">"
+            if rest.startswith("I"):
+                name += "<" + ",".join(_template_args(rest)) + ">"
         elif name and ("registers" in ln or "spill" in ln):
             usage.setdefault(name, []).append(
                 ln.split("ptxas info    : ")[-1].strip())
     return usage
 
 
-def _attn_inputs(b, h, tq, tk, dh, kind, gen):
+def _attn_inputs(b, h, tq, tk, dh, kind, gen, dtype=torch.float32):
     """q/k/v as the serving path lays them out: self-attention reads three
     column slices of one fused projection; cross-attention reads q from its
     own projection and k/v from a fused (B, Tk, 2d) one; 'split' is the
-    (B*H, T, dh) layout of the JAX `flash_attention` path."""
+    (B*H, T, dh) layout of the JAX `flash_attention` path.  In `dtype`."""
     from av_separation_torch.ops.attention import split_heads
     d = h * dh
-    rnd = lambda *s: torch.randn(*s, generator=gen).cuda()
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dtype).cuda()
     if kind == "self":
         q, k, v = rnd(b, tq, 3 * d).split(d, dim=-1)
     elif kind == "cross":
@@ -362,7 +433,8 @@ def make_record(results, failures):
         times = [cuda_ms(fn, iters) for fn in (fn_k, fn_p, fn_p, fn_k)]
         ms, plain_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         lib_ms = cuda_ms(fn_lib, iters) if fn_lib is not None else None
-        dev_ms = device_ms(fn_k, iters, KERNEL_NAMES[name])
+        dev_ms = device_ms(fn_k, iters,
+                           KERNEL_NAMES[KERNELS[name].get("wrapper", name)])
         lib_dev_ms = device_ms(fn_lib, iters) if fn_lib is not None else None
         bound_ms, bound_by = bound(nbytes, flops, op_rate)
         ok = err <= tol and all(e <= t for e, t in extra_errs.values()) \
@@ -374,7 +446,10 @@ def make_record(results, failures):
                "library_ms": lib_ms, "device_ms": dev_ms,
                "library_device_ms": lib_dev_ms, "bound_ms": bound_ms,
                "bound_by": bound_by,
-               "rate": f"{op_rate} {RATES[op_rate] / 1e12:.0f} TFLOP/s",
+               "rate": " + ".join(
+                   f"{r} {RATES[r] / 1e12:g} TFLOP/s"
+                   for r in (flops if isinstance(flops, dict)
+                             else [op_rate])),
                "ok": ok, **extra}
         if isinstance(dev_ms, float) and isinstance(lib_dev_ms, float):
             row["device_vs_library"] = dev_ms / lib_dev_ms
@@ -422,11 +497,18 @@ def phase_kernels(state):
         ("default self dh64", 8, 4, 501, 501, 64, "self"),
         ("odd width self dh49", 8, 4, 501, 501, 49, "self"),
         ("long self Tk>512", 2, 4, 1024, 1024, 128, "self"),
+        ("wide head self dh256", 8, 2, 501, 501, 256, "self"),
+        ("wide head self dh200", 8, 2, 501, 501, 200, "self"),
     ]
+    # bfloat16: the scaled and default-model self-attention, the tiled
+    # route at T 1024 and the wide head.
+    bf16_cases = [attn_cases[i] for i in (0, 5, 7, 8)]
     for rate in (0.0, 0.1):
-        for label, b, h, tq, tk, dh, kind in attn_cases:
-            q, k, v = _attn_inputs(b, h, tq, tk, dh, kind, gen)
-            _attn_rows(record, label, rate, q, k, v, gen)
+        for dtype, cases in ((torch.float32, attn_cases),
+                             (torch.bfloat16, bf16_cases)):
+            for label, b, h, tq, tk, dh, kind in cases:
+                q, k, v = _attn_inputs(b, h, tq, tk, dh, kind, gen, dtype)
+                _attn_rows(record, label, rate, q, k, v, gen)
 
     _proj_rows(record, gen)
     _decoder_rows(record, gen)
@@ -439,14 +521,30 @@ def phase_kernels(state):
             "mma_3xtf32_probe_err": probe_err}
 
 
+def bf16_tol(ref: torch.Tensor, ulps: int = 2) -> float:
+    """`ulps` bf16 ulps at the binade of ref's peak: the kernel and its
+    plain version round at the same points but sum in another order in
+    float32, so a value next to a rounding boundary may round the other
+    way (one ulp), and an operand rounded the other way (p, pd, ds) moves
+    a sum by about as much again."""
+    import math
+    peak = max(float(ref.float().abs().max()), 2.0 ** -126)
+    return ulps * 2.0 ** (math.floor(math.log2(peak)) - 7)
+
+
 def _attn_rows(record, label, rate, q, k, v, gen):
-    """One forward row and one backward row of flash attention at `rate`.
+    """One forward row and one backward row of flash attention at `rate`,
+    in q's dtype.
 
     Float32 on both sides, sums over <= 1024 keys in another order: 2e-5
-    on o and on the gradients (O(1) values), 1e-4 on lse.  The library
-    yardstick is F.scaled_dot_product_attention (float32, same dropout
-    rate), forward alone for the forward row and forward + backward for
-    the backward row; the port never calls it.
+    on o and on the gradients (O(1) values), 1e-4 on lse; at head dims
+    above 128 (q k^T sums 256 products) 3e-5.  bfloat16: o and the
+    gradients within `bf16_tol` (2 ulps at their peak), lse (float32 from
+    float32 sums of exact bf16 products) 1e-4.  The library yardstick is
+    F.scaled_dot_product_attention (in q's dtype, same dropout rate),
+    forward alone for the forward row and forward + backward for the
+    backward row; the port never calls it.  The bound of a bf16 row is at
+    989 TFLOP/s (bf16 products) and 2-byte operands.
     """
     import torch.nn.functional as F
 
@@ -457,11 +555,14 @@ def _attn_rows(record, label, rate, q, k, v, gen):
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     seed = ATTN_SEED
+    bf16 = q.dtype == torch.bfloat16
+    suffix, op_rate, esize = ("[bf16]", "bf16", 2) if bf16 \
+        else ("", "3xTF32", 4)
     shape = (f"{label} B={b} H={h} Tq={tq} Tk={tk} dh={dh} "
-             f"dropout={rate}")
+             f"dropout={rate} {str(q.dtype).split('.')[-1]}")
     o_k, lse_k = flash_attn_fwd(q, k, v, rate, seed)
     o_p, lse_p = flash_attn_fwd_torch(q, k, v, rate, seed)
-    do = torch.randn(o_p.shape, generator=gen).cuda()
+    do = torch.randn(o_p.shape, generator=gen).to(q.dtype).cuda()
     g_k = flash_attn_bwd(q, k, v, o_k, do, lse_k, rate, seed)
     g_k2 = flash_attn_bwd(q, k, v, o_k, do, lse_k, rate, seed)
     g_p = flash_attn_bwd_torch(q, k, v, o_p, do, lse_p, rate, seed)
@@ -475,26 +576,32 @@ def _attn_rows(record, label, rate, q, k, v, gen):
         out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate)
         torch.autograd.grad(out, (qg, kg, vg), do)
 
-    # Forward: 2 products of 2*Tq*Tk*dh against q, k, v in and o, lse out.
-    record("flash_attn_fwd", shape, max_err(o_k, o_p), 2e-5,
+    f32_tol = 3e-5 if dh > 128 else 2e-5
+    tol = (lambda ref: bf16_tol(ref)) if bf16 else (lambda ref: f32_tol)
+    # Forward: 2 products of 2*Tq*Tk*dh against q, k, v in and o, lse out
+    # (lse float32).
+    record("flash_attn_fwd" + suffix, shape, max_err(o_k, o_p), tol(o_p),
            {"lse": (max_err(lse_k, lse_p), 1e-4)},
            lambda: flash_attn_fwd(q, k, v, rate, seed),
            lambda: flash_attn_fwd_torch(q, k, v, rate, seed), lib_fwd,
-           4 * (bh * (2 * tq * dh + 2 * tk * dh) + bh * tq),
-           4 * bh * tq * tk * dh, 20, dropout=rate)
+           esize * bh * (2 * tq * dh + 2 * tk * dh) + 4 * bh * tq,
+           4 * bh * tq * tk * dh, 20, op_rate, dropout=rate,
+           dtype=str(q.dtype).split(".")[-1])
     # Backward: the least work is 5 products (QK^T, dO V^T, dV, dQ, dK)
     # against q, k, v, o, dO, lse in and dQ, dK, dV out; what the kernels
     # recompute on top is not counted.
     errs = [max_err(x, y) for x, y in zip(g_k, g_p)]
-    record("flash_attn_bwd", shape, max(errs), 2e-5,
-           {"dq": (errs[0], 2e-5), "dk": (errs[1], 2e-5),
-            "dv": (errs[2], 2e-5)},
+    tols = [tol(y) for y in g_p]
+    record("flash_attn_bwd" + suffix, shape, max(errs), max(tols),
+           {"dq": (errs[0], tols[0]), "dk": (errs[1], tols[1]),
+            "dv": (errs[2], tols[2])},
            lambda: flash_attn_bwd(q, k, v, o_k, do, lse_k, rate, seed),
            lambda: flash_attn_bwd_torch(q, k, v, o_p, do, lse_p, rate, seed),
            lib_fwd_bwd,
-           4 * (bh * (3 * tq * dh + 2 * tk * dh + tq)
-                + bh * (tq * dh + 2 * tk * dh)),
-           10 * bh * tq * tk * dh, 10, dropout=rate,
+           esize * bh * (3 * tq * dh + 2 * tk * dh
+                         + (tq * dh + 2 * tk * dh)) + 4 * bh * tq,
+           10 * bh * tq * tk * dh, 10, op_rate, dropout=rate,
+           dtype=str(q.dtype).split(".")[-1],
            bit_identical=all(torch.equal(x, y) for x, y in zip(g_k, g_k2)),
            library="F.scaled_dot_product_attention forward + backward")
 
@@ -513,7 +620,11 @@ def _proj_rows(record, gen):
     configs' shapes: float32 sums of 3 (F + D) products in another order,
     1e-4 on y and h (O(1) values).  Library: two cuDNN conv1d with ReLU on
     the (B, F, T) layout with torch Conv1d weights (timed only, never
-    called by the port)."""
+    called by the port).  Then the scaled shape with a bf16 x: float32
+    math, y and h in bf16 within `bf16_tol`; the bound counts the bf16
+    bytes, conv1's products at 2xTF32's rate (x is exact in TF32) and
+    conv2's at 3xTF32's; the library is the
+    same two conv1d in bf16 (cuDNN)."""
     import torch.nn.functional as F
 
     from av_separation_torch.ops.kernels import kernel_width
@@ -521,9 +632,12 @@ def _proj_rows(record, gen):
         audio_proj_fwd, audio_proj_fwd_torch, proj_rows)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, b, t, d, _ in HEAD_SHAPES:
+    cases = [s[:4] + (torch.float32,) for s in HEAD_SHAPES] + [
+        ("scaled", 8, 501, 512, torch.bfloat16)]
+    for label, b, t, d, dtype in cases:
+        bf16 = dtype == torch.bfloat16
         f = 257
-        x = torch.randn(b, t, f, generator=gen).abs().cuda()
+        x = torch.randn(b, t, f, generator=gen).abs().to(dtype).cuda()
         lim1, lim2 = (3 * f) ** -0.5, (3 * d) ** -0.5
         w1 = ((torch.rand(3, f, d, generator=gen) * 2 - 1) * lim1).cuda()
         b1 = ((torch.rand(d, generator=gen) * 2 - 1) * lim1).cuda()
@@ -532,7 +646,9 @@ def _proj_rows(record, gen):
         x_bft = x.transpose(1, 2).contiguous()
         c1, c2 = (w.permute(2, 1, 0).contiguous() for w in (w1, w2))
 
-        def lib(x_bft=x_bft, c1=c1, b1=b1, c2=c2, b2=b2):
+        lc1, lb1, lc2, lb2 = (w.to(dtype) for w in (c1, b1, c2, b2))
+
+        def lib(x_bft=x_bft, c1=lc1, b1=lb1, c2=lc2, b2=lb2):
             return torch.relu(F.conv1d(torch.relu(F.conv1d(
                 x_bft, c1, b1, padding=1)), c2, b2, padding=1))
 
@@ -540,17 +656,27 @@ def _proj_rows(record, gen):
         y_p, h_p = audio_proj_fwd_torch(x, w1, b1, w2, b2)
         y_lib = lib().transpose(1, 2)
         torch.cuda.synchronize()
-        nbytes = 4 * (b * t * f + 3 * f * d + 3 * d * d + 2 * d
-                      + 2 * b * t * d)
-        flops = 2 * b * t * 3 * (f + d) * d
-        record("audio_proj_fwd", f"{label} B={b} T={t} F={f} D={d}",
-               max_err(y_k, y_p), 1e-4, {"h": (max_err(h_k, h_p), 1e-4)},
+        esize = 2 if bf16 else 4
+        nbytes = esize * (b * t * f + 2 * b * t * d) \
+            + 4 * (3 * f * d + 3 * d * d + 2 * d)
+        # At bf16, conv1's products (a bf16 x) take two TF32 products.
+        flops = {"2xTF32": 2 * b * t * 3 * f * d,
+                 "3xTF32": 2 * b * t * 3 * d * d} if bf16 \
+            else 2 * b * t * 3 * (f + d) * d
+        tol_y, tol_h = (bf16_tol(y_p), bf16_tol(h_p)) if bf16 \
+            else (1e-4, 1e-4)
+        record("audio_proj_fwd" + ("[bf16]" if bf16 else ""),
+               f"{label} B={b} T={t} F={f} D={d} "
+               f"{str(dtype).split('.')[-1]}",
+               max_err(y_k, y_p), tol_y, {"h": (max_err(h_k, h_p), tol_h)},
                lambda: audio_proj_fwd(x, w1, b1, w2, b2),
                lambda: audio_proj_fwd_torch(x, w1, b1, w2, b2), lib,
                nbytes, flops, 20,
                rows=proj_rows(b, t, kernel_width(d), sms),
                library_max_abs_err=max_err(y_lib, y_p),
-               library="relu(conv1d(relu(conv1d(x, W1)), W2)), cuDNN")
+               dtype=str(dtype).split(".")[-1],
+               library="relu(conv1d(relu(conv1d(x, W1)), W2)), cuDNN"
+                       + (" in bf16" if bf16 else ""))
 
 
 def _decoder_rows(record, gen):
@@ -772,10 +898,9 @@ def phase_golden(state):
                       "atol": atol, "rtol": 1e-4}
         if not within(got, g[name], atol, 1e-4):
             bad.append(name)
-    want = {"flash_attn_fwd": 2 * cfg.num_encoder_layers
-            + cfg.num_fusion_layers, "flash_attn_bwd": 0,
-            "audio_proj_fwd": 1, "mask_decoder_fwd": 1, "stft_mag_fwd": 0,
-            "stft_mag_dft_fwd": 0}
+    want = want_launches({"flash_attn_fwd": 2 * cfg.num_encoder_layers
+                          + cfg.num_fusion_layers, "audio_proj_fwd": 1,
+                          "mask_decoder_fwd": 1})
     if launches != want:
         bad.append(f"launches {launches} != {want}")
     if bad:
@@ -812,10 +937,12 @@ def phase_configs(state):
     default = ExperimentConfig()
     odd = dataclasses.replace(default, model=dataclasses.replace(
         default.model, d_model=196, nhead=4))  # dh 49, padded to 64
+    wide = dataclasses.replace(default, model=dataclasses.replace(
+        default.model, d_model=512, nhead=2))  # dh 256: two column groups
     cases = [("default", default)] + [
         (name, get_config(name))
         for name in ("three_speaker", "lrs2", "multihost")] + [
-        ("odd_width", odd)]
+        ("odd_width", odd), ("wide_head", wide)]
     for label, cfg in cases:
         m = cfg.model
         batch = batch_of(cfg)
@@ -859,27 +986,101 @@ def phase_configs(state):
         out[label] = row
 
     # One train step of the default model (dh 64: the flash backward at
-    # dh 64, and the decoder's kernel, which runs in training at dropout 0).
-    base = ExperimentConfig()
-    cfg0 = dataclasses.replace(
-        base, model=dataclasses.replace(base.model, dropout=0.0),
-        train=dataclasses.replace(base.train, batch_size=2))
-    check = _train_cpu_check(bad, cfg0, batch_of(cfg0))
-    m = cfg0.model
-    per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
-    want = {name: 0 for name in kernels.LAUNCHES}
-    want.update(flash_attn_fwd=per_step, flash_attn_bwd=per_step,
-                audio_proj_fwd=1, mask_decoder_fwd=1)
-    if check["card_launches"] != want:
-        bad.append(f"default train step: launches "
-                   f"{check['card_launches']} != {want}")
-    for name, n in check["card_launches"].items():
-        total[name] += n
+    # dh 64, and the decoder's kernel, which runs in training at dropout 0)
+    # and of wide_head (dh 256), each against float64 on the CPU.
+    checks = {}
+    for label, base in (("default", default), ("wide_head", wide)):
+        cfg0 = dataclasses.replace(
+            base, model=dataclasses.replace(base.model, dropout=0.0),
+            train=dataclasses.replace(base.train, batch_size=2))
+        check = _train_cpu_check(bad, cfg0, batch_of(cfg0))
+        m = cfg0.model
+        per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
+        want = {name: 0 for name in kernels.LAUNCHES}
+        want.update(flash_attn_fwd=per_step, flash_attn_bwd=per_step,
+                    audio_proj_fwd=1, mask_decoder_fwd=1)
+        if check["card_launches"] != want:
+            bad.append(f"{label} train step: launches "
+                       f"{check['card_launches']} != {want}")
+        for name, n in check["card_launches"].items():
+            total[name] += n
+        checks[label] = check
+    steps = _config_train_steps(bad, total)
     state["launches"]["configs"] = total
     if bad:
         raise AssertionError("; ".join(bad))
     return {"card": state["card"], "forwards_batch2": out,
-            "default_train_step_dropout0_batch2": check}
+            "default_train_step_dropout0_batch2": checks["default"],
+            "wide_head_train_step_dropout0_batch2": checks["wide_head"],
+            "train_steps": steps}
+
+
+def _config_train_steps(bad: list, total: dict) -> dict:
+    """One train step each of three_speaker, lrs2 and multihost on the
+    card, at full width and depth, their own batch (8, 8, 16) and dropout
+    0.1, on their synthetic data: loss and grad norm finite, launches per
+    step (each flash forward twice under remat: once more in the
+    backward's recompute).  multihost (remat in its config, as in JAX) is
+    also run without remat from the same weights, generators and batch:
+    loss and grad norm within 1e-6 relative (the recompute replays the
+    dropout draws; the kernels have no atomics), with the peak device
+    memory of each (max_memory_allocated over the step, the weights and
+    the Adam state included)."""
+    import dataclasses
+
+    from av_separation_torch.config import get_config
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.ops import kernels
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    out = {}
+    for name in ("three_speaker", "lrs2", "multihost"):
+        cfg = get_config(name)
+        n = cfg.train.batch_size
+        data = dataclasses.replace(cfg.data, num_samples=n)
+        batch = next(batch_iterator(SyntheticAVDataset(data), n, seed=0))
+        runs = [(name, cfg)]
+        if name == "multihost":
+            runs.append(("multihost_no_remat", dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, remat=False))))
+        for label, c in runs:
+            m = c.model
+            ts = create_train_state(c, device="cuda")
+            step = make_train_step(c)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            ts, met = step(ts, batch)
+            loss, norm = float(met["loss"]), float(met["grad_norm"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            del ts, step, met
+            torch.cuda.empty_cache()
+            for k_, v_ in launches.items():
+                total[k_] += v_
+            per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
+            want = {k_: 0 for k_ in kernels.LAUNCHES}
+            want.update(flash_attn_fwd=per_step * (2 if m.remat else 1),
+                        flash_attn_bwd=per_step, audio_proj_fwd=1)
+            out[label] = {"batch": n, "remat": m.remat,
+                          "dropout": m.dropout, "loss": loss,
+                          "grad_norm": norm, "ms": ms,
+                          "peak_mem_gb": peak, "launches": launches}
+            if not (np.isfinite(loss) and np.isfinite(norm)):
+                bad.append(f"{label} step: loss {loss}, grad norm {norm}")
+            if launches != want:
+                bad.append(f"{label} step: launches {launches} != {want}")
+    r, p = out["multihost"], out["multihost_no_remat"]
+    for key in ("loss", "grad_norm"):
+        rel = abs(r[key] - p[key]) / abs(p[key])
+        out[f"remat_vs_plain_{key}_rel"] = [rel, 1e-6]
+        if rel > 1e-6:
+            bad.append(f"multihost remat {key} {r[key]} vs {p[key]}")
+    return out
 
 
 def phase_serve(state):
@@ -946,9 +1147,9 @@ def phase_serve(state):
                 and masks.max() <= 1.0):
             bad.append(f"request {i}: masks outside [0, 1]")
     batches = stats["batches"]
-    want = {"flash_attn_fwd": 16 * batches, "flash_attn_bwd": 0,
-            "audio_proj_fwd": batches, "mask_decoder_fwd": batches,
-            "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0}
+    want = want_launches({"flash_attn_fwd": 16 * batches,
+                          "audio_proj_fwd": batches,
+                          "mask_decoder_fwd": batches})
     per_forward = 2 * cfg.model.num_encoder_layers \
         + cfg.model.num_fusion_layers
     if per_forward != 16 or launches != want:
@@ -1303,9 +1504,10 @@ def phase_serve_http(state):
     # launches 16 attention, 1 projection and 1 decoder kernel.
     forwards = stats.get("batches", 0) + int(warm.split()[2] or 0) \
         if warm else None
-    want = {"flash_attn_fwd": 16 * forwards, "flash_attn_bwd": 0,
-            "audio_proj_fwd": forwards, "mask_decoder_fwd": forwards,
-            "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0} if forwards else None
+    want = want_launches({"flash_attn_fwd": 16 * forwards,
+                          "audio_proj_fwd": forwards,
+                          "mask_decoder_fwd": forwards}) \
+        if forwards else None
     if launches is None or launches != want:
         bad.append(f"server launches {launches} != {want}")
 
@@ -1439,9 +1641,8 @@ def phase_train(state):
     ts = create_train_state(cfg, device="cuda")
     step = make_train_step(cfg)
     per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
-    want = {"flash_attn_fwd": per_step, "flash_attn_bwd": per_step,
-            "audio_proj_fwd": 1, "mask_decoder_fwd": 0, "stft_mag_fwd": 0,
-            "stft_mag_dft_fwd": 0}
+    want = want_launches({"flash_attn_fwd": per_step,
+                          "flash_attn_bwd": per_step, "audio_proj_fwd": 1})
     n_steps, rows, bad = 6, [], []
     total = {name: 0 for name in kernels.LAUNCHES}
     for i in range(n_steps):
@@ -1675,9 +1876,8 @@ def phase_train_device(state):
         raise AssertionError(f"not the scaled config: {m}")
     base = ["train", "--config", "scaled", "--batch", "8", "--data",
             "device"]
-    per_step = {"flash_attn_fwd": 16, "flash_attn_bwd": 16,
-                "audio_proj_fwd": 1, "mask_decoder_fwd": 0,
-                "stft_mag_fwd": 1, "stft_mag_dft_fwd": 0}
+    per_step = want_launches({"flash_attn_fwd": 16, "flash_attn_bwd": 16,
+                              "audio_proj_fwd": 1, "stft_mag_fwd": 1})
     runs, bad = {}, []
     total = {name: 0 for name in per_step}
     for label, extra, steps in (("fused", ["--fused"], 20),
@@ -1785,6 +1985,248 @@ def phase_train_device_profile(state):
             **device_split(prof, 2, traced_ms, "step")}
 
 
+# The bf16 train step against the float32 one, relative to the float32
+# step's loss and grad norm.  An NVIDIA H100 80GB HBM3 at 700 W measured
+# 1.06e-3 and 5.1e-4 (scaled config, batch 8, dropout 0.1; the forward is
+# deterministic, so the loss's reading repeats).  A step faulted on half
+# the batch or without the attention dropout must exceed one limit: the
+# latter moved the loss 3.1e-3 and the grad norm only 4.8e-4.
+TRAIN_BF16_RTOL = {"loss": 2e-3, "grad_norm": 2e-3}
+
+
+def phase_bf16(state):
+    """bfloat16 compute on the card (the JAX bench's dtype).
+
+    - serve: the scaled config at full width and depth (seeded weights) at
+      compute_dtype bfloat16 through a Separator on the card: one waveform
+      batch of 8 (4 s, 200 lip frames), launches counted (16 flash, 1
+      projection, 1 decoder, all bf16 but the float32 decoder).  Against
+      the port's own bf16 forward on the CPU for the first 2 rows (masks
+      within 2e-2: bf16 rounding flips that compound over 10 layers on
+      each side; waveforms within 2e-2 x peak), and against the card's
+      float32 Separator on all 8 (the JAX rule, tests/test_train.py:87-102:
+      separated spectra within 0.5).
+    - train: one scaled step at dropout 0.1 and batch 8, bf16 against
+      float32 from the same weights, generators and batch (the same
+      dropout draws): loss and grad norm finite and within
+      `TRAIN_BF16_RTOL` of the float32 step's, launches per step
+      16 / 16 / 1 / 0, all bf16 instances.  Two faulted bf16 steps (half
+      the batch; no attention dropout) must fall outside those limits.
+    - demo: the 100-step demo at bf16 must pass +35 dB.
+    Launches are kept apart from the float32 paths' (the [bf16] kernel
+    entries)."""
+    import dataclasses
+
+    from av_separation_torch import demo
+    from av_separation_torch.config import get_config
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.inference import Separator
+    from av_separation_torch.models.layers import MultiHeadAttention
+    from av_separation_torch.models.model import build_model
+    from av_separation_torch.ops import kernels
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    bad, out = [], {}
+    by_path = state["launches"]
+    cfg = get_config("scaled")
+    m16 = dataclasses.replace(cfg.model, compute_dtype="bfloat16")
+    state_dict = build_model(cfg.model, device="cpu", seed=0).state_dict()
+    ds = SyntheticAVDataset(cfg.data)
+    mixes, lips = [], []
+    for i in range(8):
+        audios, rng = ds.clean_audios(i)
+        mixes.append(audios.sum(axis=0).astype(np.float32))
+        lips.append(ds.lip_stream(audios, rng))
+    mixes, lips = np.stack(mixes), np.stack(lips)
+
+    sep16 = Separator(m16, state_dict, cfg.data, device="cuda")
+    sep16.separate_waveform(mixes, lips)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sep16.separate_waveform(mixes, lips)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    by_path["bf16_serve"] = launches
+    want = want_launches({"flash_attn_fwd[bf16]": 16,
+                          "audio_proj_fwd[bf16]": 1, "mask_decoder_fwd": 1})
+    if launches != want:
+        bad.append(f"serve launches {launches} != {want}")
+    f32 = Separator(cfg.model, state_dict, cfg.data,
+                    device="cuda").separate_waveform(mixes, lips)
+    cpu = Separator(m16, state_dict, cfg.data,
+                    device="cpu").separate_waveform(mixes[:2], lips[:2])
+    mask_err = float(np.abs(got["masks"][:2] - cpu["masks"]).max())
+    wpeak = float(np.abs(cpu["waveforms"]).max())
+    wave_err = float(np.abs(got["waveforms"][:2] - cpu["waveforms"]).max())
+    sep = got["masks"] * got["mixed_spec"][:, None]
+    sep32 = f32["masks"] * f32["mixed_spec"][:, None]
+    rule_err = float(np.abs(sep - sep32).max())
+    finite = all(np.isfinite(a).all() for a in got.values())
+    if not finite or got["waveforms"].dtype != np.float32:
+        bad.append("serve: outputs not finite float32")
+    if mask_err > 2e-2 or wave_err > 2e-2 * wpeak:
+        bad.append(f"serve vs CPU bf16: masks {mask_err}, waves {wave_err}")
+    if rule_err > 0.5:
+        bad.append(f"serve vs card float32: separated {rule_err} > 0.5")
+    out["serve"] = {"batch": 8, "ms": batch_ms, "launches": launches,
+                    "vs_cpu_bf16_rows2": {"mask_max_abs_err": [mask_err,
+                                                               2e-2],
+                                          "wave_max_abs_err": [
+                                              wave_err, 2e-2 * wpeak]},
+                    "vs_card_float32_separated_max_abs_err": [rule_err,
+                                                              0.5],
+                    "vs_card_float32_mask_max_abs_err": float(np.abs(
+                        got["masks"] - f32["masks"]).max())}
+
+    cfg_t, batches = _scaled_train_setup(0.1, 8, 8)
+    batch = next(batches)
+    half = {k: v[:4] for k, v in batch.items()}
+
+    def no_attn_dropout(model):
+        for mod in model.modules():
+            if isinstance(mod, MultiHeadAttention):
+                mod.dropout = 0.0
+
+    # The bf16 step, the float32 step, then two faulted bf16 steps that
+    # the check must refuse: one on half the batch, one that skips the
+    # attention dropout.
+    runs = {}
+    for label, dtype, data, fault in (
+            ("bfloat16", "bfloat16", batch, None),
+            ("float32", "float32", batch, None),
+            ("control_half_batch", "bfloat16", half, None),
+            ("control_no_attn_dropout", "bfloat16", batch,
+             no_attn_dropout)):
+        c = dataclasses.replace(cfg_t, model=dataclasses.replace(
+            cfg_t.model, compute_dtype=dtype))
+        ts = create_train_state(c, device="cuda")
+        if fault is not None:
+            fault(ts.model)
+        step = make_train_step(c)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts, met = step(ts, data)
+        loss, norm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        if label == "bfloat16":
+            by_path["bf16_train"] = launches
+            # A second bf16 step: its time without the first's set-up.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, met = step(ts, batch)
+            float(met["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        runs[label] = {"loss": loss, "grad_norm": norm, "ms": ms,
+                       "launches": launches}
+        del ts, step
+    t16, t32 = runs["bfloat16"], runs["float32"]
+    want = want_launches({"flash_attn_fwd[bf16]": 16,
+                          "flash_attn_bwd[bf16]": 16,
+                          "audio_proj_fwd[bf16]": 1})
+    if t16["launches"] != want:
+        bad.append(f"train launches {t16['launches']} != {want}")
+    if not (np.isfinite(t16["loss"]) and np.isfinite(t16["grad_norm"])):
+        bad.append(f"train: {t16}")
+
+    def rel_diffs(run):
+        return {key: abs(run[key] - t32[key]) / abs(t32[key])
+                for key in ("loss", "grad_norm")}
+
+    checks = {label: rel_diffs(run) for label, run in runs.items()
+              if label != "float32"}
+    for label, diffs in checks.items():
+        held = all(diffs[key] <= TRAIN_BF16_RTOL[key] for key in diffs)
+        if held != (label == "bfloat16"):
+            bad.append(f"train {label} vs float32: relative {diffs}, "
+                       f"limits {TRAIN_BF16_RTOL} (all: {checks})")
+    out["train"] = {"config": "scaled", "batch": 8, "dropout": 0.1,
+                    **runs, "rel_diff_vs_float32": checks,
+                    "rtol": TRAIN_BF16_RTOL}
+
+    lines = []
+    kernels.reset_launch_counts()
+    res = demo.run(device="cuda", log=lines.append, dtype="bfloat16")
+    launches = by_path["bf16_demo"] = dict(kernels.LAUNCHES)
+    print("\n".join(lines), file=sys.stderr, flush=True)
+    if not res["passed"]:
+        bad.append(f"bf16 demo gate: {res}")
+    if not _bf16_instances_only(launches):
+        bad.append(f"bf16 demo launches {launches}")
+    out["demo"] = {"gate_db": demo.PASS_DB, **res, "launches": launches}
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"card": state["card"], **out}
+
+
+# The kernels with a bfloat16 instance: a bf16-compute run launches those
+# instances and never the float32 ones (the decoder and the STFT stay
+# float32 at every compute dtype).
+BF16_WRAPPERS = ("flash_attn_fwd", "flash_attn_bwd", "audio_proj_fwd")
+
+
+def _bf16_instances_only(launches: dict) -> bool:
+    return all(launches[n] == 0 and launches[n + "[bf16]"] > 0
+               for n in BF16_WRAPPERS)
+
+
+def _float32_instances_only(launches: dict) -> bool:
+    return all(launches[n] > 0 and launches[n + "[bf16]"] == 0
+               for n in BF16_WRAPPERS)
+
+
+def phase_bench(state):
+    """`python -m av_separation_torch.cli bench` in process: at the JAX
+    bench's defaults (demo, batch 128, bfloat16, fused, 250 steps), then
+    per_step and float32 at 50 steps each.  Each JSON line is printed; the
+    line must carry the JAX keys and, on an H100, the roofline fields.
+    The bf16 runs must launch the [bf16] instances of the flash pair and
+    the projection and none of their float32 ones; the float32 run the
+    reverse."""
+    import contextlib
+    import io
+
+    from av_separation_torch import cli
+    from av_separation_torch.ops import kernels
+
+    out, bad = {}, []
+    runs = (("defaults", []),
+            ("per_step", ["--mode", "per_step", "--steps", "50"]),
+            ("float32", ["--dtype", "float32", "--steps", "50"]))
+    for label, extra in runs:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", *extra])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        print("\n".join(lines), flush=True)
+        line = json.loads(lines[-1]) if lines else {}
+        state["launches"]["bench_" + label] = launches
+        only = _float32_instances_only if label == "float32" \
+            else _bf16_instances_only
+        if not only(launches):
+            bad.append(f"bench {label}: launches {launches}")
+        need = {"metric", "value", "unit", "vs_baseline"}
+        if "H100" in torch.cuda.get_device_name(0):
+            need |= {"device", "pct_peak_flops", "bound", "pct_roofline"}
+        if rc != 0 or len(lines) != 1 or not need <= set(line):
+            bad.append(f"bench {label}: rc {rc}, lines {lines}")
+        out[label] = {"argv": ["bench", *extra], "line": line,
+                      "wall_s": wall, "launches": launches}
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"card": state["card"], **out}
+
+
 def phase_demo(state):
     from av_separation_torch import demo
     from av_separation_torch.ops import kernels
@@ -1797,34 +2239,37 @@ def phase_demo(state):
     state["launches"]["demo"] = launches
     if not out["passed"]:
         raise AssertionError(f"demo gate failed: {out}")
-    if not all(launches[n] > 0 for n in ("flash_attn_fwd", "flash_attn_bwd",
-                                         "audio_proj_fwd")):
+    if not _float32_instances_only(launches):
         raise AssertionError(f"demo launches {launches}")
     return {"config": "demo", "card": state["card"], **out,
             "gate_db": demo.PASS_DB, "launches": launches}
 
 
 def kernel_summary(state):
-    """One entry per kernel: errors are the worst over the shapes checked;
-    times and the bound are those of the first scaled shape at the rate of
-    the kernel's main path (serving at dropout 0, the backward at the
-    training rate 0.1); launches are summed over the serve, train,
-    device_data, train_device and demo runs, each counted from 0."""
+    """One entry per kernel (and per bf16 instance): errors are the worst
+    over the shapes checked; times and the bound are those of the first
+    scaled shape at the rate of the kernel's main path (serving at dropout
+    0, the backward at the training rate 0.1); launches are summed over
+    the paths' runs, each counted from 0 (configs, serve, stream,
+    serve_http, train, device_data, train_device, bf16, bench and demo),
+    and each wrapper counts a launch under its instance's entry."""
     rows = state.get("kernel_rows", {})
-    by_path = state.get("launches", {})
     out = []
     for name, meta in KERNELS.items():
         mine = rows.get(name, [])
         rate = meta.get("head_rate", 0.0)
         head = next((r for r in mine if r.get("dropout", 0.0) == rate),
                     mine[0] if mine else {})
+        by_path = state.get("launches", {})
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
             "also_replaces": meta["also_replaces"],
+            "dtype": meta.get("dtype", "float32"),
             "launches": sum(p.get(name, 0) for p in by_path.values()),
-            "launches_by_path": {path: p.get(name, 0)
-                                 for path, p in by_path.items()},
+            "launches_by_path": {path: p[name]
+                                 for path, p in by_path.items()
+                                 if p.get(name)},
             "max_abs_err": max((r["max_abs_err"] for r in mine),
                                default=None),
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
@@ -1862,6 +2307,7 @@ def main() -> int:
                         ("device_data", phase_device_data),
                         ("train_device", phase_train_device),
                         ("train_device_profile", phase_train_device_profile),
+                        ("bf16", phase_bf16), ("bench", phase_bench),
                         ("demo", phase_demo)):
         t0 = time.perf_counter()
         try:

@@ -116,8 +116,7 @@ def test_eval_and_separate_read_the_checkpoint(capsys, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["train", "--data", "native"], ["train", "--data", "files"],
     ["train", "--mesh-data", "2"], ["train", "--impl", "pallas"],
-    ["train", "--dtype", "bfloat16"], ["train", "--debug-nans"],
-    ["bench"]])
+    ["train", "--debug-nans"]])
 def test_flags_and_commands_still_to_port_are_refused(argv):
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--cpu"])
@@ -192,7 +191,9 @@ def test_serve_answers_over_http_and_stops_on_sigint():
     assert json.loads(out.splitlines()[-1]) == {"kernel_launches": {
         name: 0 for name in ("flash_attn_fwd", "flash_attn_bwd",
                              "audio_proj_fwd", "mask_decoder_fwd",
-                             "stft_mag_fwd", "stft_mag_dft_fwd")}}
+                             "stft_mag_fwd", "stft_mag_dft_fwd",
+                             "flash_attn_fwd[bf16]", "flash_attn_bwd[bf16]",
+                             "audio_proj_fwd[bf16]")}}
     assert "untrained init" in err
 
 

@@ -200,14 +200,29 @@ class TestStft:
 
 
 class TestDispatch:
+    def test_launches_are_counted_per_instance(self):
+        kernels.reset_launch_counts()
+        kernels.count_launch("flash_attn_fwd", torch.float32)
+        kernels.count_launch("flash_attn_fwd", torch.bfloat16)
+        kernels.count_launch("flash_attn_fwd", torch.bfloat16)
+        kernels.count_launch("audio_proj_fwd", torch.bfloat16)
+        assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
+            "flash_attn_fwd": 1, "flash_attn_fwd[bf16]": 2,
+            "audio_proj_fwd[bf16]": 1}
+        kernels.reset_launch_counts()
+        assert not any(kernels.LAUNCHES.values())
+
     def test_cpu_tensors_launch_no_kernel(self):
         kernels.reset_launch_counts()
         q = torch.from_numpy(rand((1, 2, 5, 32), 18))
-        o, lse = flash_attn_fwd(q, q, q, 0.1, SEED)
-        flash_attn_bwd(q, q, q, o, o, lse, 0.1, SEED)
+        for q in (q, q.to(torch.bfloat16)):
+            o, lse = flash_attn_fwd(q, q, q, 0.1, SEED)
+            flash_attn_bwd(q, q, q, o, o, lse, 0.1, SEED)
         d = 64
-        audio_proj_fwd(torch.zeros(1, 4, 8), torch.zeros(3, 8, d),
-                       torch.zeros(d), torch.zeros(3, d, d), torch.zeros(d))
+        for dtype in (torch.float32, torch.bfloat16):
+            audio_proj_fwd(torch.zeros(1, 4, 8, dtype=dtype),
+                           torch.zeros(3, 8, d), torch.zeros(d),
+                           torch.zeros(3, d, d), torch.zeros(d))
         mask_decoder_fwd(torch.zeros(1, 4, d), torch.zeros(2 * d, d),
                          torch.zeros(2 * d), torch.zeros(2 * 3, 2 * d),
                          torch.zeros(2 * 3), torch.zeros(1, 3, 4), 2)
@@ -219,7 +234,10 @@ class TestDispatch:
                                     "audio_proj_fwd": 0,
                                     "mask_decoder_fwd": 0,
                                     "stft_mag_fwd": 0,
-                                    "stft_mag_dft_fwd": 0}
+                                    "stft_mag_dft_fwd": 0,
+                                    "flash_attn_fwd[bf16]": 0,
+                                    "flash_attn_bwd[bf16]": 0,
+                                    "audio_proj_fwd[bf16]": 0}
 
     # The flash kernels' head dims: demo (32), the reference's default
     # model ModelConfig() (d 256 / 4 heads = 64), every wider config (128).
@@ -240,9 +258,28 @@ class TestDispatch:
     def test_head_dims_pad_to_the_next_built_one(self, dh, width):
         assert padded_head_dim(dh) == width
 
-    def test_head_dims_above_128_are_refused(self):
-        with pytest.raises(ValueError, match="head dim 256 exceeds"):
-            padded_head_dim(256)
+    @pytest.mark.parametrize("dh", [129, 200, 256])
+    def test_head_dims_above_128_pad_to_two_column_groups(self, dh):
+        # Above 128 the kernels run dh 256 as two groups of 128 output
+        # columns; the wrapper pads q, k, v (and o, dO) with zero columns.
+        from av_separation_torch.ops.kernels.attention import _check
+        assert padded_head_dim(dh) == 256
+        q = torch.zeros(2, 2, 9, dh)
+        seen = []
+
+        def fwd(q, k, v, rate, seed, scale=None):
+            seen.append((tuple(q.shape), scale))
+            _check(q, k, v)
+            return q, q[..., 0]
+
+        o, _ = padded_fwd(fwd, q, q, q)
+        assert seen == [((2, 2, 9, 256), None if dh == 256
+                         else 1.0 / np.sqrt(dh))]
+        assert o.shape == q.shape
+
+    def test_head_dims_above_256_are_refused(self):
+        with pytest.raises(ValueError, match="head dim 257 exceeds"):
+            padded_head_dim(257)
 
     def test_other_devices_raise(self):
         q = torch.empty(1, 2, 5, 32, device="meta")

@@ -193,11 +193,6 @@ class TestModelContract:
         assert not torch.equal(a["decoder.decoder.3.weight"],
                                c["decoder.decoder.3.weight"])
 
-    def test_only_float32(self):
-        with pytest.raises(NotImplementedError, match="float32"):
-            AVSeparationTransformer(ModelConfig(**SMALL,
-                                                compute_dtype="bfloat16"))
-
     def test_training_mode_raises(self):
         """Training with dropout draws from explicit generators: a
         training-mode forward without them raises."""
