@@ -1,5 +1,5 @@
 // Flash attention backward, float32 on the tensor cores in 3xTF32 and
-// bfloat16 in bf16 products, for Hopper (sm_90a).
+// bfloat16 above head dim 256 in bf16 products, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_bwd_hpacked_kernel`
 // (packed (B, T, H*dh) layout, `_flash_hpacked_bwd_rule`),
@@ -70,19 +70,25 @@
 //   tiles (query tiles in dK/dV, key tiles in dQ), and the second hands its
 //   accumulators to the first through the idle ring, which adds them in a
 //   fixed order.
-// - bfloat16 (the Pallas rules at bf16, attention.py:238-263, :418-443,
-//   :711-810): the same kernels with bf16 operands in mma.sync.m16n8k16
-//   products and float32 accumulators; delta = sum(dO * O) in float32; the
-//   operands the Pallas kernels round are rounded here: pd to bf16 for
-//   dV = pd^T dO, ds to bf16 for dQ = ds K and dK = ds^T Q.  A 16-query
-//   (16-key) tile is one k16 step; two C fragments are its A fragment as
-//   they stand (mma_bf16.cuh).  dQ, dK and dV are stored in bf16.
+// - bfloat16 runs here only above dh 256 (up to 256 it runs on
+//   flash_bwd_wgmma.cu), at the Pallas rules at bf16 (attention.py:238-263,
+//   :418-443, :711-810): the same kernels with bf16 operands in
+//   mma.sync.m16n8k16 products and float32 accumulators; delta =
+//   sum(dO * O) in float32; pd rounded to bf16 for dV = pd^T dO, ds to
+//   bf16 for dQ = ds K and dK = ds^T Q.  A 16-query (16-key) tile is one
+//   k16 step; two C fragments are its A fragment as they stand
+//   (mma_bf16.cuh).  dQ, dK and dV are stored in bf16.
 // - Head dims above 128 (a column split, as the forward): dh is padded to
 //   256 and each dK/dV (dQ) block owns one group of 128 output columns
 //   (blockIdx.z).  It recomputes S and dP over all 256 columns (K, V, Q
 //   and dO staged at full width) and accumulates only its own columns, so
 //   a warp holds the accumulators of dh 128.  200 KB of shared memory at
 //   float32: one 4-warp block an SM.
+// - Head dims above 256 (any multiple of 128, `flash_bwd_*_kernel_wide`):
+//   the same column split, but S^T and dP^T (S and dP) are summed over
+//   128-column chunks that stream through the ring with the tile's rows;
+//   a last step stages the rows' own columns (Q and dO for dK/dV, K for
+//   dQ).  K and V (Q and dO) are re-read from L2 for every tile.
 // - Rows past T are zero-filled by the copies; a query past Tq gets lse
 //   +inf in the dK/dV kernel (p = 0), a key past Tk gets p = 0 in the dQ
 //   kernel, and neither is stored.
@@ -235,6 +241,26 @@ flash_bwd_delta_kernel(const Params p) {
   if (lane == 0) p.delta[(long long)bh * p.Tq + t] = acc;
 }
 
+// The same at a run-time head dim (above 256).
+template <typename T>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_kernel_wide(const Params p, int dh) {
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int t = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
+  if (t >= p.Tq) return;
+  const T* orow = head<T>(p.o, p.so, b, h) + t * p.so[2];
+  const T* drow = head<T>(p.dout, p.sdo, b, h) + t * p.sdo[2];
+  float acc = 0.f;
+  for (int d = lane; d < dh; d += 32)
+    acc = fmaf(to_float(drow[d]), to_float(orow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[(long long)bh * p.Tq + t] = acc;
+}
+
 // ---------------------------------------------------------------------------
 // dK, dV: a block owns kBlock keys (and DV output columns) and walks the
 // query tiles.
@@ -262,7 +288,6 @@ __global__ void __launch_bounds__(DkvLayout<T, DQK, DV, SPLIT>::kThreads,
                                   DQK > DV ? 1 : 3 - SPLIT)
 flash_bwd_dkv_kernel(const Params p) {
   using L = DkvLayout<T, DQK, DV, SPLIT>;
-  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kS = L::kS;
   constexpr int kRows = L::kRows;
   constexpr int kThreads = L::kThreads;
@@ -362,49 +387,28 @@ flash_bwd_dkv_kernel(const Params p) {
       for (int n = 0; n < kQN; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      if constexpr (kF32) {
-        // Two k-steps at a time, one in the split block (the second
-        // spilled there).
+      // Two k-steps at a time, one in the split block (the second
+      // spilled there).
 #pragma unroll(SPLIT == 1 ? 2 : 1)
-        for (int kk = 0; kk < DQK / 8; ++kk) {
-          unsigned ab[4], as[4];
-          load_a<kS>(kt, kk * 8, g, t, ab, as);
+      for (int kk = 0; kk < DQK / 8; ++kk) {
+        unsigned ab[4], as[4];
+        load_a<kS>(kt, kk * 8, g, t, ab, as);
 #pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
-            unsigned bb[2], bs[2];
-            split(qr[0], bb[0], bs[0]);
-            split(qr[4], bb[1], bs[1]);
-            mma_3xtf32(s[n], ab, as, bb, bs);
-          }
-          load_a<kS>(vt, kk * 8, g, t, ab, as);
-#pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
-            unsigned bb[2], bs[2];
-            split(orow[0], bb[0], bs[0]);
-            split(orow[4], bb[1], bs[1]);
-            mma_3xtf32(dp[n], ab, as, bb, bs);
-          }
+        for (int n = 0; n < kQN; ++n) {
+          const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(qr[0], bb[0], bs[0]);
+          split(qr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], ab, as, bb, bs);
         }
-      } else {
-#pragma unroll 2
-        for (int kk = 0; kk < DQK / 16; ++kk) {
-          unsigned a[4];
-          load_a_bf16<kS>(kt, kk * 16, g, t, a);
+        load_a<kS>(vt, kk * 8, g, t, ab, as);
 #pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kS>(sQ, n * 8, kk * 16, g, t, bb);
-            mma_bf16(s[n], a, bb);
-          }
-          load_a_bf16<kS>(vt, kk * 16, g, t, a);
-#pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kS>(sO, n * 8, kk * 16, g, t, bb);
-            mma_bf16(dp[n], a, bb);
-          }
+        for (int n = 0; n < kQN; ++n) {
+          const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(orow[0], bb[0], bs[0]);
+          split(orow[4], bb[1], bs[1]);
+          mma_3xtf32(dp[n], ab, as, bb, bs);
         }
       }
 
@@ -435,50 +439,31 @@ flash_bwd_dkv_kernel(const Params p) {
         }
       }
 
-      if constexpr (kF32) {
-        // dV += Pd^T dO, dK += dS^T Q: the C fragments as A operands, the
-        // dO and Q rows n * 8 + 2t, + 1 as B.
+      // dV += Pd^T dO, dK += dS^T Q: the C fragments as A operands, the
+      // dO and Q rows n * 8 + 2t, + 1 as B.
 #pragma unroll
-        for (int n = 0; n < kQN; ++n) {
-          unsigned ab[4], as[4];
-          c_as_a(s[n], ab, as);
-          const float* orow = sO + (n * 8 + 2 * t) * kS + col0 + g;
-#pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(orow[dn * 8], bb[0], bs[0]);
-            split(orow[kS + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(dv[dn], ab, as, bb, bs);
-          }
-          c_as_a(dp[n], ab, as);
-          const float* qr = sQ + (n * 8 + 2 * t) * kS + col0 + g;
-#pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(qr[dn * 8], bb[0], bs[0]);
-            split(qr[kS + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(dk[dn], ab, as, bb, bs);
-          }
-        }
-      } else {
-        // dV += bf16(Pd)^T dO, dK += bf16(dS)^T Q: the 16 queries of the
-        // tile are one k16 step.
-        unsigned a[4];
-        c_pair_as_a(s[0], s[1], a);
+      for (int n = 0; n < kQN; ++n) {
+        unsigned ab[4], as[4];
+        c_as_a(s[n], ab, as);
+        const float* orow = sO + (n * 8 + 2 * t) * kS + col0 + g;
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
-          unsigned bb[2];
-          load_b_cols<kS>(sO, 0, col0 + dn * 8, g, t, bb);
-          mma_bf16(dv[dn], a, bb);
+          unsigned bb[2], bs[2];
+          split(orow[dn * 8], bb[0], bs[0]);
+          split(orow[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dv[dn], ab, as, bb, bs);
         }
-        c_pair_as_a(dp[0], dp[1], a);
+        c_as_a(dp[n], ab, as);
+        const float* qr = sQ + (n * 8 + 2 * t) * kS + col0 + g;
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
-          unsigned bb[2];
-          load_b_cols<kS>(sQ, 0, col0 + dn * 8, g, t, bb);
-          mma_bf16(dk[dn], a, bb);
+          unsigned bb[2], bs[2];
+          split(qr[dn * 8], bb[0], bs[0]);
+          split(qr[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dk[dn], ab, as, bb, bs);
         }
       }
+
     }
     __syncthreads();  // the stage just read is the next copy's target
   }
@@ -525,7 +510,6 @@ __global__ void __launch_bounds__(DqLayout<T, DQK, DV, SPLIT>::kThreads,
                                   DQK > DV ? 1 : 3 - SPLIT)
 flash_bwd_dq_kernel(const Params p) {
   using L = DqLayout<T, DQK, DV, SPLIT>;
-  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kS = L::kS;
   constexpr int kThreads = L::kThreads;
   constexpr int kDN = DV / 8;      // 8-wide column tiles of dQ
@@ -603,39 +587,22 @@ flash_bwd_dq_kernel(const Params p) {
       for (int n = 0; n < kKN; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      if constexpr (kF32) {
 #pragma unroll 2
-        for (int kk = 0; kk < DQK / 8; ++kk) {
-          unsigned qab[4], qas[4], oab[4], oas[4];
-          load_a<kS>(qw, kk * 8, g, t, qab, qas);
-          load_a<kS>(ow, kk * 8, g, t, oab, oas);
+      for (int kk = 0; kk < DQK / 8; ++kk) {
+        unsigned qab[4], qas[4], oab[4], oas[4];
+        load_a<kS>(qw, kk * 8, g, t, qab, qas);
+        load_a<kS>(ow, kk * 8, g, t, oab, oas);
 #pragma unroll
-          for (int n = 0; n < kKN; ++n) {
-            const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
-            const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
-            unsigned bb[2], bs[2];
-            split(kr[0], bb[0], bs[0]);
-            split(kr[4], bb[1], bs[1]);
-            mma_3xtf32(s[n], qab, qas, bb, bs);
-            split(vr[0], bb[0], bs[0]);
-            split(vr[4], bb[1], bs[1]);
-            mma_3xtf32(dp[n], oab, oas, bb, bs);
-          }
-        }
-      } else {
-#pragma unroll 2
-        for (int kk = 0; kk < DQK / 16; ++kk) {
-          unsigned qa[4], oa[4];
-          load_a_bf16<kS>(qw, kk * 16, g, t, qa);
-          load_a_bf16<kS>(ow, kk * 16, g, t, oa);
-#pragma unroll
-          for (int n = 0; n < kKN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kS>(sK, n * 8, kk * 16, g, t, bb);
-            mma_bf16(s[n], qa, bb);
-            load_b_rows<kS>(sV, n * 8, kk * 16, g, t, bb);
-            mma_bf16(dp[n], oa, bb);
-          }
+        for (int n = 0; n < kKN; ++n) {
+          const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+          const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(kr[0], bb[0], bs[0]);
+          split(kr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], qab, qas, bb, bs);
+          split(vr[0], bb[0], bs[0]);
+          split(vr[4], bb[1], bs[1]);
+          mma_3xtf32(dp[n], oab, oas, bb, bs);
         }
       }
 
@@ -659,32 +626,21 @@ flash_bwd_dq_kernel(const Params p) {
         }
       }
 
-      if constexpr (kF32) {
-        // dQ += ds K: ds as the A operand, K rows n * 8 + 2t, + 1 as B.
+      // dQ += ds K: ds as the A operand, K rows n * 8 + 2t, + 1 as B.
 #pragma unroll
-        for (int n = 0; n < kKN; ++n) {
-          unsigned ab[4], as[4];
-          c_as_a(s[n], ab, as);
-          const float* kr = sK + (n * 8 + 2 * t) * kS + col0 + g;
-#pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(kr[dn * 8], bb[0], bs[0]);
-            split(kr[kS + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(dq[dn], ab, as, bb, bs);
-          }
-        }
-      } else {
-        // dQ += bf16(ds) K: the 16 keys of the tile are one k16 step.
-        unsigned a[4];
-        c_pair_as_a(s[0], s[1], a);
+      for (int n = 0; n < kKN; ++n) {
+        unsigned ab[4], as[4];
+        c_as_a(s[n], ab, as);
+        const float* kr = sK + (n * 8 + 2 * t) * kS + col0 + g;
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
-          unsigned bb[2];
-          load_b_cols<kS>(sK, 0, col0 + dn * 8, g, t, bb);
-          mma_bf16(dq[dn], a, bb);
+          unsigned bb[2], bs[2];
+          split(kr[dn * 8], bb[0], bs[0]);
+          split(kr[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dq[dn], ab, as, bb, bs);
         }
       }
+
     }
     __syncthreads();  // the stage just read is the next copy's target
   }
@@ -702,31 +658,513 @@ flash_bwd_dq_kernel(const Params p) {
                          q0 + rw * 16, p.Tq, lane);
 }
 
-template <typename Kernel>
+// ---------------------------------------------------------------------------
+// Head dims above 256 (any multiple of 128): the column split of dh 256,
+// with S^T (S) and dP^T (dP) summed over 128-column chunks that stream
+// through the ring instead of being staged at full width.
+// ---------------------------------------------------------------------------
+// dK/dV: a block owns 64 keys and one group of 128 output columns.  For
+// each 16-row query tile, steps c < nc stage chunk c of K, V, Q and dO;
+// step nc stages the block's columns of Q and dO with the rows' lse, delta
+// and hash words.  K and V are re-read from L2 for every query tile.
+template <typename T>
+struct WideDkvLayout {
+  static constexpr int kS = kGroup + 16 / sizeof(T);
+  static constexpr int kKV = kBlock * kS;   // a chunk of K or V
+  static constexpr int kRows = kTile * kS;  // a chunk of Q or dO
+  static constexpr int kOperands = 2 * kKV + 2 * kRows;
+  static constexpr int kStage = kOperands + 4 * kTile * (4 / sizeof(T));
+  static constexpr size_t kBytes = 2 * kStage * sizeof(T);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+flash_bwd_dkv_kernel_wide(const Params p, int nc) {
+  using L = WideDkvLayout<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kS = L::kS;
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kDN = kGroup / 8;
+  constexpr int kQN = kTile / 8;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int kw = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.x * kBlock;
+  const int col0 = blockIdx.z * kGroup;
+  const T* qb = head<T>(p.q, p.sq, b, h);
+  const T* ob = head<T>(p.dout, p.sdo, b, h);
+  const T* kb = head<T>(p.k, p.sk, b, h);
+  const T* vb = head<T>(p.v, p.sv, b, h);
+  const float* lse = p.lse + (long long)bh * p.Tq;
+  const float* delta = p.delta + (long long)bh * p.Tq;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+  const int n_steps = n_tiles * (nc + 1);
+
+  auto load_step = [&](int i) {
+    T* st = ring + (i & 1) * L::kStage;
+    const int j = i / (nc + 1), c = i % (nc + 1);
+    const int r0 = j * kTile;
+    const int cc = c < nc ? c * kGroup : col0;
+    if (c < nc) {
+      load_tile<T, kGroup, kS, kBlock, kThreads>(st, kb + cc, p.sk[2], k0,
+                                                 p.Tk, tid);
+      load_tile<T, kGroup, kS, kBlock, kThreads>(st + L::kKV, vb + cc,
+                                                 p.sv[2], k0, p.Tk, tid);
+    }
+    T* rows = st + 2 * L::kKV;
+    load_tile<T, kGroup, kS, kTile, kThreads>(rows, qb + cc, p.sq[2], r0,
+                                              p.Tq, tid);
+    load_tile<T, kGroup, kS, kTile, kThreads>(rows + L::kRows, ob + cc,
+                                              p.sdo[2], r0, p.Tq, tid);
+    if (c == nc && tid < kTile) {
+      float* sl = reinterpret_cast<float*>(st + L::kOperands);
+      const int row = r0 + tid;
+      if (row < p.Tq) {
+        cp_async4(sl + tid, lse + row, 4);
+        cp_async4(sl + kTile + tid, delta + row, 4);
+      } else {
+        sl[tid] = INFINITY;  // p = exp(s - inf) = 0
+        sl[kTile + tid] = 0.f;
+      }
+      if (p.drop.on) {
+        const HashRow hr = hash_row(p.drop, bh, row);
+        reinterpret_cast<unsigned*>(sl)[2 * kTile + tid] = hr.tile;
+        reinterpret_cast<unsigned*>(sl)[3 * kTile + tid] = hr.row;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float dk[kDN][4], dv[kDN][4], s[kQN][4], dp[kQN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  HashCol hc0 = {0u, 0u}, hc1 = {0u, 0u};
+  if (p.drop.on) {
+    hc0 = hash_col(p.drop, k0 + kw * 16 + g);
+    hc1 = hash_col(p.drop, k0 + kw * 16 + g + 8);
+  }
+  const float inv_keep = 1.f / p.keep;
+
+  load_step(0);
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + 1 < n_steps) {
+      load_step(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* st = ring + (i & 1) * L::kStage;
+    const int c = i % (nc + 1);
+    const T* sQ = st + 2 * L::kKV;
+    const T* sO = sQ + L::kRows;
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < kQN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+    if (c < nc) {
+      const T* kt = st + kw * 16 * kS;
+      const T* vt = st + L::kKV + kw * 16 * kS;
+      if constexpr (kF32) {
+        for (int kk = 0; kk < kGroup / 8; ++kk) {
+          unsigned ab[4], as[4];
+          load_a<kS>(kt, kk * 8, g, t, ab, as);
+#pragma unroll
+          for (int n = 0; n < kQN; ++n) {
+            const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(qr[0], bb[0], bs[0]);
+            split(qr[4], bb[1], bs[1]);
+            mma_3xtf32(s[n], ab, as, bb, bs);
+          }
+          load_a<kS>(vt, kk * 8, g, t, ab, as);
+#pragma unroll
+          for (int n = 0; n < kQN; ++n) {
+            const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(orow[0], bb[0], bs[0]);
+            split(orow[4], bb[1], bs[1]);
+            mma_3xtf32(dp[n], ab, as, bb, bs);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int kk = 0; kk < kGroup / 16; ++kk) {
+          unsigned a[4];
+          load_a_bf16<kS>(kt, kk * 16, g, t, a);
+#pragma unroll
+          for (int n = 0; n < kQN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kS>(sQ, n * 8, kk * 16, g, t, bb);
+            mma_bf16(s[n], a, bb);
+          }
+          load_a_bf16<kS>(vt, kk * 16, g, t, a);
+#pragma unroll
+          for (int n = 0; n < kQN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kS>(sO, n * 8, kk * 16, g, t, bb);
+            mma_bf16(dp[n], a, bb);
+          }
+        }
+      }
+    } else {
+      // S^T and dP^T are whole: P^T, Pd^T, dS^T, then dV and dK from the
+      // block's own columns of dO and Q.
+      const float* sl = reinterpret_cast<const float*>(st + L::kOperands);
+      const unsigned* sh = reinterpret_cast<const unsigned*>(sl);
+#pragma unroll
+      for (int n = 0; n < kQN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * t + e;
+          const float l = sl[col], dl = sl[kTile + col];
+          const float p0 = expf(s[n][e] * p.scale - l);
+          const float p1 = expf(s[n][2 + e] * p.scale - l);
+          float pd0 = p0, pd1 = p1, d0 = dp[n][e], d1 = dp[n][2 + e];
+          if (p.drop.on) {
+            const HashRow hr = {sh[2 * kTile + col], sh[3 * kTile + col]};
+            const bool keep0 = hash_keep(p.drop, hr, hc0);
+            const bool keep1 = hash_keep(p.drop, hr, hc1);
+            pd0 = keep0 ? p0 * inv_keep : 0.f;
+            d0 = keep0 ? d0 * inv_keep : 0.f;
+            pd1 = keep1 ? p1 * inv_keep : 0.f;
+            d1 = keep1 ? d1 * inv_keep : 0.f;
+          }
+          s[n][e] = pd0;
+          s[n][2 + e] = pd1;
+          dp[n][e] = p0 * (d0 - dl) * p.scale;
+          dp[n][2 + e] = p1 * (d1 - dl) * p.scale;
+        }
+      }
+      if constexpr (kF32) {
+#pragma unroll
+        for (int n = 0; n < kQN; ++n) {
+          unsigned ab[4], as[4];
+          c_as_a(s[n], ab, as);
+          const float* orow = sO + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(orow[dn * 8], bb[0], bs[0]);
+            split(orow[kS + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(dv[dn], ab, as, bb, bs);
+          }
+          c_as_a(dp[n], ab, as);
+          const float* qr = sQ + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(qr[dn * 8], bb[0], bs[0]);
+            split(qr[kS + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(dk[dn], ab, as, bb, bs);
+          }
+        }
+      } else {
+        unsigned a[4];
+        c_pair_as_a(s[0], s[1], a);
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2];
+          load_b_cols<kS>(sO, 0, dn * 8, g, t, bb);
+          mma_bf16(dv[dn], a, bb);
+        }
+        c_pair_as_a(dp[0], dp[1], a);
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2];
+          load_b_cols<kS>(sQ, 0, dn * 8, g, t, bb);
+          mma_bf16(dk[dn], a, bb);
+        }
+      }
+    }
+    __syncthreads();  // the stage just read is the next copy's target
+  }
+
+  // The ring is idle: each warp stages dK and dV in 16 rows of its own.
+  store_rows<T, kDN, kS>(dk, ring + kw * 16 * kS,
+                         head<T>(p.dk, p.sdk, b, h) + col0, p.sdk[2],
+                         k0 + kw * 16, p.Tk, lane);
+  store_rows<T, kDN, kS>(dv, ring + (kWarps + kw) * 16 * kS,
+                         head<T>(p.dv, p.sdv, b, h) + col0, p.sdv[2],
+                         k0 + kw * 16, p.Tk, lane);
+}
+
+// dQ: a block owns 64 query rows and one group of 128 output columns.  For
+// each 16-key tile, steps c < nc stage chunk c of Q, dO, K and V; step nc
+// stages the tile's K rows of the block's columns.  Q and dO are re-read
+// from L2 for every key tile.
+template <typename T>
+struct WideDqLayout {
+  static constexpr int kS = kGroup + 16 / sizeof(T);
+  static constexpr int kQ = kBlock * kS;   // a chunk of Q or dO
+  static constexpr int kKV = kTile * kS;   // a chunk of K or V
+  static constexpr int kStage = 2 * kQ + 2 * kKV;
+  static constexpr size_t kBytes = 2 * kStage * sizeof(T);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+flash_bwd_dq_kernel_wide(const Params p, int nc) {
+  using L = WideDqLayout<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kS = L::kS;
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kDN = kGroup / 8;
+  constexpr int kKN = kTile / 8;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int rw = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * kBlock;
+  const int col0 = blockIdx.z * kGroup;
+  const T* qb = head<T>(p.q, p.sq, b, h);
+  const T* ob = head<T>(p.dout, p.sdo, b, h);
+  const T* kb = head<T>(p.k, p.sk, b, h);
+  const T* vb = head<T>(p.v, p.sv, b, h);
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+  const int n_steps = n_tiles * (nc + 1);
+
+  auto load_step = [&](int i) {
+    T* st = ring + (i & 1) * L::kStage;
+    const int j = i / (nc + 1), c = i % (nc + 1);
+    const int r0 = j * kTile;
+    if (c < nc) {
+      load_tile<T, kGroup, kS, kBlock, kThreads>(st, qb + c * kGroup,
+                                                 p.sq[2], q0, p.Tq, tid);
+      load_tile<T, kGroup, kS, kBlock, kThreads>(st + L::kQ, ob + c * kGroup,
+                                                 p.sdo[2], q0, p.Tq, tid);
+      load_tile<T, kGroup, kS, kTile, kThreads>(st + 2 * L::kQ,
+                                                kb + c * kGroup, p.sk[2], r0,
+                                                p.Tk, tid);
+      load_tile<T, kGroup, kS, kTile, kThreads>(
+          st + 2 * L::kQ + L::kKV, vb + c * kGroup, p.sv[2], r0, p.Tk, tid);
+    } else {
+      load_tile<T, kGroup, kS, kTile, kThreads>(st + 2 * L::kQ, kb + col0,
+                                                p.sk[2], r0, p.Tk, tid);
+    }
+    cp_async_commit();
+  };
+
+  const int row0 = q0 + rw * 16 + g;
+  const long long base = (long long)bh * p.Tq;
+  const float lse0 = row0 < p.Tq ? p.lse[base + row0] : 0.f;
+  const float lse1 = row0 + 8 < p.Tq ? p.lse[base + row0 + 8] : 0.f;
+  const float dl0 = row0 < p.Tq ? p.delta[base + row0] : 0.f;
+  const float dl1 = row0 + 8 < p.Tq ? p.delta[base + row0 + 8] : 0.f;
+  HashRow hr0 = {0u, 0u}, hr1 = {0u, 0u};
+  if (p.drop.on) {
+    hr0 = hash_row(p.drop, bh, row0);
+    hr1 = hash_row(p.drop, bh, row0 + 8);
+  }
+  float dq[kDN][4], s[kKN][4], dp[kKN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const float inv_keep = 1.f / p.keep;
+
+  load_step(0);
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + 1 < n_steps) {
+      load_step(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* st = ring + (i & 1) * L::kStage;
+    const int j = i / (nc + 1), c = i % (nc + 1);
+    const T* sK = st + 2 * L::kQ;
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < kKN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+    if (c < nc) {
+      const T* qw = st + rw * 16 * kS;
+      const T* ow = st + L::kQ + rw * 16 * kS;
+      const T* sV = sK + L::kKV;
+      if constexpr (kF32) {
+        for (int kk = 0; kk < kGroup / 8; ++kk) {
+          unsigned qab[4], qas[4], oab[4], oas[4];
+          load_a<kS>(qw, kk * 8, g, t, qab, qas);
+          load_a<kS>(ow, kk * 8, g, t, oab, oas);
+#pragma unroll
+          for (int n = 0; n < kKN; ++n) {
+            const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+            const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(kr[0], bb[0], bs[0]);
+            split(kr[4], bb[1], bs[1]);
+            mma_3xtf32(s[n], qab, qas, bb, bs);
+            split(vr[0], bb[0], bs[0]);
+            split(vr[4], bb[1], bs[1]);
+            mma_3xtf32(dp[n], oab, oas, bb, bs);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int kk = 0; kk < kGroup / 16; ++kk) {
+          unsigned qa[4], oa[4];
+          load_a_bf16<kS>(qw, kk * 16, g, t, qa);
+          load_a_bf16<kS>(ow, kk * 16, g, t, oa);
+#pragma unroll
+          for (int n = 0; n < kKN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kS>(sK, n * 8, kk * 16, g, t, bb);
+            mma_bf16(s[n], qa, bb);
+            load_b_rows<kS>(sV, n * 8, kk * 16, g, t, bb);
+            mma_bf16(dp[n], oa, bb);
+          }
+        }
+      }
+    } else {
+      const int kt0 = j * kTile;
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kt0 + n * 8 + 2 * t + e;
+          const bool valid = key < p.Tk;
+          const float p0 = valid ? expf(s[n][e] * p.scale - lse0) : 0.f;
+          const float p1 = valid ? expf(s[n][2 + e] * p.scale - lse1) : 0.f;
+          float d0 = dp[n][e], d1 = dp[n][2 + e];
+          if (p.drop.on) {
+            const HashCol hc = hash_col(p.drop, key);
+            d0 = hash_keep(p.drop, hr0, hc) ? d0 * inv_keep : 0.f;
+            d1 = hash_keep(p.drop, hr1, hc) ? d1 * inv_keep : 0.f;
+          }
+          s[n][e] = p0 * (d0 - dl0) * p.scale;
+          s[n][2 + e] = p1 * (d1 - dl1) * p.scale;
+        }
+      }
+      if constexpr (kF32) {
+#pragma unroll
+        for (int n = 0; n < kKN; ++n) {
+          unsigned ab[4], as[4];
+          c_as_a(s[n], ab, as);
+          const float* kr = sK + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(kr[dn * 8], bb[0], bs[0]);
+            split(kr[kS + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(dq[dn], ab, as, bb, bs);
+          }
+        }
+      } else {
+        unsigned a[4];
+        c_pair_as_a(s[0], s[1], a);
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2];
+          load_b_cols<kS>(sK, 0, dn * 8, g, t, bb);
+          mma_bf16(dq[dn], a, bb);
+        }
+      }
+    }
+    __syncthreads();  // the stage just read is the next copy's target
+  }
+
+  store_rows<T, kDN, kS>(dq, ring + rw * 16 * kS,
+                         head<T>(p.dq, p.sdq, b, h) + col0, p.sdq[2],
+                         q0 + rw * 16, p.Tq, lane);
+}
+
+// Sets the kernel's shared-memory attribute the first time it launches on
+// a device (`done`: one per kernel instance), then launches it.
+template <typename Kernel, typename... Args>
 cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
-                       cudaStream_t stream, const Params& p) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                       cudaStream_t stream, unsigned* done, Args... args) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  if (smem > 48 * 1024 && !(*done & (1u << (device & 31)))) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    *done |= 1u << (device & 31);
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <typename T, int DQK, int DV, int SPLIT>
 cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
   using L = DkvLayout<T, DQK, DV, SPLIT>;
+  static unsigned done = 0;
   return launch_one(flash_bwd_dkv_kernel<T, DQK, DV, SPLIT>,
                     dim3((p.Tk + kBlock - 1) / kBlock, bh, DQK / DV),
-                    L::kThreads, L::kBytes, stream, p);
+                    L::kThreads, L::kBytes, stream, &done, p);
 }
 
 template <typename T, int DQK, int DV, int SPLIT>
 cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
   using L = DqLayout<T, DQK, DV, SPLIT>;
+  static unsigned done = 0;
   return launch_one(flash_bwd_dq_kernel<T, DQK, DV, SPLIT>,
                     dim3((p.Tq + kBlock - 1) / kBlock, bh, DQK / DV),
-                    L::kThreads, L::kBytes, stream, p);
+                    L::kThreads, L::kBytes, stream, &done, p);
+}
+
+template <typename T>
+cudaError_t launch_delta(const Params& p, int bh, int dh,
+                         cudaStream_t stream) {
+  static unsigned done = 0;
+  const dim3 grid((p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32),
+                  bh);
+  switch (dh) {
+    case 32:
+      return launch_one(flash_bwd_delta_kernel<T, 32>, grid, kDeltaThreads,
+                        0, stream, &done, p);
+    case 64:
+      return launch_one(flash_bwd_delta_kernel<T, 64>, grid, kDeltaThreads,
+                        0, stream, &done, p);
+    case 128:
+      return launch_one(flash_bwd_delta_kernel<T, 128>, grid, kDeltaThreads,
+                        0, stream, &done, p);
+    case 256:
+      return launch_one(flash_bwd_delta_kernel<T, 256>, grid, kDeltaThreads,
+                        0, stream, &done, p);
+    default:  // above 256: a multiple of 128
+      return dh % kGroup
+                 ? cudaErrorInvalidValue
+                 : launch_one(flash_bwd_delta_kernel_wide<T>, grid,
+                              kDeltaThreads, 0, stream, &done, p, dh);
+  }
+}
+
+// Head dims above 256: the delta kernel at a run-time width, then the
+// chunked dK/dV and dQ kernels, one block per 128 output columns.
+template <typename T>
+cudaError_t launch_wide(const Params& p, int B, int dh, cudaStream_t stream) {
+  const int bh = B * p.H;
+  const int nc = dh / kGroup;
+  static unsigned done_dkv = 0, done_dq = 0;
+  cudaError_t err = launch_delta<T>(p, bh, dh, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_one(flash_bwd_dkv_kernel_wide<T>,
+                   dim3((p.Tk + kBlock - 1) / kBlock, bh, nc), 32 * kWarps,
+                   WideDkvLayout<T>::kBytes, stream, &done_dkv, p, nc);
+  if (err != cudaSuccess) return err;
+  return launch_one(flash_bwd_dq_kernel_wide<T>,
+                    dim3((p.Tq + kBlock - 1) / kBlock, bh, nc), 32 * kWarps,
+                    WideDqLayout<T>::kBytes, stream, &done_dq, p, nc);
 }
 
 // A grid of at most one 4-warp block an SM leaves half the warps the SMs
@@ -735,10 +1173,7 @@ cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
 template <typename T, int DQK, int DV>
 cudaError_t launch(const Params& p, int B, int sms, cudaStream_t stream) {
   const int bh = B * p.H;
-  cudaError_t err = launch_one(
-      flash_bwd_delta_kernel<T, DQK>,
-      dim3((p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), bh),
-      kDeltaThreads, 0, stream, p);
+  cudaError_t err = launch_delta<T>(p, bh, DQK, stream);
   if (err != cudaSuccess) return err;
   if constexpr (DQK > DV) {
     err = launch_dkv<T, DQK, DV, 1>(p, bh, stream);
@@ -763,6 +1198,7 @@ cudaError_t launch(const Params& p, int B, int sms, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch(const Params& p, int B, int dh, int sms,
                      cudaStream_t s) {
+  if (dh > 256) return launch_wide<T>(p, B, dh, s);
   switch (dh) {
     case 32: return launch<T, 32, 32>(p, B, sms, s);
     case 64: return launch<T, 64, 64>(p, B, sms, s);
@@ -770,6 +1206,15 @@ cudaError_t dispatch(const Params& p, int B, int dh, int sms,
     case 256: return launch<T, 256, kGroup>(p, B, sms, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// bfloat16 up to dh 256 runs on csrc/flash_bwd_wgmma.cu; here only above.
+template <>
+cudaError_t dispatch<bf16>(const Params& p, int B, int dh, int sms,
+                           cudaStream_t s) {
+  (void)sms;
+  if (dh <= 256) return cudaErrorInvalidValue;
+  return launch_wide<bf16>(p, B, dh, s);
 }
 
 }  // namespace
@@ -808,9 +1253,13 @@ extern "C" int avsep_flash_attn_bwd(
   p.drop.hk = hk;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static int sm_counts[32] = {0};  // read once per device
+  int& sms = sm_counts[device & 31];
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (dtype == 0)
     err = dispatch<float>(p, B, dh, sms, s);
   else if (dtype == 1)

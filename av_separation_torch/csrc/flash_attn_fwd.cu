@@ -1,5 +1,5 @@
 // Flash attention forward, float32 on the tensor cores in 3xTF32 and
-// bfloat16 in bf16 products, for Hopper (sm_90a).
+// bfloat16 above head dim 256 in bf16 products, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_fwd_hpacked_kernel`
 // (packed (B, T, H*dh) layout, called from `_flash_hpacked_call`),
@@ -57,8 +57,8 @@
 // - Bank conflicts.  Q, K and V rows are dh+4 floats apart: the A loads of
 //   Q and the B loads of K hit bank 4g + t, the B loads of V (rows 2t,
 //   2t+1) bank 8t + g (+4): 32 distinct banks per load.
-// - bfloat16 (the JAX package's bf16 compute, attention.py:206-218,
-//   :389-398, :600-645): the same tiles with bf16 operands, one
+// - bfloat16 runs here only above dh 256 (up to 256 it runs on
+//   flash_fwd_wgmma.cu): the same tiles with bf16 operands, one
 //   mma.sync.m16n8k16 product where float32 takes three, float32
 //   accumulators, online-softmax statistics and lse.  p is rounded to bf16
 //   before PV, as the Pallas kernels do (`p.astype(v.dtype)`); l sums the
@@ -73,6 +73,12 @@
 //   only, so a warp holds the O accumulators of dh 128.  The blocks of a
 //   row block compute the same m and l; the group-0 block writes lse.  At
 //   float32 that is 167 KB of shared memory, one 4-warp block an SM.
+// - Head dims above 256 (any multiple of 128, `flash_fwd_kernel_wide`):
+//   full-width Q and K tiles no longer fit, so q k^T is summed over
+//   128-column chunks that stream through the ring (a step stages one
+//   chunk of Q and of the 32-key K tile; a last step the tile's V columns
+//   of the block), each block still owning one group of 128 output
+//   columns.  Q is re-read from L2 for every key tile: simple, not fast.
 // - Output.  Each warp writes its O rows into its own (now unused) Q rows
 //   of shared memory and stores them as 16-byte row chunks, packed
 //   (B, T, H, dh) memory through the o strides.
@@ -145,7 +151,6 @@ __global__ void __launch_bounds__(Layout<T, DQK, DV, SPLIT>::kThreads,
                                   DQK > DV ? 1 : 3 - SPLIT)
 flash_fwd_kernel(const Params p) {
   using L = Layout<T, DQK, DV, SPLIT>;
-  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kSQ = L::kSQ;
   constexpr int kSV = L::kSV;
   constexpr int kThreads = L::kThreads;
@@ -216,31 +221,17 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int n = 0; n < kKN; ++n)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      if constexpr (kF32) {
 #pragma unroll 4
-        for (int kk = 0; kk < DQK / 8; ++kk) {
-          unsigned ab[4], as[4];
-          load_a_frag(qw + kk * 8, kSQ, g, t, ab, as);
+      for (int kk = 0; kk < DQK / 8; ++kk) {
+        unsigned ab[4], as[4];
+        load_a_frag(qw + kk * 8, kSQ, g, t, ab, as);
 #pragma unroll
-          for (int n = 0; n < kKN; ++n) {
-            const float* kr = sK + (n * 8 + g) * kSQ + kk * 8 + t;
-            unsigned bb[2], bs[2];
-            split(kr[0], bb[0], bs[0]);
-            split(kr[4], bb[1], bs[1]);
-            mma_3xtf32(s[n], ab, as, bb, bs);
-          }
-        }
-      } else {
-#pragma unroll 4
-        for (int kk = 0; kk < DQK / 16; ++kk) {
-          unsigned a[4];
-          load_a_bf16<kSQ>(qw, kk * 16, g, t, a);
-#pragma unroll
-          for (int n = 0; n < kKN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kSQ>(sK, n * 8, kk * 16, g, t, bb);
-            mma_bf16(s[n], a, bb);
-          }
+        for (int n = 0; n < kKN; ++n) {
+          const float* kr = sK + (n * 8 + g) * kSQ + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(kr[0], bb[0], bs[0]);
+          split(kr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], ab, as, bb, bs);
         }
       }
 
@@ -289,39 +280,25 @@ flash_fwd_kernel(const Params p) {
         o[n][3] *= alpha1;
       }
 
-      if constexpr (kF32) {
-        // O += P V: A's k = t, t + 4 are keys 2t, 2t + 1 of each 8-key
-        // tile.
+      // O += P V: A's k = t, t + 4 are keys 2t, 2t + 1 of each 8-key
+      // tile.
 #pragma unroll
-        for (int n = 0; n < kKN; ++n) {
-          unsigned ab[4], as[4];
-          split(s[n][0], ab[0], as[0]);
-          split(s[n][2], ab[1], as[1]);
-          split(s[n][1], ab[2], as[2]);
-          split(s[n][3], ab[3], as[3]);
-          const float* vr = sV + (n * 8 + 2 * t) * kSV + g;
+      for (int n = 0; n < kKN; ++n) {
+        unsigned ab[4], as[4];
+        split(s[n][0], ab[0], as[0]);
+        split(s[n][2], ab[1], as[1]);
+        split(s[n][1], ab[2], as[2]);
+        split(s[n][3], ab[3], as[3]);
+        const float* vr = sV + (n * 8 + 2 * t) * kSV + g;
 #pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(vr[dn * 8], bb[0], bs[0]);
-            split(vr[kSV + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(o[dn], ab, as, bb, bs);
-          }
-        }
-      } else {
-        // O += P V over 16 keys a product, p rounded to bf16.
-#pragma unroll
-        for (int kb2 = 0; kb2 < kKN / 2; ++kb2) {
-          unsigned a[4];
-          c_pair_as_a(s[2 * kb2], s[2 * kb2 + 1], a);
-#pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2];
-            load_b_cols<kSV>(sV, kb2 * 16, dn * 8, g, t, bb);
-            mma_bf16(o[dn], a, bb);
-          }
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(vr[dn * 8], bb[0], bs[0]);
+          split(vr[kSV + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(o[dn], ab, as, bb, bs);
         }
       }
+
     }
     __syncthreads();  // the stage just read is the next copy's target
   }
@@ -394,13 +371,263 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
+// cudaFuncSetAttribute (the dynamic shared memory a block takes) once per
+// kernel instance (`done`: one bit a device) and device.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, size_t bytes, unsigned* done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (*done & (1u << (device & 31)))) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) *done |= 1u << (device & 31);
+  return err;
+}
+
+// Head dims above 256 (any multiple of 128): a block owns 64 query rows
+// and one group of 128 output columns (blockIdx.z), as the dh-256 split,
+// but q k^T is summed over 128-column chunks that stream through the ring
+// with the keys: for each 32-key tile, steps c < nc stage Q's and K's
+// chunk c, and step nc stages the tile's V rows of the block's columns.
+// Q is re-read from L2 for every key tile.
+template <typename T>
+struct WideLayout {
+  static constexpr int kS = kGroup + 16 / sizeof(T);  // row stride
+  static constexpr int kQ = kBlockQ * kS;            // Q chunk
+  static constexpr int kStage = kQ + kBlockK * kS;   // then K chunk or V
+  static constexpr size_t kBytes = 2 * kStage * sizeof(T);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps, 1)
+flash_fwd_kernel_wide(const Params p, int nc) {
+  using L = WideLayout<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kS = L::kS;
+  constexpr int kThreads = 32 * kRowWarps;
+  constexpr int kDN = kGroup / 8;
+  constexpr int kKN = kBlockK / 8;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int rw = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int col0 = blockIdx.z * kGroup;
+  const T* qb = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.svb + h * p.svh + col0;
+  const int n_tiles = (p.Tk + kBlockK - 1) / kBlockK;
+  const int n_steps = n_tiles * (nc + 1);
+
+  auto load_step = [&](int i) {
+    T* st = ring + (i & 1) * L::kStage;
+    const int j = i / (nc + 1), c = i % (nc + 1);
+    if (c < nc) {
+      load_tile<T, kGroup, kS, kBlockQ, kThreads>(st, qb + c * kGroup, p.sqt,
+                                                  q0, p.Tq, tid);
+      load_tile<T, kGroup, kS, kBlockK, kThreads>(
+          st + L::kQ, kb + c * kGroup, p.skt, j * kBlockK, p.Tk, tid);
+    } else {
+      load_tile<T, kGroup, kS, kBlockK, kThreads>(st + L::kQ, vb, p.svt,
+                                                  j * kBlockK, p.Tk, tid);
+    }
+    cp_async_commit();
+  };
+
+  float o[kDN][4], s[kKN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
+  const int row0 = q0 + rw * 16 + g;
+  HashRow hr0 = {0u, 0u}, hr1 = {0u, 0u};
+  if (p.drop.on) {
+    hr0 = hash_row(p.drop, bh, row0);
+    hr1 = hash_row(p.drop, bh, row0 + 8);
+  }
+
+  load_step(0);
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + 1 < n_steps) {
+      load_step(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* st = ring + (i & 1) * L::kStage;
+    const int j = i / (nc + 1), c = i % (nc + 1);
+    const T* qw = st + rw * 16 * kS;
+    const T* sK = st + L::kQ;
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < kKN; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    }
+    if (c < nc) {
+      // S += Q_c K_c^T over this chunk's 128 columns.
+      if constexpr (kF32) {
+#pragma unroll 4
+        for (int kk = 0; kk < kGroup / 8; ++kk) {
+          unsigned ab[4], as[4];
+          load_a_frag(qw + kk * 8, kS, g, t, ab, as);
+#pragma unroll
+          for (int n = 0; n < kKN; ++n) {
+            const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+            unsigned bb[2], bs[2];
+            split(kr[0], bb[0], bs[0]);
+            split(kr[4], bb[1], bs[1]);
+            mma_3xtf32(s[n], ab, as, bb, bs);
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int kk = 0; kk < kGroup / 16; ++kk) {
+          unsigned a[4];
+          load_a_bf16<kS>(qw, kk * 16, g, t, a);
+#pragma unroll
+          for (int n = 0; n < kKN; ++n) {
+            unsigned bb[2];
+            load_b_rows<kS>(sK, n * 8, kk * 16, g, t, bb);
+            mma_bf16(s[n], a, bb);
+          }
+        }
+      }
+    } else {
+      // The tile's S is whole: online softmax, then O += P V.
+      const int k0 = j * kBlockK;
+      const T* sV = sK;
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = k0 + n * 8 + 2 * t + e < p.Tk;
+          s[n][e] = valid ? s[n][e] * p.scale : -INFINITY;
+          s[n][2 + e] = valid ? s[n][2 + e] * p.scale : -INFINITY;
+          mx0 = fmaxf(mx0, s[n][e]);
+          mx1 = fmaxf(mx1, s[n][2 + e]);
+        }
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float alpha0 = expf(m0 - mx0), alpha1 = expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= alpha0;
+      l1 *= alpha1;
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = expf(s[n][e] - m0);
+          float p1 = expf(s[n][2 + e] - m1);
+          l0 += p0;
+          l1 += p1;
+          if (p.drop.on) {
+            const int key = k0 + n * 8 + 2 * t + e;
+            if (!hash_keep(p.drop, hr0, key)) p0 = 0.f;
+            if (!hash_keep(p.drop, hr1, key)) p1 = 0.f;
+          }
+          s[n][e] = p0;
+          s[n][2 + e] = p1;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDN; ++n) {
+        o[n][0] *= alpha0;
+        o[n][1] *= alpha0;
+        o[n][2] *= alpha1;
+        o[n][3] *= alpha1;
+      }
+      if constexpr (kF32) {
+#pragma unroll
+        for (int n = 0; n < kKN; ++n) {
+          unsigned ab[4], as[4];
+          split(s[n][0], ab[0], as[0]);
+          split(s[n][2], ab[1], as[1]);
+          split(s[n][1], ab[2], as[2]);
+          split(s[n][3], ab[3], as[3]);
+          const float* vr = sV + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2], bs[2];
+            split(vr[dn * 8], bb[0], bs[0]);
+            split(vr[kS + dn * 8], bb[1], bs[1]);
+            mma_3xtf32(o[dn], ab, as, bb, bs);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kb2 = 0; kb2 < kKN / 2; ++kb2) {
+          unsigned a[4];
+          c_pair_as_a(s[2 * kb2], s[2 * kb2 + 1], a);
+#pragma unroll
+          for (int dn = 0; dn < kDN; ++dn) {
+            unsigned bb[2];
+            load_b_cols<kS>(sV, kb2 * 16, dn * 8, g, t, bb);
+            mma_bf16(o[dn], a, bb);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage just read is the next copy's target
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / (l0 * p.keep), inv1 = 1.f / (l1 * p.keep);
+  T* ow = ring + rw * 16 * kS;  // the ring is idle: stage O there
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) {
+    store2(ow + g * kS + n * 8 + 2 * t, o[n][0] * inv0, o[n][1] * inv0);
+    store2(ow + (g + 8) * kS + n * 8 + 2 * t, o[n][2] * inv1,
+           o[n][3] * inv1);
+  }
+  __syncwarp();
+  T* ob = static_cast<T*>(p.o) + b * p.sob + h * p.soh + col0;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = kGroup / kVec;
+#pragma unroll 4
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * kVec;
+    const int row = q0 + rw * 16 + r;
+    if (row < p.Tq)
+      *reinterpret_cast<float4*>(ob + row * p.sot + c) =
+          *reinterpret_cast<const float4*>(ow + r * kS + c);
+  }
+  if (t == 0 && blockIdx.z == 0) {
+    if (row0 < p.Tq) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(l0);
+    if (row0 + 8 < p.Tq)
+      p.lse[(long long)bh * p.Tq + row0 + 8] = m1 + logf(l1);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Params& p, int B, int dh, cudaStream_t stream) {
+  using L = WideLayout<T>;
+  static unsigned done = 0;
+  cudaError_t err = set_smem_once(flash_fwd_kernel_wide<T>, L::kBytes, &done);
+  if (err != cudaSuccess) return err;
+  const int nc = dh / kGroup;
+  const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, B * p.H, nc);
+  flash_fwd_kernel_wide<T><<<grid, 32 * kRowWarps, L::kBytes, stream>>>(p, nc);
+  return cudaGetLastError();
+}
+
 template <typename T, int DQK, int DV, int SPLIT>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   using L = Layout<T, DQK, DV, SPLIT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DQK, DV, SPLIT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L::kBytes));
+  static unsigned done = 0;
+  cudaError_t err =
+      set_smem_once(flash_fwd_kernel<T, DQK, DV, SPLIT>, L::kBytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, B * p.H, DQK / DV);
   flash_fwd_kernel<T, DQK, DV, SPLIT>
@@ -410,12 +637,15 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 // The head dims the wrapper pads to: 32 (demo), 64 (the reference's
 // default model), 128 (the rest), 256 (any dh in (128, 256], as two
-// column groups).  A grid of at most one 4-warp block an SM leaves half
-// the warps the SMs could hold idle: split each block's keys over two warp
-// groups instead (not at 256, whose block holds an SM's shared memory).
+// column groups), and above 256 any multiple of 128 (`launch_wide`).  A
+// grid of at most one 4-warp block an SM leaves half the warps the SMs
+// could hold idle: split each block's keys over two warp groups instead
+// (not at 256, whose block holds an SM's shared memory).
 template <typename T>
 cudaError_t dispatch(const Params& p, int B, int dh, int sms,
                      cudaStream_t s) {
+  if (dh > 256)
+    return dh % kGroup ? cudaErrorInvalidValue : launch_wide<T>(p, B, dh, s);
   const long long blocks =
       (long long)((p.Tq + kBlockQ - 1) / kBlockQ) * B * p.H;
   const bool split = blocks <= sms;
@@ -434,6 +664,15 @@ cudaError_t dispatch(const Params& p, int B, int dh, int sms,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// bfloat16 up to dh 256 runs on csrc/flash_fwd_wgmma.cu; here only above.
+template <>
+cudaError_t dispatch<bf16>(const Params& p, int B, int dh, int sms,
+                           cudaStream_t s) {
+  (void)sms;
+  if (dh <= 256 || dh % kGroup) return cudaErrorInvalidValue;
+  return launch_wide<bf16>(p, B, dh, s);
 }
 
 // One m16n8k8 product in 3xTF32 by one warp, for checking the fragment
@@ -490,9 +729,13 @@ extern "C" int avsep_flash_attn_fwd(
   p.drop.hk = hk;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static int sm_counts[32] = {0};  // read once per device
+  int& sms = sm_counts[device & 31];
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (dtype == 0)
     err = dispatch<float>(p, B, dh, sms, s);
   else if (dtype == 1)

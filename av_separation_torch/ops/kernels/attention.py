@@ -12,11 +12,16 @@ reaches the kernels as (B, H, T, dh) views whose strides say where each
 gradients are written into packed (B, T, H, dh) memory and returned as
 (B, H, T, dh) views, so a packed caller gets (B, T, H*dh) back without a copy.
 
-The kernels are built for head dims 32, 64, 128 and 256 (two column groups
-of 128, each a block's), in float32 and in bfloat16.  Any other head dim up
-to 256 is zero-padded to the next of those (`padded_fwd`, `padded_bwd`) and
-run at the softmax scale of its true width: zero columns change neither
-q k^T nor the kept columns of p v, and the gradients are sliced back.
+The kernels are built for head dims 32, 64, 128 and 256, and for every
+multiple of 128 above 256.  bfloat16 at 32-256 runs on the Hopper kernels
+of `csrc/flash_fwd_wgmma.cu` and `csrc/flash_bwd_wgmma.cu` (`wgmma`, TMA,
+mbarriers); float32 at 32-256 on the 3xTF32 `mma.sync` kernels (256 as two
+column groups of 128, each a block's); both dtypes above 256 on the
+`mma.sync` kernels' column split with q k^T summed over 128-column chunks
+that stream through the ring.  Any other head dim is zero-padded to the
+next built one (`padded_fwd`, `padded_bwd`) and run at the softmax scale of
+its true width: zero columns change neither q k^T nor the kept columns of
+p v, and the gradients are sliced back.
 
 In bfloat16 (q, k, v and the cotangent bf16; lse float32) the kernels and
 the plain versions round where the Pallas kernels do: products of bf16
@@ -46,8 +51,10 @@ from av_separation_torch.ops import kernels, upcast
 from av_separation_torch.ops.kernels import _build
 
 # demo (d 128, 4 heads), ModelConfig() (d 256, 4 heads), every wider config,
-# and ModelConfig(d_model=512, nhead=2) (dh 256, as two column groups)
+# and ModelConfig(d_model=512, nhead=2) (dh 256); above 256 every multiple
+# of WIDE_CHUNK (ModelConfig(d_model=1024, nhead=2): dh 512)
 HEAD_DIMS = (32, 64, 128, 256)
+WIDE_CHUNK = 128
 MAX_HASH_BLOCK = 512   # the Pallas kernels' DEFAULT_BLOCK_Q / _K
 _M32 = 0xFFFFFFFF
 
@@ -117,16 +124,20 @@ def _packed_empty(like: torch.Tensor) -> torch.Tensor:
 
 def padded_head_dim(dh: int) -> int:
     """The built head dim a head dim of `dh` runs at: the next of
-    HEAD_DIMS.  Above 128 that is 256, run as two column groups of 128
-    (each block owns one group of the output and recomputes q k^T over
-    both), so a warp holds no more accumulators than at 128.  Above 256
-    the full-width q and k tiles no longer fit a block's shared memory in
-    float32, and the wrapper refuses."""
+    HEAD_DIMS up to 256, the next multiple of 128 above.  Above 256 the
+    full-width q and k tiles no longer fit a block's shared memory, so the
+    kernels sum q k^T over 128-column chunks streamed through their ring,
+    and each block owns one group of 128 output columns."""
     for built in HEAD_DIMS:
         if dh <= built:
             return built
-    raise ValueError(f"head dim {dh} exceeds the flash kernels' largest, "
-                     f"{HEAD_DIMS[-1]}")
+    return _cdiv(dh, WIDE_CHUNK) * WIDE_CHUNK
+
+
+def wgmma_route(dtype: torch.dtype, dh: int) -> bool:
+    """True where a CUDA call runs on the `wgmma` kernels: bfloat16 at a
+    built head dim up to 256."""
+    return dtype == torch.bfloat16 and dh in HEAD_DIMS
 
 
 def _pad_dh(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -136,7 +147,7 @@ def _pad_dh(t: torch.Tensor, width: int) -> torch.Tensor:
 def padded_fwd(fwd, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                rate: float = 0.0, seed: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`fwd` (a flash forward taking `scale`) at any head dim <= 256: q, k
+    """`fwd` (a flash forward taking `scale`) at any head dim: q, k
     and v zero-padded along dh to `padded_head_dim`, the softmax scale of
     the true dh, o sliced back.  The dropout hash does not read dh, so the
     keep masks are those of the unpadded call."""
@@ -153,7 +164,7 @@ def padded_bwd(bwd, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                rate: float = 0.0, seed: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`bwd` (a flash backward taking `scale`) at any head dim <= 256, as
+    """`bwd` (a flash backward taking `scale`) at any head dim, as
     `padded_fwd`: the padded columns of o and dO are zero, so delta is
     unchanged, and dq, dk, dv are sliced back."""
     dh = q.shape[-1]
@@ -249,6 +260,46 @@ def _fwd_entry():
 
 
 @functools.lru_cache(maxsize=None)
+def _wgmma_fwd_entry():
+    lib = _build.load("flash_fwd_wgmma")
+    fn = lib.avsep_flash_fwd_wgmma
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
+                      ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_bwd_entry():
+    lib = _build.load("flash_bwd_wgmma")
+    fn = lib.avsep_flash_bwd_wgmma
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
+                      ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def tma_encode_us(t: torch.Tensor, iters: int = 1000) -> float:
+    """Host microseconds of one TMA tensor-map encode over the (B, H, T,
+    dh) bf16 view `t`, as the `wgmma` forward encodes q, k and v on every
+    call (a measurement; no kernel launches)."""
+    lib = _build.load("flash_fwd_wgmma")
+    fn = lib.avsep_tma_encode_us
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int])
+    fn.restype = ctypes.c_double
+    b, h, tt, dh = t.shape
+    return fn(t.data_ptr(), dh, h, tt, b, t.stride(1), t.stride(2),
+              t.stride(0), iters)
+
+
+@functools.lru_cache(maxsize=None)
 def _bwd_entry():
     lib = _build.load("flash_attn_bwd")
     fn = lib.avsep_flash_attn_bwd
@@ -287,8 +338,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != dh:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    if dh not in HEAD_DIMS and (dh < HEAD_DIMS[-1] or dh % WIDE_CHUNK):
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS} nor a multiple "
+                         f"of {WIDE_CHUNK} above {HEAD_DIMS[-1]}")
     if tq == 0 or k.shape[2] == 0:
         raise ValueError("empty sequence")
     if b * h > 65535:
@@ -323,9 +375,9 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (o, lse): o (B, H, Tq, dh) in q's dtype (float32 or bfloat16)
     as a view of packed (B, Tq, H, dh) memory, lse (B, H, Tq) float32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, at a
-    head dim other than 32, 64, 128 or 256 through `padded_fwd` (and then o
-    is a slice of the padded memory).
+    tensors take the plain version; CUDA tensors launch the kernel (the
+    `wgmma` one in bfloat16 up to dh 256), at a head dim that is not built
+    through `padded_fwd` (and then o is a slice of the padded memory).
     """
     if not _device(q):
         return flash_attn_fwd_torch(q, k, v, rate, seed)
@@ -342,13 +394,17 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tk = k.shape[2]
     o = _packed_empty(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    lib, fn = _fwd_entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, tq, tk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], scale, *_dropout_args(rate, seed, tq, tk),
-            kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
+            *o.stride()[:3], scale, *_dropout_args(rate, seed, tq, tk))
+    if wgmma_route(q.dtype, dh):
+        lib, fn = _wgmma_fwd_entry()
+        rc = fn(*args, q.device.index, stream)
+    else:
+        lib, fn = _fwd_entry()
+        rc = fn(*args, kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
     _build.check(lib, rc, "flash_attn_fwd")
     kernels.count_launch("flash_attn_fwd", q.dtype)
     return o, lse
@@ -390,11 +446,11 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `do`, from the forward's o and lse; each a (B, H, T, dh) view of packed
     (B, T, H, dh) memory.  The dropout mask is regenerated from `seed`.
 
-    CPU tensors take the plain version; CUDA tensors launch the three
-    kernels of `csrc/flash_attn_bwd.cu` (delta, dK/dV, dQ): no atomics, so
-    two runs give bit-identical gradients.  Head dims other than 32, 64,
-    128 and 256 go through `padded_bwd`.  The gradients come back in q's
-    dtype.
+    CPU tensors take the plain version; CUDA tensors launch three kernels
+    (delta, dK/dV, dQ) of `csrc/flash_bwd_wgmma.cu` (bfloat16 up to dh
+    256) or `csrc/flash_attn_bwd.cu`: no atomics, so two runs give
+    bit-identical gradients.  Head dims that are not built go through
+    `padded_bwd`.  The gradients come back in q's dtype.
     """
     if not _device(q):
         return flash_attn_bwd_torch(q, k, v, o, do, lse, rate, seed)
@@ -419,14 +475,18 @@ def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
     dq, dk, dv = _packed_empty(q), _packed_empty(k), _packed_empty(v)
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
-    lib, fn = _bwd_entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dh,
             (ctypes.c_longlong * len(strides))(*strides),
-            scale, *_dropout_args(rate, seed, tq, tk),
-            kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
+            scale, *_dropout_args(rate, seed, tq, tk))
+    if wgmma_route(q.dtype, dh):
+        lib, fn = _wgmma_bwd_entry()
+        rc = fn(*args, q.device.index, stream)
+    else:
+        lib, fn = _bwd_entry()
+        rc = fn(*args, kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
     _build.check(lib, rc, "flash_attn_bwd")
     kernels.count_launch("flash_attn_bwd", q.dtype)
     return dq, dk, dv

@@ -9,8 +9,10 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   build    nvcc builds every kernel of `av_separation_torch/csrc/` (in
            parallel) into build/torch_kernels/; prints the build seconds,
            each kernel instance's registers and spills (for example
-           flash_bwd_dkv_kernel<bf16,256,128,1>) and the instances that
-           spill.
+           flash_bwd_dkv_kernel<float,256,128,1>,
+           flash_fwd_kernel_wgmma<128,2>) and the instances that spill;
+           fails if an STFT FFT instance, a bf16 `wgmma` flash instance
+           or a flash instance above dh 256 spills.
   kernels  first one m16n8k8 3xTF32 tensor-core product against float64
            (the fragment layouts of the flash kernels).  Then each kernel
            against its plain PyTorch version on the card, at the shapes the
@@ -29,11 +31,15 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            model) and dh 49 (zero-padded to 64 by the wrapper), dh 256
            and dh 200 (padded to 256: two column groups of 128); each
            backward is run twice and must give bit-identical gradients.
-           The same in bfloat16 ([bf16] rows) at the scaled audio
-           self-attention (dh 128), the default model's dh 64, T 1024 and
-           dh 256: o and the gradients within 2 bf16 ulps of the plain
-           version at their peak, the bound at bf16's 989 TFLOP/s, SDPA in
-           bf16 as the yardstick.
+           Head dims above 256: dh 512 and dh 320 (padded to 384), q k^T
+           summed over 128-column chunks.  The same in bfloat16 ([bf16]
+           rows, the `wgmma` kernels up to dh 256) at the scaled audio
+           self-attention (dh 128), the default model's dh 64, T 1024,
+           dh 256, dh 512 and 320, and the bench's demo batch (B 128, H 4,
+           dh 32: self 63 x 63, cross 63 x 50): o and the gradients
+           within 2 bf16 ulps of the plain version at their peak, lse
+           1e-4, the bound at bf16's 989 TFLOP/s, SDPA in bf16 as the
+           yardstick; the host cost of one TMA tensor-map encode.
            The audio projection and the mask decoder (both in 3xTF32) at
            the scaled, demo, three_speaker and multihost shapes, and at
            d 196 (padded to 200) and d 1536; their library yardsticks
@@ -53,12 +59,13 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            tests/test_parity.py.
   configs  the reference's default model (ModelConfig(), dh 64), the
            named configs three_speaker, lrs2 and multihost, odd_width
-           (ModelConfig() at d 196, 4 heads: dh 49) and wide_head
-           (ModelConfig(d_model=512, nhead=2): dh 256) at full width and
+           (ModelConfig() at d 196, 4 heads: dh 49), wide_head
+           (ModelConfig(d_model=512, nhead=2): dh 256) and wide_d1024
+           (ModelConfig(d_model=1024, nhead=2): dh 512) at full width and
            depth (seeded random weights): one eval forward at batch 2
            each against the same model on the CPU, launches counted; one
-           train step of the default model and of wide_head at dropout 0
-           against float64 on the CPU; one train step each of
+           train step of the default model, wide_head and wide_d1024 at
+           dropout 0 against float64 on the CPU; one train step each of
            three_speaker, lrs2 and multihost at their own batch and
            dropout 0.1, multihost with remat (its config) and without:
            loss and grad norm within 1e-6 relative, peak memory of each.
@@ -124,9 +131,11 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            Separator (against the port's bf16 forward on the CPU and the
            card's float32 output), a scaled bf16 train step at dropout
            0.1 (within 2e-3 relative of the float32 step's loss and grad
-           norm; two faulted steps must fall outside), the 100-step demo
-           at bf16 (+35 dB gate); each run launches only the [bf16]
-           instances of the flash pair and the projection.
+           norm; two faulted steps must fall outside), the device time
+           of the batch and of the step with the flash kernels' share
+           (torch.profiler), the 100-step demo at bf16 (+35 dB gate);
+           each run launches only the [bf16] instances of the flash pair
+           and the projection.
   bench    `python -m av_separation_torch.cli bench` in process at the
            JAX bench's defaults (demo, batch 128, bf16, fused, 250
            steps), per_step and float32 at 50 steps: each JSON line.
@@ -209,6 +218,13 @@ KERNELS = {
 for _name in ("flash_attn_fwd", "flash_attn_bwd", "audio_proj_fwd"):
     KERNELS[_name + "[bf16]"] = dict(KERNELS[_name], wrapper=_name,
                                      dtype="bfloat16")
+# The bf16 flash pair up to dh 256 runs on its Hopper kernels (wgmma, TMA,
+# mbarriers); above 256 on the mma.sync sources' chunked column split.
+for _name, _src in (("flash_attn_fwd", "flash_fwd_wgmma.cu"),
+                    ("flash_attn_bwd", "flash_bwd_wgmma.cu")):
+    KERNELS[_name + "[bf16]"].update(
+        source="av_separation_torch/csrc/" + _src,
+        note="dh above 256: " + KERNELS[_name]["source"])
 # The device kernels each wrapper launches, by name (torch.profiler).
 KERNEL_NAMES = {
     "flash_attn_fwd": ("flash_fwd_kernel",),
@@ -329,7 +345,8 @@ def phase_env(state):
 def phase_build(state):
     """Builds every kernel; fails if an instance of the STFT's FFT kernel
     (one per transform: power of two, mixed radix and Bluestein, even and
-    odd n_fft) spills or is missing."""
+    odd n_fft) spills or is missing, or if an instance of the flash
+    pair's `wgmma` kernels or of its chunked kernels above dh 256 spills."""
     import re
 
     from av_separation_torch.ops.kernels import _build
@@ -348,6 +365,16 @@ def phase_build(state):
     spilling = {k: n for u in usage.values() for k, v in u.items()
                 if (n := sum(int(x) for ln in v
                              for x in re.findall(r"(\d+) bytes spill", ln)))}
+    # The flash pair's Hopper instances (bf16 up to dh 256) and its
+    # chunked instances above dh 256 must not spill.
+    flash = [k for name in ("flash_fwd_wgmma", "flash_bwd_wgmma",
+                            "flash_attn_fwd", "flash_attn_bwd")
+             for k in usage.get(name, {})
+             if "_wgmma" in k or "_wide" in k]
+    if logs.get("flash_fwd_wgmma") and (
+            len(flash) < 7 or any(k in spilling for k in flash)):
+        raise AssertionError(f"flash instances {flash}, spilling "
+                             f"{spilling}")
     return {"build_s": round(secs, 2), "spilling_instances": spilling,
             "ptxas": usage}
 
@@ -499,16 +526,28 @@ def phase_kernels(state):
         ("long self Tk>512", 2, 4, 1024, 1024, 128, "self"),
         ("wide head self dh256", 8, 2, 501, 501, 256, "self"),
         ("wide head self dh200", 8, 2, 501, 501, 200, "self"),
+        # above 256: q k^T summed over 128-column chunks
+        ("wide d1024 self dh512", 8, 2, 501, 501, 512, "self"),
+        ("wide self dh320", 8, 2, 501, 501, 320, "self"),
     ]
     # bfloat16: the scaled and default-model self-attention, the tiled
-    # route at T 1024 and the wide head.
-    bf16_cases = [attn_cases[i] for i in (0, 5, 7, 8)]
+    # route at T 1024, the wide heads, and the bench's demo shapes (batch
+    # 128: self-attention 63 x 63, cross-attention 63 x 50).
+    bf16_cases = [attn_cases[i] for i in (0, 5, 7, 8, 10, 11)] + [
+        ("bench demo self", 128, 4, 63, 63, 32, "self"),
+        ("bench demo cross", 128, 4, 63, 50, 32, "cross")]
     for rate in (0.0, 0.1):
         for dtype, cases in ((torch.float32, attn_cases),
                              (torch.bfloat16, bf16_cases)):
             for label, b, h, tq, tk, dh, kind in cases:
                 q, k, v = _attn_inputs(b, h, tq, tk, dh, kind, gen, dtype)
                 _attn_rows(record, label, rate, q, k, v, gen)
+
+    # The host cost of one TMA tensor-map encode (the bf16 forward encodes
+    # three a call, the backward four).
+    from av_separation_torch.ops.kernels.attention import tma_encode_us
+    q, _, _ = _attn_inputs(8, 4, 501, 501, 128, "self", gen, torch.bfloat16)
+    encode_us = tma_encode_us(q)
 
     _proj_rows(record, gen)
     _decoder_rows(record, gen)
@@ -518,7 +557,8 @@ def phase_kernels(state):
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return {"checked": {n: len(r) for n, r in results.items()},
-            "mma_3xtf32_probe_err": probe_err}
+            "mma_3xtf32_probe_err": probe_err,
+            "tma_encode_us_host": encode_us}
 
 
 def bf16_tol(ref: torch.Tensor, ulps: int = 2) -> float:
@@ -913,13 +953,16 @@ def phase_configs(state):
     64), the named configs three_speaker (S 3), lrs2 (96x96 lips, T 376)
     and multihost (d 1024, 8 heads, S 4, 12 + 8 layers), and odd_width
     (ModelConfig() at d 196, 4 heads: dh 49 and widths the kernels run
-    zero-padded), at full width and depth with seeded weights: one eval
+    zero-padded), wide_head (d 512, 2 heads: dh 256) and wide_d1024 (d
+    1024, 2 heads: dh 512, the chunked column split), at full width and
+    depth with seeded weights: one eval
     forward at batch 2 on the card
     against the same model and batch on the CPU (masks 1e-4, separated
     1e-4 x the peak of the mixture, as `serve` holds the masks), with the
     launches of that forward counted from 0; then one train step of the
-    default model at dropout 0 and batch 2 against float64 on the CPU, as
-    `train` holds the scaled step, with its launches counted from 0."""
+    default model, wide_head and wide_d1024 at dropout 0 and batch 2
+    against float64 on the CPU, as `train` holds the scaled step, with its
+    launches counted from 0."""
     import dataclasses
 
     from av_separation_torch.config import ExperimentConfig, get_config
@@ -939,10 +982,13 @@ def phase_configs(state):
         default.model, d_model=196, nhead=4))  # dh 49, padded to 64
     wide = dataclasses.replace(default, model=dataclasses.replace(
         default.model, d_model=512, nhead=2))  # dh 256: two column groups
+    # dh 512: q k^T summed over 128-column chunks, four column groups
+    wide512 = dataclasses.replace(default, model=dataclasses.replace(
+        default.model, d_model=1024, nhead=2))
     cases = [("default", default)] + [
         (name, get_config(name))
         for name in ("three_speaker", "lrs2", "multihost")] + [
-        ("odd_width", odd), ("wide_head", wide)]
+        ("odd_width", odd), ("wide_head", wide), ("wide_d1024", wide512)]
     for label, cfg in cases:
         m = cfg.model
         batch = batch_of(cfg)
@@ -986,10 +1032,12 @@ def phase_configs(state):
         out[label] = row
 
     # One train step of the default model (dh 64: the flash backward at
-    # dh 64, and the decoder's kernel, which runs in training at dropout 0)
-    # and of wide_head (dh 256), each against float64 on the CPU.
+    # dh 64, and the decoder's kernel, which runs in training at dropout 0),
+    # of wide_head (dh 256) and of wide_d1024 (dh 512), each against
+    # float64 on the CPU.
     checks = {}
-    for label, base in (("default", default), ("wide_head", wide)):
+    for label, base in (("default", default), ("wide_head", wide),
+                        ("wide_d1024", wide512)):
         cfg0 = dataclasses.replace(
             base, model=dataclasses.replace(base.model, dropout=0.0),
             train=dataclasses.replace(base.train, batch_size=2))
@@ -1012,6 +1060,7 @@ def phase_configs(state):
     return {"card": state["card"], "forwards_batch2": out,
             "default_train_step_dropout0_batch2": checks["default"],
             "wide_head_train_step_dropout0_batch2": checks["wide_head"],
+            "wide_d1024_train_step_dropout0_batch2": checks["wide_d1024"],
             "train_steps": steps}
 
 
@@ -1611,6 +1660,30 @@ def device_split(prof, iters: int, traced_ms: float, unit: str) -> dict:
             "host_self_cpu_ms": [[name[:60], ms] for name, ms in host]}
 
 
+def _traced(fn, iters: int, unit: str) -> dict:
+    """`device_split` of `iters` calls of fn() (after one untraced), with
+    the flash kernels' share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / iters
+    split = device_split(prof, iters, traced_ms, unit)
+    dev, groups = split[f"device_ms_per_{unit}"], split.get("groups_ms", {})
+    flash = sum(ms for g, ms in groups.items() if g.startswith("flash_attn"))
+    split["flash_ms"] = flash
+    split["flash_share"] = flash / dev if isinstance(dev, float) \
+        else "not measured"
+    split["host_ms"] = traced_ms
+    return split
+
+
 def _scaled_train_setup(dropout: float, n_samples: int, batch: int):
     """The scaled config at `dropout` and its first `batch_iterator` batches
     over a cut of the synthetic dataset (`n_samples` of its 1000; widths,
@@ -2047,6 +2120,8 @@ def phase_bf16(state):
     got = sep16.separate_waveform(mixes, lips)
     batch_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.LAUNCHES)
+    serve_trace = _traced(lambda: sep16.separate_waveform(mixes, lips), 3,
+                          "batch")
     by_path["bf16_serve"] = launches
     want = want_launches({"flash_attn_fwd[bf16]": 16,
                           "audio_proj_fwd[bf16]": 1, "mask_decoder_fwd": 1})
@@ -2070,6 +2145,7 @@ def phase_bf16(state):
     if rule_err > 0.5:
         bad.append(f"serve vs card float32: separated {rule_err} > 0.5")
     out["serve"] = {"batch": 8, "ms": batch_ms, "launches": launches,
+                    "trace": serve_trace,
                     "vs_cpu_bf16_rows2": {"mask_max_abs_err": [mask_err,
                                                                2e-2],
                                           "wave_max_abs_err": [
@@ -2121,6 +2197,14 @@ def phase_bf16(state):
             float(met["loss"])
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            held = [ts]
+
+            def one_step():
+                held[0], m_ = step(held[0], batch)
+                float(m_["loss"])
+
+            out["train_trace"] = _traced(one_step, 2, "step")
+            ts = held[0]
         runs[label] = {"loss": loss, "grad_norm": norm, "ms": ms,
                        "launches": launches}
         del ts, step

@@ -278,8 +278,14 @@ class TestDispatch:
         assert o.shape == q.shape
 
     def test_head_dims_above_256_are_refused(self):
-        with pytest.raises(ValueError, match="head dim 257 exceeds"):
-            padded_head_dim(257)
+        # Above 256 only multiples of 128 are built: the launcher refuses
+        # any other, and the padding wrapper pads to the next one.
+        from av_separation_torch.ops.kernels.attention import _check
+        q = torch.zeros(1, 2, 9, 257)
+        with pytest.raises(ValueError, match="head dim 257 not in"):
+            _check(q, q, q)
+        assert padded_head_dim(257) == 384
+        _check(*(torch.zeros(1, 2, 9, 384),) * 3)
 
     def test_other_devices_raise(self):
         q = torch.empty(1, 2, 5, 32, device="meta")

@@ -100,3 +100,190 @@ class TestWideHeadDims:
         assert sep.shape == (1, 2, 33, 12) and bool(torch.isfinite(sep).all())
         assert all(bool(torch.isfinite(p.grad).all())
                    for p in model.parameters() if p.grad is not None)
+
+
+# Head dims above 256: padded to the next multiple of 128 and run on the
+# card by the chunked column split (csrc/flash_attn_fwd.cu
+# `flash_fwd_kernel_wide`, csrc/flash_attn_bwd.cu `flash_bwd_*_kernel_wide`).
+WIDE = {320: 384, 512: 512, 1024: 1024}
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+class TestHeadDimsAbove256:
+    @pytest.mark.parametrize("dh,width", sorted(WIDE.items()))
+    def test_pad_to_a_multiple_of_128(self, dh, width):
+        assert padded_head_dim(dh) == width
+
+    # Against the Pallas `flash_attention` in interpret mode.  Float32:
+    # sums of up to 1024 products (s) in another order: 5e-5 on o and the
+    # gradients (atol) with 1e-4 relative.  bf16 (operands rounded the same
+    # way on both sides; p, pd, ds rounded at the same points): 2 bf16
+    # ulps of the O(1) outputs, relative and absolute, as
+    # tests/test_torch_bf16.py.
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    @pytest.mark.parametrize("layout", list(SHAPES))
+    @pytest.mark.parametrize("dh", sorted(WIDE))
+    def test_padded_route_matches_pallas(self, dh, layout, rate, dtype):
+        from av_separation_tpu.ops.pallas.attention import flash_attention
+        qs, ks = (s[:3] + (dh,) for s in SHAPES[layout])
+        if layout == "tiled":  # T above 512 at one head, fewer rows
+            qs, ks = (1, 1, 520, dh), (1, 1, 514, dh)
+        arrays = [rand(qs, 1), rand(ks, 2), rand(ks, 3), rand(qs, 4)]
+        bf16 = dtype == "bfloat16"
+        if bf16:
+            arrays = [_bf16(a) for a in arrays]
+        tdt = torch.bfloat16 if bf16 else torch.float32
+        jdt = jnp.bfloat16 if bf16 else jnp.float32
+        tq_, tk_, tv_, tdo = (torch.from_numpy(x).to(tdt) for x in arrays)
+        seen = []
+
+        def fwd(*a, scale=None):
+            seen.append(a[0].shape[-1])
+            return flash_attn_fwd_torch(*a, scale=scale)
+
+        o, lse = padded_fwd(fwd, tq_, tk_, tv_, rate, SEED)
+        assert seen == [WIDE[dh]] and o.shape == qs and o.dtype == tdt
+        grads = padded_bwd(flash_attn_bwd_torch, tq_, tk_, tv_, o, tdo, lse,
+                           rate, SEED)
+        seed = jnp.asarray([SEED], jnp.int32)
+        with pltpu.force_tpu_interpret_mode():
+            o_j, vjp = jax.vjp(lambda *a: flash_attention(
+                *a, dropout_rate=rate, dropout_seed=seed),
+                *(jnp.asarray(x).astype(jdt) for x in arrays[:3]))
+            want = vjp(jnp.asarray(arrays[3]).astype(jdt))
+        tol = dict(atol=2 * 2.0 ** -7, rtol=2 * 2.0 ** -7) if bf16 \
+            else dict(atol=5e-5, rtol=1e-4)
+        f = lambda x: np.asarray(jnp.asarray(x).astype(jnp.float32))
+        np.testing.assert_allclose(o.float().numpy(), f(o_j), **tol)
+        for name, g, w in zip("qkv", grads, want):
+            assert g.shape == (qs if name == "q" else ks) and g.dtype == tdt
+            np.testing.assert_allclose(g.float().numpy(), f(w), **tol,
+                                       err_msg=name)
+
+
+def wide_tiles_emulated(q, k, v, do, rate, seed, chunk=128, bk=32, bt=16):
+    """The chunked column split's schedule in numpy float32, one (batch,
+    head) at a time: the forward sums each 32-key tile's q k^T over
+    128-column chunks, then runs the online softmax and p v for the tile;
+    the dK/dV pass sums S^T and dP^T over the chunks for each 16-row query
+    tile, the dQ pass S and dP for each 16-key tile.  Returns o, lse, dq,
+    dk, dv."""
+    from av_separation_torch.ops.kernels.attention import keep_mask
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    scale = np.float32(1.0 / np.sqrt(dh))
+    keep = keep_mask(seed, b, h, tq, tk, rate).numpy() if rate > 0 \
+        else np.ones((b, h, tq, tk), bool)
+    inv = np.float32(1.0 / (1.0 - rate))
+
+    def chunked(a, bm):  # a (m, dh) @ bm (n, dh)^T over 128-column chunks
+        s = np.zeros((a.shape[0], bm.shape[0]), np.float32)
+        for c in range(0, dh, chunk):
+            s += a[:, c:c + chunk] @ bm[:, c:c + chunk].T
+        return s
+
+    o = np.zeros_like(q)
+    lse = np.zeros((b, h, tq), np.float32)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for bi in range(b):
+        for hi in range(h):
+            qq, kk_, vv, dd = q[bi, hi], k[bi, hi], v[bi, hi], do[bi, hi]
+            kp = keep[bi, hi]
+            m = np.full(tq, -np.inf, np.float32)
+            l = np.zeros(tq, np.float32)
+            acc = np.zeros((tq, dh), np.float32)
+            for k0 in range(0, tk, bk):
+                s = chunked(qq, kk_[k0:k0 + bk]) * scale
+                mn = np.maximum(m, s.max(1))
+                alpha = np.exp(m - mn)
+                p = np.exp(s - mn[:, None])
+                l = l * alpha + p.sum(1)
+                acc = acc * alpha[:, None] \
+                    + np.where(kp[:, k0:k0 + bk], p, 0) @ vv[k0:k0 + bk]
+                m = mn
+            o[bi, hi] = acc / (l * (1 - rate))[:, None]
+            lse[bi, hi] = m + np.log(l)
+            delta = (dd * o[bi, hi]).sum(1)
+            for r0 in range(0, tq, bt):  # dK/dV: 16-row query tiles
+                sl = slice(r0, r0 + bt)
+                p = np.exp(chunked(kk_, qq[sl]) * scale - lse[bi, hi, sl])
+                dp = chunked(vv, dd[sl])
+                kt = kp[sl].T
+                pd = np.where(kt, p * inv, 0)
+                ds = p * (np.where(kt, dp * inv, 0) - delta[sl]) * scale
+                dv[bi, hi] += pd @ dd[sl]
+                dk[bi, hi] += ds @ qq[sl]
+            for k0 in range(0, tk, bt):  # dQ: 16-key tiles
+                sl = slice(k0, k0 + bt)
+                p = np.exp(chunked(qq, kk_[sl]) * scale
+                           - lse[bi, hi][:, None])
+                dp = chunked(dd, vv[sl])
+                ds = p * (np.where(kp[:, sl], dp * inv, 0)
+                          - delta[:, None]) * scale
+                dq[bi, hi] += ds @ kk_[sl]
+    return o, lse, dq, dk, dv
+
+
+class TestWideChunkedSchedule:
+    # The chunked schedule at dh 512 against the plain float32 version:
+    # float32 sums in another order (chunk by chunk, tile by tile), so
+    # 2e-5 on o (O(1)) and 5e-5 on the gradients, 1e-4 on lse.
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    def test_matches_plain_float32(self, rate):
+        q, k, v, do = (rand(s, i) for i, s in enumerate(
+            [(1, 2, 40, 512), (1, 2, 70, 512), (1, 2, 70, 512),
+             (1, 2, 40, 512)], 11))
+        got = wide_tiles_emulated(q, k, v, do, rate, SEED)
+        tq_, tk_, tv_, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+        o, lse = flash_attn_fwd_torch(tq_, tk_, tv_, rate, SEED)
+        want = (o, lse) + flash_attn_bwd_torch(tq_, tk_, tv_, o, tdo, lse,
+                                               rate, SEED)
+        for name, g, w, tol in zip(("o", "lse", "dq", "dk", "dv"), got,
+                                   want, (2e-5, 1e-4, 5e-5, 5e-5, 5e-5)):
+            np.testing.assert_allclose(g, w.numpy(), atol=tol, rtol=1e-4,
+                                       err_msg=name)
+
+
+def test_d1024_two_heads_matches_jax_model():
+    """ModelConfig(d_model=1024, nhead=2) (dh 512, which raised on the card
+    before) at one encoder and one fusion layer: the port's eval forward
+    against the JAX model with the Pallas attention in interpret mode, on
+    the same weights.  float32 sums over 1024-wide rows in another order:
+    masks (sigmoid outputs) 1e-4, separated spectra 1e-4 of their peak."""
+    import jax.tree_util as jtu
+
+    from av_separation_tpu.config import ModelConfig as JaxModelConfig
+    from av_separation_tpu.models.model import (
+        AVSeparationTransformer as JaxModel)
+    from av_separation_torch.models.model import AVSeparationTransformer
+    from av_separation_torch.utils.transplant import from_jax_variables
+
+    small = dict(freq_bins=33, d_model=1024, nhead=2, num_encoder_layers=1,
+                 num_fusion_layers=1, num_speakers=2, dropout=0.1)
+    jmodel = JaxModel(JaxModelConfig(**small, attn_impl="pallas",
+                                     decoder_impl="xla", proj_impl="xla",
+                                     stem_impl="xla"))
+    with pltpu.force_tpu_interpret_mode():
+        variables = jtu.tree_map(np.asarray, jmodel.init(
+            jax.random.PRNGKey(3), jnp.zeros((1, 33, 12)),
+            jnp.zeros((1, 6, 16, 16))))
+    model = AVSeparationTransformer(ModelConfig(**small))
+    model.load_state_dict(from_jax_variables(variables))
+    model.eval()
+    rng = np.random.default_rng(9)
+    mixed = np.abs(rng.normal(size=(2, 33, 12))).astype(np.float32)
+    frames = rng.uniform(size=(2, 6, 16, 16)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        sep_j, masks_j = jmodel.apply(variables, jnp.asarray(mixed),
+                                      jnp.asarray(frames),
+                                      deterministic=True)
+    with torch.inference_mode():
+        sep, masks = model(torch.from_numpy(mixed), torch.from_numpy(frames))
+    np.testing.assert_allclose(masks.numpy(), np.asarray(masks_j), atol=1e-4)
+    peak = float(np.abs(np.asarray(sep_j)).max())
+    np.testing.assert_allclose(sep.numpy(), np.asarray(sep_j),
+                               atol=1e-4 * peak)
