@@ -1,352 +1,469 @@
-// Audio input projection forward, float32 on the tensor cores in 3xTF32,
-// with a float32 or bfloat16 input and outputs, for Hopper (sm_90a).
+// Audio input projection forward for Hopper (sm_90a), at a float32 or a
+// bfloat16 input: warpgroup products (`wgmma`) on tiles that TMA brings
+// into shared-memory rings guarded by mbarriers.
 //
 // Replaces: av_separation_tpu/ops/pallas/audio_proj.py `_proj_kernel`
-// (called from `_fwd_impl`).  Computes, with torch's zero padding of both
-// convolutions,
+// (audio_proj.py:32-58, :75): x cast up to float32, float32 weights and
+// biases,
 //     h[t] = relu(b1 + sum_tap x[t + tap - 1] @ W1[tap])  for t in [0, T),
-//            and h = 0 outside [0, T)                      (audio_proj.py:51-56)
+//            and h = 0 outside [0, T)                  (audio_proj.py:51-56)
 //     y[t] = relu(b2 + sum_tap h[t + tap - 1] @ W2[tap])
-// and emits y and h, both (B, T, D).  x is (B, T, F), W1 (3, F, D),
-// W2 (3, D, D) (flax conv layout, tap-major).
+// with y and h stored in x's dtype and conv2 reading the float32 h.  x is
+// (B, T, F) with any row stride that is a multiple of 16 bytes, W1
+// (3, F, D), W2 (3, D, D) (flax layout, tap-major).
 //
-// Bound on the H100 at the scaled serving shape (B=8, T=501, F=257, D=512):
-// 2*B*T*3*(F + D)*D = 9.5 GFLOP against 25 MB (x, W1, W2, y, h).  Float32
-// products at float32 accuracy run on the tensor cores in 3xTF32 at
-// 495/3 = 165 TFLOP/s: 57 us, against 7.5 us of bytes, so bound by
-// operations; with a bf16 x, y and h (float32 math and weights) the bytes
-// drop to 4.5 us and the bound stays the products'.
+// Products keep float32 accuracy on bf16 tensor cores.  A float32 value v
+// is the exact sum of three bf16 parts, p1 = bf16(v), p2 = bf16(v - p1),
+// p3 = bf16(v - p1 - p2) (each rounding keeps 8 of the 24 bits).
+// - A bf16 x is exact in bf16, so x W1 = x W1_1 + x W1_2 + x W1_3, three
+//   bf16 products summed in float32: exact but for the float32 sums.
+// - A float32 operand (a float32 x; the float32 h that conv2 reads) and
+//   the weight both in three parts: the six products a_i W_j with
+//   i + j <= 4 (1-based) leave out terms below 2^-24 of a W, as 3xTF32
+//   leaves out its small x small term.
+// So a bf16 conv1 runs 3 bf16 products and every other conv 6: at 989
+// TFLOP/s that is 330 and 165 TFLOP/s of float32 work.
 //
-// Design: one launch a conv, each an implicit GEMM.
-// - Why two launches.  A fused kernel (the TPU kernel's shape: the hidden
-//   tile with its halo kept in shared memory between the convs, one block
-//   an SM) was built and measured first, on an H100 at 700 W: 0.35 ms at
-//   the scaled shape against cuDNN's 0.37, and 2-3x cuDNN at three_speaker
-//   and multihost.  The hidden tile takes the shared memory that a larger
-//   output-channel tile needs.  h is an output the backward reads anyway,
-//   so conv2 reads it back (8 MB at the scaled shape, from L2) at no extra
-//   write; its zero padding outside [0, T) is conv2's zero-filled copies.
-// - Implicit GEMM: M frames, K = 3 taps x C_in, N = D, as mma.sync.m16n8k8
-//   TF32 products in 3xTF32 (`split`, `mma_3xtf32` in mma_3xtf32.cuh), as
-//   the flash kernels.  The taps are row offsets into the staged input
-//   rows (A row r, tap k reads staged row r + k): no im2col copy.
-// - Tiles.  A block computes BM frames of one utterance x 128 channels
-//   (BM = 128, or 64 or 32 where that fills the card better) with 8 warps of
-//   (BM / 2) x 32.  Input channels go 16 at a time through a 3-stage ring
-//   of cp.async copies: BM + 2 input rows (zero outside [0, T)) and the 3
-//   taps' 16 weight rows (W[tap][c] is D contiguous floats: a k-major
-//   tile), one barrier a stage.  110 KB of shared memory: two blocks an SM.
-// - Ragged edges.  F = 257 is padded to a multiple of 8 (264) with zeros, in
-//   the staged x and the W1 rows (src-size 0); x rows are 1,028 bytes, only
-//   4-byte aligned, so conv1 stages x with 4-byte copies and conv2 stages h
-//   with 16-byte ones.
-// - Stores.  y and h go from the C fragments straight to device memory:
-//   each quarter-warp writes 32 contiguous bytes of a row, whole sectors.
-// - bfloat16 (the Pallas kernel at a bf16 x, audio_proj.py:39-58, :87):
-//   the math stays float32 (x cast up, float32 weights) and y and h are
-//   stored in bf16.  x is staged as float32 (plain loads and a convert:
-//   its 514-byte rows fit no 4-byte copy), and a bf16 value is exact in
-//   TF32, so conv1's 3xTF32 product needs two products, x w_big +
-//   x w_small.  conv2 reads the float32 h, as the Pallas kernel's does:
-//   conv1 writes it to a float32 scratch beside the bf16 h, which is only
-//   the backward's residual.
-// - Bank conflicts.  Weight rows are 136 floats apart (8 mod 32): B loads
-//   (k = t, n = g) hit bank 8t + g; staged input rows 20 apart: A loads hit
-//   20g + t; 32 distinct banks a load.
+// Bound on the H100 at the scaled serving shape (B 8, T 501, F 257,
+// D 512), by the float32 math at those rates: bf16, conv1 3.16 GFLOP at
+// 330 TFLOP/s and conv2 6.31 GFLOP at 165: 48 us, against 15 MB (x, y, h
+// in bf16, the float32 weights): 4.5 us; float32, both convs at 165:
+// 57 us against 25 MB: 7.5 us.  Bound by operations.
+//
+// Design:
+// - Weights split once a call.  `audio_proj_split_kernel` writes each
+//   weight's three bf16 parts, (part, tap, c_in, D), before the convs;
+//   the products read them as they stand (no split in an inner loop).
+// - Two launches, conv1 then conv2, one kernel.  A bf16 conv1 writes h
+//   twice: bf16 (the output, the backward's residual) and float32
+//   (conv2's A); both stay in L2 at the scaled shape (8.2 + 4.1 MB).  A
+//   float32 conv1 writes the float32 h once.
+// - Tiles.  A block owns 128 frames of one utterance (two consumer
+//   warpgroups of 64) x BN output channels (128, or 64 where 128-channel
+//   blocks would leave half the SMs idle, and at D 64).  The grid is one
+//   dimension over (utterance, frame tile, channel slab), slab fastest, so
+//   neither B nor D has a 65,535 cap.  A warpgroup with no frame below T
+//   exits at once (T 63: one warpgroup does the work).
+// - Operands by TMA.  Warpgroup 0 is the producer: one thread starts every
+//   copy.  The A operand (x, or the float32 h) comes as 3-D boxes (c_in,
+//   T, B) of 130 frames, t0 - 1 .. t0 + 128: TMA zero-fills frames before
+//   0 and from T on, so each tap's halo (and conv2's zero padding of h)
+//   comes free, and never reads the next utterance's frames; columns
+//   from c_in on arrive as zeros too, so x may have padded rows (F 257
+//   in rows of 264 bf16 or 260 float32: TMA needs 16-byte strides) and no
+//   pad is read.  One A stage holds a 64-channel chunk (one 128-byte box
+//   of bf16, two of float32), the weights' stage one (chunk, tap): the
+//   three parts' 64 rows x BN columns.  Rings of 2 A and 3-4 weight
+//   stages; a stage's `full` barrier completes on the copies' bytes, its
+//   `empty` barrier on one arrival of each consumer warp.
+// - Products.  m64n64k16 `wgmma` with A from registers and the weight
+//   parts as MN-major B operands (the transpose bit; W's (c_in, D) tile is
+//   n-contiguous), 128-byte swizzle, the descriptors of wgmma_tma.cuh.
+//   Each tap reads A at a row offset: warpgroup c's frame m, tap k is
+//   staged row 64 c + m + k, loaded into the k16 A fragments by
+//   `ldmatrix` (bf16 x) or by 8-byte loads split into three bf16 parts in
+//   registers (float32), the 128-byte swizzle undone in the address.
+//   A warpgroup loads a tap's four k16 fragments, issues its products
+//   (4 x 3 or 4 x 6, times BN / 64), and waits for them before the next
+//   tap; the other warpgroup's products run meanwhile.  (Loading the next
+//   half tap's fragments while this half's products run, two fragment
+//   buffers and a wait for the products two steps back, measured slower
+//   on the H100: bf16 scaled 0.1065 against 0.0832 ms.)
+// - Registers.  384 threads a block: ptxas caps a thread at 168.  BN 128
+//   holds 64 accumulators and a float32 A's 48 fragment registers a
+//   thread.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma_3xtf32.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: 2 over frames, 4 over channels
-constexpr int kBN = 128;       // output channels a block
-constexpr int kBK = 16;        // input channels a ring stage
-constexpr int kAS = kBK + 4;   // staged input row stride (floats)
-constexpr int kBS = kBN + 8;   // weight row stride (floats)
-constexpr int kStages = 3;
+constexpr int kConsumers = 2;                    // warpgroups of 64 frames
+constexpr int kBM = kPanelRows * kConsumers;     // frames a block
+constexpr int kStaged = kBM + 2;                 // with the two halo frames
+constexpr int kBK = 64;                          // input channels a chunk
+constexpr int kBox = (kStaged * 128 + 1023) / 1024 * 1024;  // one A box
+constexpr int kWChunk = 64 * 128;  // 64 k rows x 64 bf16 channels
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kSmem = 232448;      // a block's shared memory on the H100
 
-template <int BM>
-struct Tile {
-  static constexpr int kMT = BM / 32;  // m16 tiles a warp
-  static constexpr int kA = (BM + 2) * kAS;
-  static constexpr int kStage = kA + 3 * kBK * kBS;  // input rows, W rows
-  static constexpr size_t kBytes = sizeof(float) * kStages * kStage;
+// A32: A is float32 (two 32-column boxes a chunk), else bf16.
+template <bool A32, int BN>
+struct Layout {
+  static constexpr int kAStage = (A32 ? 2 : 1) * kBox;
+  static constexpr int kABytes = (A32 ? 2 : 1) * kStaged * 128;  // copied
+  static constexpr int kPart = BN / 64 * kWChunk;  // one weight part
+  static constexpr int kWStage = 3 * kPart;
+  static constexpr int kAStages = 2;
+  static constexpr int kFit =
+      (kSmem - 1024 - 128 - kAStages * kAStage) / kWStage;
+  static constexpr int kWStages = kFit < 4 ? kFit : 4;
+  static constexpr int kBarOffset = kAStages * kAStage + kWStages * kWStage;
+  static constexpr size_t kBytes =
+      1024 + kBarOffset + 8 * 2 * (kAStages + kWStages);
+  static_assert(kWStages >= 2 && kBytes <= kSmem, "shared memory");
 };
 
-__device__ __forceinline__ float relu(float v) { return fmaxf(v, 0.f); }
+struct Params {
+  const float* bias;
+  float* h32;  // a bf16 conv1: the float32 h it writes (conv2's A)
+  void* out;   // conv1: h; conv2: y (float32 or bf16, as x)
+  int T, cin, D;
+  int tiles, slabs;  // frame tiles an utterance, channel slabs
+};
 
-// How conv_block stages its input rows.
-enum Src { kF32Rows4, kF32Rows16, kBf16Rows };
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
-// out[b, t0 + r, n0 + c] = relu(bias + sum_tap sum_ci src[b, t0 + r + tap
-// - 1, ci] W[tap, ci, n0 + c]) for the block's BM frames and 128 channels;
-// src (B, T, cin), zero outside [0, T): float32 rows 4-byte or 16-byte
-// aligned, or bf16 rows.  The result goes to `out` (float32) where OUT_F32
-// and to `outh` (bf16, rounded to nearest) where OUT_BF16.
-template <int BM, Src SRC, bool OUT_F32, bool OUT_BF16>
-__device__ __forceinline__ void conv_block(const void* __restrict__ src_,
-                                           const float* __restrict__ W,
-                                           const float* __restrict__ bias,
-                                           float* __restrict__ out,
-                                           __nv_bfloat16* __restrict__ outh,
-                                           int T, int cin, int D) {
-  constexpr int kMT = Tile<BM>::kMT;
-  constexpr int kStage = Tile<BM>::kStage;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * kBN, b = blockIdx.z;
-  const float* src = static_cast<const float*>(src_);
-  const float* sb = src + (size_t)b * T * cin;
-  const __nv_bfloat16* sbh =
-      static_cast<const __nv_bfloat16*>(src_) + (size_t)b * T * cin;
-  const int kc = (cin + 7) / 8 * 8;  // K a tap, padded to a multiple of 8
-  const int nk = (kc + kBK - 1) / kBK;
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
 
-  auto load = [&](int j) {
-    float* sa = smem + (j % kStages) * kStage;
-    float* sw = sa + Tile<BM>::kA;
-    const int c0 = j * kBK;
-    // Input frames t0 - 1 .. t0 + BM, channels c0 .. c0 + 15.
-    if (SRC == kBf16Rows) {
-      // Plain loads, converted to float32 as they are staged.
-      for (int i = tid; i < (BM + 2) * kBK; i += kThreads) {
-        const int r = i / kBK, c = i % kBK;
-        const int tt = t0 - 1 + r;
-        const bool ok = tt >= 0 && tt < T && c0 + c < cin;
-        sa[r * kAS + c] =
-            ok ? __bfloat162float(sbh[(size_t)tt * cin + c0 + c]) : 0.f;
-      }
-    } else if (SRC == kF32Rows16) {
-      for (int i = tid; i < (BM + 2) * (kBK / 4); i += kThreads) {
-        const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
-        const int tt = t0 - 1 + r;
-        const bool ok = tt >= 0 && tt < T && c0 + c < cin;
-        cp_async16(sa + r * kAS + c,
-                   ok ? sb + (size_t)tt * cin + c0 + c : src, ok ? 16 : 0);
-      }
-    } else {
-      for (int i = tid; i < (BM + 2) * kBK; i += kThreads) {
-        const int r = i / kBK, c = i % kBK;
-        const int tt = t0 - 1 + r;
-        const bool ok = tt >= 0 && tt < T && c0 + c < cin;
-        cp_async4(sa + r * kAS + c, ok ? sb + (size_t)tt * cin + c0 + c : src,
-                  ok ? 4 : 0);
-      }
-    }
-    // W rows (tap, c0 .. c0 + 15), channels n0 .. n0 + 127.
-#pragma unroll
-    for (int i = tid; i < 3 * kBK * (kBN / 4); i += kThreads) {
-      const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
-      const int tap = r / kBK, ci = c0 + r % kBK;
-      const bool ok = ci < cin && n0 + c < D;
-      cp_async16(sw + r * kBS + c,
-                 ok ? W + ((size_t)tap * cin + ci) * D + n0 + c : W,
-                 ok ? 16 : 0);
-    }
-  };
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned*>(&v);
+}
 
-  float acc[kMT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+// Two float32 values as three bf16 pairs whose sums are exactly them.
+__device__ __forceinline__ void split3(float2 v, unsigned& p1, unsigned& p2,
+                                       unsigned& p3) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const float r0 = v.x - __low2float(a), r1 = v.y - __high2float(a);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 c =
+      __floats2bfloat162_rn(r0 - __low2float(b), r1 - __high2float(b));
+  p1 = bits(a);
+  p2 = bits(b);
+  p3 = bits(c);
+}
 
-  const bool active = t0 + wm * (BM / 2) < T && n0 + wn * 32 < D;
+// Byte offset of 16-byte unit u of staged row r in a 128-byte-swizzled box.
+__device__ __forceinline__ uint32_t swz(int r, int u) {
+  return r * 128 + ((u ^ (r & 7)) << 4);
+}
+
+// ACC += A B_part over the BN columns: one m64n64k16 product per 64.
+template <int BN>
+__device__ __forceinline__ void product(float (&acc)[BN / 2],
+                                        const unsigned (&a)[4],
+                                        uint32_t part, int kk) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
+  for (int n = 0; n < BN / 64; ++n) {
+    float(&d)[32] = *reinterpret_cast<float(*)[32]>(acc + 32 * n);
+    wgmma_rs64(d, a, desc_mn<BN>(part, kk, n));
   }
-  for (int j = 0; j < nk; ++j) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage j landed; the slot of stage j - 1 is free
-    if (j + kStages - 1 < nk) load(j + kStages - 1);
-    cp_async_commit();
-    const float* sa = smem + (j % kStages) * kStage;
-    const float* sw = sa + Tile<BM>::kA;
-    const int c0 = j * kBK;
-    if (active) {
-      // One tap at a time at BM 128 (unrolled, conv2 spilled there).
-#pragma unroll(BM == 128 ? 1 : 3)
+}
+
+// relu(conv3(src, W) + bias) for a block, F32 the dtype of x: conv1
+// (src = x) writes h, a bf16 one in bf16 and float32; conv2 (src = the
+// float32 h) writes y.
+template <bool CONV2, bool F32, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+audio_proj_wgmma_kernel(const __grid_constant__ CUtensorMap ma,
+                        const __grid_constant__ CUtensorMap mw,
+                        const Params p) {
+  constexpr bool A32 = CONV2 || F32;
+  using L = Layout<A32, BN>;
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  char* sA = smem;
+  char* sW = smem + L::kAStages * L::kAStage;
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* a_empty = a_full + L::kAStages;
+  uint64_t* w_full = a_empty + L::kAStages;
+  uint64_t* w_empty = w_full + L::kWStages;
+
+  const unsigned blk = blockIdx.x;
+  const int slab = static_cast<int>(blk % p.slabs);
+  const unsigned rest = blk / p.slabs;
+  const int b = static_cast<int>(rest / p.tiles);
+  const int t0 = static_cast<int>(rest % p.tiles) * kBM;
+  const int n0 = slab * BN;
+  const int chunks = (p.cin + kBK - 1) / kBK;
+  // Consumer warpgroups with a frame below T; the others exit.
+  const int rows = p.T - t0;
+  const int active = rows >= kBM ? kConsumers : (rows + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kAStages; ++s) {
+      mbar_init(&a_full[s], 1);
+      mbar_init(&a_empty[s], 4 * active);
+    }
+    for (int s = 0; s < L::kWStages; ++s) {
+      mbar_init(&w_full[s], 1);
+      mbar_init(&w_empty[s], 4 * active);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if (threadIdx.x != 0) return;
+    // Producer: per chunk, the A box(es), then the three taps' weights.
+    tma_prefetch_desc(&ma);
+    tma_prefetch_desc(&mw);
+    for (int c = 0; c < chunks; ++c) {
+      const int sa = c % L::kAStages;
+      mbar_wait(&a_empty[sa], ((c / L::kAStages) & 1) ^ 1);
+      mbar_expect_tx(&a_full[sa], L::kABytes);
+      char* dst = sA + sa * L::kAStage;
+      if (A32) {
+        tma_load_3d(dst, &ma, &a_full[sa], c * kBK, t0 - 1, b);
+        tma_load_3d(dst + kBox, &ma, &a_full[sa], c * kBK + 32, t0 - 1, b);
+      } else {
+        tma_load_3d(dst, &ma, &a_full[sa], c * kBK, t0 - 1, b);
+      }
       for (int tap = 0; tap < 3; ++tap) {
+        const int j = 3 * c + tap, sw = j % L::kWStages;
+        mbar_wait(&w_empty[sw], ((j / L::kWStages) & 1) ^ 1);
+        mbar_expect_tx(&w_full[sw], L::kWStage);
+        char* wdst = sW + sw * L::kWStage;
+        for (int part = 0; part < 3; ++part)
+          for (int n = 0; n < BN / 64; ++n)
+            tma_load_3d(wdst + part * L::kPart + n * kWChunk, &mw,
+                        &w_full[sw], n0 + 64 * n, c * kBK, 3 * part + tap);
+      }
+    }
+    return;
+  }
+  const int cw = wg - 1;  // frames [t0 + 64 cw, + 64)
+  if (cw >= active) return;
+
+  const int lane = threadIdx.x & 31;
+  const int w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[BN / 2];
 #pragma unroll
-        for (int kk = 0; kk < kBK / 8; ++kk) {
-          if (c0 + kk * 8 >= kc) break;
-          unsigned ab[kMT][4], as[kMT][4];
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int sa = c % L::kAStages;
+    mbar_wait(&a_full[sa], (c / L::kAStages) & 1);
+    const uint32_t a_addr = smem_u32(sA + sa * L::kAStage);
+#pragma unroll 1
+    for (int tap = 0; tap < 3; ++tap) {
+      const int j = 3 * c + tap, sw = j % L::kWStages;
+      // This thread's staged rows: frame 64 cw + 16 w + g (+ 8), tap.
+      const int r0 = 64 * cw + 16 * w + tap;
+      const uint32_t w_addr = smem_u32(sW + sw * L::kWStage);
+      if constexpr (A32) {
+        // k16 step kk: columns 16 kk .. + 15 of the chunk, in box kk / 2
+        // at 16-byte units 4 (kk % 2) + 2 j + t / 2; register 2 j + h
+        // holds row g + 8 h, columns 8 j + 2 t, + 1.
+        unsigned a1[4][4], a2[4][4], a3[4][4];
 #pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            const float* ap =
-                sa + (wm * (BM / 2) + mt * 16 + tap) * kAS + kk * 8;
-            if (SRC == kBf16Rows) {
-              // A bf16 value is its own TF32 big part; no small part.
-              ab[mt][0] = __float_as_uint(ap[g * kAS + t]);
-              ab[mt][1] = __float_as_uint(ap[(g + 8) * kAS + t]);
-              ab[mt][2] = __float_as_uint(ap[g * kAS + t + 4]);
-              ab[mt][3] = __float_as_uint(ap[(g + 8) * kAS + t + 4]);
-            } else {
-              load_a_frag(ap, kAS, g, t, ab[mt], as[mt]);
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j2 = 0; j2 < 2; ++j2)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = r0 + g + 8 * h;
+              const uint32_t at = a_addr + (kk >> 1) * kBox +
+                                  swz(r, 4 * (kk & 1) + 2 * j2 + (t >> 1)) +
+                                  8 * (t & 1);
+              split3(lds_f2(at), a1[kk][2 * j2 + h], a2[kk][2 * j2 + h],
+                     a3[kk][2 * j2 + h]);
             }
-          }
+        mbar_wait(&w_full[sw], (j / L::kWStages) & 1);
+        wgmma_fence();
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const float* bp =
-                sw + (tap * kBK + kk * 8 + t) * kBS + wn * 32 + n * 8 + g;
-            unsigned bb[2], bs[2];
-            split(bp[0], bb[0], bs[0]);
-            split(bp[4 * kBS], bb[1], bs[1]);
+        for (int kk = 0; kk < 4; ++kk) {
+          // A_i W_j for i + j <= 4: the three parts' sums to 2^-24.
+          product<BN>(acc, a3[kk], w_addr, kk);
+          product<BN>(acc, a2[kk], w_addr + L::kPart, kk);
+          product<BN>(acc, a1[kk], w_addr + 2 * L::kPart, kk);
+          product<BN>(acc, a2[kk], w_addr, kk);
+          product<BN>(acc, a1[kk], w_addr + L::kPart, kk);
+          product<BN>(acc, a1[kk], w_addr, kk);
+        }
+      } else {
+        // ldmatrix.x4: lanes 8m .. 8m + 7 address rows (m % 2) 8 + l % 8
+        // of 16-byte unit 2 kk + m / 2: registers 0-3 are the k16 A
+        // fragment's (rows g, g + 8) x (columns 2t, 8 + 2t).
+        unsigned a[4][4];
+        const int r = r0 + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              if (SRC == kBf16Rows) {
-                mma_tf32(acc[mt][n], ab[mt], bs);
-                mma_tf32(acc[mt][n], ab[mt], bb);
-              } else {
-                mma_3xtf32(acc[mt][n], ab[mt], as[mt], bb, bs);
-              }
-            }
-          }
+        for (int kk = 0; kk < 4; ++kk)
+          ldmatrix_x4(a[kk], a_addr + swz(r, 2 * kk + (lane >> 4)));
+        mbar_wait(&w_full[sw], (j / L::kWStages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          product<BN>(acc, a[kk], w_addr + 2 * L::kPart, kk);
+          product<BN>(acc, a[kk], w_addr + L::kPart, kk);
+          product<BN>(acc, a[kk], w_addr, kk);
         }
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&w_empty[sw]);
     }
+    if (lane == 0) mbar_arrive(&a_empty[sa]);
   }
-  cp_async_wait<0>();
 
-  float* ob = out + (size_t)b * T * D;
-  __nv_bfloat16* obh = outh + (size_t)b * T * D;
+  // Register 4 n + 2 h + e: frame row0 + 8 h, channel n0 + 8 n + 2 t + e.
+  const int row0 = t0 + 64 * cw + 16 * w + g;
+  const size_t base = static_cast<size_t>(b) * p.T;
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int col = n0 + wn * 32 + n * 8 + 2 * t;
-    if (col >= D) continue;  // D is a multiple of 8: col + 1 < D too
-    const float c0 = bias[col], c1 = bias[col + 1];
+  for (int n = 0; n < BN / 8; ++n) {
+    const int col = n0 + 8 * n + 2 * t;
+    if (col >= p.D) continue;  // D is a multiple of 8: col + 1 < D too
+    const float c0 = p.bias[col], c1 = p.bias[col + 1];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int tt = t0 + wm * (BM / 2) + mt * 16 + g + 8 * hf;
-        if (tt >= T) continue;
-        const float v0 = relu(acc[mt][n][2 * hf] + c0);
-        const float v1 = relu(acc[mt][n][2 * hf + 1] + c1);
-        if (OUT_F32)
-          *reinterpret_cast<float2*>(ob + (size_t)tt * D + col) =
-              make_float2(v0, v1);
-        if (OUT_BF16)
-          *reinterpret_cast<__nv_bfloat162*>(obh + (size_t)tt * D + col) =
-              __floats2bfloat162_rn(v0, v1);
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= p.T) continue;
+      const float v0 = fmaxf(acc[4 * n + 2 * h] + c0, 0.f);
+      const float v1 = fmaxf(acc[4 * n + 2 * h + 1] + c1, 0.f);
+      const size_t at = (base + row) * p.D + col;
+      if constexpr (F32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at) =
+            make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + at) =
+            __floats2bfloat162_rn(v0, v1);
+        if (!CONV2)
+          *reinterpret_cast<float2*>(p.h32 + at) = make_float2(v0, v1);
       }
     }
   }
 }
 
-// h = relu(conv3(x, W1) + b1).  BF16: x is bf16, h goes to the float32
-// scratch h32 (conv2's input) and to the bf16 h; else x rows of F floats,
-// 4-byte aligned, and h (float32) is conv2's input itself.
-template <int BM, bool BF16>
-__global__ void __launch_bounds__(kThreads, 2)
-audio_proj_conv1_kernel(const void* __restrict__ x,
-                        const float* __restrict__ w1,
-                        const float* __restrict__ b1,
-                        float* __restrict__ h32,
-                        __nv_bfloat16* __restrict__ hb, int T, int F,
-                        int D) {
-  conv_block<BM, BF16 ? kBf16Rows : kF32Rows4, true, BF16>(x, w1, b1, h32,
-                                                           hb, T, F, D);
+// Each weight's three bf16 parts: w (3, c_in, D) float32 -> parts
+// (3, 3, c_in, D), part q of element i at q n + i.
+__global__ void __launch_bounds__(256)
+audio_proj_split_kernel(const float* __restrict__ w1,
+                        const float* __restrict__ w2, bf16* __restrict__ p1,
+                        bf16* __restrict__ p2, long long n1, long long n2) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n1 + n2; i += step) {
+    const bool first = i < n1;
+    const long long k = first ? i : i - n1, n = first ? n1 : n2;
+    const float v = first ? w1[k] : w2[k];
+    bf16* dst = (first ? p1 : p2) + k;
+    const bf16 a = __float2bfloat16_rn(v);
+    const float r = v - __bfloat162float(a);
+    const bf16 m = __float2bfloat16_rn(r);
+    dst[0] = a;
+    dst[n] = m;
+    dst[2 * n] = __float2bfloat16_rn(r - __bfloat162float(m));
+  }
 }
 
-// y = relu(conv3(h, W2) + b2): h rows of D floats, 16-byte aligned; y in
-// float32 or (BF16) bf16.
-template <int BM, bool BF16>
-__global__ void __launch_bounds__(kThreads, 2)
-audio_proj_conv2_kernel(const float* __restrict__ h,
-                        const float* __restrict__ w2,
-                        const float* __restrict__ b2, float* __restrict__ y,
-                        __nv_bfloat16* __restrict__ yb, int T, int D) {
-  conv_block<BM, kF32Rows16, !BF16, BF16>(h, w2, b2, y, yb, T, D, D);
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <int BM, bool BF16>
-cudaError_t launch(const void* x, const float* w1, const float* b1,
-                   const float* w2, const float* b2, void* y, void* h,
-                   float* h32, int B, int T, int F, int D, cudaStream_t s) {
-  constexpr size_t kBytes = Tile<BM>::kBytes;
-  cudaError_t err = prepare(audio_proj_conv1_kernel<BM, BF16>, kBytes);
+template <bool CONV2, bool F32, int BN>
+cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mw,
+                   const Params& p, long long blocks, int device,
+                   cudaStream_t stream) {
+  using L = Layout<CONV2 || F32, BN>;
+  static unsigned done = 0;
+  cudaError_t err = set_smem_once(audio_proj_wgmma_kernel<CONV2, F32, BN>,
+                                  L::kBytes, device, &done);
   if (err != cudaSuccess) return err;
-  err = prepare(audio_proj_conv2_kernel<BM, BF16>, kBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + BM - 1) / BM, (D + kBN - 1) / kBN, B);
-  // At float32, h is conv2's float32 input; at bf16, h32 is.
-  float* hf = BF16 ? h32 : static_cast<float*>(h);
-  auto* hb = static_cast<__nv_bfloat16*>(h);
-  audio_proj_conv1_kernel<BM, BF16><<<grid, kThreads, kBytes, s>>>(
-      x, w1, b1, hf, hb, T, F, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  audio_proj_conv2_kernel<BM, BF16><<<grid, kThreads, kBytes, s>>>(
-      hf, w2, b2, static_cast<float*>(y), static_cast<__nv_bfloat16*>(y), T,
-      D);
+  audio_proj_wgmma_kernel<CONV2, F32, BN>
+      <<<static_cast<unsigned>(blocks), kThreads, L::kBytes, stream>>>(ma,
+                                                                      mw, p);
   return cudaGetLastError();
 }
 
-template <bool BF16>
-cudaError_t dispatch(const void* x, const float* w1, const float* b1,
-                     const float* w2, const float* b2, void* y, void* h,
-                     float* h32, int B, int T, int F, int D, int rows,
-                     cudaStream_t s) {
-  switch (rows) {
-    case 128:
-      return launch<128, BF16>(x, w1, b1, w2, b2, y, h, h32, B, T, F, D, s);
-    case 64:
-      return launch<64, BF16>(x, w1, b1, w2, b2, y, h, h32, B, T, F, D, s);
-    case 32:
-      return launch<32, BF16>(x, w1, b1, w2, b2, y, h, h32, B, T, F, D, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <bool F32, int BN>
+cudaError_t convs(const CUtensorMap& mx, const CUtensorMap& mw1,
+                  const CUtensorMap& mh, const CUtensorMap& mw2, Params p1,
+                  Params p2, long long blocks, int device, cudaStream_t s) {
+  cudaError_t err = launch<false, F32, BN>(mx, mw1, p1, blocks, device, s);
+  if (err != cudaSuccess) return err;
+  return launch<true, F32, BN>(mh, mw2, p2, blocks, device, s);
 }
 
 }  // namespace
 
-// rows: the frames a block computes, 128, 64 or 32 (`gemm_rows` in
-// ops/kernels/__init__.py).  dtype 0: x, y and h float32 (h32 unused);
-// dtype 1: x, y and h bf16, h32 a float32 (B, T, D) scratch.
-extern "C" int avsep_audio_proj_fwd(const void* x, const void* w1,
-                                    const void* b1, const void* w2,
-                                    const void* b2, void* y, void* h,
-                                    void* h32, int B, int T, int F, int D,
-                                    int rows, int dtype, int device,
-                                    void* stream) {
-  // Any width from 64 up, in steps of 8 (the wrapper pads others): the
-  // grid tiles the channels, and the k loop runs over any count.
-  if (D % 8 != 0 || D < 64) return cudaErrorInvalidValue;
+// w1 (3, F, D) and w2 (3, D, D) float32 -> p1 (3, 3, F, D), p2 (3, 3, D, D)
+// bf16: each weight's three parts, part-major.
+extern "C" int avsep_audio_proj_split(const void* w1, const void* w2,
+                                      void* p1, void* p2, long long n1,
+                                      long long n2, int device,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* w1f = static_cast<const float*>(w1);
-  const auto* b1f = static_cast<const float*>(b1);
-  const auto* w2f = static_cast<const float*>(w2);
-  const auto* b2f = static_cast<const float*>(b2);
-  auto* scratch = static_cast<float*>(h32);
+  const long long want = (n1 + n2 + 255) / 256;
+  const long long cap = 4LL * sm_count(device);
+  const int blocks = static_cast<int>(want < cap ? want : cap);
+  audio_proj_split_kernel<<<blocks, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w1), static_cast<const float*>(w2),
+      static_cast<bf16*>(p1), static_cast<bf16*>(p2), n1, n2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (B, T, F) float32 (dtype 0) or bf16 (1) with row stride sxt and batch
+// stride sxb (elements, multiples of 16 bytes); p1, p2 the weight parts;
+// b1, b2 float32 (D); y, h (B, T, D) in x's dtype, contiguous; h32 a
+// float32 (B, T, D) scratch at bf16 (conv2's A), unused at float32 (conv2
+// reads h).  bn: the channels a block, 64 or 128 (`proj_plan` in
+// ops/kernels/audio_proj.py).
+extern "C" int avsep_audio_proj_fwd(
+    const void* x, long long sxt, long long sxb, int dtype, const void* p1,
+    const void* b1, const void* p2, const void* b2, void* y, void* h,
+    void* h32, int B, int T, int F, int D, int bn, int device,
+    void* stream) {
+  const bool f32 = dtype == 0;
+  const int esize = f32 ? 4 : 2;
+  if (D % 8 != 0 || D < 64 || (bn != 64 && bn != 128) ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (f32) h32 = h;
+  const int tiles = (T + kBM - 1) / kBM, slabs = (D + bn - 1) / bn;
+  const long long blocks = static_cast<long long>(B) * tiles * slabs;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mx, mw1, mh, mw2;
+  if (!encode_map_3d(&mx,
+                     f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     x, F, T, B, esize * sxt, esize * sxb, 128 / esize,
+                     kStaged) ||
+      !encode_map_3d(&mw1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p1, D, F, 9,
+                     2LL * D, 2LL * F * D, 64, 64) ||
+      !encode_map_3d(&mh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, h32, D, T, B,
+                     4LL * D, 4LL * T * D, 32, kStaged) ||
+      !encode_map_3d(&mw2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p2, D, D, 9,
+                     2LL * D, 2LL * D * D, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params c1, c2;
+  c1.bias = static_cast<const float*>(b1);
+  c1.h32 = f32 ? nullptr : static_cast<float*>(h32);
+  c1.out = h;
+  c1.T = T; c1.cin = F; c1.D = D;
+  c1.tiles = tiles; c1.slabs = slabs;
+  c2 = c1;
+  c2.bias = static_cast<const float*>(b2);
+  c2.h32 = nullptr;
+  c2.out = y;
+  c2.cin = D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = dispatch<false>(x, w1f, b1f, w2f, b2f, y, h, scratch, B, T, F, D,
-                          rows, s);
-  else if (dtype == 1 && h32 != nullptr)
-    err = dispatch<true>(x, w1f, b1f, w2f, b2f, y, h, scratch, B, T, F, D,
-                         rows, s);
+  if (f32)
+    err = bn == 128
+              ? convs<true, 128>(mx, mw1, mh, mw2, c1, c2, blocks, device, s)
+              : convs<true, 64>(mx, mw1, mh, mw2, c1, c2, blocks, device, s);
   else
-    err = cudaErrorInvalidValue;
+    err = bn == 128
+              ? convs<false, 128>(mx, mw1, mh, mw2, c1, c2, blocks, device, s)
+              : convs<false, 64>(mx, mw1, mh, mw2, c1, c2, blocks, device, s);
   return static_cast<int>(err);
 }
 

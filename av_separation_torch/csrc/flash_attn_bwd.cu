@@ -101,6 +101,7 @@
 #include <type_traits>
 
 #include "dropout_hash.cuh"
+#include "grid_fold.cuh"
 #include "mma_3xtf32.cuh"
 #include "mma_bf16.cuh"
 
@@ -225,9 +226,11 @@ template <typename T, int DQK>
 __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
+  constexpr int kRows = kDeltaThreads / 32;
+  const TileOf at = unfold((p.Tq + kRows - 1) / kRows);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int t = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
+  const int t = at.tile * kRows + (threadIdx.x >> 5);
   if (t >= p.Tq) return;
   const T* orow = head<T>(p.o, p.so, b, h) + t * p.so[2];
   const T* drow = head<T>(p.dout, p.sdo, b, h) + t * p.sdo[2];
@@ -246,9 +249,11 @@ template <typename T>
 __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel_wide(const Params p, int dh) {
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
+  constexpr int kRows = kDeltaThreads / 32;
+  const TileOf at = unfold((p.Tq + kRows - 1) / kRows);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int t = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
+  const int t = at.tile * kRows + (threadIdx.x >> 5);
   if (t >= p.Tq) return;
   const T* orow = head<T>(p.o, p.so, b, h) + t * p.so[2];
   const T* drow = head<T>(p.dout, p.sdo, b, h) + t * p.sdo[2];
@@ -304,9 +309,10 @@ flash_bwd_dkv_kernel(const Params p) {
   const int kw = warp % kWarps;    // which 16 keys
   const int part = warp / kWarps;  // which query tile of a stage
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const TileOf at = unfold((p.Tk + kBlock - 1) / kBlock);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kBlock;
+  const int k0 = at.tile * kBlock;
   // This block's columns of dK, dV (a constant 0 up to dh 128).
   const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
@@ -334,7 +340,8 @@ flash_bwd_dkv_kernel(const Params p) {
         sl[kRows + tid] = 0.f;
       }
       if (p.drop.on) {
-        const HashRow hr = hash_row(p.drop, bh, row);
+        const HashRow hr = hash_row(
+            p.drop, unfold_again((p.Tk + kBlock - 1) / kBlock).pair, row);
         reinterpret_cast<unsigned*>(sl)[2 * kRows + tid] = hr.tile;
         reinterpret_cast<unsigned*>(sl)[3 * kRows + tid] = hr.row;
       }
@@ -480,12 +487,15 @@ flash_bwd_dkv_kernel(const Params p) {
     if (part == 1) return;
     take_over(dv, x, lane);
   }
+  const TileOf end = unfold_again((p.Tk + kBlock - 1) / kBlock);
+  const int eb = end.pair / p.H, eh = end.pair % p.H;
+  const int ek = end.tile * kBlock + kw * 16;
   store_rows<T, kDN, kS>(dk, sK + kw * 16 * kS,
-                         head<T>(p.dk, p.sdk, b, h) + col0, p.sdk[2],
-                         k0 + kw * 16, p.Tk, lane);
+                         head<T>(p.dk, p.sdk, eb, eh) + col0, p.sdk[2], ek,
+                         p.Tk, lane);
   store_rows<T, kDN, kS>(dv, sV + kw * 16 * kS,
-                         head<T>(p.dv, p.sdv, b, h) + col0, p.sdv[2],
-                         k0 + kw * 16, p.Tk, lane);
+                         head<T>(p.dv, p.sdv, eb, eh) + col0, p.sdv[2], ek,
+                         p.Tk, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -525,9 +535,10 @@ flash_bwd_dq_kernel(const Params p) {
   const int rw = warp % kWarps;    // which 16 rows
   const int part = warp / kWarps;  // which key tile of a stage
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const TileOf at = unfold((p.Tq + kBlock - 1) / kBlock);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBlock;
+  const int q0 = at.tile * kBlock;
   // This block's columns of dQ (a constant 0 up to dh 128).
   const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
@@ -693,9 +704,10 @@ flash_bwd_dkv_kernel_wide(const Params p, int nc) {
   const int lane = tid & 31;
   const int kw = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const TileOf at = unfold((p.Tk + kBlock - 1) / kBlock);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kBlock;
+  const int k0 = at.tile * kBlock;
   const int col0 = blockIdx.z * kGroup;
   const T* qb = head<T>(p.q, p.sq, b, h);
   const T* ob = head<T>(p.dout, p.sdo, b, h);
@@ -712,10 +724,13 @@ flash_bwd_dkv_kernel_wide(const Params p, int nc) {
     const int r0 = j * kTile;
     const int cc = c < nc ? c * kGroup : col0;
     if (c < nc) {
-      load_tile<T, kGroup, kS, kBlock, kThreads>(st, kb + cc, p.sk[2], k0,
+      // The block's keys, decoded afresh (the kernel is at its register
+      // cap; k0 held across the loop spilled).
+      const int kt = unfold_again((p.Tk + kBlock - 1) / kBlock).tile * kBlock;
+      load_tile<T, kGroup, kS, kBlock, kThreads>(st, kb + cc, p.sk[2], kt,
                                                  p.Tk, tid);
       load_tile<T, kGroup, kS, kBlock, kThreads>(st + L::kKV, vb + cc,
-                                                 p.sv[2], k0, p.Tk, tid);
+                                                 p.sv[2], kt, p.Tk, tid);
     }
     T* rows = st + 2 * L::kKV;
     load_tile<T, kGroup, kS, kTile, kThreads>(rows, qb + cc, p.sq[2], r0,
@@ -733,7 +748,8 @@ flash_bwd_dkv_kernel_wide(const Params p, int nc) {
         sl[kTile + tid] = 0.f;
       }
       if (p.drop.on) {
-        const HashRow hr = hash_row(p.drop, bh, row);
+        const HashRow hr = hash_row(
+            p.drop, unfold_again((p.Tk + kBlock - 1) / kBlock).pair, row);
         reinterpret_cast<unsigned*>(sl)[2 * kTile + tid] = hr.tile;
         reinterpret_cast<unsigned*>(sl)[3 * kTile + tid] = hr.row;
       }
@@ -891,12 +907,15 @@ flash_bwd_dkv_kernel_wide(const Params p, int nc) {
   }
 
   // The ring is idle: each warp stages dK and dV in 16 rows of its own.
+  const TileOf end = unfold_again((p.Tk + kBlock - 1) / kBlock);
+  const int eb = end.pair / p.H, eh = end.pair % p.H;
+  const int ek = end.tile * kBlock + kw * 16;
   store_rows<T, kDN, kS>(dk, ring + kw * 16 * kS,
-                         head<T>(p.dk, p.sdk, b, h) + col0, p.sdk[2],
-                         k0 + kw * 16, p.Tk, lane);
+                         head<T>(p.dk, p.sdk, eb, eh) + col0, p.sdk[2], ek,
+                         p.Tk, lane);
   store_rows<T, kDN, kS>(dv, ring + (kWarps + kw) * 16 * kS,
-                         head<T>(p.dv, p.sdv, b, h) + col0, p.sdv[2],
-                         k0 + kw * 16, p.Tk, lane);
+                         head<T>(p.dv, p.sdv, eb, eh) + col0, p.sdv[2], ek,
+                         p.Tk, lane);
 }
 
 // dQ: a block owns 64 query rows and one group of 128 output columns.  For
@@ -928,9 +947,10 @@ flash_bwd_dq_kernel_wide(const Params p, int nc) {
   const int lane = tid & 31;
   const int rw = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const TileOf at = unfold((p.Tq + kBlock - 1) / kBlock);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBlock;
+  const int q0 = at.tile * kBlock;
   const int col0 = blockIdx.z * kGroup;
   const T* qb = head<T>(p.q, p.sq, b, h);
   const T* ob = head<T>(p.dout, p.sdo, b, h);
@@ -944,10 +964,12 @@ flash_bwd_dq_kernel_wide(const Params p, int nc) {
     const int j = i / (nc + 1), c = i % (nc + 1);
     const int r0 = j * kTile;
     if (c < nc) {
+      // The block's rows, decoded afresh (as the dK/dV kernel's keys).
+      const int qt = unfold_again((p.Tq + kBlock - 1) / kBlock).tile * kBlock;
       load_tile<T, kGroup, kS, kBlock, kThreads>(st, qb + c * kGroup,
-                                                 p.sq[2], q0, p.Tq, tid);
+                                                 p.sq[2], qt, p.Tq, tid);
       load_tile<T, kGroup, kS, kBlock, kThreads>(st + L::kQ, ob + c * kGroup,
-                                                 p.sdo[2], q0, p.Tq, tid);
+                                                 p.sdo[2], qt, p.Tq, tid);
       load_tile<T, kGroup, kS, kTile, kThreads>(st + 2 * L::kQ,
                                                 kb + c * kGroup, p.sk[2], r0,
                                                 p.Tk, tid);
@@ -1105,29 +1127,31 @@ cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
 }
 
 template <typename T, int DQK, int DV, int SPLIT>
-cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
+cudaError_t launch_dkv(const Params& p, long long bh, cudaStream_t stream) {
   using L = DkvLayout<T, DQK, DV, SPLIT>;
   static unsigned done = 0;
   return launch_one(flash_bwd_dkv_kernel<T, DQK, DV, SPLIT>,
-                    dim3((p.Tk + kBlock - 1) / kBlock, bh, DQK / DV),
+                    folded_grid((p.Tk + kBlock - 1) / kBlock, bh, 1,
+                                DQK / DV),
                     L::kThreads, L::kBytes, stream, &done, p);
 }
 
 template <typename T, int DQK, int DV, int SPLIT>
-cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
+cudaError_t launch_dq(const Params& p, long long bh, cudaStream_t stream) {
   using L = DqLayout<T, DQK, DV, SPLIT>;
   static unsigned done = 0;
   return launch_one(flash_bwd_dq_kernel<T, DQK, DV, SPLIT>,
-                    dim3((p.Tq + kBlock - 1) / kBlock, bh, DQK / DV),
+                    folded_grid((p.Tq + kBlock - 1) / kBlock, bh, 1,
+                                DQK / DV),
                     L::kThreads, L::kBytes, stream, &done, p);
 }
 
 template <typename T>
-cudaError_t launch_delta(const Params& p, int bh, int dh,
+cudaError_t launch_delta(const Params& p, long long bh, int dh,
                          cudaStream_t stream) {
   static unsigned done = 0;
-  const dim3 grid((p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32),
-                  bh);
+  const dim3 grid = folded_grid(
+      (p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), bh);
   switch (dh) {
     case 32:
       return launch_one(flash_bwd_delta_kernel<T, 32>, grid, kDeltaThreads,
@@ -1153,17 +1177,19 @@ cudaError_t launch_delta(const Params& p, int bh, int dh,
 // chunked dK/dV and dQ kernels, one block per 128 output columns.
 template <typename T>
 cudaError_t launch_wide(const Params& p, int B, int dh, cudaStream_t stream) {
-  const int bh = B * p.H;
+  const long long bh = (long long)B * p.H;
   const int nc = dh / kGroup;
   static unsigned done_dkv = 0, done_dq = 0;
   cudaError_t err = launch_delta<T>(p, bh, dh, stream);
   if (err != cudaSuccess) return err;
   err = launch_one(flash_bwd_dkv_kernel_wide<T>,
-                   dim3((p.Tk + kBlock - 1) / kBlock, bh, nc), 32 * kWarps,
+                   folded_grid((p.Tk + kBlock - 1) / kBlock, bh, 1, nc),
+                   32 * kWarps,
                    WideDkvLayout<T>::kBytes, stream, &done_dkv, p, nc);
   if (err != cudaSuccess) return err;
   return launch_one(flash_bwd_dq_kernel_wide<T>,
-                    dim3((p.Tq + kBlock - 1) / kBlock, bh, nc), 32 * kWarps,
+                    folded_grid((p.Tq + kBlock - 1) / kBlock, bh, 1, nc),
+                    32 * kWarps,
                     WideDqLayout<T>::kBytes, stream, &done_dq, p, nc);
 }
 
@@ -1172,7 +1198,7 @@ cudaError_t launch_wide(const Params& p, int B, int dh, cudaStream_t stream) {
 // (not above 128, whose block holds an SM's shared memory).
 template <typename T, int DQK, int DV>
 cudaError_t launch(const Params& p, int B, int sms, cudaStream_t stream) {
-  const int bh = B * p.H;
+  const long long bh = (long long)B * p.H;
   cudaError_t err = launch_delta<T>(p, bh, DQK, stream);
   if (err != cudaSuccess) return err;
   if constexpr (DQK > DV) {

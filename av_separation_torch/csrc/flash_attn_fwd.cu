@@ -88,6 +88,7 @@
 #include <type_traits>
 
 #include "dropout_hash.cuh"
+#include "grid_fold.cuh"
 #include "mma_3xtf32.cuh"
 #include "mma_bf16.cuh"
 
@@ -166,10 +167,11 @@ flash_fwd_kernel(const Params p) {
   const int rw = warp % kRowWarps;  // which 16 rows
   const int part = warp / kRowWarps;  // which 32-key tile of a stage
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const TileOf at = unfold((p.Tq + kBlockQ - 1) / kBlockQ);
+  const int bh = at.pair;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = at.tile * kBlockQ;
   // This block's columns of O and V (a constant 0 up to dh 128).
   const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
@@ -415,10 +417,11 @@ flash_fwd_kernel_wide(const Params p, int nc) {
   const int lane = tid & 31;
   const int rw = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const TileOf at = unfold((p.Tq + kBlockQ - 1) / kBlockQ);
+  const int bh = at.pair;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = at.tile * kBlockQ;
   const int col0 = blockIdx.z * kGroup;
   const T* qb = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
   const T* kb = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
@@ -617,7 +620,8 @@ cudaError_t launch_wide(const Params& p, int B, int dh, cudaStream_t stream) {
   cudaError_t err = set_smem_once(flash_fwd_kernel_wide<T>, L::kBytes, &done);
   if (err != cudaSuccess) return err;
   const int nc = dh / kGroup;
-  const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, B * p.H, nc);
+  const dim3 grid =
+      folded_grid((p.Tq + kBlockQ - 1) / kBlockQ, (long long)B * p.H, 1, nc);
   flash_fwd_kernel_wide<T><<<grid, 32 * kRowWarps, L::kBytes, stream>>>(p, nc);
   return cudaGetLastError();
 }
@@ -629,7 +633,8 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   cudaError_t err =
       set_smem_once(flash_fwd_kernel<T, DQK, DV, SPLIT>, L::kBytes, &done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, B * p.H, DQK / DV);
+  const dim3 grid = folded_grid((p.Tq + kBlockQ - 1) / kBlockQ,
+                                (long long)B * p.H, 1, DQK / DV);
   flash_fwd_kernel<T, DQK, DV, SPLIT>
       <<<grid, L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();

@@ -64,6 +64,7 @@
 #include <math.h>
 
 #include "dropout_hash.cuh"
+#include "grid_fold.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -96,9 +97,11 @@ template <int DH>
 __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
+  constexpr int kRows = kDeltaThreads / 32;
+  const TileOf at = unfold((p.Tq + kRows - 1) / kRows);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int t = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
+  const int t = at.tile * kRows + (threadIdx.x >> 5);
   if (t >= p.Tq) return;
   const bf16* orow = p.o + b * p.so[0] + h * p.so[1] + t * p.so[2];
   const bf16* drow = p.dout + b * p.sdo[0] + h * p.sdo[1] + t * p.sdo[2];
@@ -374,9 +377,10 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap mq,
   extern __shared__ char smem_raw[];
   char* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
-  const int bh = blockIdx.y;
+  const TileOf at = unfold((p.Tk + kPanelRows - 1) / kPanelRows);
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kPanelRows;
+  const int k0 = at.tile * kPanelRows;
   const int n_tiles = (p.Tq + kTile - 1) / kTile;
   init_barriers(bars, L::kStages, 2, 33);
 
@@ -408,9 +412,11 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap mq,
   extern __shared__ char smem_raw[];
   char* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
-  const int bh = blockIdx.y;
+  const TileOf at =
+      unfold((p.Tq + kPanelRows * NC - 1) / (kPanelRows * NC));
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kPanelRows * NC;
+  const int q0 = at.tile * kPanelRows * NC;
   const int n_tiles = (p.Tk + kTile - 1) / kTile;
   init_barriers(bars, L::kStages, NC, 1);
 
@@ -510,28 +516,30 @@ struct Maps {
 };
 
 template <int DH, int DV>
-cudaError_t launch_dkv(const Maps& m, const Params& p, int bh, int device,
-                       cudaStream_t stream) {
+cudaError_t launch_dkv(const Maps& m, const Params& p, long long bh,
+                       int device, cudaStream_t stream) {
   using L = Layout<DH, 1, true>;
   static unsigned done = 0;
   cudaError_t err = set_smem_once(flash_bwd_dkv_kernel_wgmma<DH, DV>,
                                   L::kBytes, device, &done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tk + kPanelRows - 1) / kPanelRows, bh, DH / DV);
+  const dim3 grid =
+      folded_grid((p.Tk + kPanelRows - 1) / kPanelRows, bh, 1, DH / DV);
   flash_bwd_dkv_kernel_wgmma<DH, DV>
       <<<grid, 384, L::kBytes, stream>>>(m.q, m.k, m.v, m.dout, p);
   return cudaGetLastError();
 }
 
 template <int DH, int NC>
-cudaError_t launch_dq(const Maps& m, const Params& p, int bh, int device,
-                      cudaStream_t stream) {
+cudaError_t launch_dq(const Maps& m, const Params& p, long long bh,
+                      int device, cudaStream_t stream) {
   using L = Layout<DH, NC>;
   static unsigned done = 0;
   cudaError_t err = set_smem_once(flash_bwd_dq_kernel_wgmma<DH, NC>,
                                   L::kBytes, device, &done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + kPanelRows * NC - 1) / (kPanelRows * NC), bh);
+  const dim3 grid =
+      folded_grid((p.Tq + kPanelRows * NC - 1) / (kPanelRows * NC), bh);
   flash_bwd_dq_kernel_wgmma<DH, NC>
       <<<grid, L::kThreads, L::kBytes, stream>>>(m.q, m.k, m.v, m.dout, p);
   return cudaGetLastError();
@@ -545,8 +553,9 @@ cudaError_t launch_dq(const Maps& m, const Params& p, int bh, int device,
 template <int DH>
 cudaError_t launch(const Maps& m, const Params& p, int B, int device,
                    cudaStream_t stream) {
-  const int bh = B * p.H;
-  const dim3 grid((p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), bh);
+  const long long bh = (long long)B * p.H;
+  const dim3 grid = folded_grid(
+      (p.Tq + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), bh);
   flash_bwd_delta_kernel<DH><<<grid, kDeltaThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

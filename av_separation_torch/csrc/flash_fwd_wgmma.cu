@@ -71,6 +71,7 @@
 #include <chrono>
 
 #include "dropout_hash.cuh"
+#include "grid_fold.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -129,9 +130,11 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap mq,
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + L::kStages;
 
-  const int bh = blockIdx.y;
+  const TileOf at =
+      unfold((p.Tq + kPanelRows * NC - 1) / (kPanelRows * NC));
+  const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kPanelRows * NC;
+  const int q0 = at.tile * kPanelRows * NC;
   const int n_tiles = (p.Tk + kBlockK - 1) / kBlockK;
 
   if (threadIdx.x == 0) {
@@ -296,8 +299,9 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
   cudaError_t err = set_smem_once(flash_fwd_kernel_wgmma<DH, NC>, L::kBytes,
                                   device, &done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + kPanelRows * NC - 1) / (kPanelRows * NC),
-                  B * p.H);
+  const dim3 grid =
+      folded_grid((p.Tq + kPanelRows * NC - 1) / (kPanelRows * NC),
+                  (long long)B * p.H);
   flash_fwd_kernel_wgmma<DH, NC>
       <<<grid, L::kThreads, L::kBytes, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();

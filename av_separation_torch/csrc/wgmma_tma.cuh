@@ -1,5 +1,6 @@
 // Hopper building blocks of the bfloat16 flash-attention kernels
-// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu), sm_90a only: TMA tile loads
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu) and the audio projection
+// (audio_proj.cu), sm_90a only: TMA tile loads
 // into a 128- or 64-byte swizzled shared-memory layout, mbarriers, and
 // warpgroup products (`wgmma.mma_async`) on bf16 operands with float32
 // accumulators.
@@ -125,6 +126,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 3-D map, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -357,6 +370,34 @@ inline bool encode_map(CUtensorMap* map, const void* base, int dh, int H,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
       cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+// A 3-D map of `type` (elements of `esize` bytes): dims (d0, d1, d2), the
+// strides of dims 1 and 2 in bytes, boxes of box0 x box1 x 1 (box0 esize
+// = 128 bytes) landing in the 128-byte swizzle; out-of-range elements
+// (negative coordinates too) arrive as zeros.  False where TMA refuses
+// the tensor (base or a stride not a multiple of 16 bytes).
+inline bool encode_map_3d(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, long long d0, long long d1,
+                          long long d2, long long s1, long long s2,
+                          int box0, int box1) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  if (d2 == 1) s2 = s1 * d1;  // never stepped: a legal stride
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1),
+                                 static_cast<cuuint64_t>(s2)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
+                             static_cast<cuuint32_t>(box1), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides,
+                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;
 }
 

@@ -54,7 +54,8 @@ from av_separation_torch.models.layers import (
 from av_separation_torch.ops.activations import gelu_dropout
 from av_separation_torch.ops.dropout import Dropout
 from av_separation_torch.ops.interpolate import interpolate_time_linear
-from av_separation_torch.ops.kernels.audio_proj import audio_projection
+from av_separation_torch.ops.kernels.audio_proj import (audio_projection,
+                                                     proj_input)
 from av_separation_torch.ops.kernels.decoder import mask_decoder
 
 
@@ -97,8 +98,9 @@ class AudioEncoder(nn.Module):
                 gens: Optional[Generators] = None) -> torch.Tensor:
         conv1, conv2 = self.input_proj[0], self.input_proj[2]
         # torch Conv1d weights (out, in, k) -> the kernel's (k, in, out);
-        # x in the compute dtype, y and h in x's.
-        y = audio_projection(x.transpose(1, 2).contiguous(),
+        # x in the compute dtype (in the layout its kernel reads), y and h
+        # in x's.
+        y = audio_projection(proj_input(x),
                              conv1.weight.permute(2, 1, 0).contiguous(),
                              conv1.bias,
                              conv2.weight.permute(2, 1, 0).contiguous(),

@@ -3,7 +3,9 @@
 Every wrapper dispatches on the device of the tensors it is given: a CUDA
 tensor launches the kernel (or the call raises), a CPU tensor runs the plain
 PyTorch version.  `LAUNCHES` counts kernel launches per wrapper and dtype
-(the bfloat16 instances under `name[bf16]`), and only those: plain-version
+(the bfloat16 instances under `name[bf16]`; the projection's weight
+split, its own launch, under `audio_proj_split` and
+`audio_proj_split[bf16]` by the dtype of x), and only those: plain-version
 calls never touch it.
 """
 
@@ -13,11 +15,15 @@ import torch
 
 # The C entry points' dtype argument (flash attention, the projection).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Blocks a launch may have in grid x (y and z take 65,535): the flash
+# kernels fold B*H into x, the projection's grid is x alone.
+GRID_X_MAX = 2 ** 31 - 1
 
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
             "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0,
             "flash_attn_fwd[bf16]": 0, "flash_attn_bwd[bf16]": 0,
-            "audio_proj_fwd[bf16]": 0}
+            "audio_proj_fwd[bf16]": 0, "audio_proj_split": 0,
+            "audio_proj_split[bf16]": 0}
 
 
 def reset_launch_counts() -> None:

@@ -313,6 +313,9 @@ def _bwd_entry():
     return lib, fn
 
 
+DELTA_ROWS = 4  # query rows a delta block (one warp a row)
+
+
 def _rows_ok(t: torch.Tensor) -> bool:
     """Head dim contiguous and every (batch, head, time) row 16-byte
     aligned, as the kernels' 16-byte copies need."""
@@ -331,7 +334,8 @@ def _check_rows(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"be 16-byte aligned")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           backward: bool = False) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention takes (B, H, T, dh) views")
     b, h, tq, dh = q.shape
@@ -343,10 +347,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"of {WIDE_CHUNK} above {HEAD_DIMS[-1]}")
     if tq == 0 or k.shape[2] == 0:
         raise ValueError("empty sequence")
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the grid's 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_rows(name, t, q)
+    # Every launch puts B*H in grid x beside its row tiles (grid_fold.cuh):
+    # the most blocks are the delta kernel's (4 query rows a block) or the
+    # dK/dV kernel's (64 keys) in a backward, the forward's (64 rows a
+    # block at least) otherwise.
+    tiles = max(_cdiv(tq, DELTA_ROWS), _cdiv(k.shape[2], 64)) if backward \
+        else _cdiv(tq, 64)
+    blocks = tiles * b * h
+    if blocks > kernels.GRID_X_MAX:
+        raise ValueError(f"B*H = {b * h} at T {tq}: {blocks} blocks in "
+                         f"grid x, above its {kernels.GRID_X_MAX}")
 
 
 def _dropout_args(rate: float, seed: int, tq: int, tk: int):
@@ -459,7 +471,7 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
                 scale: Optional[float] = None):
-    _check(q, k, v)
+    _check(q, k, v, backward=True)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "

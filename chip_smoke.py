@@ -11,8 +11,8 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            each kernel instance's registers and spills (for example
            flash_bwd_dkv_kernel<float,256,128,1>,
            flash_fwd_kernel_wgmma<128,2>) and the instances that spill;
-           fails if an STFT FFT instance, a bf16 `wgmma` flash instance
-           or a flash instance above dh 256 spills.
+           fails if an STFT FFT instance, a bf16 `wgmma` flash or
+           projection instance or a flash instance above dh 256 spills.
   kernels  first one m16n8k8 3xTF32 tensor-core product against float64
            (the fragment layouts of the flash kernels).  Then each kernel
            against its plain PyTorch version on the card, at the shapes the
@@ -23,8 +23,10 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            (`device_ms`, `library_device_ms`: torch.profiler kernel
            durations, the kernel's own per launch, every device kernel of
            one library call); the bound with the rate it used (matrix
-           products at 3xTF32's 165 TFLOP/s, the FFT at float32's 67) and
-           a failure if any time reads below it.  Flash attention at
+           products at 3xTF32's 165 TFLOP/s, a bf16 x times float32
+           weights at three bf16 products' 330, the FFT at float32's 67)
+           and a failure if any time reads below it, the library's
+           included.  Flash attention at
            dropout 0 and 0.1, forward and backward (both on the tensor
            cores in 3xTF32; the backward's bound counts its 5 least
            products), at dh 128, 32 and 64 (the reference's default
@@ -40,20 +42,34 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            within 2 bf16 ulps of the plain version at their peak, lse
            1e-4, the bound at bf16's 989 TFLOP/s, SDPA in bf16 as the
            yardstick; the host cost of one TMA tensor-map encode.
-           The audio projection and the mask decoder (both in 3xTF32) at
-           the scaled, demo, three_speaker and multihost shapes, and at
-           d 196 (padded to 200) and d 1536; their library yardsticks
-           are two cuDNN conv1d and F.linear / F.gelu / F.linear /
-           sigmoid (cuBLAS).  The projection with a bf16 input at the
-           scaled shape (float32 math, bf16 y and h), against cuDNN
-           conv1d in bf16.  The STFT magnitude on its FFT route at
+           The audio projection (float32 math on bf16 `wgmma` products of
+           three-part weights, x in the model's padded rows) and the mask
+           decoder (3xTF32) at the scaled, demo, three_speaker and
+           multihost shapes, and at d 196 (padded to 200) and d 1536;
+           their library yardsticks are two cuDNN conv1d and F.linear /
+           F.gelu / F.linear / sigmoid (cuBLAS).  The projection with a
+           bf16 input (float32 math, bf16 y and h within 2 bf16 ulps, the
+           float32 h that conv1 writes for conv2 within 1e-4) at the
+           scaled, bench (B 128, T 63, D 128), three_speaker and
+           multihost shapes; its held yardstick is cuDNN conv1d in
+           float32 on the upcast x (the same function), cuDNN in bf16
+           (bf16 products of rounded weights: another function) beside
+           it, timed only.  Each projection row has a row of its weight
+           split (three bf16 parts a weight, bit for bit against the
+           plain split).  The STFT magnitude on its FFT route at
            every kind of length (radix 2-8, Bluestein, odd n_fft, odd
            hops) on the scaled, 44.1 kHz and demo device batches, an odd
            shape and 70,000 signals (more than 65,535); its matrix-DFT
            route, for n_fft above 4096, at 8192 / 1024, at 4410 / 441 on
            the 44.1 kHz batch (scalar loads), and at 4098 / 4098 over
            66,000 signals of one frame (frames read from global memory);
-           its library yardstick is torch.stft (cuFFT).
+           its library yardstick is torch.stft (cuFFT).  Last, past
+           grid y's 65,535: flash at B*H 65,536 (B 16,384, H 4, T 16,
+           dh 32, both dtypes; dh 128 in bf16) at dropout 0 and 0.1,
+           the projection at B 65,536 (T 8, D 64) at both dtypes.  A
+           projection launch is counted with its split (audio_proj_split,
+           audio_proj_split[bf16]): every run launches as many splits as
+           projections of each dtype.
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
@@ -168,9 +184,10 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 # each, CUTLASS's OpMultiplyAddFastF32, as SDPA's float32 kernel does), so
 # their least time is at 495 / 3 TFLOP/s; other float32 work (the FFT) at
 # the 67 TFLOP/s outside the tensor cores.  A bf16 operand is exact in
-# TF32, so its product with a float32 one at float32 accuracy takes two
-# TF32 products (2xTF32, the bf16 projection's conv1).
-RATES = {"3xTF32": 495e12 / 3, "2xTF32": 495e12 / 2, "float32": 67e12,
+# bf16, so its product with a float32 one at float32 accuracy takes three
+# bf16 products, one a part of the float32 operand (3xbf16, the bf16
+# projection's conv1).
+RATES = {"3xTF32": 495e12 / 3, "3xbf16": 989e12 / 3, "float32": 67e12,
          "bf16": 989e12}
 
 PALLAS = "av_separation_tpu/ops/pallas/"
@@ -194,6 +211,7 @@ KERNELS = {
         "source": "av_separation_torch/csrc/audio_proj.cu",
         "replaces": PALLAS + "audio_proj.py:75",
         "also_replaces": [],
+        "note": "device_ms includes the weight split (audio_proj_split)",
     },
     "mask_decoder_fwd": {
         "source": "av_separation_torch/csrc/mask_decoder.cu",
@@ -225,12 +243,28 @@ for _name, _src in (("flash_attn_fwd", "flash_fwd_wgmma.cu"),
     KERNELS[_name + "[bf16]"].update(
         source="av_separation_torch/csrc/" + _src,
         note="dh above 256: " + KERNELS[_name]["source"])
+# The projection's pre-pass, its own launch, splits each weight into three
+# bf16 parts; it is counted under the instance it serves.
+KERNELS["audio_proj_fwd[bf16]"]["note"] = (
+    "device_ms includes the weight split (audio_proj_split[bf16])")
+for _name in ("audio_proj_split", "audio_proj_split[bf16]"):
+    KERNELS[_name] = dict(
+        KERNELS[_name.replace("split", "fwd")], wrapper="audio_proj_split",
+        note="the projection's pre-pass: each float32 weight as three bf16 "
+             "parts, one launch a projection")
 # The device kernels each wrapper launches, by name (torch.profiler).
 KERNEL_NAMES = {
     "flash_attn_fwd": ("flash_fwd_kernel",),
     "flash_attn_bwd": ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
                        "flash_bwd_dq_kernel"),
-    "audio_proj_fwd": ("audio_proj_conv1_kernel", "audio_proj_conv2_kernel"),
+    # audio_proj_wgmma_kernel<conv2, float32 x, BN>
+    "audio_proj_fwd": ("audio_proj_split_kernel",
+                       "audio_proj_wgmma_kernel<false, true",
+                       "audio_proj_wgmma_kernel<true, true"),
+    "audio_proj_fwd[bf16]": ("audio_proj_split_kernel",
+                             "audio_proj_wgmma_kernel<false, false",
+                             "audio_proj_wgmma_kernel<true, false"),
+    "audio_proj_split": ("audio_proj_split_kernel",),
     "mask_decoder_fwd": ("mask_decoder_hidden_kernel",
                          "mask_decoder_mask_kernel"),
     "stft_mag_fwd": ("stft_fft_kernel",),
@@ -311,10 +345,14 @@ def bound(nbytes: float, flops, rate: str):
 
 def want_launches(counts: dict) -> dict:
     """Launch counts with every kernel entry 0 (the [bf16] instances too)
-    but those in `counts`."""
+    but those in `counts`, and one weight split a projection of each
+    dtype."""
     from av_separation_torch.ops import kernels
 
-    return {name: 0 for name in kernels.LAUNCHES} | counts
+    want = {name: 0 for name in kernels.LAUNCHES} | counts
+    for dt in ("", "[bf16]"):
+        want["audio_proj_split" + dt] = want["audio_proj_fwd" + dt]
+    return want
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -346,7 +384,8 @@ def phase_build(state):
     """Builds every kernel; fails if an instance of the STFT's FFT kernel
     (one per transform: power of two, mixed radix and Bluestein, even and
     odd n_fft) spills or is missing, or if an instance of the flash
-    pair's `wgmma` kernels or of its chunked kernels above dh 256 spills."""
+    pair's `wgmma` kernels, of its chunked kernels above dh 256 or of the
+    projection's `wgmma` kernel spills."""
     import re
 
     from av_separation_torch.ops.kernels import _build
@@ -374,6 +413,14 @@ def phase_build(state):
     if logs.get("flash_fwd_wgmma") and (
             len(flash) < 7 or any(k in spilling for k in flash)):
         raise AssertionError(f"flash instances {flash}, spilling "
+                             f"{spilling}")
+    # So must the projection's eight `wgmma` instances (conv1, conv2 at
+    # each dtype, at 64 and 128 channels a block).
+    proj = [k for k in usage.get("audio_proj", {})
+            if k.startswith("audio_proj_wgmma_kernel")]
+    if logs.get("audio_proj") and (
+            len(proj) != 8 or any(k in spilling for k in proj)):
+        raise AssertionError(f"projection instances {proj}, spilling "
                              f"{spilling}")
     return {"build_s": round(secs, 2), "spilling_instances": spilling,
             "ptxas": usage}
@@ -460,13 +507,13 @@ def make_record(results, failures):
         times = [cuda_ms(fn, iters) for fn in (fn_k, fn_p, fn_p, fn_k)]
         ms, plain_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         lib_ms = cuda_ms(fn_lib, iters) if fn_lib is not None else None
-        dev_ms = device_ms(fn_k, iters,
+        dev_ms = device_ms(fn_k, iters, KERNEL_NAMES.get(name) or
                            KERNEL_NAMES[KERNELS[name].get("wrapper", name)])
         lib_dev_ms = device_ms(fn_lib, iters) if fn_lib is not None else None
         bound_ms, bound_by = bound(nbytes, flops, op_rate)
         ok = err <= tol and all(e <= t for e, t in extra_errs.values()) \
             and extra.get("bit_identical", True)
-        measured = [t for t in (ms, lib_ms, dev_ms, lib_dev_ms)
+        measured = [t for t in (ms, dev_ms, lib_ms, lib_dev_ms)
                     if isinstance(t, float)]
         row = {"shape": shape, "max_abs_err": err, "tol": tol,
                "extra_errs": extra_errs, "ms": ms, "plain_ms": plain_ms,
@@ -552,6 +599,7 @@ def phase_kernels(state):
     _proj_rows(record, gen)
     _decoder_rows(record, gen)
     _stft_rows(record, gen)
+    _grid_cap_rows(record, gen)
 
     state["kernel_rows"] = results
     if failures:
@@ -559,6 +607,28 @@ def phase_kernels(state):
     return {"checked": {n: len(r) for n, r in results.items()},
             "mma_3xtf32_probe_err": probe_err,
             "tma_encode_us_host": encode_us}
+
+
+def _grid_cap_rows(record, gen):
+    """Grids past 65,535 in y: flash at B*H 65,536 (B 16,384, H 4, T 16,
+    dh 32 at both dtypes; dh 128 in bf16, the `wgmma` kernels' TMA maps
+    too), forward and backward at dropout 0 and 0.1, and the projection
+    at B 65,536 (T 8, D 64) at both dtypes.  Last in the phase: their
+    profiler traces (of ~1 GB calls) have left later traces short of
+    events, so no other row is timed after them."""
+    grid_cap = ("grid cap B*H 65536", 16384, 4, 16, 16, 32, "self")
+    for rate in (0.0, 0.1):
+        for dtype, cases in ((torch.float32, [grid_cap]),
+                             (torch.bfloat16, [grid_cap, (
+                                 "grid cap B*H 65536 dh128",) + grid_cap[1:5]
+                                 + (128, "self")])):
+            for label, b, h, tq, tk, dh, kind in cases:
+                q, k, v = _attn_inputs(b, h, tq, tk, dh, kind, gen, dtype)
+                _attn_rows(record, label, rate, q, k, v, gen)
+                del q, k, v
+                torch.cuda.empty_cache()
+    _proj_rows(record, gen, [("grid cap", 65536, 8, 64, torch.float32),
+                             ("grid cap", 65536, 8, 64, torch.bfloat16)])
 
 
 def bf16_tol(ref: torch.Tensor, ulps: int = 2) -> float:
@@ -655,29 +725,45 @@ HEAD_SHAPES = (("scaled", 8, 501, 512, 2), ("demo", 4, 63, 128, 2),
                ("odd width", 2, 501, 196, 2), ("wide", 2, 501, 1536, 2))
 
 
-def _proj_rows(record, gen):
-    """The fused audio projection against its plain version at the named
-    configs' shapes: float32 sums of 3 (F + D) products in another order,
-    1e-4 on y and h (O(1) values).  Library: two cuDNN conv1d with ReLU on
-    the (B, F, T) layout with torch Conv1d weights (timed only, never
-    called by the port).  Then the scaled shape with a bf16 x: float32
-    math, y and h in bf16 within `bf16_tol`; the bound counts the bf16
-    bytes, conv1's products at 2xTF32's rate (x is exact in TF32) and
-    conv2's at 3xTF32's; the library is the
-    same two conv1d in bf16 (cuDNN)."""
+def _proj_rows(record, gen, cases=None):
+    """The audio projection against its plain version at the named
+    configs' shapes, x in the model's padded rows (`proj_input`): float32
+    sums of 3 (F + D) products in another order, 1e-4 on y and h (O(1)
+    values).  Library: two cuDNN conv1d with ReLU on the (B, F, T) layout
+    with torch Conv1d weights, in float32 (timed only, never called by the
+    port).  Then a bf16 x (float32 math: y and h in bf16 within
+    `bf16_tol`, and the float32 h that conv1 writes for conv2 within 1e-4,
+    which products of bf16-rounded weights would miss) at the scaled,
+    bench (demo, batch 128), three_speaker and multihost shapes; the bound
+    counts the bf16 bytes, conv1's products at three bf16 products' rate
+    (x is exact in bf16) and conv2's at 3xTF32's; the library is the same
+    two conv1d in float32 on the upcast x, cast to bf16 (the same
+    function), and beside it, timed only, cuDNN in bf16 (bf16 products of
+    rounded weights: another function; `library_bf16_*`).  Beside each
+    row, the weight split's own row: its parts against the plain split,
+    bit for bit.  `cases` replaces the shapes (`_grid_cap_rows`: B
+    65,536)."""
     import torch.nn.functional as F
 
     from av_separation_torch.ops.kernels import kernel_width
     from av_separation_torch.ops.kernels.audio_proj import (
-        audio_proj_fwd, audio_proj_fwd_torch, proj_rows)
+        _launch, audio_proj_fwd, audio_proj_fwd_torch, audio_proj_split,
+        proj_input, proj_plan, weight_parts_torch)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [s[:4] + (torch.float32,) for s in HEAD_SHAPES] + [
-        ("scaled", 8, 501, 512, torch.bfloat16)]
+    cases = cases or [s[:4] + (torch.float32,) for s in HEAD_SHAPES] + [
+        ("scaled", 8, 501, 512, torch.bfloat16),
+        ("bench demo", 128, 63, 128, torch.bfloat16),
+        ("three_speaker", 8, 63, 512, torch.bfloat16),
+        ("multihost", 16, 501, 1024, torch.bfloat16)]
     for label, b, t, d, dtype in cases:
         bf16 = dtype == torch.bfloat16
+        dt = str(dtype).split(".")[-1]
         f = 257
+        iters = 5 if b > 65535 else 20
         x = torch.randn(b, t, f, generator=gen).abs().to(dtype).cuda()
+        # The model hands x over in rows padded to 16 bytes (260 or 264).
+        xk = proj_input(x.transpose(1, 2))
         lim1, lim2 = (3 * f) ** -0.5, (3 * d) ** -0.5
         w1 = ((torch.rand(3, f, d, generator=gen) * 2 - 1) * lim1).cuda()
         b1 = ((torch.rand(d, generator=gen) * 2 - 1) * lim1).cuda()
@@ -686,37 +772,67 @@ def _proj_rows(record, gen):
         x_bft = x.transpose(1, 2).contiguous()
         c1, c2 = (w.permute(2, 1, 0).contiguous() for w in (w1, w2))
 
-        lc1, lb1, lc2, lb2 = (w.to(dtype) for w in (c1, b1, c2, b2))
-
-        def lib(x_bft=x_bft, c1=lc1, b1=lb1, c2=lc2, b2=lb2):
+        def lib(x_bft=x_bft, c1=c1, b1=b1, c2=c2, b2=b2):
             return torch.relu(F.conv1d(torch.relu(F.conv1d(
-                x_bft, c1, b1, padding=1)), c2, b2, padding=1))
+                x_bft.float(), c1, b1, padding=1)), c2, b2,
+                padding=1)).to(dtype)
 
-        y_k, h_k = audio_proj_fwd(x, w1, b1, w2, b2)
+        y_k, h_k = audio_proj_fwd(xk, w1, b1, w2, b2)
         y_p, h_p = audio_proj_fwd_torch(x, w1, b1, w2, b2)
         y_lib = lib().transpose(1, 2)
+        extra_errs = {"h": (max_err(h_k, h_p),
+                            bf16_tol(h_p) if bf16 else 1e-4)}
+        extra = {}
+        if bf16:
+            # conv2's A, the float32 h, against the plain float32 h.
+            h32 = _launch(xk, w1, b1, w2, b2, keep_h32=True)[2]
+            h32_p = audio_proj_fwd_torch(x.float(), w1, b1, w2, b2)[1]
+            extra_errs["h32"] = (max_err(h32, h32_p), 1e-4)
+            del h32, h32_p
+            lb = tuple(w.to(dtype) for w in (c1, b1, c2, b2))
+
+            def lib_bf16(x_bft=x_bft, c1=lb[0], b1=lb[1], c2=lb[2],
+                         b2=lb[3]):
+                return torch.relu(F.conv1d(torch.relu(F.conv1d(
+                    x_bft, c1, b1, padding=1)), c2, b2, padding=1))
+
+            extra = {"library_bf16_max_abs_err": max_err(
+                         lib_bf16().transpose(1, 2), y_p),
+                     "library_bf16_device_ms": device_ms(lib_bf16, iters),
+                     "library_bf16": "the same two conv1d in bf16 (cuDNN): "
+                                     "timed only, another function"}
         torch.cuda.synchronize()
         esize = 2 if bf16 else 4
         nbytes = esize * (b * t * f + 2 * b * t * d) \
             + 4 * (3 * f * d + 3 * d * d + 2 * d)
-        # At bf16, conv1's products (a bf16 x) take two TF32 products.
-        flops = {"2xTF32": 2 * b * t * 3 * f * d,
+        # At bf16, conv1's products (a bf16 x) take three bf16 products.
+        flops = {"3xbf16": 2 * b * t * 3 * f * d,
                  "3xTF32": 2 * b * t * 3 * d * d} if bf16 \
             else 2 * b * t * 3 * (f + d) * d
-        tol_y, tol_h = (bf16_tol(y_p), bf16_tol(h_p)) if bf16 \
-            else (1e-4, 1e-4)
-        record("audio_proj_fwd" + ("[bf16]" if bf16 else ""),
-               f"{label} B={b} T={t} F={f} D={d} "
-               f"{str(dtype).split('.')[-1]}",
-               max_err(y_k, y_p), tol_y, {"h": (max_err(h_k, h_p), tol_h)},
-               lambda: audio_proj_fwd(x, w1, b1, w2, b2),
+        shape = f"{label} B={b} T={t} F={f} D={d} {dt}"
+        record("audio_proj_fwd" + ("[bf16]" if bf16 else ""), shape,
+               max_err(y_k, y_p), bf16_tol(y_p) if bf16 else 1e-4,
+               extra_errs, lambda: audio_proj_fwd(xk, w1, b1, w2, b2),
                lambda: audio_proj_fwd_torch(x, w1, b1, w2, b2), lib,
-               nbytes, flops, 20,
-               rows=proj_rows(b, t, kernel_width(d), sms),
-               library_max_abs_err=max_err(y_lib, y_p),
-               dtype=str(dtype).split(".")[-1],
-               library="relu(conv1d(relu(conv1d(x, W1)), W2)), cuDNN"
-                       + (" in bf16" if bf16 else ""))
+               nbytes, flops, iters,
+               plan=proj_plan(b, t, kernel_width(d), sms),
+               library_max_abs_err=max_err(y_lib, y_p), dtype=dt,
+               library="relu(conv1d(relu(conv1d(x, W1)), W2)), cuDNN in "
+                       "float32" + (" on the upcast x" if bf16 else ""),
+               **extra)
+        # The split alone: float32 weights in, three bf16 parts out, equal
+        # to the plain split bit for bit.
+        parts = audio_proj_split(w1, w2, dtype)
+        plain = (weight_parts_torch(w1), weight_parts_torch(w2))
+        torch.cuda.synchronize()
+        n = w1.numel() + w2.numel()
+        record("audio_proj_split" + ("[bf16]" if bf16 else ""), shape,
+               max(max_err(a, c) for a, c in zip(parts, plain)), 0.0,
+               {}, lambda: audio_proj_split(w1, w2, dtype),
+               lambda: (weight_parts_torch(w1), weight_parts_torch(w2)),
+               None, 4 * n + 6 * n, 0, iters, "bf16", dtype=dt)
+        del x, xk, y_k, h_k, y_p, h_p, y_lib
+        torch.cuda.empty_cache()
 
 
 def _decoder_rows(record, gen):
@@ -1006,10 +1122,9 @@ def phase_configs(state):
         del card
         for name, n in launches.items():
             total[name] += n
-        want = {name: 0 for name in kernels.LAUNCHES}
-        want.update(flash_attn_fwd=2 * m.num_encoder_layers
-                    + m.num_fusion_layers, audio_proj_fwd=1,
-                    mask_decoder_fwd=1)
+        want = want_launches(dict(
+            flash_attn_fwd=2 * m.num_encoder_layers + m.num_fusion_layers,
+            audio_proj_fwd=1, mask_decoder_fwd=1))
         mask_err = max_err(mask_c.cpu(), mask_r)
         sep_err = max_err(sep_c.cpu(), sep_r)
         peak = float(mixed.abs().max())
@@ -1044,9 +1159,9 @@ def phase_configs(state):
         check = _train_cpu_check(bad, cfg0, batch_of(cfg0))
         m = cfg0.model
         per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
-        want = {name: 0 for name in kernels.LAUNCHES}
-        want.update(flash_attn_fwd=per_step, flash_attn_bwd=per_step,
-                    audio_proj_fwd=1, mask_decoder_fwd=1)
+        want = want_launches(dict(
+            flash_attn_fwd=per_step, flash_attn_bwd=per_step,
+            audio_proj_fwd=1, mask_decoder_fwd=1))
         if check["card_launches"] != want:
             bad.append(f"{label} train step: launches "
                        f"{check['card_launches']} != {want}")
@@ -1112,9 +1227,9 @@ def _config_train_steps(bad: list, total: dict) -> dict:
             for k_, v_ in launches.items():
                 total[k_] += v_
             per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
-            want = {k_: 0 for k_ in kernels.LAUNCHES}
-            want.update(flash_attn_fwd=per_step * (2 if m.remat else 1),
-                        flash_attn_bwd=per_step, audio_proj_fwd=1)
+            want = want_launches(dict(
+                flash_attn_fwd=per_step * (2 if m.remat else 1),
+                flash_attn_bwd=per_step, audio_proj_fwd=1))
             out[label] = {"batch": n, "remat": m.remat,
                           "dropout": m.dropout, "loss": loss,
                           "grad_norm": norm, "ms": ms,
@@ -1347,9 +1462,9 @@ def phase_stream(state):
             or not np.isfinite(waves).all():
         bad.append(f"output {waves.shape}, {n_chunks} chunks, finite "
                    f"{bool(np.isfinite(waves).all())}")
-    want = {name: 0 for name in kernels.LAUNCHES}
-    want.update(flash_attn_fwd=16 * n_chunks, audio_proj_fwd=n_chunks,
-                mask_decoder_fwd=n_chunks)
+    want = want_launches(dict(flash_attn_fwd=16 * n_chunks,
+                              audio_proj_fwd=n_chunks,
+                              mask_decoder_fwd=n_chunks))
     if launches != want:
         bad.append(f"launches {launches} != {want}")
 
@@ -1858,8 +1973,7 @@ def phase_device_data(state):
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         state["launches"][key] = launches
-        want = {name: 0 for name in kernels.LAUNCHES}
-        want["stft_mag_fwd"] = 1
+        want = want_launches({"stft_mag_fwd": 1})
         if launches != want:
             bad.append(f"{variant}: launches {launches} != {want}")
         shapes = {"mixed_spec": (bs, f, t), "clean_specs": (bs, s, f, t),
@@ -2124,7 +2238,8 @@ def phase_bf16(state):
                           "batch")
     by_path["bf16_serve"] = launches
     want = want_launches({"flash_attn_fwd[bf16]": 16,
-                          "audio_proj_fwd[bf16]": 1, "mask_decoder_fwd": 1})
+                          "audio_proj_fwd[bf16]": 1,
+                          "mask_decoder_fwd": 1})
     if launches != want:
         bad.append(f"serve launches {launches} != {want}")
     f32 = Separator(cfg.model, state_dict, cfg.data,
@@ -2249,18 +2364,24 @@ def phase_bf16(state):
 
 # The kernels with a bfloat16 instance: a bf16-compute run launches those
 # instances and never the float32 ones (the decoder and the STFT stay
-# float32 at every compute dtype).
-BF16_WRAPPERS = ("flash_attn_fwd", "flash_attn_bwd", "audio_proj_fwd")
+# float32 at every compute dtype), and one weight split a projection.
+BF16_WRAPPERS = ("flash_attn_fwd", "flash_attn_bwd", "audio_proj_fwd",
+                 "audio_proj_split")
+
+
+def _splits_match(launches: dict) -> bool:
+    return all(launches["audio_proj_split" + dt]
+               == launches["audio_proj_fwd" + dt] for dt in ("", "[bf16]"))
 
 
 def _bf16_instances_only(launches: dict) -> bool:
     return all(launches[n] == 0 and launches[n + "[bf16]"] > 0
-               for n in BF16_WRAPPERS)
+               for n in BF16_WRAPPERS) and _splits_match(launches)
 
 
 def _float32_instances_only(launches: dict) -> bool:
     return all(launches[n] > 0 and launches[n + "[bf16]"] == 0
-               for n in BF16_WRAPPERS)
+               for n in BF16_WRAPPERS) and _splits_match(launches)
 
 
 def phase_bench(state):

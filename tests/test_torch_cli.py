@@ -193,7 +193,8 @@ def test_serve_answers_over_http_and_stops_on_sigint():
                              "audio_proj_fwd", "mask_decoder_fwd",
                              "stft_mag_fwd", "stft_mag_dft_fwd",
                              "flash_attn_fwd[bf16]", "flash_attn_bwd[bf16]",
-                             "audio_proj_fwd[bf16]")}}
+                             "audio_proj_fwd[bf16]", "audio_proj_split",
+                             "audio_proj_split[bf16]")}}
     assert "untrained init" in err
 
 

@@ -23,9 +23,11 @@ kernels in interpret mode:
   - `csrc/mask_decoder.cu`: both GEMMs in 3xTF32 over the kernel's row
     tiles, 256-column chunks (S*F padded) and 32-deep k tiles, the GELU
     tile kept between them, the sigmoid and the transposed (S, F, T) store;
-  - `csrc/audio_proj.cu`: both convs as implicit GEMMs in 3xTF32 over the
-    kernel's frame tiles (hidden rows with their halo, zero outside
-    [0, T)), K padded per tap to a multiple of 8 (257 -> 264);
+  - `csrc/audio_proj.cu` at a float32 x: both convs as products of
+    three-part bf16 operands over the kernel's frame tiles (hidden rows
+    with their halo, zero outside [0, T)), the input channels in chunks of
+    64 (257 -> 320, the tail zero); its bf16 x and layouts are
+    test_torch_proj_wgmma_design.py's;
   - the widths the projection and decoder kernels are not built for, run
     zero-padded to the next one they are;
   - `csrc/stft_mag.cu`: the DFT route's blocks (32 frames of one signal
@@ -1059,39 +1061,16 @@ def decoder_tiles_emulated(x, w1, b1, w2, b2, mixed, s, passes, rows=128):
     return sep.reshape(b, s, f, t), masks.reshape(b, s, f, t)
 
 
-def proj_tiles_emulated(x, w1, b1, w2, b2, passes, rows=64):
-    """(B, T, F) -> (y, h) as audio_proj.cu computes them, one launch a
-    conv: blocks of `rows` frames of one utterance stage rows + 2 input
-    frames (zero outside [0, T)), channels 16 at a time with C_in padded
-    to a multiple of 8 (257 -> 264), and sum each tap's product into float32
-    accumulators (A row r, tap k reads staged row r + k); conv2 stages h the
-    same way, so h is zero outside [0, T)."""
-    f32 = np.float32
-    b, t, _ = x.shape
-    d = w1.shape[-1]
-
-    def conv(src, w, bias):
-        cin = src.shape[-1]
-        kc = -(-cin // 8) * 8
-        t_pad = -(-t // rows) * rows
-        sp = np.zeros((b, t_pad + 2, kc), f32)  # frame tt at row tt + 1
-        sp[:, 1:t + 1, :cin] = src
-        wp = np.zeros((3, kc, d), f32)
-        wp[:, :cin] = w
-        out = np.zeros((b, t_pad, d), f32)
-        for t0 in range(0, t_pad, rows):
-            acc = np.zeros((b, rows, d), f32)
-            for c0 in range(0, kc, 16):
-                for tap in range(3):
-                    a = sp[:, t0 + tap:t0 + tap + rows, c0:c0 + 16]
-                    acc = (acc + product(a.reshape(-1, a.shape[-1]),
-                                         wp[tap, c0:c0 + 16], passes
-                                         ).reshape(acc.shape)).astype(f32)
-            out[:, t0:t0 + rows] = acc
-        return np.maximum(out[:, :t] + bias, 0).astype(f32)
-
-    h = conv(x, w1, b1)
-    return conv(h, w2, b2), h
+def proj_tiles_emulated(x, w1, b1, w2, b2, passes, rows=128):
+    """(B, T, F) -> (y, h) as audio_proj.cu computes them at a float32 x,
+    in blocks of `rows` frames (the kernel's 128; the emulation of
+    test_torch_proj_wgmma_design.py): x, h and the weights each in three
+    bf16 parts, the six products that reach 2^-24 summed in float32
+    (`passes` 3), or one product of the bf16-rounded values (`passes` 1);
+    h is zero outside [0, T) where conv2 reads it."""
+    from test_torch_proj_wgmma_design import proj_wgmma_emulated
+    return proj_wgmma_emulated(x, w1, b1, w2, b2, one_product=passes == 1,
+                               dtype="f32", rows=rows)
 
 
 def _decoder_case(b, t, d, s, f, seed, mixed_scale=10.0):
@@ -1184,9 +1163,11 @@ class TestDecoderThreeTf32:
 
 
 class TestProjectionThreeTf32:
-    # F 257 (K padded to 264), T 37 (a partial block), against the plain
-    # version and the Pallas kernel in interpret mode at
-    # test_torch_kernels.py's 2e-5 + 1e-4 relative.
+    # The projection at a float32 x (float32 accuracy from bf16 products of
+    # three-part operands: the rate of 3xTF32).  F 257 (chunks of 64, the
+    # tail zero), T 37 (a partial block) in blocks of 128, 64 and 32
+    # frames, against the plain version and the Pallas kernel in interpret
+    # mode at test_torch_kernels.py's 2e-5 + 1e-4 relative.
     @pytest.mark.parametrize("rows", [128, 64, 32])
     def test_matches_plain_and_pallas(self, rows):
         import jax.numpy as jnp
@@ -1217,9 +1198,9 @@ class TestProjectionThreeTf32:
         np.testing.assert_allclose(y[0, [0, t - 1]], 2.0, rtol=1e-6)
         np.testing.assert_allclose(y[0, 1:t - 1], 3.0, rtol=1e-6)
 
-    # The scaled serving shape (T 501, F 257, D 512) with B cut to 1: 3xTF32
-    # keeps y and h within the card's 1e-4 of the plain version; 1xTF32
-    # does not.
+    # The scaled serving shape (T 501, F 257, D 512) with B cut to 1: the
+    # six products keep y and h within the card's 1e-4 of the plain
+    # version; one product of bf16-rounded values does not.
     def test_3xtf32_holds_float32_tolerance_and_1xtf32_does_not(self):
         from av_separation_torch.ops.kernels.audio_proj import (
             audio_proj_fwd_torch)
@@ -1232,24 +1213,25 @@ class TestProjectionThreeTf32:
         y1, h1 = proj_tiles_emulated(*args, 1)
         assert max(np.abs(y1 - y_p).max(), np.abs(h1 - h_p).max()) > 1e-4
 
-    # (B, T, D) -> frames a block on 132 SMs.
-    @pytest.mark.parametrize("shape,rows", [
-        ((8, 501, 512), 64),      # scaled: 256 blocks (128 frames: 128)
-        ((4, 63, 128), 32),       # demo
-        ((8, 63, 512), 32),       # three_speaker
+    # (B, T, D) -> channels a block on 132 SMs (128 frames each): 128
+    # where that still gives half the SMs a block, else 64.
+    @pytest.mark.parametrize("shape,bn", [
+        ((8, 501, 512), 128),     # scaled: 128 blocks
+        ((4, 63, 128), 64),       # demo: 8 blocks
+        ((8, 63, 512), 64),       # three_speaker: 64 blocks
         ((16, 501, 1024), 128),   # multihost: 512 blocks
-        ((2, 376, 512), 32)])     # lrs2, batch 2
-    def test_rows_by_shape(self, shape, rows):
-        from av_separation_torch.ops.kernels.audio_proj import proj_rows
-        assert proj_rows(*shape, 132) == rows
+        ((2, 376, 512), 64)])     # lrs2, batch 2: 48 blocks
+    def test_rows_by_shape(self, shape, bn):
+        from av_separation_torch.ops.kernels.audio_proj import proj_plan
+        assert proj_plan(*shape, 132)["bn"] == bn
 
 
 class TestPaddedWidths:
     # Widths the projection and decoder kernels are not built for (below
     # 64, or not a multiple of 8) run zero-padded to `kernel_width(d)`;
     # widths above 1024 run as they are.  The padded route through the
-    # plain versions and through the numpy emulation of the kernels' 3xTF32
-    # GEMMs, against the unpadded plain version and the JAX Pallas kernels
+    # plain versions and through the numpy emulation of the kernels'
+    # products (3xTF32; the projection's three-part bf16), against the unpadded plain version and the JAX Pallas kernels
     # in interpret mode: y and h within 1e-4 (the card's rows), masks
     # within 1e-5 and separated within 1e-5 of the peak of mixed.
     @pytest.mark.parametrize("d,width", [(8, 64), (36, 64), (64, 64),
@@ -1273,7 +1255,7 @@ class TestPaddedWidths:
         def emulated(*a):
             widths.append(a[1].shape[-1])
             return tuple(torch.from_numpy(r) for r in proj_tiles_emulated(
-                *(t.numpy() for t in a), 3, 32))
+                *(t.numpy() for t in a), 3))
 
         y_u, h_u = audio_proj_fwd_torch(*ts)
         with pltpu.force_tpu_interpret_mode():

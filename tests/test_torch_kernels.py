@@ -237,7 +237,9 @@ class TestDispatch:
                                     "stft_mag_dft_fwd": 0,
                                     "flash_attn_fwd[bf16]": 0,
                                     "flash_attn_bwd[bf16]": 0,
-                                    "audio_proj_fwd[bf16]": 0}
+                                    "audio_proj_fwd[bf16]": 0,
+                                    "audio_proj_split": 0,
+                                    "audio_proj_split[bf16]": 0}
 
     # The flash kernels' head dims: demo (32), the reference's default
     # model ModelConfig() (d 256 / 4 heads = 64), every wider config (128).

@@ -43,6 +43,10 @@ CASES = [
     (8, 2, 501, 501, 512, "self", 0.0, True, "bf16"),
     (128, 4, 63, 63, 32, "self", 0.0, True, "bf16"),
     (128, 4, 63, 50, 32, "cross", 0.1, True, "bf16"),
+    # B*H 65,536: grid x folds the tile and B*H
+    (16384, 4, 16, 16, 32, "self", 0.1, False, "f32"),
+    (16384, 4, 16, 16, 32, "self", 0.1, False, "bf16"),
+    (16384, 4, 16, 16, 128, "self", 0.0, False, "bf16"),
 ]
 SOURCES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_attn_fwd",
            "flash_attn_bwd")
