@@ -3,6 +3,8 @@
 
     python -m av_separation_torch.cli train --config demo --steps 100
     python -m av_separation_torch.cli train --config scaled --data device --fused
+    python -m av_separation_torch.cli train --config scaled --data files --data-root corpus
+    python -m av_separation_torch.cli train --config scaled --data native
     python -m av_separation_torch.cli train --config scaled --dtype bfloat16
     python -m av_separation_torch.cli eval --config demo --checkpoint-dir ckpt
     python -m av_separation_torch.cli separate --config demo --checkpoint-dir ckpt
@@ -14,13 +16,20 @@ it on the CPU (the kernels' plain versions).  `--dtype` sets the model's
 compute dtype.  The JSON lines are the JAX CLI's: one per logged step, eval
 lines between them, and a final {"final_step", "loss", "audio_s_per_s"}
 line, whose loss is printed unrounded so that two runs can be compared.
-`serve` takes the JAX CLI's `--serve-*` flags and `AVSEP_AUTH_TOKEN`, and
-stops on SIGINT.  `bench` is `av_separation_torch.bench` (its flags
-`--config --steps --batch --dtype --mode --cpu`, the JAX bench's defaults:
-demo, 250, 128, bfloat16, fused) and prints its one JSON line.  Not yet
-ported, and refused by the argument parser: the mesh and multi-host flags,
-`--impl`, `--data native|files` (`--data-root`, `--dynamic-mix`) and
-`--debug-nans`.
+`--data` picks the per-step loop's batches: the host NumPy dataset, batches
+generated on the device, the native C++ generator, or a corpus on disk
+(`--data files --data-root DIR`, `--dynamic-mix` to remix its speakers on
+the fly); `--fused` always generates on the device, as in the JAX CLI.
+`eval` scores the 20 deterministic synthetic host samples whatever the
+pipeline.  `--debug-nans` raises FloatingPointError at the module or
+backward function that first produces a NaN (`utils/debug.py`).  `serve`
+takes the JAX CLI's `--serve-*` flags and `AVSEP_AUTH_TOKEN`, and stops on
+SIGINT.  `bench` is `av_separation_torch.bench` (its flags `--config
+--steps --batch --dtype --mode --cpu`, the JAX bench's defaults: demo,
+250, 128, bfloat16, fused) and prints its one JSON line.  Not yet ported,
+and refused by the argument parser: the mesh and multi-host flags.
+`--impl` is not carried over: a tensor on the card always runs the
+kernels.
 """
 
 from __future__ import annotations
@@ -46,9 +55,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--pit", choices=("global", "per_sample"), default=None)
-    p.add_argument("--data", choices=("host", "device"), default=None,
-                   help="batch pipeline: the host NumPy dataset, or batches "
-                        "generated on the model's device")
+    p.add_argument("--data", choices=("host", "device", "native", "files"),
+                   default=None,
+                   help="batch pipeline: the host NumPy dataset, batches "
+                        "generated on the model's device, the native C++ "
+                        "generator, or a corpus on disk (--data-root)")
+    p.add_argument("--data-root", default=None,
+                   help="corpus directory for --data files")
+    p.add_argument("--dynamic-mix", action="store_true",
+                   help="remix the speakers of --data files on the fly")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
     p.add_argument("--profile-dir", default=None,
@@ -60,6 +75,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "segments (logging, eval, checkpoints)")
     p.add_argument("--eval-every", type=int, default=None,
                    help="run the SNR eval every N steps")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the module or backward "
+                        "function that first produces a NaN")
 
 
 def _build_config(args):
@@ -76,10 +94,13 @@ def _build_config(args):
     for field, attr in (("batch_size", "batch"), ("steps", "steps"),
                         ("checkpoint_dir", "checkpoint_dir"),
                         ("checkpoint_every", "checkpoint_every"),
-                        ("data_pipeline", "data"), ("seed", "seed")):
+                        ("data_pipeline", "data"), ("data_root", "data_root"),
+                        ("seed", "seed")):
         v = getattr(args, attr)
         if v is not None:
             train_kw[field] = v
+    if args.dynamic_mix:
+        train_kw["dynamic_mix"] = True
     if train_kw:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **train_kw))
@@ -94,15 +115,41 @@ def _device(args):
     return resolve_device("cpu" if args.cpu else "cuda")
 
 
+def _nan_checks(args, model):
+    """`utils.debug.debug_nans(model)` under --debug-nans, else nothing."""
+    if not args.debug_nans:
+        return contextlib.nullcontext()
+    from av_separation_torch.utils.debug import debug_nans
+    return debug_nans(model)
+
+
 def _batches(cfg, device, start_step: int = 0):
     """Batch stream of the per-step loop; `start_step` makes a resumed run
-    see the stream an uninterrupted run sees from that step."""
-    if cfg.train.data_pipeline == "device":
+    see the stream an uninterrupted run sees from that step.  The caller
+    closes it (the files and native tiers run threads)."""
+    pipeline = cfg.train.data_pipeline
+    if pipeline == "device":
         from av_separation_torch.data.device_synthetic import (
             device_batch_iterator)
         return device_batch_iterator(cfg.data, cfg.train.batch_size,
                                      seed=cfg.train.seed,
                                      start_step=start_step, device=device)
+    if pipeline == "files":
+        from av_separation_torch.data.files import (FileAVDataset,
+                                                    PrefetchIterator)
+        if not cfg.train.data_root:
+            sys.exit("avsep: --data files requires --data-root")
+        ds = FileAVDataset(cfg.train.data_root, cfg.data,
+                           dynamic_mix=cfg.train.dynamic_mix,
+                           seed=cfg.train.seed)
+        return PrefetchIterator(ds, cfg.train.batch_size,
+                                seed=cfg.train.seed, start_step=start_step)
+    if pipeline == "native":
+        from av_separation_torch.data.native_loader import (
+            NativeBatchIterator)
+        return NativeBatchIterator(cfg.data, cfg.train.batch_size,
+                                   seed=cfg.train.seed,
+                                   start_step=start_step)
     from av_separation_torch.data.loader import batch_iterator
     from av_separation_torch.data.synthetic import SyntheticAVDataset
     return batch_iterator(SyntheticAVDataset(cfg.data), cfg.train.batch_size,
@@ -164,24 +211,28 @@ def cmd_train(args) -> int:
     ctx = trace(args.profile_dir) if args.profile_dir \
         else contextlib.nullcontext()
     per_step_audio = cfg.train.batch_size * cfg.data.duration
-    with ctx:
+    with ctx, _nan_checks(args, state.model):
         if args.fused:
             state = _fused_train(args, cfg, state, start_step, evaluate)
         else:
             step_fn = make_train_step(cfg)
             batches = _batches(cfg, device, start_step)
             timer = Timer()
-            for i in range(start_step, cfg.train.steps):
-                state, metrics = step_fn(state, next(batches))
-                if cfg.train.log_every and (i + 1) % cfg.train.log_every == 0:
-                    audio_s = (i + 1 - start_step) * per_step_audio
-                    print(step_metrics_line(i + 1, metrics, {
-                        "audio_s_per_s": round(audio_s / timer.elapsed(),
-                                               2)}), flush=True)
-                if evaluate and (i + 1) % args.eval_every == 0:
-                    print(step_metrics_line(i + 1, evaluate(state)),
-                          flush=True)
-                _save_every(cfg, i + 1, state)
+            try:
+                for i in range(start_step, cfg.train.steps):
+                    state, metrics = step_fn(state, next(batches))
+                    if cfg.train.log_every \
+                            and (i + 1) % cfg.train.log_every == 0:
+                        audio_s = (i + 1 - start_step) * per_step_audio
+                        print(step_metrics_line(i + 1, metrics, {
+                            "audio_s_per_s": round(
+                                audio_s / timer.elapsed(), 2)}), flush=True)
+                    if evaluate and (i + 1) % args.eval_every == 0:
+                        print(step_metrics_line(i + 1, evaluate(state)),
+                              flush=True)
+                    _save_every(cfg, i + 1, state)
+            finally:
+                batches.close()
             if cfg.train.steps > start_step:
                 # A summary line even when steps < log_every.
                 dt = timer.elapsed()
@@ -246,7 +297,9 @@ def cmd_eval(args) -> int:
         from av_separation_torch.utils.checkpoint import restore_checkpoint
         state = restore_checkpoint(cfg.train.checkpoint_dir, state)
     batch = eval_batch(SyntheticAVDataset(cfg.data), 20)
-    print(json.dumps(_eval_metrics(state.model, batch)), flush=True)
+    with _nan_checks(args, state.model):
+        metrics = _eval_metrics(state.model, batch)
+    print(json.dumps(metrics), flush=True)
     return 0
 
 
@@ -284,7 +337,8 @@ def cmd_separate(args) -> int:
     n = args.batch or 4
     cleans = np.stack([ds.clean_audios(i)[0] for i in range(n)])  # (B, S, N)
     lips = np.stack([ds[i]["lip_frames"] for i in range(n)])
-    out = sep.separate_waveform(cleans.sum(axis=1), lips)
+    with _nan_checks(args, sep.model):
+        out = sep.separate_waveform(cleans.sum(axis=1), lips)
     snr = permutation_si_snr_waveform(torch.from_numpy(out["waveforms"]),
                                       torch.from_numpy(cleans))
     print(json.dumps({
@@ -307,19 +361,20 @@ def cmd_serve(args) -> int:
     cfg = _build_config(args)
     sep = _separator(cfg, _device(args), "serve")
     warmup = tuple(int(b) for b in args.serve_warmup.split(",") if b)
-    try:
-        serve_forever(sep, host=args.serve_host, port=args.serve_port,
-                      max_batch=args.serve_max_batch,
-                      max_delay_ms=args.serve_max_delay_ms,
-                      auth_token=args.serve_auth_token
-                      or os.environ.get("AVSEP_AUTH_TOKEN"),
-                      max_request_bytes=args.serve_max_request_mb << 20,
-                      certfile=args.serve_certfile,
-                      keyfile=args.serve_keyfile, warmup_batches=warmup,
-                      max_pending=args.serve_max_pending)
-    except KeyboardInterrupt:
-        print("avsep: interrupted, stopped serving", file=sys.stderr,
-              flush=True)
+    with _nan_checks(args, sep.model):
+        try:
+            serve_forever(sep, host=args.serve_host, port=args.serve_port,
+                          max_batch=args.serve_max_batch,
+                          max_delay_ms=args.serve_max_delay_ms,
+                          auth_token=args.serve_auth_token
+                          or os.environ.get("AVSEP_AUTH_TOKEN"),
+                          max_request_bytes=args.serve_max_request_mb << 20,
+                          certfile=args.serve_certfile,
+                          keyfile=args.serve_keyfile, warmup_batches=warmup,
+                          max_pending=args.serve_max_pending)
+        except KeyboardInterrupt:
+            print("avsep: interrupted, stopped serving", file=sys.stderr,
+                  flush=True)
     print(json.dumps({"kernel_launches": dict(kernels.LAUNCHES)}),
           flush=True)
     return 0

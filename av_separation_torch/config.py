@@ -8,9 +8,9 @@ CPU through the kernel's plain PyTorch version, so there is nothing to
 select.  The five named configs keep the reference's widths, depths, data
 geometry and training constants field for field (`multihost` with remat, as
 in JAX), `ModelConfig` carries the compute dtype and remat, and
-`TrainConfig` carries the host and device data pipelines and the
-checkpoint fields; the mesh, the native and file pipelines and `rng_impl`
-come with the slices that use them.
+`TrainConfig` carries the four data pipelines (host, device, native,
+files) and the checkpoint fields; the mesh comes with the slice that uses
+it, and `rng_impl` is not carried over.
 """
 
 from __future__ import annotations
@@ -104,8 +104,13 @@ class TrainConfig:
     checkpoint_every: int = 0
     # Batch pipeline: 'host' cuts batches from the NumPy dataset that
     # bit-matches the reference (data/loader.py); 'device' generates the
-    # same distribution on the model's device (data/device_synthetic.py).
+    # same distribution on the model's device (data/device_synthetic.py);
+    # 'native' runs the threaded C++ generator (data/native_loader.py);
+    # 'files' reads the corpus under `data_root` with background prefetch
+    # (data/files.py), remixing speakers on the fly when `dynamic_mix`.
     data_pipeline: str = "host"
+    data_root: Optional[str] = None
+    dynamic_mix: bool = False
 
 
 @dataclass(frozen=True)

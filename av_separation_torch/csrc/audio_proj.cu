@@ -77,6 +77,7 @@
 #include <cuda_runtime.h>
 
 #include "wgmma_tma.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -145,6 +146,12 @@ __device__ __forceinline__ void split3(float2 v, unsigned& p1, unsigned& p2,
   p1 = bits(a);
   p2 = bits(b);
   p3 = bits(c);
+}
+
+// relu that keeps a NaN, as torch.relu and XLA's max do (fmaxf(NaN, 0) is
+// 0, which would hide a NaN input from the NaN checks of utils/debug.py).
+__device__ __forceinline__ float relu_keep_nan(float v) {
+  return v < 0.f ? 0.f : v;
 }
 
 // Byte offset of 16-byte unit u of staged row r in a 128-byte-swizzled box.
@@ -326,8 +333,8 @@ audio_proj_wgmma_kernel(const __grid_constant__ CUtensorMap ma,
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= p.T) continue;
-      const float v0 = fmaxf(acc[4 * n + 2 * h] + c0, 0.f);
-      const float v1 = fmaxf(acc[4 * n + 2 * h + 1] + c1, 0.f);
+      const float v0 = relu_keep_nan(acc[4 * n + 2 * h] + c0);
+      const float v1 = relu_keep_nan(acc[4 * n + 2 * h + 1] + c1);
       const size_t at = (base + row) * p.D + col;
       if constexpr (F32) {
         *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at) =
@@ -397,7 +404,8 @@ extern "C" int avsep_audio_proj_split(const void* w1, const void* w2,
                                       void* p1, void* p2, long long n1,
                                       long long n2, int device,
                                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long want = (n1 + n2 + 255) / 256;
   const long long cap = 4LL * sm_count(device);
@@ -429,7 +437,8 @@ extern "C" int avsep_audio_proj_fwd(
   const int tiles = (T + kBM - 1) / kBM, slabs = (D + bn - 1) / bn;
   const long long blocks = static_cast<long long>(B) * tiles * slabs;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mx, mw1, mh, mw2;
   if (!encode_map_3d(&mx,

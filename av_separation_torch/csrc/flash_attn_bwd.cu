@@ -104,6 +104,7 @@
 #include "grid_fold.cuh"
 #include "mma_3xtf32.cuh"
 #include "mma_bf16.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -1254,7 +1255,8 @@ extern "C" int avsep_flash_attn_bwd(
     const long long* strides,  // 3 each for q, k, v, o, dO, dQ, dK, dV
     float scale, float keep, unsigned threshold, unsigned seed, int hq,
     int hk, int dropout, int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
   p.q = q;

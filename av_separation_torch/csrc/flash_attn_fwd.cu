@@ -91,6 +91,7 @@
 #include "grid_fold.cuh"
 #include "mma_3xtf32.cuh"
 #include "mma_bf16.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -713,7 +714,8 @@ extern "C" int avsep_flash_attn_fwd(
     long long sob, long long soh, long long sot,
     float scale, float keep, unsigned threshold, unsigned seed, int hq,
     int hk, int dropout, int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
   p.q = q;
@@ -752,7 +754,8 @@ extern "C" int avsep_flash_attn_fwd(
 
 extern "C" int avsep_mma_3xtf32_probe(const void* a, const void* b, void* c,
                                       int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   mma_3xtf32_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),

@@ -66,6 +66,7 @@
 #include "dropout_hash.cuh"
 #include "grid_fold.cuh"
 #include "wgmma_tma.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -582,7 +583,8 @@ extern "C" int avsep_flash_bwd_wgmma(
     void* dv, int B, int H, int Tq, int Tk, int dh,
     const long long* strides, float scale, float keep, unsigned threshold,
     unsigned seed, int hq, int hk, int dropout, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long* sq = strides;
   const long long* sk = strides + 3;

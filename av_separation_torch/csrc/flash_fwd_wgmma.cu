@@ -73,6 +73,7 @@
 #include "dropout_hash.cuh"
 #include "grid_fold.cuh"
 #include "wgmma_tma.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -337,7 +338,8 @@ extern "C" int avsep_flash_fwd_wgmma(
     long long soh, long long sot, float scale, float keep,
     unsigned threshold, unsigned seed, int hq, int hk, int dropout,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mq, mk, mv;
   if (!encode_map(&mq, q, dh, H, Tq, B, sqh, sqt, sqb) ||

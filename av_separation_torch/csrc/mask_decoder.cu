@@ -52,6 +52,7 @@
 #include <math.h>
 
 #include "mma_3xtf32.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -284,7 +285,8 @@ extern "C" int avsep_mask_decoder_fwd(const void* x, const void* w1,
   // Any width from 64 up, in steps of 8 (the wrapper pads others): the
   // grid tiles the channels, and the k loop runs over any count.
   if (d % 8 != 0 || d < 64) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T;

@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "mma_3xtf32.cuh"  // the cp.async copies
 
 namespace {
@@ -619,7 +620,8 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
       sizeof(float2) * ((size_t)g.half + 1 + (pad && !odd ? g.F : 0));
   if (smem + sizeof(Stage) * kMaxStages > kMaxSmem)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto kernel =
       kind == kPow2  ? stft_fft_kernel<kPow2, false>

@@ -49,6 +49,8 @@
 // past T (the last tile) are computed on zeros and not stored.
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kTile = 32;         // frames per block (one per lane at store)
@@ -209,7 +211,8 @@ extern "C" int avsep_stft_mag_fwd(const void* audio, const void* cos_b,
       kind == kGlobal ? ((long long)B * T + kTile - 1) / kTile : B * tiles;
   if (floats * 4 > 232448 - 384 || blocks > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(blocks), F_pad / threads_per_block);
   const size_t smem = sizeof(float) * (size_t)floats;

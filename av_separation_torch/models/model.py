@@ -79,6 +79,15 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
+class Projection(nn.Module):
+    """The fused projection kernel as a module without parameters (the
+    weights stay in `AudioEncoder.input_proj`, the reference's slots), so
+    that module hooks (`utils/debug.py`) read its output."""
+
+    def forward(self, x, w1, b1, w2, b2) -> torch.Tensor:
+        return audio_projection(x, w1, b1, w2, b2)
+
+
 class AudioEncoder(nn.Module):
     """Mixed-spectrogram encoder (reference model.py:22-60)."""
 
@@ -88,6 +97,7 @@ class AudioEncoder(nn.Module):
         self.input_proj = nn.Sequential(
             nn.Conv1d(cfg.freq_bins, d, 3, padding=1), nn.ReLU(),
             nn.Conv1d(d, d, 3, padding=1), nn.ReLU())
+        self.projection = Projection()
         self.pos_enc = PositionalEncoding(d, cfg.dropout)
         self.transformer = TransformerEncoder(d, cfg.nhead,
                                               cfg.num_encoder_layers,
@@ -100,11 +110,11 @@ class AudioEncoder(nn.Module):
         # torch Conv1d weights (out, in, k) -> the kernel's (k, in, out);
         # x in the compute dtype (in the layout its kernel reads), y and h
         # in x's.
-        y = audio_projection(proj_input(x),
-                             conv1.weight.permute(2, 1, 0).contiguous(),
-                             conv1.bias,
-                             conv2.weight.permute(2, 1, 0).contiguous(),
-                             conv2.bias)
+        y = self.projection(proj_input(x),
+                            conv1.weight.permute(2, 1, 0).contiguous(),
+                            conv1.bias,
+                            conv2.weight.permute(2, 1, 0).contiguous(),
+                            conv2.bias)
         return self.transformer(self.pos_enc(y, gens), gens)
 
 

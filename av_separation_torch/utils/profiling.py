@@ -5,6 +5,8 @@
 - ``Timer``: a wall clock that synchronises the CUDA device before it reads
   the clock, so the time covers the work queued before the call.
 - ``step_metrics_line``: one JSON line of metrics per step.
+- ``live_memory_bytes``: the bytes the caching allocator holds in tensors
+  on a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,3 +66,19 @@ def step_metrics_line(step: int, metrics: Dict[str, Any],
     if extra:
         rec.update(extra)
     return json.dumps(rec)
+
+
+def live_memory_bytes(device: torch.device | str | None = None
+                      ) -> Optional[int]:
+    """`torch.cuda.memory_allocated` of `device` (a model's card; the
+    current CUDA device when None), or None on the CPU or without an
+    initialised CUDA device, as the JAX helper gives None where the
+    backend keeps no statistics."""
+    if device is None:
+        if not torch.cuda.is_initialized():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.memory_allocated(device))

@@ -8,7 +8,8 @@
     no compiler cost analysis in PyTorch, so this is the only byte source.
   - Peaks: keyed by the card's name (`torch.cuda.get_device_name()`); a
     card not in the table gives {} and the caller omits the roofline
-    fields rather than mislabel them.
+    fields rather than mislabel them.  `pct_of_peak` prices a rate
+    against a chip's peak by the chip's own name (`h100_sxm`).
 """
 
 from __future__ import annotations
@@ -161,3 +162,15 @@ def roofline(flops: float, bytes_accessed: Optional[float], dt: float,
         out.update({"bound": bound, "pct_roofline": round(pct, 2),
                     "hbm_gb_per_s": round(bytes_accessed / dt / 1e9, 1)})
     return out
+
+
+def pct_of_peak(flops_per_s: float, dtype: str = "float32",
+                chip: str = "h100_sxm") -> float:
+    """`flops_per_s` as a percentage of `chip`'s peak at `dtype`
+    ('bfloat16' or 'float32'); 0.0 for a chip or dtype not in
+    DEVICE_PEAKS."""
+    column = {"bfloat16": 1, "float32": 2}.get(dtype)
+    for entry in DEVICE_PEAKS.values():
+        if entry[0] == chip and column is not None:
+            return 100.0 * flops_per_s / entry[column]
+    return 0.0

@@ -69,7 +69,10 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            the projection at B 65,536 (T 8, D 64) at both dtypes.  A
            projection launch is counted with its split (audio_proj_split,
            audio_proj_split[bf16]): every run launches as many splits as
-           projections of each dtype.
+           projections of each dtype.  Every row also checks that the
+           current CUDA device is the one before the kernel's call (each
+           C entry point restores the caller's device; with one card only
+           that much can be seen).
   golden   demo config with the reference weights (tests/golden/) through
            the kernels, against the reference's outputs at the tolerances of
            tests/test_parity.py.
@@ -143,6 +146,20 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   train_device_profile  host-data steps against fused device-data steps
            in turns (host clock), then where the time of a fused step goes
            (torch.profiler over two fused steps).
+  data_tiers  the file-corpus and native tiers feeding scaled training
+           (full width and depth, batch 8, dropout 0.1): 24 scaled
+           samples written as a corpus; the PrefetchIterator's first 6
+           batches bit for bit the host batch_iterator's over the same
+           samples, and 6 steps fed by each within 1e-5 relative; `cli
+           train --data files` (static, --dynamic-mix) and `--data native`,
+           6 steps each: launches per step 16/16/1/0 (no STFT: host
+           spectrograms), finite loss and audio-s/s, 4 steps straight
+           against 2 + resumed 2 within 1e-5; a bf16 files run on the bf16
+           instances only; --debug-nans: the clean loss unchanged (1e-5),
+           a NaN in mixed_spec named at audio_encoder.projection and one
+           in lip_frames at visual_encoder.conv.0, its cost a step; host
+           ms a batch of each pipeline, the step's ms fed by each in turns
+           and the device's busy share.
   bf16     bfloat16 compute: a scaled serving batch of 8 through a bf16
            Separator (against the port's bf16 forward on the CPU and the
            card's float32 output), a scaled bf16 train step at dropout
@@ -165,6 +182,7 @@ checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -500,6 +518,13 @@ def make_record(results, failures):
 
     def record(name, shape, err, tol, extra_errs, fn_k, fn_p, fn_lib,
                nbytes, flops, iters, op_rate="3xTF32", **extra):
+        # Each C entry point sets the tensors' device and restores the
+        # caller's (csrc/device_guard.cuh); with one card, what can be
+        # read back is that the current device is unchanged.
+        before = torch.cuda.current_device()
+        fn_k()
+        torch.cuda.synchronize()
+        restored = torch.cuda.current_device() == before
         # Host-inclusive times (CUDA events around back-to-back calls) in
         # turns (kernel, plain, plain, kernel), each the mean of the two;
         # then device times from a profiler trace: the kernel's own device
@@ -512,13 +537,14 @@ def make_record(results, failures):
         lib_dev_ms = device_ms(fn_lib, iters) if fn_lib is not None else None
         bound_ms, bound_by = bound(nbytes, flops, op_rate)
         ok = err <= tol and all(e <= t for e, t in extra_errs.values()) \
-            and extra.get("bit_identical", True)
+            and extra.get("bit_identical", True) and restored
         measured = [t for t in (ms, dev_ms, lib_ms, lib_dev_ms)
                     if isinstance(t, float)]
         row = {"shape": shape, "max_abs_err": err, "tol": tol,
                "extra_errs": extra_errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "device_ms": dev_ms,
                "library_device_ms": lib_dev_ms, "bound_ms": bound_ms,
+               "device_restored": restored,
                "bound_by": bound_by,
                "rate": " + ".join(
                    f"{r} {RATES[r] / 1e12:g} TFLOP/s"
@@ -2172,6 +2198,267 @@ def phase_train_device_profile(state):
             **device_split(prof, 2, traced_ms, "step")}
 
 
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _resume_check(base: list, tmp: str, label: str, bad: list) -> dict:
+    """4 CLI steps straight against 2 + resumed 2 (--checkpoint-every 2):
+    final losses within 1e-5 relative (the card's cuDNN backward is not
+    bit-deterministic; the CPU tests assert equality)."""
+    every = base + ["--checkpoint-every", "2"]
+    straight, _ = _run_cli(every + ["--steps", "4", "--checkpoint-dir",
+                                    f"{tmp}/{label}_straight"])
+    _run_cli(every + ["--steps", "2", "--checkpoint-dir",
+                      f"{tmp}/{label}_resumed"])
+    resumed, _ = _run_cli(every + ["--steps", "4", "--checkpoint-dir",
+                                   f"{tmp}/{label}_resumed"])
+    a, b = resumed[-1]["loss"], straight[-1]["loss"]
+    if _rel(a, b) > 1e-5:
+        bad.append(f"{label} resume: loss {a} vs {b}")
+    return {"loss_straight": b, "loss_resumed": a, "rel_diff": _rel(a, b),
+            "tol": 1e-5}
+
+
+PIPELINES = ("host", "files", "files_dynamic", "native")
+
+
+def _pipeline(name: str, cfg, corpus: str):
+    """A fresh batch iterator (batch 8, seed 0) of one pipeline: the host
+    dataset's 24 samples, the corpus static or remixed (4 threads), the
+    native generator.  The caller closes it."""
+    from av_separation_torch.data.files import (FileAVDataset,
+                                                PrefetchIterator)
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.native_loader import NativeBatchIterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+
+    if name == "host":
+        return batch_iterator(SyntheticAVDataset(cfg.data), 8, seed=0)
+    if name == "native":
+        return NativeBatchIterator(cfg.data, 8)
+    return PrefetchIterator(FileAVDataset(
+        corpus, cfg.data, dynamic_mix=name == "files_dynamic"), 8)
+
+
+def phase_data_tiers(state):
+    """The file-corpus and native tiers feeding scaled training (full
+    width and depth, batch 8, dropout 0.1).
+
+    - corpus: 24 scaled samples written by `write_synthetic_corpus`; the
+      first 6 batches of PrefetchIterator(FileAVDataset, 8, seed 0, 4
+      threads) equal the host batch_iterator's over the same 24 samples,
+      bit for bit, and 6 steps fed by each give losses within 1e-5
+      relative.
+    - `cli train --data files` (static, then --dynamic-mix) and `--data
+      native`, 6 steps each: 16 flash forwards, 16 backwards, 1
+      projection and no STFT a step (the spectrograms come from the
+      host); finite loss and audio-s/s; 4 steps straight against 2 +
+      resumed 2 within 1e-5 relative in each mode.
+    - `--dtype bfloat16 --data files`, 2 steps: only the bf16 instances.
+    - `--debug-nans`: a clean 2-step run gives the loss of the run without
+      it (1e-5 relative); one NaN in mixed_spec raises FloatingPointError
+      naming audio_encoder.projection (the projection kernel's output),
+      one in lip_frames naming visual_encoder.conv.0; the flag's cost in
+      ms a step, in turns with the step without it.
+    - timings, not gated: host ms a batch of 8 of each pipeline alone
+      (24 batches after the first, host clock); the scaled step's ms fed
+      by each, in turns (8 steps after 2, host clock, synchronised), and
+      the device's busy share of 3 traced steps fed by each; every
+      measurement on a fresh iterator."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from av_separation_torch.data.files import (FileAVDataset,
+                                                PrefetchIterator,
+                                                write_synthetic_corpus)
+    from av_separation_torch.train import create_train_state, make_train_step
+    from av_separation_torch.utils.debug import debug_nans
+
+    cfg, host_batches = _scaled_train_setup(0.1, 24, 8)
+    m = cfg.model
+    if (m.d_model, m.nhead, m.num_encoder_layers, m.num_fusion_layers,
+            m.dropout) != (512, 4, 6, 4, 0.1):
+        raise AssertionError(f"not the scaled config: {m}")
+    bad, out = [], {"config": "scaled", "card": state["card"], "batch": 8,
+                    "dropout": m.dropout}
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        corpus = f"{tmp}/corpus"
+        t0 = time.perf_counter()
+        write_synthetic_corpus(corpus, cfg.data, 24)
+        out["corpus"] = {"samples": 24, "write_s": time.perf_counter() - t0}
+
+        # The files tier against the host pipeline on the same samples.
+        files = PrefetchIterator(FileAVDataset(corpus, cfg.data), 8, seed=0,
+                                 num_threads=4)
+        try:
+            fb = [next(files) for _ in range(6)]
+        finally:
+            files.close()
+        hb = [next(host_batches) for _ in range(6)]
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(fb, hb)
+                   for k in a)
+        if not same:
+            bad.append("files batches differ from the host batches")
+        losses = {}
+        for label, batches in (("host", hb), ("files", fb)):
+            ts, step = create_train_state(cfg, device="cuda"), \
+                make_train_step(cfg)
+            losses[label] = []
+            for batch in batches:
+                ts, metrics = step(ts, batch)
+                losses[label].append(float(metrics["loss"]))
+        rel = max(_rel(a, b) for a, b in zip(losses["files"],
+                                             losses["host"]))
+        if rel > 1e-5 or not np.all(np.isfinite(losses["files"])):
+            bad.append(f"files-fed losses {losses['files']} vs host "
+                       f"{losses['host']}")
+        out["against_host"] = {"batches_bit_equal": same, "losses": losses,
+                               "max_rel_diff": rel, "tol": 1e-5}
+
+        # The command line, each tier.
+        base = ["train", "--config", "scaled", "--batch", "8"]
+        files_args = ["--data", "files", "--data-root", corpus]
+        per_step = want_launches({"flash_attn_fwd": 16, "flash_attn_bwd": 16,
+                                  "audio_proj_fwd": 1})
+        total = {name: 0 for name in per_step}
+        runs = {}
+        for label, args in (("files", files_args),
+                            ("files_dynamic", files_args + ["--dynamic-mix"]),
+                            ("native", ["--data", "native"])):
+            lines, launches = _run_cli(base + args + ["--steps", "6"])
+            for name, n in launches.items():
+                total[name] += n
+            got = {name: launches[name] / 6 for name in per_step}
+            final = lines[-1]
+            if got != per_step:
+                bad.append(f"{label}: launches per step {got}")
+            if final["final_step"] != 6 or not (
+                    np.isfinite(final["loss"])
+                    and np.isfinite(final["audio_s_per_s"])):
+                bad.append(f"{label}: final line {final}")
+            runs[label] = {"final": final, "launches_per_step": got,
+                           "resume": _resume_check(base + args, tmp, label,
+                                                   bad)}
+        lines, launches = _run_cli(base + files_args + [
+            "--dtype", "bfloat16", "--steps", "2"])
+        for name, n in launches.items():
+            total[name] += n
+        if not _bf16_instances_only(launches) or not np.isfinite(
+                lines[-1]["loss"]):
+            bad.append(f"bf16 files: launches {launches}, {lines[-1]}")
+        runs["files_bf16"] = {"final": lines[-1], "launches": launches}
+        state["launches"]["data_tiers"] = total
+        out["cli"] = runs
+
+        # --debug-nans: the same numbers on clean data, the producing
+        # module named on poisoned data, and its cost.
+        plain, _ = _run_cli(base + files_args + ["--steps", "2"])
+        checked, _ = _run_cli(base + files_args + ["--steps", "2",
+                                                   "--debug-nans"])
+        a, b = checked[-1]["loss"], plain[-1]["loss"]
+        if _rel(a, b) > 1e-5:
+            bad.append(f"--debug-nans changed the loss: {a} vs {b}")
+        named = {}
+        for key, want in (("mixed_spec", "audio_encoder.projection"),
+                          ("lip_frames", "visual_encoder.conv.0")):
+            ts, step = create_train_state(cfg, device="cuda"), \
+                make_train_step(cfg)
+            batch = {k: v.copy() for k, v in fb[0].items()}
+            batch[key][0].flat[0] = np.nan
+            try:
+                with debug_nans(ts.model):
+                    step(ts, batch)
+                named[key] = "no error"
+            except FloatingPointError as e:
+                named[key] = str(e)
+            if f"module {want} " not in named[key]:
+                bad.append(f"NaN in {key}: {named[key]}")
+        ts, step = create_train_state(cfg, device="cuda"), \
+            make_train_step(cfg)
+        cost = {"off": [], "on": []}
+        for which in ("off", "on", "on", "off"):
+            ctx = debug_nans(ts.model) if which == "on" \
+                else contextlib.nullcontext()
+            with ctx:
+                step(ts, fb[0])  # the first step in a mode is not timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for batch in fb[1:4]:
+                    ts, metrics = step(ts, batch)
+                float(metrics["loss"])
+                torch.cuda.synchronize()
+            cost[which].append((time.perf_counter() - t0) / 3 * 1e3)
+        out["debug_nans"] = {
+            "loss_with": a, "loss_without": b, "rel_diff": _rel(a, b),
+            "tol": 1e-5, "errors": named, "ms_per_step": cost,
+            "cost_ms_per_step": float(np.mean(cost["on"])
+                                      - np.mean(cost["off"]))}
+
+        # Timings.  A prefetcher banks finished batches (4 queued, 4 in
+        # flight), so each measurement starts a fresh iterator and runs
+        # long past that bank: 24 batches alone, 8 steps after 2.
+        per_batch = {}
+        for name in PIPELINES:
+            it = _pipeline(name, cfg, corpus)
+            try:
+                next(it)
+                t0 = time.perf_counter()
+                for _ in range(24):
+                    next(it)
+                per_batch[name] = (time.perf_counter() - t0) / 24 * 1e3
+            finally:
+                it.close()
+        ts, step = create_train_state(cfg, device="cuda"), \
+            make_train_step(cfg)
+
+        def fed(name, steps, trace=False):
+            """ms a step (host clock) over `steps` steps fed by a fresh
+            iterator of `name` after 2 steps, and the profiler's split
+            when traced."""
+            nonlocal ts
+            it = _pipeline(name, cfg, corpus)
+            try:
+                for _ in range(2):
+                    ts, metrics = step(ts, next(it))
+                float(metrics["loss"])
+                torch.cuda.synchronize()
+                with (profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+                      if trace else contextlib.nullcontext()) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        ts, metrics = step(ts, next(it))
+                    float(metrics["loss"])
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) / steps * 1e3
+            finally:
+                it.close()
+            if not trace:
+                return ms
+            split = device_split(prof, steps, ms, "step")
+            return {"traced_step_ms": ms,
+                    "device_ms_per_step": split["device_ms_per_step"],
+                    "device_busy_share": split["device_busy_share"]}
+
+        order = PIPELINES + PIPELINES[::-1]
+        step_ms = {name: [] for name in PIPELINES}
+        for name in order:
+            step_ms[name].append(fed(name, 8))
+        busy = {name: fed(name, 3, trace=True) for name in PIPELINES}
+        out["timings"] = {
+            "host_ms_per_batch": per_batch, "step_ms_in_turns": step_ms,
+            "order": order, "traced": busy,
+            "note": "host clock; each step or batch from a fresh iterator "
+                    "past its first batches"}
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 # The bf16 train step against the float32 one, relative to the float32
 # step's loss and grad norm.  An NVIDIA H100 80GB HBM3 at 700 W measured
 # 1.06e-3 and 5.1e-4 (scaled config, batch 8, dropout 0.1; the forward is
@@ -2456,7 +2743,8 @@ def kernel_summary(state):
     scaled shape at the rate of the kernel's main path (serving at dropout
     0, the backward at the training rate 0.1); launches are summed over
     the paths' runs, each counted from 0 (configs, serve, stream,
-    serve_http, train, device_data, train_device, bf16, bench and demo),
+    serve_http, train, device_data, train_device, data_tiers, bf16, bench
+    and demo),
     and each wrapper counts a launch under its instance's entry."""
     rows = state.get("kernel_rows", {})
     out = []
@@ -2512,6 +2800,7 @@ def main() -> int:
                         ("device_data", phase_device_data),
                         ("train_device", phase_train_device),
                         ("train_device_profile", phase_train_device_profile),
+                        ("data_tiers", phase_data_tiers),
                         ("bf16", phase_bf16), ("bench", phase_bench),
                         ("demo", phase_demo)):
         t0 = time.perf_counter()

@@ -2,9 +2,11 @@
 
 `python -m av_separation_torch.cli` runs in process on the demo config with
 `--cpu --batch 2` for a few steps: train over the host and the device
-pipelines, fused and per step; eval; separate.  A run resumed from a
-checkpoint reproduces an uninterrupted run bit for bit, and a Separator
-restored from the checkpoint reproduces the saved model's masks.
+pipelines, fused and per step; eval; separate; `--debug-nans`.  A run
+resumed from a checkpoint reproduces an uninterrupted run bit for bit, and
+a Separator restored from the checkpoint reproduces the saved model's
+masks.  The files and native pipelines' runs are in
+tests/test_torch_cli_data.py.
 """
 
 import dataclasses
@@ -114,13 +116,57 @@ def test_eval_and_separate_read_the_checkpoint(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--data", "native"], ["train", "--data", "files"],
-    ["train", "--mesh-data", "2"], ["train", "--impl", "pallas"],
-    ["train", "--debug-nans"]])
+    ["train", "--mesh-data", "2"], ["train", "--mesh-fsdp", "2"],
+    ["train", "--mesh-seq", "2"], ["train", "--mesh-model", "2"],
+    ["train", "--coordinator", "localhost:1234"],
+    ["train", "--num-processes", "2"], ["train", "--process-id", "0"],
+    ["train", "--impl", "pallas"]])
 def test_flags_and_commands_still_to_port_are_refused(argv):
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--cpu"])
     assert e.value.code == 2
+
+
+def test_files_without_a_data_root_exits_with_the_jax_message(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train", *DEMO, "--steps", "1", "--data", "files"])
+    assert e.value.code == "avsep: --data files requires --data-root"
+
+
+@pytest.mark.parametrize("cmd", ["train", "eval", "separate"])
+def test_debug_nans_keeps_a_clean_runs_numbers(capsys, cmd):
+    """--debug-nans on clean data: the same JSON lines as without it (bit
+    for bit on the CPU), and nothing left registered after the run."""
+    extra = ["--steps", "2", "--data", "device"] if cmd == "train" else []
+    plain = run(capsys, cmd, *DEMO, *extra)
+    checked = run(capsys, cmd, *DEMO, *extra, "--debug-nans")
+    if cmd == "train":
+        plain, checked = [{k: v for k, v in ln.items()
+                           if k != "audio_s_per_s"}
+                          for ln in (plain[-1], checked[-1])]
+    assert checked == plain
+    assert not torch.is_anomaly_enabled()
+
+
+def test_debug_nans_names_the_module_in_a_cli_run(capsys, monkeypatch):
+    """A NaN batch through `cli train --debug-nans` stops the run with
+    FloatingPointError at the projection; without the flag it trains on."""
+    from av_separation_torch.data import loader
+
+    real = loader.batch_iterator
+
+    def poisoned(*a, **kw):
+        for batch in real(*a, **kw):
+            batch = {k: v.copy() for k, v in batch.items()}
+            batch["mixed_spec"][0, 0, 0] = np.nan
+            yield batch
+
+    monkeypatch.setattr(loader, "batch_iterator", poisoned)
+    with pytest.raises(FloatingPointError, match="audio_encoder.projection"):
+        cli.main(["train", *DEMO, "--steps", "1", "--data", "host",
+                  "--debug-nans"])
+    assert not np.isfinite(final(run(capsys, "train", *DEMO, "--steps", "1",
+                                     "--data", "host"))["loss"])
 
 
 def test_commands_need_a_card_without_cpu():
