@@ -10,6 +10,10 @@
     python -m av_separation_torch.cli separate --config demo --checkpoint-dir ckpt
     python -m av_separation_torch.cli serve --config scaled --serve-port 8571
     python -m av_separation_torch.cli bench [--mode per_step] [--dtype float32]
+    python -m av_separation_torch.cli train --config demo --cpu \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
+    python -m av_separation_torch.cli train --config multihost \
+        --coordinator HOST:PORT --num-processes 8 --process-id I
 
 Every command runs on the CUDA device and raises without one; `--cpu` runs
 it on the CPU (the kernels' plain versions).  `--dtype` sets the model's
@@ -26,10 +30,19 @@ backward function that first produces a NaN (`utils/debug.py`).  `serve`
 takes the JAX CLI's `--serve-*` flags and `AVSEP_AUTH_TOKEN`, and stops on
 SIGINT.  `bench` is `av_separation_torch.bench` (its flags `--config
 --steps --batch --dtype --mode --cpu`, the JAX bench's defaults: demo,
-250, 128, bfloat16, fused) and prints its one JSON line.  Not yet ported,
-and refused by the argument parser: the mesh and multi-host flags.
-`--impl` is not carried over: a tensor on the card always runs the
-kernels.
+250, 128, bfloat16, fused) and prints its one JSON line.
+
+`train` runs over a mesh (`parallel/`) in a job of one process a device:
+`--coordinator host:port --num-processes N --process-id I` join it (gloo
+with `--cpu`, else NCCL on CUDA device I % device count) before any device
+is touched; `--mesh-data/-fsdp/-seq/-model` override the config's mesh.
+As in the JAX CLI, an unconfigured mesh becomes DP over the job, a mesh
+whose device count is not the job's exits, every process iterates the same
+global batch stream and keeps its rows (a batch the process count does not
+divide exits), step lines come from process 0 and the final line from
+every process.  One process runs without a mesh; the other commands take
+the flags and run on one device, as the JAX CLI's do.  `--impl` is not
+carried over: a tensor on the card always runs the kernels.
 """
 
 from __future__ import annotations
@@ -78,6 +91,19 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--debug-nans", action="store_true",
                    help="raise FloatingPointError at the module or backward "
                         "function that first produces a NaN")
+    p.add_argument("--mesh-data", type=int, default=None)
+    p.add_argument("--mesh-fsdp", type=int, default=None,
+                   help="ZeRO-style parameter + Adam-moment sharding axis")
+    p.add_argument("--mesh-seq", type=int, default=None,
+                   help="sequence-parallel axis: the audio time axis is "
+                        "split over it")
+    p.add_argument("--mesh-model", type=int, default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: the rank-0 store's host:port")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process: the job's process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process: this process's rank")
 
 
 def _build_config(args):
@@ -107,7 +133,47 @@ def _build_config(args):
     if args.pit:
         cfg = dataclasses.replace(
             cfg, loss=dataclasses.replace(cfg.loss, pit_mode=args.pit))
+    if (args.mesh_data or args.mesh_fsdp or args.mesh_seq
+            or args.mesh_model):
+        from av_separation_torch.config import MeshConfig
+        cfg = dataclasses.replace(
+            cfg, mesh=MeshConfig(data=args.mesh_data or 1,
+                                 fsdp=args.mesh_fsdp or 1,
+                                 seq=args.mesh_seq or 1,
+                                 model=args.mesh_model or 1))
     return cfg
+
+
+def _init_multiprocess(args) -> bool:
+    """Join the job when the multi-process flags are given, before any
+    device is touched; False for a one-process run."""
+    from av_separation_torch.parallel.distributed import initialize
+    try:
+        return initialize(args.coordinator, args.num_processes,
+                          args.process_id, cpu=args.cpu)
+    except ValueError as e:
+        sys.exit(f"avsep: {e}")
+
+
+def _mesh_or_none(cfg):
+    """(mesh, its config): in a multi-process job, the config's mesh over
+    the job (DP over the job when none was configured); in one process,
+    none."""
+    import torch.distributed as dist
+
+    from av_separation_torch.config import MeshConfig
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    mesh_cfg = cfg.mesh
+    if mesh_cfg.num_devices != n:
+        if mesh_cfg.num_devices == 1:  # unconfigured: DP over the job
+            mesh_cfg = MeshConfig(data=n)
+        else:
+            sys.exit(f"avsep: mesh {mesh_cfg} needs {mesh_cfg.num_devices} "
+                     f"devices but the job has {n}")
+    if n == 1:
+        return None, mesh_cfg
+    from av_separation_torch.parallel.distributed import global_mesh
+    return global_mesh(mesh_cfg), mesh_cfg
 
 
 def _device(args):
@@ -123,17 +189,23 @@ def _nan_checks(args, model):
     return debug_nans(model)
 
 
-def _batches(cfg, device, start_step: int = 0):
+def _batches(cfg, device, start_step: int = 0, mesh=None):
     """Batch stream of the per-step loop; `start_step` makes a resumed run
     see the stream an uninterrupted run sees from that step.  The caller
-    closes it (the files and native tiers run threads)."""
+    closes it (the files and native tiers run threads).  Under a mesh the
+    device tier generates the rank's rows; the others give the global
+    batch, of which the caller keeps the rank's rows."""
     pipeline = cfg.train.data_pipeline
     if pipeline == "device":
         from av_separation_torch.data.device_synthetic import (
             device_batch_iterator)
+        from av_separation_torch.parallel.mesh import split_rows
+        rows = slice(None) if mesh is None \
+            else split_rows(cfg.train.batch_size, mesh)
         return device_batch_iterator(cfg.data, cfg.train.batch_size,
                                      seed=cfg.train.seed,
-                                     start_step=start_step, device=device)
+                                     start_step=start_step, device=device,
+                                     rows=rows)
     if pipeline == "files":
         from av_separation_torch.data.files import (FileAVDataset,
                                                     PrefetchIterator)
@@ -156,23 +228,28 @@ def _batches(cfg, device, start_step: int = 0):
                           seed=cfg.train.seed, start_step=start_step)
 
 
-def _eval_metrics(model, batch) -> dict:
+def _eval_metrics(model, batch, mesh=None) -> dict:
     from av_separation_torch.train import make_eval_step
 
-    m = make_eval_step()(model, batch)
+    m = make_eval_step(mesh)(model, batch)
     out = {k: round(float(v), 4) for k, v in m.items()}
     out["snr_improvement_db"] = round(
         float(m["output_snr"]) - float(m["input_snr"]), 4)
     return out
 
 
-def _eval_runner(cfg):
-    """(state) -> metrics of the 20 deterministic host eval samples."""
+def _eval_runner(cfg, mesh=None, device=None):
+    """(state) -> metrics of the 20 deterministic host eval samples (under
+    a mesh, the rank's rows of them)."""
     from av_separation_torch.data.loader import eval_batch
     from av_separation_torch.data.synthetic import SyntheticAVDataset
 
     batch = eval_batch(SyntheticAVDataset(cfg.data), 20)
-    return lambda state: _eval_metrics(state.model, batch)
+    if mesh is not None:
+        from av_separation_torch.parallel.distributed import (
+            host_local_batch_to_global)
+        batch = host_local_batch_to_global(batch, mesh, device)
+    return lambda state: _eval_metrics(state.model, batch, mesh)
 
 
 def _final_line(step: int, loss, audio_s: float, dt: float) -> None:
@@ -189,47 +266,62 @@ def _save_every(cfg, step: int, state) -> None:
 
 
 def cmd_train(args) -> int:
+    from av_separation_torch.parallel import distributed
     from av_separation_torch.train import create_train_state, make_train_step
     from av_separation_torch.utils.profiling import (Timer, step_metrics_line,
                                                      trace)
 
     cfg = _build_config(args)
+    joined = _init_multiprocess(args)
+    mesh, mesh_cfg = _mesh_or_none(cfg)
+    nproc, is_main = distributed.process_count(), distributed.is_main()
+    if nproc > 1 and cfg.train.batch_size % nproc:
+        sys.exit(f"avsep: batch_size {cfg.train.batch_size} not divisible "
+                 f"by {nproc} processes")
     device = _device(args)
-    print(f"config={cfg.name} device={device} "
-          f"data={cfg.train.data_pipeline} fused={args.fused}",
-          file=sys.stderr)
-    state = create_train_state(cfg, device=device)
+
+    def say(line: str, **kw) -> None:
+        if is_main:
+            print(line, flush=True, **kw)
+
+    shape = "x".join(str(n) for n in (mesh_cfg.data, mesh_cfg.fsdp,
+                                       mesh_cfg.seq, mesh_cfg.model))
+    say(f"config={cfg.name} device={device} processes={nproc} "
+        f"mesh={shape if mesh else 1} data={cfg.train.data_pipeline} "
+        f"fused={args.fused}", file=sys.stderr)
+    state = create_train_state(cfg, device=device, mesh=mesh)
     start_step = 0
     if cfg.train.checkpoint_dir:
         from av_separation_torch.utils.checkpoint import restore_checkpoint
         state = restore_checkpoint(cfg.train.checkpoint_dir, state)
         start_step = state.step
         if start_step:
-            print(f"resumed from step {start_step}", file=sys.stderr)
+            say(f"resumed from step {start_step}", file=sys.stderr)
 
-    evaluate = _eval_runner(cfg) if args.eval_every else None
-    ctx = trace(args.profile_dir) if args.profile_dir \
+    evaluate = _eval_runner(cfg, mesh, device) if args.eval_every else None
+    ctx = trace(args.profile_dir) if args.profile_dir and is_main \
         else contextlib.nullcontext()
     per_step_audio = cfg.train.batch_size * cfg.data.duration
     with ctx, _nan_checks(args, state.model):
         if args.fused:
-            state = _fused_train(args, cfg, state, start_step, evaluate)
+            state = _fused_train(args, cfg, state, start_step, evaluate, mesh,
+                                 say)
         else:
-            step_fn = make_train_step(cfg)
-            batches = _batches(cfg, device, start_step)
+            step_fn = make_train_step(cfg, mesh)
+            batches = _batches(cfg, device, start_step, mesh)
+            local = _local_rows(cfg, mesh, device)
             timer = Timer()
             try:
                 for i in range(start_step, cfg.train.steps):
-                    state, metrics = step_fn(state, next(batches))
+                    state, metrics = step_fn(state, local(next(batches)))
                     if cfg.train.log_every \
                             and (i + 1) % cfg.train.log_every == 0:
                         audio_s = (i + 1 - start_step) * per_step_audio
-                        print(step_metrics_line(i + 1, metrics, {
+                        say(step_metrics_line(i + 1, metrics, {
                             "audio_s_per_s": round(
-                                audio_s / timer.elapsed(), 2)}), flush=True)
+                                audio_s / timer.elapsed(), 2)}))
                     if evaluate and (i + 1) % args.eval_every == 0:
-                        print(step_metrics_line(i + 1, evaluate(state)),
-                              flush=True)
+                        say(step_metrics_line(i + 1, evaluate(state)))
                     _save_every(cfg, i + 1, state)
             finally:
                 batches.close()
@@ -244,11 +336,29 @@ def cmd_train(args) -> int:
         from av_separation_torch.utils.checkpoint import save_checkpoint
         save_checkpoint(cfg.train.checkpoint_dir, state.step, state,
                         wait=True)
-        print(f"saved checkpoint at step {state.step}", file=sys.stderr)
+        say(f"saved checkpoint at step {state.step}", file=sys.stderr)
+    if joined:
+        # Every process waits for the others before the group goes down.
+        try:
+            distributed.barrier(timeout_s=120.0)
+        finally:
+            distributed.shutdown()
     return 0
 
 
-def _fused_train(args, cfg, state, start_step: int, evaluate):
+def _local_rows(cfg, mesh, device):
+    """batch -> the rank's rows of it on its device under a mesh (the
+    device tier already generated only those); the batch itself without
+    one."""
+    if mesh is None or cfg.train.data_pipeline == "device":
+        return lambda batch: batch
+    from av_separation_torch.parallel.distributed import (
+        host_local_batch_to_global)
+    return lambda batch: host_local_batch_to_global(batch, mesh, device)
+
+
+def _fused_train(args, cfg, state, start_step: int, evaluate, mesh=None,
+                 say=print):
     """K steps per call on device-generated batches
     (`train.make_fused_train_steps`), reading back to the host only at
     segment ends for logging, eval and checkpoints."""
@@ -269,16 +379,16 @@ def _fused_train(args, cfg, state, start_step: int, evaluate):
     while step < cfg.train.steps:
         k = min(seg, cfg.train.steps - step)
         if k not in fused:
-            fused[k] = make_fused_train_steps(cfg, k)
+            fused[k] = make_fused_train_steps(cfg, k, mesh)
         state, loss = fused[k](state)
         step += k
         if cfg.train.log_every and step % cfg.train.log_every == 0:
             audio_s = (step - start_step) * per_step_audio
-            print(step_metrics_line(step, {"loss": loss}, {
+            say(step_metrics_line(step, {"loss": loss}, {
                 "audio_s_per_s": round(audio_s / timer.elapsed(), 2),
-                "fused_segment": k}), flush=True)
+                "fused_segment": k}))
         if evaluate and step % args.eval_every == 0:
-            print(step_metrics_line(step, evaluate(state)), flush=True)
+            say(step_metrics_line(step, evaluate(state)))
         _save_every(cfg, step, state)
     if step > start_step:
         dt = timer.elapsed()

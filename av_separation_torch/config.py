@@ -9,8 +9,8 @@ select.  The five named configs keep the reference's widths, depths, data
 geometry and training constants field for field (`multihost` with remat, as
 in JAX), `ModelConfig` carries the compute dtype and remat, and
 `TrainConfig` carries the four data pipelines (host, device, native,
-files) and the checkpoint fields; the mesh comes with the slice that uses
-it, and `rng_impl` is not carried over.
+files) and the checkpoint fields, and `MeshConfig` the device mesh of the
+parallel tier (`parallel/`); `rng_impl` is not carried over.
 """
 
 from __future__ import annotations
@@ -89,6 +89,29 @@ class LossConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh of the parallel tier (`parallel/mesh.py`), one rank
+    a device.  Axes, as in the JAX package:
+    - 'data'  : utterance batches (DP); gradients are averaged over it.
+    - 'fsdp'  : ZeRO-style sharding of parameters and Adam moments, gathered
+      at use; the batch is also split over it, so it is a second data axis.
+    - 'seq'   : sequence parallelism: the audio time axis is split over it,
+      attention gathers K/V along time (`ops/attention.py`).
+    - 'model' : tensor parallelism over the attention heads and the FFN's
+      hidden width (Megatron-style column / row splits).
+    """
+
+    data: int = 1
+    fsdp: int = 1
+    seq: int = 1
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.fsdp * self.seq * self.model
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training loop parameters (reference demo.py:83-113 constants)."""
 
@@ -119,6 +142,7 @@ class ExperimentConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
@@ -181,7 +205,8 @@ def lrs2_config() -> ExperimentConfig:
 
 
 def multihost_config() -> ExperimentConfig:
-    """Large: d_model=1024, 12 enc + 8 fusion, 4 speakers."""
+    """Large: d_model=1024, 12 enc + 8 fusion, 4 speakers; heads and the
+    FFN split over 4 devices of a host, DP over hosts."""
     return ExperimentConfig(
         name="multihost",
         model=ModelConfig(freq_bins=257, d_model=1024, nhead=8,
@@ -191,6 +216,7 @@ def multihost_config() -> ExperimentConfig:
                         n_fft=512, hop_length=128, num_frames=100,
                         frame_h=32, frame_w=32,
                         speaker_freqs=(220.0, 330.0, 440.0, 550.0)),
+        mesh=MeshConfig(data=2, model=4),
         train=TrainConfig(batch_size=16, steps=100, learning_rate=3e-4),
     )
 

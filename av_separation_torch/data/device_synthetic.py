@@ -152,10 +152,15 @@ def synthesize(variates: Variates, cfg: DataConfig) -> Dict[str, torch.Tensor]:
 
 
 def generate_batch(generator: torch.Generator, cfg: DataConfig,
-                   batch_size: int) -> Dict[str, torch.Tensor]:
+                   batch_size: int, rows: slice = slice(None)
+                   ) -> Dict[str, torch.Tensor]:
     """One training batch on the generator's device: mixed_spec (B, F, T),
-    lip_frames (B, S*nf, H, W), clean_specs (B, S, F, T)."""
-    return synthesize(draw_variates(generator, cfg, batch_size), cfg)
+    lip_frames (B, S*nf, H, W), clean_specs (B, S, F, T).  `rows` keeps
+    those rows of the batch: the whole batch's variates are drawn, and
+    only those rows are synthesized (a rank's share under a mesh; row i
+    is the same whatever the slice)."""
+    variates = draw_variates(generator, cfg, batch_size)
+    return synthesize({k: v[rows] for k, v in variates.items()}, cfg)
 
 
 def step_generator(seed: int, step: int,
@@ -169,15 +174,17 @@ def step_generator(seed: int, step: int,
 
 def device_batch_iterator(cfg: DataConfig, batch_size: int, seed: int = 0,
                           start_step: int = 0,
-                          device: torch.device | str = "cuda"
+                          device: torch.device | str = "cuda",
+                          rows: slice = slice(None)
                           ) -> Iterator[Dict[str, torch.Tensor]]:
     """Infinite iterator of batches generated on `device` (the card unless
-    the caller asks for 'cpu').  Step i's generator comes from (seed, i)
-    alone, so a run resumed at `start_step` replays exactly the stream an
-    uninterrupted run sees from that step, with nothing to fast-forward."""
+    the caller asks for 'cpu'), each cut to `rows` (`generate_batch`).
+    Step i's generator comes from (seed, i) alone, so a run resumed at
+    `start_step` replays exactly the stream an uninterrupted run sees
+    from that step, with nothing to fast-forward."""
     device = resolve_device(device)
     step = start_step
     while True:
         yield generate_batch(step_generator(seed, step, device), cfg,
-                             batch_size)
+                             batch_size, rows)
         step += 1

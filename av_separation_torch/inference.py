@@ -1,6 +1,7 @@
 """Batched inference (port of `av_separation_tpu/inference.py`).
 
-``Separator`` holds an eval-mode model on one device and serves two APIs:
+``Separator`` holds an eval-mode model on one device, or the rank's pieces
+of it over a mesh, and serves these APIs:
   - ``separate``: (B, F, T) magnitude + (B, N, H, W) lip frames ->
     (separated, masks), the reference model's contract;
   - ``separate_waveform``: (B, N_audio) raw mixture -> STFT magnitude ->
@@ -13,6 +14,14 @@ Requests are zero-padded along the batch axis to the next power-of-two
 bucket, as in the JAX package; padded rows never mix with real ones and are
 sliced off.  ``from_checkpoint`` builds one from the model variables of a
 `utils/checkpoint.py` checkpoint.
+
+With a ``mesh`` (`parallel/mesh.py`; every rank makes the same calls with
+the same requests) the weights are cut by the placement rules
+(`parallel/shard.py`), the buckets round up to a multiple of the batch
+ranks (data * fsdp, as the JAX Separator's do), each rank runs its rows
+(under 'seq', its time block of them), and the outputs are gathered, so
+every rank returns the whole result.  A mesh always takes this path, even
+when every axis is 1.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from av_separation_torch.models.model import (AVSeparationTransformer,
                                               resolve_device)
 from av_separation_torch.ops.istft import masked_istft
 from av_separation_torch.ops.stft import stft_magnitude
+from av_separation_torch.parallel import comm
 
 
 MAX_BUCKET = 256
@@ -50,43 +60,73 @@ class Separator:
     data_cfg   : STFT geometry (n_fft, hop) for the waveform API.
     device     : where the model runs; the card unless the caller asks for
                  'cpu'.  Raises when CUDA is asked for and absent.
+    mesh       : a DeviceMesh (`parallel.mesh.make_mesh`): the weights are
+                 cut into the rank's pieces and each rank runs its rows.
     """
 
     def __init__(self, model_cfg: ModelConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  data_cfg: Optional[DataConfig] = None, *,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.data_cfg = data_cfg
+        self.mesh = mesh
         model = AVSeparationTransformer(model_cfg)
         model.load_state_dict(state_dict)
+        if mesh is not None:
+            from av_separation_torch.parallel.shard import shard_model
+            shard_model(model, mesh)
         self.model = model.eval().to(self.device)
+        self._rows = 1 if mesh is None else comm.rows_size(mesh)
 
     @classmethod
     def from_checkpoint(cls, path: str, model_cfg: ModelConfig,
                         data_cfg: Optional[DataConfig] = None, *,
-                        device: torch.device | str = "cuda") -> "Separator":
+                        device: torch.device | str = "cuda",
+                        mesh=None) -> "Separator":
         """A Separator over the newest checkpoint under `path`."""
         from av_separation_torch.utils.checkpoint import restore_variables
         return cls(model_cfg, restore_variables(path), data_cfg,
-                   device=device)
+                   device=device, mesh=mesh)
+
+    def _bucket(self, b: int) -> int:
+        """The padded batch of a b-row request: its power-of-two bucket,
+        rounded up to a multiple of the batch ranks under a mesh."""
+        bucket = bucket_batch(b)
+        return -(-bucket // self._rows) * self._rows
 
     def _padded(self, x: np.ndarray, bucket: int) -> torch.Tensor:
+        """x zero-padded to `bucket` rows, on the device; under a mesh the
+        rank's rows of it."""
         x = np.ascontiguousarray(x, np.float32)
         pad = bucket - x.shape[0]
         if pad:
             x = np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
+        if self.mesh is not None:
+            from av_separation_torch.parallel.mesh import split_rows
+            x = x[split_rows(bucket, self.mesh)]
         return torch.from_numpy(x).to(self.device)
+
+    def _whole(self, x: torch.Tensor, time: bool = False) -> torch.Tensor:
+        """Under a mesh, every rank's rows (and time blocks, for a model
+        output) of x gathered; x itself without one."""
+        if self.mesh is None:
+            return x
+        if time:
+            x = comm.gather_time(x, self.mesh)
+        return comm.gather_rows(x, self.mesh)
 
     @torch.inference_mode()
     def separate(self, mixed_spec: np.ndarray, lip_frames: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """(B, F, T) magnitude + (B, N, H, W) frames -> (separated, masks)."""
         b = len(mixed_spec)
-        bucket = bucket_batch(b)
+        bucket = self._bucket(b)
         separated, masks = self.model(self._padded(mixed_spec, bucket),
                                       self._padded(lip_frames, bucket))
+        separated = self._whole(separated, time=True)
+        masks = self._whole(masks, time=True)
         return separated[:b].cpu().numpy(), masks[:b].cpu().numpy()
 
     def _wave_forward(self, mixed_audio: np.ndarray, lip_frames: np.ndarray
@@ -95,12 +135,14 @@ class Separator:
         the B real rows, left on the device."""
         n_fft, hop = self.data_cfg.n_fft, self.data_cfg.hop_length
         b = len(mixed_audio)
-        bucket = bucket_batch(b)
+        bucket = self._bucket(b)
         audio = self._padded(mixed_audio, bucket)
         mixed_spec = stft_magnitude(audio, n_fft, hop)
         _, masks = self.model(mixed_spec, self._padded(lip_frames, bucket))
+        if self.mesh is not None:
+            masks = comm.gather_time(masks, self.mesh)
         waves = masked_istft(masks, audio, n_fft, hop)
-        return waves[:b], masks[:b], mixed_spec[:b]
+        return tuple(self._whole(t)[:b] for t in (waves, masks, mixed_spec))
 
     @torch.inference_mode()
     def separate_waveform(self, mixed_audio: np.ndarray,

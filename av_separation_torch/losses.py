@@ -18,6 +18,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from av_separation_torch.parallel import comm
+
 
 def permutation_table(n: int) -> np.ndarray:
     """All n! permutations of range(n) as an (n!, n) int array."""
@@ -84,14 +86,22 @@ def _pit_per_perm(separated: torch.Tensor, targets: torch.Tensor,
 
 def separation_loss(separated: torch.Tensor, targets: torch.Tensor,
                     l1_weight: float = 0.5, pit_mode: str = "global",
-                    eps: float = 1e-8) -> torch.Tensor:
+                    eps: float = 1e-8, mesh=None) -> torch.Tensor:
     """PIT loss over (B, S, F, T): -si_snr(separated[:, perm], targets) +
-    l1_weight * L1, minimised over the S! permutations."""
+    l1_weight * L1, minimised over the S! permutations.  With a `mesh`
+    the rows are the rank's and the loss is the global batch's: the batch
+    means are taken over every rank's rows (`parallel.comm
+    .mean_over_rows`), so 'global' picks the one best permutation of the
+    whole batch."""
     snr, l1 = _pit_per_perm(separated, targets, eps)
     if pit_mode == "global":
-        return (-snr.mean(dim=0) + l1_weight * l1.mean(dim=0)).min()
+        per_perm = -snr.mean(dim=0) + l1_weight * l1.mean(dim=0)
+        if mesh is not None:
+            per_perm = comm.mean_over_rows(per_perm, mesh)
+        return per_perm.min()
     if pit_mode == "per_sample":
-        return (-snr + l1_weight * l1).min(dim=1).values.mean()
+        loss = (-snr + l1_weight * l1).min(dim=1).values.mean()
+        return loss if mesh is None else comm.mean_over_rows(loss, mesh)
     raise ValueError(f"unknown pit_mode {pit_mode!r}")
 
 

@@ -19,12 +19,21 @@ as a flax Dense with dtype does; `LayerNorm` computes in float32 and
 rounds its output to the dtype; the PE table is added in x's dtype.  With
 `remat`, `TransformerEncoder` recomputes each layer in the backward
 (`remat_layer`), replaying the layer's own dropout draws.
+
+Under a mesh (`parallel/shard.py` sets each module's `mesh`) a module
+computes the rank's part: `MultiHeadAttention` its head group (the rank's
+rows of q, k and v), a 'column' `Linear` its output columns from an input
+taken through Megatron's f, a 'row' `Linear` its partial product summed
+over 'model' (the bias added once, by model rank 0), the FFN dropout its
+column block of the full-width draw, `PositionalEncoding` the rows of its
+time block, `TorchBatchNorm` the statistics of the global batch (means
+over 'data' and 'fsdp').
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from av_separation_torch.ops.activations import relu_dropout
 from av_separation_torch.ops.attention import multi_head_attention
 from av_separation_torch.ops.dropout import Dropout
+from av_separation_torch.parallel import comm
 
 
 class Generators(NamedTuple):
@@ -62,6 +72,14 @@ def train_rate(module: nn.Module, rate: float,
         raise ValueError(f"{type(module).__name__} in training mode with "
                          f"dropout {rate} needs Generators")
     return rate
+
+
+def tp_part(mesh) -> Tuple[int, int]:
+    """(this rank's index, count) along 'model'; (0, 1) without a mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank("model"), mesh.size(
+        mesh.mesh_dim_names.index("model"))
 
 
 def at(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -114,16 +132,28 @@ def call_layers(layers, remat: bool, gens: Optional[Generators],
 
 class Linear(nn.Linear):
     """nn.Linear (its parameters and state-dict names) computed in `dtype`:
-    input, weight and bias cast at use, as a flax Dense with dtype does."""
+    input, weight and bias cast at use, as a flax Dense with dtype does.
+    `tp` ('column' or 'row') is its tensor-parallel role under a mesh."""
+
+    mesh = None
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 tp: Optional[str] = None):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
+        self.tp = tp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd = self.compute_dtype
-        return F.linear(at(x, cd), at(self.weight, cd), at(self.bias, cd))
+        cd, mesh = self.compute_dtype, self.mesh
+        w, b = at(self.weight, cd), at(self.bias, cd)
+        if mesh is None or self.tp is None:
+            return F.linear(at(x, cd), w, b)
+        if self.tp == "column":
+            return F.linear(at(comm.copy_to_model(x, mesh), cd), w, b)
+        first = mesh.get_local_rank("model") == 0
+        return comm.reduce_from_model(
+            F.linear(at(x, cd), w, b if first else None), mesh)
 
 
 class Conv2d(nn.Conv2d):
@@ -179,6 +209,8 @@ class PositionalEncoding(nn.Module):
     counterpart here; `utils.transplant.load_reference_state_dict` checks
     and drops it."""
 
+    mesh = None
+
     def __init__(self, d_model: int, dropout: float = 0.1):
         super().__init__()
         self.d_model = d_model
@@ -186,7 +218,12 @@ class PositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
-        pe = sinusoidal_pe(x.shape[-2], self.d_model, x.device)
+        t = x.shape[-2]
+        # Under 'seq' x is the rank's time block: the table's rows from its
+        # global offset on.
+        start = 0 if self.mesh is None \
+            else self.mesh.get_local_rank("seq") * t
+        pe = sinusoidal_pe(start + t, self.d_model, x.device)[start:]
         x = x + pe.to(x.dtype)  # in x's dtype, as the JAX table is made
         return self.dropout(x, bits(gens))
 
@@ -200,6 +237,8 @@ class TorchBatchNorm(nn.Module):
     unbiased variance; in eval, the running stats normalise.  Statistics
     and the map run in float32 (or wider) and the output is in x's dtype,
     as the JAX module computes a bf16 x."""
+
+    mesh = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -219,8 +258,17 @@ class TorchBatchNorm(nn.Module):
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
             mean = x.mean(dim=axes)
-            var = (x - mean.view(shape)).square().mean(dim=axes)  # biased
             n = x.numel() // x.shape[1]
+            if self.mesh is not None:
+                # The global batch's statistics, as the one JAX program
+                # computes them: every rank holds as many rows.
+                mean = comm.mean_over_rows(mean, self.mesh)
+                var = comm.mean_over_rows(
+                    (x - mean.view(shape)).square().mean(dim=axes),
+                    self.mesh)
+                n *= comm.rows_size(self.mesh)
+            else:
+                var = (x - mean.view(shape)).square().mean(dim=axes)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
@@ -240,7 +288,11 @@ class MultiHeadAttention(nn.Module):
     port's own attention op with in-kernel probability dropout.
     Self-attention (q_in is kv_in) projects Q, K and V in one matmul; the
     kernel reads the three column slices in place.  `dtype` is the compute
-    dtype of the projections and the attention (None: float32)."""
+    dtype of the projections and the attention (None: float32).  Under a
+    mesh `in_proj_weight` holds the rank's rows of each of q, k and v
+    (whole heads) and `out_proj` is row-parallel."""
+
+    mesh = None
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
@@ -254,19 +306,25 @@ class MultiHeadAttention(nn.Module):
             torch.empty(3 * d_model, d_model).uniform_(-bound, bound))
         self.in_proj_bias = nn.Parameter(
             torch.empty(3 * d_model).uniform_(-bound, bound))
-        self.out_proj = Linear(d_model, d_model, dtype)
+        self.out_proj = Linear(d_model, d_model, dtype, tp="row")
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
-        d, cd = self.d_model, self.compute_dtype
+        cd, mesh = self.compute_dtype, self.mesh
         w, b = at(self.in_proj_weight, cd), at(self.in_proj_bias, cd)
+        d = w.shape[0] // 3  # the rank's width under 'model'
+        nhead = self.nhead * d // self.d_model
+        if mesh is not None:
+            same = q_in is kv_in
+            q_in = comm.copy_to_model(q_in, mesh)
+            kv_in = q_in if same else comm.copy_to_model(kv_in, mesh)
         if q_in is kv_in:
             q, k, v = F.linear(at(q_in, cd), w, b).split(d, dim=-1)
         else:
             q = F.linear(at(q_in, cd), w[:d], b[:d])
             k, v = F.linear(at(kv_in, cd), w[d:], b[d:]).split(d, dim=-1)
         rate = train_rate(self, self.dropout, gens)
-        out = multi_head_attention(q, k, v, self.nhead, rate, seeds(gens))
+        out = multi_head_attention(q, k, v, nhead, rate, seeds(gens), mesh)
         return self.out_proj(out)
 
 
@@ -275,13 +333,15 @@ class TransformerEncoderLayer(nn.Module):
     (norm_first=True, ffn 4d, ReLU) semantics (reference model.py:48-52),
     with the JAX layer's dropout sites."""
 
+    mesh = None
+
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout, dtype)
-        self.linear1 = Linear(d_model, 4 * d_model, dtype)
-        self.linear2 = Linear(4 * d_model, d_model, dtype)
+        self.linear1 = Linear(d_model, 4 * d_model, dtype, tp="column")
+        self.linear2 = Linear(4 * d_model, d_model, dtype, tp="row")
         self.norm1 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
         self.norm2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
         self.drop1 = Dropout(dropout)
@@ -292,7 +352,8 @@ class TransformerEncoderLayer(nn.Module):
         h = self.norm1(x)
         x = x + self.drop1(self.self_attn(h, h, gens), bits(gens))
         h = self.linear1(self.norm2(x))
-        h = relu_dropout(h, train_rate(self, self.dropout, gens), bits(gens))
+        h = relu_dropout(h, train_rate(self, self.dropout, gens), bits(gens),
+                         tp_part(self.mesh))
         return x + self.drop2(self.linear2(h), bits(gens))
 
 

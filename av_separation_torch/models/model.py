@@ -27,6 +27,16 @@ passed to `forward`) and BatchNorm batch statistics, as the JAX model does
 with `deterministic=False`.  The decoder's fused kernel runs in eval mode or
 at dropout 0; training with dropout runs the plain MLP with `gelu_dropout`,
 as at `av_separation_tpu/models/model.py:309-333`.
+
+Under a mesh (`parallel/shard.py`) every rank runs the model on its batch
+rows, with the layers' tensor-parallel splits (`models/layers.py`).  Under
+'seq' the time axis is split where the JAX model pins it to the axis: after
+the audio projection (which runs on the whole T, so its k=3 convolutions
+need no halo), on the visual stream, whose frames the visual encoder's
+layers split too (their attention is the seq route), gathered and resampled
+to T before the rank's time block is taken, and so on through the fusion
+and the decoder: the outputs are the rank's time block, and
+`parallel.comm.gather_time` puts T back together for the loss.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from av_separation_torch.models.layers import (
     TransformerEncoder,
     bits,
     call_layers,
+    tp_part,
     train_rate,
 )
 from av_separation_torch.ops.activations import gelu_dropout
@@ -57,6 +68,7 @@ from av_separation_torch.ops.interpolate import interpolate_time_linear
 from av_separation_torch.ops.kernels.audio_proj import (audio_projection,
                                                      proj_input)
 from av_separation_torch.ops.kernels.decoder import mask_decoder
+from av_separation_torch.parallel import comm
 
 
 def _cdt(cfg: ModelConfig) -> Optional[torch.dtype]:
@@ -88,8 +100,18 @@ class Projection(nn.Module):
         return audio_projection(x, w1, b1, w2, b2)
 
 
+def _seq_split(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The rank's block of x along `dim` under a 'seq' axis above 1."""
+    if mesh is None or comm.seq_size(mesh) == 1:
+        return x
+    blk = comm.seq_block(x.shape[dim], mesh)
+    return x.narrow(dim, blk.start, blk.stop - blk.start)
+
+
 class AudioEncoder(nn.Module):
     """Mixed-spectrogram encoder (reference model.py:22-60)."""
+
+    mesh = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -115,13 +137,19 @@ class AudioEncoder(nn.Module):
                             conv1.bias,
                             conv2.weight.permute(2, 1, 0).contiguous(),
                             conv2.bias)
+        y = _seq_split(y, 1, self.mesh)  # the JAX pin after the projection
         return self.transformer(self.pos_enc(y, gens), gens)
 
 
 class VisualEncoder(nn.Module):
     """Lip-frame encoder (reference model.py:67-117): stride-2 3x3 conv + BN
     + ReLU x3 (1 -> 32 -> 64 -> 128), global average pool, frame
-    projection, encoder, then linear resampling to the audio frame rate."""
+    projection, encoder, then linear resampling to the audio frame rate.
+    Under 'seq' the encoder's layers run on the rank's block of frames;
+    the frames are gathered before the resampling, and the rank's block
+    of the T output steps is returned."""
+
+    mesh = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -142,8 +170,12 @@ class VisualEncoder(nn.Module):
         b, n, h, w = frames.shape
         x = self.conv(frames.reshape(b * n, 1, h, w)).mean(dim=(2, 3))
         x = self.frame_proj(x).reshape(b, n, -1)
-        x = self.transformer(self.pos_enc(x, gens), gens)
-        return interpolate_time_linear(x, target_len)
+        mesh = self.mesh
+        x = self.transformer(self.pos_enc(_seq_split(x, 1, mesh), gens),
+                             gens)
+        if mesh is not None and comm.seq_size(mesh) > 1:
+            x = comm.gather(x, 1, mesh, "seq")
+        return _seq_split(interpolate_time_linear(x, target_len), 1, mesh)
 
 
 class CrossAttentionLayer(nn.Module):
@@ -153,6 +185,8 @@ class CrossAttentionLayer(nn.Module):
     `ff` slots (Linear, GELU, dropout, Linear) and runs GELU and its
     dropout fused, with the port's quantized mask."""
 
+    mesh = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d, dt = cfg.d_model, _cdt(cfg)
@@ -160,8 +194,9 @@ class CrossAttentionLayer(nn.Module):
         self.cross_attn = MultiHeadAttention(d, cfg.nhead, cfg.dropout, dt)
         self.norm1 = LayerNorm(d, eps=1e-5, dtype=dt)
         self.norm2 = LayerNorm(d, eps=1e-5, dtype=dt)
-        self.ff = nn.Sequential(Linear(d, 4 * d, dt), nn.GELU(),
-                                Dropout(cfg.dropout), Linear(4 * d, d, dt))
+        self.ff = nn.Sequential(Linear(d, 4 * d, dt, tp="column"),
+                                nn.GELU(), Dropout(cfg.dropout),
+                                Linear(4 * d, d, dt, tp="row"))
         self.drop1 = Dropout(cfg.dropout)
         self.drop2 = Dropout(cfg.dropout)
 
@@ -170,7 +205,8 @@ class CrossAttentionLayer(nn.Module):
         attn = self.cross_attn(self.norm1(audio), visual, gens)
         audio = audio + self.drop1(attn, bits(gens))
         h = gelu_dropout(self.ff[0](self.norm2(audio)),
-                         train_rate(self, self.dropout, gens), bits(gens))
+                         train_rate(self, self.dropout, gens), bits(gens),
+                         tp_part(self.mesh))
         return audio + self.drop2(self.ff[3](h), bits(gens))
 
 
@@ -228,7 +264,10 @@ class SeparationDecoder(nn.Module):
 class AVSeparationTransformer(nn.Module):
     """End-to-end model (reference model.py:227-276):
     (mixed_spec (B, F, T), lip_frames (B, N, H, W)) ->
-    (separated (B, S, F, T), masks (B, S, F, T))."""
+    (separated (B, S, F, T), masks (B, S, F, T)); under a mesh, the rank's
+    rows and, under 'seq', its time block of them."""
+
+    mesh = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -251,6 +290,7 @@ class AVSeparationTransformer(nn.Module):
             lip_frames if dt is None else lip_frames.to(dt),
             mixed_spec.shape[-1], gens)
         fused = self.fusion(audio, visual, gens)
+        mixed_spec = _seq_split(mixed_spec, -1, self.mesh)
         if dt is None:
             return self.decoder(fused, mixed_spec, gens)
         separated, masks = self.decoder(fused.float(), mixed_spec, gens)

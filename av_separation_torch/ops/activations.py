@@ -18,7 +18,7 @@ derivative are computed in float32 and rounded to bf16, as the JAX
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,21 +69,25 @@ class _GeluDropout(torch.autograd.Function):
 
 
 def relu_dropout(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """relu -> dropout(rate); rate 0 or no generator means plain relu."""
+                 generator: Optional[torch.Generator],
+                 part: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """relu -> dropout(rate); rate 0 or no generator means plain relu.
+    `part` (i, n): x is column block i of n of the full width (a TP rank's
+    FFN hidden), whose bits are those block's of the full-width draw."""
     if rate == 0.0 or generator is None:
         return torch.relu(x)
     n = quantized_rate(rate)
-    return _ReluDropout.apply(x, keep_bits(x.shape, n, generator, x.device),
-                              keep_scale(n, x.dtype))
+    return _ReluDropout.apply(x, keep_bits(x.shape, n, generator, x.device,
+                                           part), keep_scale(n, x.dtype))
 
 
 def gelu_dropout(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 part: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """exact gelu -> dropout(rate); rate 0 or no generator means plain
-    gelu."""
+    gelu.  `part` as in `relu_dropout`."""
     if rate == 0.0 or generator is None:
         return gelu(x)
     n = quantized_rate(rate)
-    return _GeluDropout.apply(x, keep_bits(x.shape, n, generator, x.device),
-                              keep_scale(n, x.dtype))
+    return _GeluDropout.apply(x, keep_bits(x.shape, n, generator, x.device,
+                                           part), keep_scale(n, x.dtype))

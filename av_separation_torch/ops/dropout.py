@@ -14,7 +14,7 @@ the bits from the saved key instead).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,10 +32,18 @@ def keep_scale(n: int, dtype: torch.dtype = torch.float32) -> float:
 
 
 def keep_bits(shape, n: int, generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
-    """Bool keep mask: uniform uint8 bits >= n."""
-    bits = torch.randint(0, 256, shape, dtype=torch.uint8, device=device,
+              device: torch.device,
+              part: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Bool keep mask: uniform uint8 bits >= n.  `part` (i, count): the
+    mask of column block i of a tensor `count` times as wide in its last
+    dim, cut from that tensor's draw (a TP rank's share of a full-width
+    draw that every rank of the 'model' axis makes alike)."""
+    i, count = part
+    full = tuple(shape[:-1]) + (shape[-1] * count,)
+    bits = torch.randint(0, 256, full, dtype=torch.uint8, device=device,
                          generator=generator)
+    if count > 1:
+        bits = bits.narrow(-1, i * shape[-1], shape[-1])
     return bits >= n
 
 

@@ -10,6 +10,15 @@ drops the oldest files beyond `max_to_keep`.  `wait=True`, or
 `wait_until_finished`, blocks until the write has landed; a failed write
 raises there, or at the next save to the same directory.  Saves to one
 directory are written in order.
+
+A state over a mesh (`train.create_train_state(..., mesh=)`) is saved
+whole: every rank calls `save_checkpoint`, the pieces of the parameters and
+of Adam's moments are gathered (`parallel/shard.py`), and rank 0 writes one
+file with the unsharded names and shapes, so `Separator.from_checkpoint` on
+one device reads it as it reads any other.  The device generator's state
+is kept for every rank (`bits_by_rank`), rank 0's also as `bits`.
+`restore_checkpoint` of a mesh state reads the whole file on every rank and
+keeps the rank's pieces.
 """
 
 from __future__ import annotations
@@ -89,13 +98,12 @@ def save_checkpoint(directory: str, step: int, state: Any,
     on a background thread.  wait=True blocks until it is written."""
     if max_to_keep < 1:
         raise ValueError(f"max_to_keep {max_to_keep} must be at least 1")
-    payload = _host_copy({
-        "step": int(step),
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.adam.state_dict(),
-        "generators": {"seeds": state.generators.seeds.get_state(),
-                       "bits": state.generators.bits.get_state()},
-    })
+    payload = _payload(step, state)  # collectives: every rank of a mesh
+    if getattr(state, "mesh", None) is not None:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            return
+    payload = _host_copy(payload)
     writer = _writer(directory)
     writer.wait()  # one write at a time per directory, in order
     writer.thread = threading.Thread(
@@ -104,6 +112,27 @@ def save_checkpoint(directory: str, step: int, state: Any,
     writer.thread.start()
     if wait:
         writer.wait()
+
+
+def _payload(step: int, state: Any) -> dict:
+    gens = {"seeds": state.generators.seeds.get_state(),
+            "bits": state.generators.bits.get_state()}
+    mesh = getattr(state, "mesh", None)
+    if mesh is None:
+        return {"step": int(step), "model": state.model.state_dict(),
+                "optimizer": state.optimizer.adam.state_dict(),
+                "generators": gens}
+    import torch.distributed as dist
+
+    from av_separation_torch.parallel import shard
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, gens["bits"])
+    return {"step": int(step),
+            "model": shard.full_state_dict(state.model, mesh),
+            "optimizer": shard.full_optimizer_state(
+                state.model, state.optimizer.adam, mesh),
+            "generators": {**gens, "bits": by_rank[0],
+                           "bits_by_rank": by_rank}}
 
 
 def wait_until_finished(directory: str) -> None:
@@ -137,10 +166,25 @@ def restore_checkpoint(directory: str, state: Any,
     saved = _load(directory, step)
     if saved is None:
         return state
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.adam.load_state_dict(saved["optimizer"])
-    state.generators.seeds.set_state(saved["generators"]["seeds"])
-    state.generators.bits.set_state(saved["generators"]["bits"])
+    gens = saved["generators"]
+    mesh = getattr(state, "mesh", None)
+    if mesh is None:
+        state.model.load_state_dict(saved["model"])
+        state.optimizer.adam.load_state_dict(saved["optimizer"])
+        state.generators.bits.set_state(gens["bits"])
+    else:
+        import torch.distributed as dist
+
+        from av_separation_torch.parallel import shard
+        shard.load_full_state_dict(state.model, saved["model"], mesh)
+        shard.load_full_optimizer_state(state.model, state.optimizer.adam,
+                                        saved["optimizer"], mesh)
+        by_rank = gens.get("bits_by_rank") or []
+        if len(by_rank) == dist.get_world_size():
+            state.generators.bits.set_state(by_rank[dist.get_rank()])
+        # else: a checkpoint of another layout; the rank keeps the stream
+        # it was seeded with (`parallel.shard.bits_seed`).
+    state.generators.seeds.set_state(gens["seeds"])
     state.step = saved["step"]
     return state
 

@@ -174,6 +174,37 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            steps), per_step and float32 at 50 steps: each JSON line.
   demo     `av_separation_torch.demo`: 100 steps of the demo config on the
            card; fails below +35 dB or with masks outside [0, 1].
+  parallel the parallel tier (`av_separation_torch/parallel/`) on the card.
+           (1) One rank over NCCL through a tcp://127.0.0.1 store:
+           multihost at full width and depth (d 1024, 8 heads of 128,
+           12 + 8 layers, 4 speakers, remat, batch 16, dropout 0.1)
+           through create_train_state(mesh 1x1x1x1) and
+           make_train_step(cfg, mesh): the placement rules, the 'fsdp'
+           gathers, the sharded clip and BatchNorm's all-reduce on a
+           group of one; loss and grad norm within 1e-6 relative of the
+           same step without a mesh; launches (64 flash forwards under
+           remat, 32 backwards, 1 projection and its split, no decoder);
+           a full checkpoint read back into a one-device Separator (its
+           weights the mesh state's, bit for bit, and a finite forward);
+           peak memory and the first (cold) step's ms of each side, then
+           warm step ms of both in turns (one untimed step each first).
+           (2) The kernels at the shard shapes of multihost's own mesh,
+           data 2 x model 4: each of the 8
+           ranks' flash calls (B 8, H 2 of 8, T 501, dh 128; q, k, v as
+           column slices of the rank's TP-packed (8, 501, 768)
+           projection), float32 and bf16, forward and backward, with the
+           seeds folded by position: assembled against the plain
+           version's shard loop at dropout 0.1 and against one unsharded
+           call at dropout 0; then the seq route at the scaled width
+           (T 1024, seq 4: Tq 256 against Tk 1024); rank 0's blocks timed
+           as the kernels phase times a row (bound, SDPA); the projection
+           and the decoder on 8-row local batches.  (3) Two ranks on the
+           one card over gloo (NCCL refuses two ranks on one device), one
+           process each: a train step of a demo-width model (T 64) on each
+           route of `PARALLEL_ROUTES_ON_CARD`, two steps against two
+           one-process steps (both losses atol 1e-4 + rtol 1e-5, the
+           first step's grad norm rtol 1e-5); `routes_on_card` and
+           `routes_cpu_only` with the reason for each.
 Then the kernel summary line, the card line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -289,6 +320,20 @@ KERNEL_NAMES = {
     "stft_mag_dft_fwd": ("stft_mag_kernel",),
 }
 ATTN_SEED = -12345  # an int32 dropout seed with the sign bit set
+
+# Which routes of the parallel tier run with two ranks on one card, over
+# gloo (NCCL refuses two ranks on one device: "Duplicate GPU detected"):
+# fixed from tools/torch_gloo_cuda_probe.py's run on the card (PERF.md),
+# not decided at run time.  gloo carries all-reduce, all-gather,
+# reduce-scatter and broadcast on CUDA tensors, which is all that these
+# four routes use; it refuses send / recv.  Each route is a mesh of two.
+PARALLEL_ROUTES_ON_CARD = {"data": dict(data=2), "model": dict(model=2),
+                           "seq": dict(seq=2), "fsdp": dict(fsdp=2)}
+PARALLEL_ROUTES_CPU_ONLY = {
+    "ring": "ring_attention rotates K/V by batch_isend_irecv, which gloo "
+            "refuses on CUDA tensors; not on the main path; held on the "
+            "CPU over gloo (tests/test_torch_sequence.py)",
+}
 
 
 def emit(obj) -> None:
@@ -861,7 +906,7 @@ def _proj_rows(record, gen, cases=None):
         torch.cuda.empty_cache()
 
 
-def _decoder_rows(record, gen):
+def _decoder_rows(record, gen, shapes=HEAD_SHAPES):
     """The fused mask decoder against its plain version at the named
     configs' shapes: masks 1e-5 (sigmoid outputs of float32 sums of d and
     2d products), separated 1e-5 x the peak of mixed.  Weights in the torch
@@ -875,7 +920,7 @@ def _decoder_rows(record, gen):
         decoder_rows, mask_decoder_fwd, mask_decoder_fwd_torch)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, b, t, d, s in HEAD_SHAPES:
+    for label, b, t, d, s in shapes:
         f = 257
         x = torch.randn(b, t, d, generator=gen).cuda()
         lim1, lim2 = d ** -0.5, (2 * d) ** -0.5
@@ -2737,6 +2782,368 @@ def phase_demo(state):
             "gate_db": demo.PASS_DB, "launches": launches}
 
 
+def _parallel_one_rank(bad: list, state) -> dict:
+    """multihost on a mesh of one rank over NCCL against the same step
+    without a mesh; a full checkpoint into a one-device Separator."""
+    import dataclasses
+    import socket
+    import tempfile
+
+    from av_separation_torch.config import MeshConfig, get_config
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    from av_separation_torch.inference import Separator
+    from av_separation_torch.ops import kernels
+    from av_separation_torch.parallel import distributed, shard
+    from av_separation_torch.train import create_train_state, make_train_step
+    from av_separation_torch.utils.checkpoint import save_checkpoint
+
+    cfg = get_config("multihost")
+    n = cfg.train.batch_size
+    data = dataclasses.replace(cfg.data, num_samples=n)
+    batch = next(batch_iterator(SyntheticAVDataset(data), n, seed=0))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = {}
+    ref = create_train_state(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref, met = make_train_step(cfg)(ref, batch)
+    out["plain"] = {"loss": float(met["loss"]),
+                    "grad_norm": float(met["grad_norm"]),
+                    "cold_step_ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del ref, met
+    torch.cuda.empty_cache()
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = distributed.global_mesh(MeshConfig())
+        ts = create_train_state(cfg, device="cuda", mesh=mesh)
+        step = make_train_step(cfg, mesh)
+        local = distributed.host_local_batch_to_global(batch, mesh, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts, met = step(ts, local)
+        loss, norm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        state["launches"]["parallel"] = launches
+        m = cfg.model
+        per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
+        want = want_launches(dict(flash_attn_fwd=2 * per_step,
+                                  flash_attn_bwd=per_step, audio_proj_fwd=1))
+        out["mesh_1x1x1x1"] = {
+            "backend": torch.distributed.get_backend(), "loss": loss,
+            "grad_norm": norm, "cold_step_ms": ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+        for key, got in (("loss", loss), ("grad_norm", norm)):
+            rel = _rel(got, out["plain"][key])
+            out[f"{key}_rel"] = [rel, 1e-6]
+            if rel > 1e-6:
+                bad.append(f"one-rank mesh {key} {got} vs "
+                           f"{out['plain'][key]}")
+        if launches != want:
+            bad.append(f"one-rank mesh launches {launches} != {want}")
+        # A full checkpoint, read by a Separator on one device.
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            save_checkpoint(tmp, ts.step, ts, wait=True)
+            full = shard.full_state_dict(ts.model, mesh)
+            sep = Separator.from_checkpoint(tmp, cfg.model, cfg.data,
+                                            device="cuda")
+        same = all(torch.equal(v.cpu(), full[k].cpu())
+                   for k, v in sep.model.state_dict().items())
+        separated, _ = sep.separate(batch["mixed_spec"][:2],
+                                    batch["lip_frames"][:2])
+        out["checkpoint"] = {"separator_weights_equal": same,
+                             "separated_finite":
+                                 bool(np.isfinite(separated).all())}
+        if not same or not np.isfinite(separated).all():
+            bad.append(f"mesh checkpoint into a Separator: {out['checkpoint']}")
+        del sep, full
+        out["warm_step_ms_in_turns"] = _one_rank_turns(cfg, ts, step, local)
+        del ts, step
+    finally:
+        distributed.shutdown()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _one_rank_turns(cfg, ts, mesh_step, local, rounds: int = 3) -> dict:
+    """Warm step ms of the plain step and the mesh-of-one step on the same
+    batch on the card: one untimed step each, then `rounds` rounds in
+    turns (plain, mesh; mesh, plain; ...), so that neither side always
+    runs first.  The first (cold) steps above are timed apart."""
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    sides = {"plain": [create_train_state(cfg, device="cuda"),
+                       make_train_step(cfg)],
+             "mesh_1x1x1x1": [ts, mesh_step]}
+    times = {name: [] for name in sides}
+
+    def run(name, timed=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sides[name][0], met = sides[name][1](sides[name][0], local)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        if timed:
+            times[name].append((time.perf_counter() - t0) * 1e3)
+
+    for name in sides:
+        run(name, timed=False)
+    for i in range(rounds):
+        for name in (list(sides) if i % 2 == 0 else list(sides)[::-1]):
+            run(name)
+    sides.clear()
+    return times
+
+
+def _shard_flash(bad, record, gen, label, cfg_axes, b, h, t, dh, dtype):
+    """Every rank's flash call of one layer at its shard shape, kernel and
+    plain, with the seeds folded by position (`shard_seed`): the assembled
+    output and the gradients against the plain version's shard loop at
+    dropout 0.1 and against one unsharded kernel call at dropout 0; rank
+    0's block as the kernels phase's timed rows.  Each rank's q, k and v
+    are column slices of its own packed projection (B/R, T/S, 3 d/M), d =
+    h * dh, as the TP split of in_proj_weight lays them out; under 'seq'
+    its K and V are the time blocks of every seq rank, gathered."""
+    from av_separation_torch.config import MeshConfig
+    from av_separation_torch.ops.attention import shard_seed, split_heads
+    from av_separation_torch.ops.kernels.attention import (
+        flash_attention, flash_attn_bwd_torch, flash_attn_fwd_torch)
+
+    cfg = MeshConfig(**cfg_axes)
+    nr = cfg.data * cfg.fsdp
+    rows, heads, tq = b // nr, h // cfg.model, t // cfg.seq
+    dl = heads * dh
+    ranks = [(r, m, s) for r in range(nr) for m in range(cfg.model)
+             for s in range(cfg.seq)]
+    packed = {at: torch.randn(rows, tq, 3 * dl, generator=gen).to(dtype)
+              .cuda() for at in ranks}
+    do = torch.randn(b, h, t, dh, generator=gen).to(dtype).cuda()
+    bf16 = dtype == torch.bfloat16
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, rate, seed):
+            o, lse = flash_attn_fwd_torch(q, k, v, rate, seed)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.rs = (rate, seed)
+            return o
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*flash_attn_bwd_torch(q, k, v, o, g.contiguous(), lse,
+                                          *ctx.rs), None, None)
+
+    def qkv(leaves, r, m, s):
+        """Rank (r, m, s)'s q, and its K and V gathered along time over
+        'seq' (its own block when 'seq' is 1)."""
+        q = split_heads(leaves[(r, m, s)][..., :dl], heads)
+        kv = [torch.cat([leaves[(r, m, s_)][..., i * dl:(i + 1) * dl]
+                         for s_ in range(cfg.seq)], dim=1)
+              if cfg.seq > 1 else leaves[(r, m, s)][..., i * dl:(i + 1) * dl]
+              for i in (1, 2)]
+        return (q, *(split_heads(x, heads) for x in kv))
+
+    def blocks(fn):
+        """fn(r, m, s) -> (B/R, H/M, T/S, dh), laid out as (B, H, T, dh)."""
+        return torch.cat([torch.cat([torch.cat(
+            [fn(r, m, s) for s in range(cfg.seq)], dim=2)
+            for m in range(cfg.model)], dim=1) for r in range(nr)], dim=0)
+
+    def run(attend, rate, whole=False):
+        leaves = {at: x.detach().requires_grad_() for at, x in packed.items()}
+        if whole:  # one call over the global tensors
+            q = blocks(lambda r, m, s: qkv(leaves, r, m, s)[0])
+            k, v = (torch.cat([torch.cat(
+                [qkv(leaves, r, m, 0)[i] for m in range(cfg.model)], dim=1)
+                for r in range(nr)], dim=0) for i in (1, 2))
+            o = attend(q, k, v, rate, ATTN_SEED)
+        else:
+            o = blocks(lambda r, m, s: attend(
+                *qkv(leaves, r, m, s), rate, shard_seed(ATTN_SEED, cfg, dict(
+                    data=r // cfg.fsdp, fsdp=r % cfg.fsdp, seq=s, model=m))))
+        o.backward(do)
+        return [o.detach()] + [leaves[at].grad for at in ranks]
+
+    res = {}
+    for rate in (0.1, 0.0):
+        got = run(flash_attention, rate)
+        ref = run(Plain.apply, rate) if rate \
+            else run(flash_attention, 0.0, whole=True)
+        errs = [max_err(x, y) for x, y in zip(got, ref)]
+        tols = [bf16_tol(y) if bf16 else 3e-5 for y in ref]
+        key = ("against the plain shard loop, dropout 0.1" if rate
+               else "against one unsharded kernel call, dropout 0")
+        res[key] = {"max_err_o": errs[0], "max_err_grads": max(errs[1:]),
+                    "tol_o": tols[0], "ranks": len(ranks)}
+        if any(e > tl for e, tl in zip(errs, tols)):
+            bad.append(f"{label} {dtype} {key}: {errs} > {tols}")
+    # Rank 0's call through the kernels phase's rows.
+    q0, k0, v0 = qkv(packed, 0, 0, 0)
+    for rate in (0.0, 0.1):
+        _attn_rows(record, label, rate, q0, k0, v0, gen)
+    return res
+
+
+def phase_parallel(state):
+    """The parallel tier on the card: one rank over NCCL at multihost,
+    the kernels at shard shapes, two ranks on one card over gloo."""
+    bad = []
+    out = {"one_rank": _parallel_one_rank(bad, state)}
+    results = state.setdefault("kernel_rows", {n: [] for n in KERNELS})
+    failures = []
+    record = make_record(results, failures)
+    gen = torch.Generator().manual_seed(13)
+    shard_rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        shard_rows[f"multihost TP {dt}"] = _shard_flash(
+            bad, record, gen, "multihost TP rank (data 2 x model 4)",
+            dict(data=2, model=4), 16, 8, 501, 128, dtype)
+        shard_rows[f"scaled seq {dt}"] = _shard_flash(
+            bad, record, gen, "scaled seq rank (seq 4, Tq 256)",
+            dict(seq=4), 8, 4, 1024, 128, dtype)
+        torch.cuda.empty_cache()
+    _proj_rows(record, gen, [("multihost rank (8 of 16 rows)", 8, 501, 1024,
+                              torch.float32),
+                             ("multihost rank (8 of 16 rows)", 8, 501, 1024,
+                              torch.bfloat16)])
+    _decoder_rows(record, gen, (("multihost rank (8 of 16 rows)", 8, 501,
+                                 1024, 4),))
+    out["shard_kernels"] = shard_rows
+    out["two_ranks_one_card"] = _parallel_two_ranks(bad)
+    out["routes_on_card"] = sorted(PARALLEL_ROUTES_ON_CARD)
+    out["routes_cpu_only"] = PARALLEL_ROUTES_CPU_ONLY
+    bad += failures
+    if bad:
+        raise AssertionError(f"parallel checks failed: {bad}")
+    return out
+
+
+def _two_rank_cfg():
+    """A demo-width model (d 128, 4 heads of 32) at T 64 (8,064 samples at
+    hop 128), dropout 0, batch 4: each route's shapes divide."""
+    import dataclasses
+
+    from av_separation_torch.config import get_config
+    cfg = get_config("demo")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
+        data=dataclasses.replace(cfg.data, sample_rate=8064, num_samples=4),
+        train=dataclasses.replace(cfg.train, batch_size=4))
+
+
+def _two_rank_batch(cfg):
+    from av_separation_torch.data.loader import batch_iterator
+    from av_separation_torch.data.synthetic import SyntheticAVDataset
+    return next(batch_iterator(SyntheticAVDataset(cfg.data), 4, seed=0))
+
+
+def _parallel_rank(route: str, rank: int, port: int, out_path: str) -> int:
+    """One of two ranks on the card (gloo): a train step of route's mesh."""
+    from av_separation_torch.config import MeshConfig
+    from av_separation_torch.parallel import distributed
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        cfg = _two_rank_cfg()
+        mesh = distributed.global_mesh(
+            MeshConfig(**PARALLEL_ROUTES_ON_CARD[route]))
+        ts = create_train_state(cfg, device="cuda", mesh=mesh)
+        step = make_train_step(cfg, mesh)
+        local = distributed.host_local_batch_to_global(
+            _two_rank_batch(cfg), mesh, "cuda")
+        ts, met = step(ts, local)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, met2 = step(ts, local)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with open(out_path, "w") as f:
+            json.dump({"loss": float(met["loss"]),
+                       "grad_norm": float(met["grad_norm"]),
+                       "second_loss": float(met2["loss"]),
+                       "second_step_ms": ms}, f)
+        distributed.barrier(60.0)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _parallel_two_ranks(bad: list) -> dict:
+    """Each route of PARALLEL_ROUTES_ON_CARD as two processes on the card
+    against two one-process steps: each rank's first loss and its second
+    (which the first step's reduced gradients moved) within atol 1e-4 +
+    rtol 1e-5, its grad norm (the gradients' all-reduce, FSDP's and the
+    K/V gather's reduce-scatters) within rtol 1e-5."""
+    import socket
+    import tempfile
+
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    cfg = _two_rank_cfg()
+    ts = create_train_state(cfg, device="cuda")
+    step, batch = make_train_step(cfg), _two_rank_batch(cfg)
+    ts, met = step(ts, batch)
+    _, met2 = step(ts, batch)
+    ref = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+           "second_loss": float(met2["loss"])}
+    out = {"one_process": ref}
+    for route in sorted(PARALLEL_ROUTES_ON_CARD):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            paths = [f"{tmp}/rank{r}.json" for r in range(2)]
+            procs = [subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--parallel-rank", route, str(r), str(port), paths[r]],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(2)]
+            errs = []
+            for p in procs:
+                try:
+                    _, err = p.communicate(timeout=240)
+                except subprocess.TimeoutExpired:
+                    for q in procs:
+                        q.kill()
+                    _, err = p.communicate()
+                    err = "timeout " + err
+                if p.returncode != 0:
+                    errs.append(err[-1500:])
+            if errs:
+                out[route] = {"ok": False, "error": errs}
+                bad.append(f"two ranks on the card, route {route}: failed")
+                continue
+            ranks = [json.load(open(path)) for path in paths]
+        ok = all(within(r[k], ref[k], 1e-4, 1e-5)
+                 for r in ranks for k in ("loss", "second_loss")) \
+            and all(within(r["grad_norm"], ref["grad_norm"], 0.0, 1e-5)
+                    for r in ranks) \
+            and ranks[0]["loss"] == ranks[1]["loss"]
+        out[route] = {
+            "ok": ok, "ranks": ranks,
+            **{f"{k}_err": max(abs(r[k] - ref[k]) for r in ranks)
+               for k in ("loss", "second_loss", "grad_norm")},
+            "tol": "losses atol 1e-4 + rtol 1e-5, grad_norm rtol 1e-5"}
+        if not ok:
+            bad.append(f"two ranks on the card, route {route}: {ranks} vs "
+                       f"{ref}")
+    return out
+
+
 def kernel_summary(state):
     """One entry per kernel (and per bf16 instance): errors are the worst
     over the shapes checked; times and the bound are those of the first
@@ -2779,6 +3186,10 @@ def kernel_summary(state):
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
+        sys.path.insert(0, str(ROOT))
+        route, rank, port, out_path = sys.argv[2:6]
+        return _parallel_rank(route, int(rank), int(port), out_path)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2802,7 +3213,7 @@ def main() -> int:
                         ("train_device_profile", phase_train_device_profile),
                         ("data_tiers", phase_data_tiers),
                         ("bf16", phase_bf16), ("bench", phase_bench),
-                        ("demo", phase_demo)):
+                        ("demo", phase_demo), ("parallel", phase_parallel)):
         t0 = time.perf_counter()
         try:
             info = phase(state)

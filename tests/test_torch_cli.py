@@ -9,7 +9,9 @@ masks.  The files and native pipelines' runs are in
 tests/test_torch_cli_data.py.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 
@@ -115,16 +117,59 @@ def test_eval_and_separate_read_the_checkpoint(capsys, tmp_path):
         "waveform_shape"] == [2, 2, 8000]
 
 
-@pytest.mark.parametrize("argv", [
-    ["train", "--mesh-data", "2"], ["train", "--mesh-fsdp", "2"],
-    ["train", "--mesh-seq", "2"], ["train", "--mesh-model", "2"],
-    ["train", "--coordinator", "localhost:1234"],
-    ["train", "--num-processes", "2"], ["train", "--process-id", "0"],
-    ["train", "--impl", "pallas"]])
+@pytest.mark.parametrize("argv", [["train", "--impl", "pallas"]])
 def test_flags_and_commands_still_to_port_are_refused(argv):
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--cpu"])
     assert e.value.code == 2
+
+
+@pytest.fixture(scope="module")
+def one_step_loss():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["train", *DEMO, "--steps", "1"]) == 0
+    return final([json.loads(ln) for ln in out.getvalue().splitlines()
+                  if ln.startswith("{")])["loss"]
+
+
+@pytest.mark.parametrize("flag", ["--mesh-data", "--mesh-fsdp",
+                                  "--mesh-seq", "--mesh-model"])
+def test_each_mesh_flag_at_one_runs_in_one_process(capsys, one_step_loss,
+                                                   flag):
+    """A mesh of one device in a one-process job is no mesh, as in the JAX
+    CLI: the same loss as the run without the flag."""
+    meshed = final(run(capsys, "train", *DEMO, "--steps", "1", flag, "1"))
+    assert meshed["loss"] == one_step_loss
+
+
+NEEDS_ALL_THREE = ("avsep: a multi-process job needs the coordinator "
+                   "address, the process count and the process id")
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--coordinator", "127.0.0.1:1234"], NEEDS_ALL_THREE),
+    (["--num-processes", "2"], NEEDS_ALL_THREE),
+    (["--process-id", "0"], NEEDS_ALL_THREE),
+    (["--coordinator", "127.0.0.1", "--num-processes", "2",
+      "--process-id", "0"],
+     "avsep: coordinator '127.0.0.1' is not host:port"),
+    (["--coordinator", "127.0.0.1:1234", "--num-processes", "2",
+      "--process-id", "2"],
+     "avsep: process id 2 outside a job of 2 processes"),
+    (["--mesh-data", "2", "--mesh-model", "4"],
+     "avsep: mesh MeshConfig(data=2, fsdp=1, seq=1, model=4) needs 8 "
+     "devices but the job has 1"),
+    (["--config", "multihost"],
+     "avsep: mesh MeshConfig(data=2, fsdp=1, seq=1, model=4) needs 8 "
+     "devices but the job has 1"),
+], ids=["coordinator-alone", "num-processes-alone", "process-id-alone",
+        "coordinator-not-host-port", "process-id-outside", "mesh-too-big",
+        "multihost-mesh-in-one-process"])
+def test_multi_process_flags_are_validated(argv, message):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train", *DEMO, "--steps", "1", *argv])
+    assert e.value.code == message
 
 
 def test_files_without_a_data_root_exits_with_the_jax_message(capsys):
