@@ -1,67 +1,134 @@
-// STFT magnitude as a shared-memory FFT, float32, for Hopper (sm_90a).
+// STFT magnitude as an FFT, float32, for Hopper (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/stft.py `_stft_kernel` (called from
-// `stft_magnitude_pallas`) for every n_fft in [2, 4096], at any hop and any
-// number of signals.  n_fft above 4096 takes the matrix DFT of stft_mag.cu,
-// chosen by shape in ops/kernels/stft.py.  Semantics are those of the
-// Pallas kernel: symmetric Hann window, frame i starting at sample i*hop,
-// no centering, samples past N read as zero; audio (B, N) float32, mag
-// (B, F, T) float32, F = n_fft/2 + 1.
+// `stft_magnitude_pallas`) for every n_fft >= 2, at any hop and any number
+// of signals.  Semantics are those of the Pallas kernel: symmetric Hann
+// window, frame i starting at sample i*hop, no centering, samples past N
+// read as zero; audio (B, N) float32, mag (B, F, T) float32,
+// F = n_fft/2 + 1.  Two regimes, chosen by shape in ops/kernels/stft.py (not
+// a fallback: an error in either raises):
+//   (A) `stft_fft_kernel`, one block a tile of frames, the whole transform
+//       in shared memory: every n_fft whose block fits 227 KB
+//       (`avsep_stft_fft_fwd`, launches counted as `stft_mag_fwd`);
+//   (B) `stft_4step_kernel`, the four-step FFT through a global scratch:
+//       every larger transform (`avsep_stft_4step_fwd`, launches counted
+//       as `stft_mag_4step_fwd`).
 //
 // Bound on the H100, for the function and not this algorithm: the audio
 // read once and the spectra written once, against a real FFT's
 // 2.5 n_fft log2(n_fft) FLOPs a frame at 67 TFLOP/s.  At the scaled device
 // batch (24 signals of 64,000 samples, n_fft 512, hop 128, T 501): 18.5 MB
 // (5.5 us at 3.35 TB/s) against 0.139 GFLOP (2 us): bound by bytes, as is
-// every shape of the repository.  The matrix DFT does 4 n_fft F FLOPs a
-// frame, 50x more at n_fft 512.
+// every shape of the repository.  A matrix DFT does 4 n_fft F FLOPs a
+// frame, 50x more at n_fft 512 and 1,300x more at n_fft 32768.
 //
-// Design: a block owns one signal and a tile of `tf` frames (the grid folds
-// signals and tiles into x, so any number of signals runs).  It stages the
-// tile's audio span, (tf-1)*hop + n_fft samples, into shared memory once
-// with cp.async (16-byte copies when hop and N are multiples of 4 and the
-// rows are 16-byte aligned, the span's ragged tail by 4-byte copies; else
-// 4-byte copies throughout; the src-size 0 form zero-fills samples past N).
-// Each frame is windowed and packed into complex sequences of L points:
+// The transform.  Each frame is windowed and packed into complex sequences
+// of L points:
 //   - even n_fft: z[n] = x[2n] + i x[2n+1], L = n_fft/2, one frame a
-//     sequence (pairs read as float2 at an even hop, sample by sample at
-//     an odd one), and after the FFT a split step gives the M+1 = L+1 bins:
+//     sequence, and after the FFT a split step gives the M+1 = L+1 bins:
 //       X[k] = (Z[k] + Z*[M-k]) / 2 - i W^k (Z[k] - Z*[M-k]) / 2,
 //     Z[M] = Z[0], W = exp(-2 pi i / n_fft);
-//   - odd n_fft: frames 2s and 2s+1 of the tile as the real and imaginary
-//     parts of one sequence of L = n_fft points (the second zero at
-//     tf = 1), separated after the FFT:
+//   - odd n_fft: frames 2s and 2s+1 as the real and imaginary parts of one
+//     sequence of L = n_fft points (the second zero past T or at a tile of
+//     one frame), separated after the FFT:
 //       X1[k] = (Z[k] + Z*[L-k]) / 2,  X2[k] = (Z[k] - Z*[L-k]) / 2i.
-// The L-point transform is a Stockham FFT in shared memory, one stage a
-// radix of the host's plan: a power of two 2^e in radix-8 stages after one
-// radix-2 or radix-4 stage for e mod 3 (L = 256: 4, 8, 8); another length
-// one radix-2 stage when its power of two has an odd exponent, then radix
-// 4, 3, 5 and 7 (224: 2, 4, 4, 7; 441: 3, 3, 7, 7).  A length with a prime
-// factor above 7 (L = 257,
-// 551, 4093) takes Bluestein's chirp-z transform: with the chirp
+// A 7-smooth L is a Stockham FFT, one stage a radix of the host's plan: a
+// power of two 2^e in radix-8 stages after one radix-2 or radix-4 stage for
+// e mod 3 (L = 256: 4, 8, 8); another length one radix-2 stage when its
+// power of two has an odd exponent, then radix 4, 3, 5 and 7 (224: 2, 4, 4,
+// 7; 441: 3, 3, 7, 7).  A length with a prime factor above 7 (L = 257, 551,
+// 4093) takes Bluestein's chirp-z transform: with the chirp
 // c[n] = exp(i pi n^2 / L), X[k] = c*[k] sum_n (z[n] c*[n]) c[k-n], a
 // circular convolution of P >= 2L-1 points (a power of two): multiply by
 // c*[n] and zero-pad to P; P-point FFT; multiply by the transform of the
 // chirp (host float64, divided by P); conjugate; P-point FFT again (the
 // inverse, as conj(FFT(conj y))); X[k] = c*[k] conj(V[k]), taken as the
 // split step reads it.  The chirp's phase n^2 mod 2L is computed in
-// integers on the host, so no float32 angle grows with n; the chirp and
-// its transform, read once an element, come from global memory through L2.
-// Every stage ping-pongs between two buffers with one __syncthreads, no
-// digit reversal; each butterfly reads z[j + r len/R], so a warp reads
+// integers on the host, so no float32 angle grows with n.  Every stage
+// ping-pongs between two buffers with one __syncthreads, no digit
+// reversal; each butterfly reads z[j + r len/R], so a warp reads
 // consecutive words.  A power-of-two length indexes its stages by shifts
 // and masks; the mixed-radix plan divides by per-stage constants computed
 // on the host (`FastDiv`: a multiply and a shift), not `%`.  Twiddles,
 // window, chirp and its transform are float32 tables built on the host in
 // float64; the radix-3, -5, -7 and -8 butterflies' constants are float64
-// values rounded to float32.  Magnitudes go to a (bin, frame) stage at row
-// stride tf+1 (odd, conflict-free), from which each warp stores
-// consecutive frames of one bin: coalesced along T.  The wrapper sizes
-// `tf` (a power of two <= 8) so that four blocks share an SM where they
-// can (else two, else one) and the grid gives every SM two blocks where
-// the batch allows; one frame fits at every n_fft (the largest block, odd
-// n_fft near 4096 under Bluestein with P = 8192: two 64 KB work regions, a
-// 32 KB twiddle table and the 16 KB window).
+// values rounded to float32.
+//
+// (A) A block owns one signal and a tile of `tf` frames (the grid folds
+// signals and tiles into x, so any number of signals runs).  Up to n_fft
+// 4096 (256 threads) it stages the tile's audio span, (tf-1)*hop + n_fft
+// samples, and the window into shared memory once with cp.async (16-byte
+// copies when hop and N are multiples of 4 and the rows are 16-byte
+// aligned, the span's ragged tail by 4-byte copies; else 4-byte copies
+// throughout; the src-size 0 form zero-fills samples past N).  Above 4096
+// (`WIDE`, 512 threads) nothing is staged: each sample and window value is
+// read once, from global memory through L2, straight into the first work
+// region, which frees the span and the window's share of shared memory;
+// the twiddle (and split) tables come by cp.async meanwhile (1-3% faster
+// on an H100 than plain copies; four of the pack's loads issued together
+// a thread measured 1-5% slower: more registers, fewer blocks an SM).
+// Magnitudes go to a (bin, frame) stage at row stride tf+1 (odd,
+// conflict-free), from which each warp stores consecutive frames of one
+// bin: coalesced along T when tf > 1; at one frame a block a warp's stores
+// land T floats apart, and L2 merges the sectors of neighbouring blocks'
+// frames.  The wrapper sizes `tf` (a power of two <= 8) so that four
+// blocks share an SM where they can (else two, else one) and the grid
+// gives every SM two blocks where the batch allows; above 4096 two frames
+// where they fit (one block an SM at n_fft 8192), else one.  Reach, from
+// the plan arithmetic (two work regions, the twiddle table of half + 1
+// values, the Bluestein split table, the staged window up to 4096, the
+// 240-byte stage table): every n_fft in [2, 4096]; above, one frame a
+// block (two for odd
+// n_fft) fits 227 KB for a power-of-two L up to 8192 (n_fft 16384: two
+// 64 KB regions and a 64 KB twiddle table, 196,888 bytes), a 7-smooth L up
+// to 9,604 (even n_fft up to 19,208, odd up to 9,375), and Bluestein at P
+// 8192 for an even n_fft up to 8,190 (196,856 bytes); 2,150 of the n_fft in
+// (4096, 65536].
+//
+// (B) The four-step (Bailey) FFT of P = n1 n2 points (P = L, or Bluestein's
+// power of two): with n = n2 a + c and k = k1 + n1 k2,
+//   Z[k1 + n1 k2] = sum_c W_n2^(c k2) W_P^(c k1) sum_a z[n2 a + c] W_n1^(a k1).
+// Each pass is a launch of the same Stockham stages over sequences in
+// shared memory; passes meet in a global scratch of P complex values a
+// sequence, which the wrapper allocates for a chunk of sequences that stays
+// in L2 (32 MiB) and walks chunk by chunk, so any number of frames runs.
+//   - kColumns: the windowed, packed sequence straight from the audio
+//     (under Bluestein times c*[n], zero from L to P), a block's C columns c
+//     (a power of two) read row by row (consecutive columns, coalesced)
+//     and kept so in shared memory, point a of column c at [a][c]; the
+//     n1-point FFTs run in that layout (`stage_cols`: a warp's threads take
+//     consecutive columns at one butterfly, so consecutive words and one
+//     twiddle; sequences of n1 = 8 points laid one after another would put
+//     a half-warp's reads on two banks); times W_P^(c k1); written back
+//     row by row to the scratch as [k1][c].
+//   - kRowsLast (no Bluestein): the rows' n2-point FFTs give Z[k1 + n1 k2]
+//     at row k1.  The split needs Z[k] and Z[L-k], which lie in rows k1 and
+//     (n1 - k1) mod n1: a block owns such pairs of rows, and the split (or
+//     the separation of an odd n_fft's two frames) and the magnitude fuse
+//     into its store.
+//   - kRowsMiddle (Bluestein): the rows' n2-point FFTs give V in the
+//     [k1][k2] layout; times the chirp's transform (the host's table in
+//     that layout, read contiguously) and conjugated; then the first half
+//     of the inverse in the transposed decomposition (input index
+//     k1 + n1 k2, output m = m2 + n2 m1): the rows' n2-point FFTs, times
+//     W_P^(k1 m2), written back in place.
+//   - kColumnsLast (Bluestein): the columns' n1-point FFTs (in the column
+//     layout) give the inverse's output at m = m2 + n2 m1, in natural
+//     order, so no transpose is ever made.  Z[m] and Z[L-m] lie in
+//     columns m2 and (r - m2) mod n2 (r = L mod n2): a block owns such
+//     pairs of columns, and the post-multiply by c*[m], the split and the
+//     magnitude fuse into its store.
+// The pairs of the last pass are the orbits of x -> (a - x) mod A on its
+// axis (rows: a = 0, A = n1; columns: a = r, A = n2): a block owns a run of
+// representatives, x in [0, a/2] or in [a + 1, a + 1 + ceil((A-a-1)/2)),
+// and loads each with its partner (2^k pairs a block).  The four-step
+// twiddles W_P^m come from sincospif(2m / P) in float32 (exact argument
+// for a power-of-two P; else within 2^-24 of it); the stages' tables are
+// the host's, copied by cp.async while the pass loads its data.  The
+// host picks n2, the largest divisor of P up to 2048, and n1 = P / n2 up
+// to 8192 (every P up to 2^24 that is a power of two; every 7-smooth
+// length with such a split), about 4096 points a block, 256 threads.
+// The (B) rows lose to torch.stft at 8194 and 32768 (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,10 +137,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxStages = 12;  // L <= 4095: at most 7 radices
+constexpr int kThreads = 256;      // (A) up to n_fft 4096, and (B)
+constexpr int kWideThreads = 512;  // (A) above n_fft 4096
+constexpr int kStagedMax = 4096;   // (A) stages span and window up to here
+constexpr int kMaxStages = 12;     // L <= 9604, sub-lengths <= 8192: <= 8
 constexpr int kMaxSmem = 232448;
-constexpr int kMaxPad = 8192;   // Bluestein's P for L <= 4095
+constexpr int kMaxPad = 8192;      // (A) Bluestein's P
+constexpr int kMaxRow = 2048;      // (B) n2
+constexpr int kMaxColumn = 8192;   // (B) n1
 
 // The three transforms: a power-of-two L, a 7-smooth L (mixed radix), and
 // Bluestein's chirp-z over a power-of-two P.
@@ -82,7 +153,7 @@ enum { kPow2 = 0, kMixed = 1, kBluestein = 2 };
 // n / d as (n m) >> 31 with m = ceil(2^31 / d): the error
 // n (m d - 2^31) / (d 2^31) stays below 1/d, too small to reach the next
 // integer, while n (m d - 2^31) < 2^31, so wherever n d <= 2^31 (every
-// division here: n < 2^16, d < 2^12; the host checks each range).
+// division here: n < 2^17, d < 2^14; the host checks each range).
 struct FastDiv {
   unsigned m;
   static FastDiv of(unsigned d) { return {((1u << 31) + d - 1) / d}; }
@@ -103,7 +174,7 @@ struct Stage {
 };
 static_assert(sizeof(Stage) == 20, "ops/kernels/stft.py STAGE_TABLE_BYTES");
 
-// What a launch computes, by value in the kernel's parameters.
+// What a launch of (A) computes, by value in the kernel's parameters.
 struct Geometry {
   int N, T, n_fft, hop, tf, log2tf, vec;
   int L;        // the transform's length: n_fft / 2 (even), n_fft (odd)
@@ -126,6 +197,13 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 
 __device__ __forceinline__ float2 conjugate(float2 a) {
   return make_float2(a.x, -a.y);
+}
+
+// One 8-byte asynchronous copy, global to shared memory.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
 }
 
 // W^idx for idx in [0, 2 half) from the table of W^0 .. W^half.
@@ -280,12 +358,12 @@ __device__ __forceinline__ void radix_step(const float2* fin, float2* fout,
 // after stages whose radices multiply to ns: butterfly j of a sequence
 // (k = j mod ns) reads z[j + r len/R] and writes (j - k) R + k + r ns.  A
 // stage of the mixed-radix plan divides by its host-computed constants.
-template <int R>
+template <int R, int NT>
 __device__ __forceinline__ void stage(const float2* in, float2* out,
                                       const float2* sW, int len, int half,
                                       const Stage st, int seq, int tid) {
   const int mr = len / R, ns = st.ns;
-  for (int i = tid; i < seq * mr; i += kThreads) {
+  for (int i = tid; i < seq * mr; i += NT) {
     const int f = st.mr.div(i), j = i - f * mr;
     const int q = st.by_ns.div(j), k = j - q * ns;
     radix_step<R>(in + f * len + j, out + f * len + q * ns * R + k, sW, mr,
@@ -296,14 +374,14 @@ __device__ __forceinline__ void stage(const float2* in, float2* out,
 // The same stage for a power-of-two length (R = 2, 4 or 8, len = 2^log2len,
 // ns = 2^log2ns, the table of order 2 half = 2^log2q), indexed by shifts
 // and masks (the divisions cost 8% at the scaled device batch on an H100).
-template <int R>
+template <int R, int NT>
 __device__ __forceinline__ void stage_pow2(const float2* in, float2* out,
                                            const float2* sW, int log2len,
                                            int log2q, int half, int log2ns,
                                            int seq, int tid) {
   constexpr int kLog2R = R == 8 ? 3 : R == 4 ? 2 : 1;
   const int log2mr = log2len - kLog2R, ns = 1 << log2ns;
-  for (int i = tid; i < (seq << log2mr); i += kThreads) {
+  for (int i = tid; i < (seq << log2mr); i += NT) {
     const int f = i >> log2mr, j = i & ((1 << log2mr) - 1);
     const int k = j & (ns - 1);
     radix_step<R>(in + (f << log2len) + j,
@@ -314,7 +392,7 @@ __device__ __forceinline__ void stage_pow2(const float2* in, float2* out,
 
 // The FFT of every sequence, `in` -> `out` -> `in` ..., one stage a radix;
 // on return `in` holds the transform.
-template <int KIND>
+template <int KIND, int NT>
 __device__ __forceinline__ void fft(float2*& in, float2*& out,
                                     const float2* sW, const Stage* sStage,
                                     int n_stages, int len, int log2len,
@@ -323,13 +401,16 @@ __device__ __forceinline__ void fft(float2*& in, float2*& out,
     if (KIND != kMixed) {
       const int first = log2ns == 0 ? log2len % 3 : 0;
       if (first == 1) {
-        stage_pow2<2>(in, out, sW, log2len, log2q, half, log2ns, seq, tid);
+        stage_pow2<2, NT>(in, out, sW, log2len, log2q, half, log2ns, seq,
+                          tid);
         log2ns += 1;
       } else if (first == 2) {
-        stage_pow2<4>(in, out, sW, log2len, log2q, half, log2ns, seq, tid);
+        stage_pow2<4, NT>(in, out, sW, log2len, log2q, half, log2ns, seq,
+                          tid);
         log2ns += 2;
       } else {
-        stage_pow2<8>(in, out, sW, log2len, log2q, half, log2ns, seq, tid);
+        stage_pow2<8, NT>(in, out, sW, log2len, log2q, half, log2ns, seq,
+                          tid);
         log2ns += 3;
       }
     } else {
@@ -337,15 +418,15 @@ __device__ __forceinline__ void fft(float2*& in, float2*& out,
       // cannot alias it.
       const Stage st = sStage[s];
       if (st.radix == 4)
-        stage<4>(in, out, sW, len, half, st, seq, tid);
+        stage<4, NT>(in, out, sW, len, half, st, seq, tid);
       else if (st.radix == 2)
-        stage<2>(in, out, sW, len, half, st, seq, tid);
+        stage<2, NT>(in, out, sW, len, half, st, seq, tid);
       else if (st.radix == 3)
-        stage<3>(in, out, sW, len, half, st, seq, tid);
+        stage<3, NT>(in, out, sW, len, half, st, seq, tid);
       else if (st.radix == 5)
-        stage<5>(in, out, sW, len, half, st, seq, tid);
+        stage<5, NT>(in, out, sW, len, half, st, seq, tid);
       else
-        stage<7>(in, out, sW, len, half, st, seq, tid);
+        stage<7, NT>(in, out, sW, len, half, st, seq, tid);
     }
     __syncthreads();
     float2* tmp = in;
@@ -363,15 +444,44 @@ __device__ __forceinline__ float2 z_at(const float2* zf, int k,
   return BLUE ? cmul(__ldg(chirp + k), conjugate(v)) : v;
 }
 
-// Floats of each of the two work regions: the staged span, the FFT's
-// ping-pong buffer (seq sequences of len complex) and the (bin, frame)
-// stage all fit; rounded up to 4 floats so the next region stays 16-byte
-// aligned.
+// |X[k]| of the split step from Z[k] and Z[M-k], w = exp(-2 pi i k/n_fft).
+__device__ __forceinline__ float split_mag(float2 zk, float2 zm, float2 w) {
+  const float ar = zk.x + zm.x, ai = zk.y - zm.y;  // Z[k] + Z*[M-k]
+  const float br = zk.x - zm.x, bi = zk.y + zm.y;  // Z[k] - Z*[M-k]
+  const float wbr = w.x * br - w.y * bi, wbi = w.x * bi + w.y * br;
+  const float xr = 0.5f * (ar + wbi), xi = 0.5f * (ai - wbr);
+  return sqrtf(xr * xr + xi * xi);
+}
+
+// The magnitudes of bin k of a sequence's transform zf: the split step's
+// |X[k]| (even n_fft; .y unused), or the two frames' |X1[k]|, |X2[k]|
+// (odd).  sSplit holds exp(-2 pi i k / n_fft).
+template <bool BLUE, bool ODD>
+__device__ __forceinline__ float2 bin_mags(const float2* zf, int k, int L,
+                                           const float2* sSplit,
+                                           const float2* __restrict__ chirp) {
+  if (!ODD) {
+    const float2 zk = z_at<BLUE>(zf, k == L ? 0 : k, chirp);
+    const float2 zm = z_at<BLUE>(zf, k == 0 ? 0 : L - k, chirp);
+    return make_float2(split_mag(zk, zm, sSplit[k]), 0.f);
+  }
+  const float2 a = z_at<BLUE>(zf, k, chirp);
+  const float2 c = z_at<BLUE>(zf, k == 0 ? 0 : L - k, chirp);
+  const float pr = a.x + c.x, pi = a.y - c.y;  // Z[k] + Z*[L-k]
+  const float qr = a.x - c.x, qi = a.y + c.y;  // Z[k] - Z*[L-k]
+  return make_float2(0.5f * sqrtf(pr * pr + pi * pi),
+                     0.5f * sqrtf(qr * qr + qi * qi));
+}
+
+// Floats of each of the two work regions of (A): the staged span (up to
+// n_fft 4096), the FFT's ping-pong buffer (seq sequences of len complex)
+// and the (bin, frame) stage all fit; rounded up to 4 floats so the next
+// region stays 16-byte aligned.
 inline int region_floats(int n_fft, int hop, int tf, int seq, int len) {
   const int f = n_fft / 2 + 1;
   long long r = 2LL * seq * len;
   const long long span = (long long)(tf - 1) * hop + n_fft;
-  if (span > r) r = span;
+  if (n_fft <= kStagedMax && span > r) r = span;
   if ((long long)f * (tf + 1) > r) r = (long long)f * (tf + 1);
   r = (r + 3) & ~3LL;
   return r > kMaxSmem ? kMaxSmem : static_cast<int>(r);
@@ -379,12 +489,17 @@ inline int region_floats(int n_fft, int hop, int tf, int seq, int len) {
 
 // ODD: n_fft is odd (two frames a sequence).  KIND: kPow2, kMixed or
 // kBluestein (which transforms len = P points by shifts, as kPow2 does).
-template <int KIND, bool ODD>
-__global__ void __launch_bounds__(kThreads) stft_fft_kernel(
-    const float* __restrict__ audio, const float* __restrict__ window,
-    const float2* __restrict__ twiddle, const float2* __restrict__ split,
-    const float2* __restrict__ chirp, const float2* __restrict__ chirp_fft,
-    float* __restrict__ mag, const Geometry g) {
+// WIDE: n_fft above 4096 (512 threads, nothing staged).
+template <int KIND, bool ODD, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? kWideThreads : kThreads)
+    stft_fft_kernel(const float* __restrict__ audio,
+                    const float* __restrict__ window,
+                    const float2* __restrict__ twiddle,
+                    const float2* __restrict__ split,
+                    const float2* __restrict__ chirp,
+                    const float2* __restrict__ chirp_fft,
+                    float* __restrict__ mag, const Geometry g) {
+  constexpr int NT = WIDE ? kWideThreads : kThreads;
   constexpr bool kBlue = KIND == kBluestein;
   constexpr bool kShifts = KIND != kMixed;
   constexpr bool kOwnSplit = kBlue && !ODD;  // else the split is sW
@@ -403,29 +518,39 @@ __global__ void __launch_bounds__(kThreads) stft_fft_kernel(
   const long long g0 = (long long)t0 * hop;
   const float* src = audio + (size_t)b * g.N;
 
-  // Stage the span [g0, g0 + span) into region B, zero past N.
+  // Stage the span [g0, g0 + span) into region B, zero past N (not above
+  // 4096: WIDE, whose tables come by cp.async while the pack reads).
   const int span = (tf - 1) * hop + n_fft;
   float* sSpan = regB;
-  int scalar_from = 0;
-  if (g.vec) {
-    // g0 and N are multiples of 4: a chunk is all in or all out.
-    const int chunks = span >> 2;
-    for (int c = tid; c < chunks; c += kThreads) {
-      const long long at = g0 + 4 * c;
-      const bool ok = at < g.N;
-      cp_async16(sSpan + 4 * c, ok ? src + at : src, ok ? 16 : 0);
+  if (!WIDE) {
+    int scalar_from = 0;
+    if (g.vec) {
+      // g0 and N are multiples of 4: a chunk is all in or all out.
+      const int chunks = span >> 2;
+      for (int c = tid; c < chunks; c += NT) {
+        const long long at = g0 + 4 * c;
+        const bool ok = at < g.N;
+        cp_async16(sSpan + 4 * c, ok ? src + at : src, ok ? 16 : 0);
+      }
+      scalar_from = chunks << 2;
     }
-    scalar_from = chunks << 2;
+    for (int i = scalar_from + tid; i < span; i += NT) {
+      const long long at = g0 + i;
+      const bool ok = at < g.N;
+      cp_async4(sSpan + i, ok ? src + at : src, ok ? 4 : 0);
+    }
   }
-  for (int i = scalar_from + tid; i < span; i += kThreads) {
-    const long long at = g0 + i;
-    const bool ok = at < g.N;
-    cp_async4(sSpan + i, ok ? src + at : src, ok ? 4 : 0);
+  if (WIDE) {
+    for (int i = tid; i <= g.half; i += NT) cp_async8(sW + i, twiddle + i);
+    if (kOwnSplit)
+      for (int i = tid; i < F; i += NT) cp_async8(sSplit + i, split + i);
+    cp_async_commit();
+  } else {
+    for (int i = tid; i <= g.half; i += NT) sW[i] = twiddle[i];
+    if (kOwnSplit)
+      for (int i = tid; i < F; i += NT) sSplit[i] = split[i];
+    for (int i = tid; i < n_fft; i += NT) sWin[i] = window[i];
   }
-  for (int i = tid; i <= g.half; i += kThreads) sW[i] = twiddle[i];
-  if (kOwnSplit)
-    for (int i = tid; i < F; i += kThreads) sSplit[i] = split[i];
-  for (int i = tid; i < n_fft; i += kThreads) sWin[i] = window[i];
   // The plan's stages into shared memory, each by its own thread (static
   // indices keep the kernel parameter out of local memory).
   __shared__ Stage sStage[kMaxStages];
@@ -434,8 +559,10 @@ __global__ void __launch_bounds__(kThreads) stft_fft_kernel(
     for (int s = 0; s < kMaxStages; ++s)
       if (tid == s) sStage[s] = g.stage[s];
   }
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (!WIDE) {
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
   __syncthreads();
 
   // Window and pack into region A: seq sequences of len points (under
@@ -443,44 +570,74 @@ __global__ void __launch_bounds__(kThreads) stft_fft_kernel(
   {
     float2* z = reinterpret_cast<float2*>(regA);
     const int L = g.L, len = g.len;
-    const bool pairs = !ODD && (hop & 1) == 0;  // float2 reads of (x0, x1)
-    for (int i = tid; i < g.seq * len; i += kThreads) {
-      const int s = kShifts ? i >> g.log2len : g.by_len.div(i);
-      const int n = i - s * len;
-      float2 v = make_float2(0.f, 0.f);
-      if (!kBlue || n < L) {
-        if (!ODD) {
-          const float* x = sSpan + s * hop + 2 * n;
-          const float2 w = reinterpret_cast<const float2*>(sWin)[n];
-          const float2 xv =
-              pairs ? *reinterpret_cast<const float2*>(x)
-                    : make_float2(x[0], x[1]);
-          v = make_float2(xv.x * w.x, xv.y * w.y);
-        } else {
-          const float w = sWin[n];
-          const int f = 2 * s;
-          v.x = sSpan[f * hop + n] * w;
-          if (f + 1 < tf) v.y = sSpan[(f + 1) * hop + n] * w;
+    if (WIDE) {
+      // Each sample and window value read once from global memory, zero
+      // past N.
+      const int N = g.N;
+      const auto sample = [=](int i) {
+        const long long at = g0 + i;
+        return at < N ? __ldg(src + at) : 0.f;
+      };
+      for (int i = tid; i < g.seq * len; i += NT) {
+        const int s = kShifts ? i >> g.log2len : g.by_len.div(i);
+        const int n = i - s * len;
+        float2 v = make_float2(0.f, 0.f);
+        if (!kBlue || n < L) {
+          if (!ODD) {
+            const int at = s * hop + 2 * n;
+            v = make_float2(sample(at) * __ldg(window + 2 * n),
+                            sample(at + 1) * __ldg(window + 2 * n + 1));
+          } else {
+            const float w = __ldg(window + n);
+            const int f = 2 * s;
+            v.x = sample(f * hop + n) * w;
+            if (f + 1 < tf) v.y = sample((f + 1) * hop + n) * w;
+          }
+          if (kBlue) v = cmul(v, __ldg(chirp + n));
         }
-        if (kBlue) v = cmul(v, __ldg(chirp + n));
+        z[i] = v;
       }
-      z[i] = v;
+    } else {
+      const bool pairs = !ODD && (hop & 1) == 0;  // float2 reads of (x0, x1)
+      for (int i = tid; i < g.seq * len; i += NT) {
+        const int s = kShifts ? i >> g.log2len : g.by_len.div(i);
+        const int n = i - s * len;
+        float2 v = make_float2(0.f, 0.f);
+        if (!kBlue || n < L) {
+          if (!ODD) {
+            const float* x = sSpan + s * hop + 2 * n;
+            const float2 w = reinterpret_cast<const float2*>(sWin)[n];
+            const float2 xv =
+                pairs ? *reinterpret_cast<const float2*>(x)
+                      : make_float2(x[0], x[1]);
+            v = make_float2(xv.x * w.x, xv.y * w.y);
+          } else {
+            const float w = sWin[n];
+            const int f = 2 * s;
+            v.x = sSpan[f * hop + n] * w;
+            if (f + 1 < tf) v.y = sSpan[(f + 1) * hop + n] * w;
+          }
+          if (kBlue) v = cmul(v, __ldg(chirp + n));
+        }
+        z[i] = v;
+      }
     }
   }
+  if (WIDE) cp_async_wait<0>();
   __syncthreads();
 
   float2* in = reinterpret_cast<float2*>(regA);
   float2* out = reinterpret_cast<float2*>(regB);
-  fft<KIND>(in, out, sW, sStage, g.n_stages, g.len, g.log2len, g.log2q,
-            g.half, g.seq, tid);
+  fft<KIND, NT>(in, out, sW, sStage, g.n_stages, g.len, g.log2len, g.log2q,
+                g.half, g.seq, tid);
   if (kBlue) {
     // conj(V * chirp_fft): the second FFT then gives the conjugated
     // inverse transform.
-    for (int i = tid; i < g.seq * g.len; i += kThreads)
+    for (int i = tid; i < g.seq * g.len; i += NT)
       in[i] = conjugate(cmul(in[i], __ldg(chirp_fft + (i & (g.len - 1)))));
     __syncthreads();
-    fft<KIND>(in, out, sW, sStage, g.n_stages, g.len, g.log2len, g.log2q,
-              g.half, g.seq, tid);
+    fft<KIND, NT>(in, out, sW, sStage, g.n_stages, g.len, g.log2len,
+                  g.log2q, g.half, g.seq, tid);
   }
 
   // The F bins of each frame and their magnitudes; k runs fastest, so the
@@ -488,37 +645,290 @@ __global__ void __launch_bounds__(kThreads) stft_fft_kernel(
   const float2* Z = in;
   float* sMag = reinterpret_cast<float*>(out);
   const int ms = tf + 1;
-  for (int i = tid; i < g.seq * F; i += kThreads) {
-    const int s = g.by_f.div(i), k = i - s * F;
-    const float2* zf = Z + s * g.len;
+  const auto put = [=](int s, int k, float2 m) {
     if (!ODD) {
-      const int M = g.L;
-      const float2 zk = z_at<kBlue>(zf, k == M ? 0 : k, chirp);
-      const float2 zm = z_at<kBlue>(zf, k == 0 ? 0 : M - k, chirp);
-      const float ar = zk.x + zm.x, ai = zk.y - zm.y;  // Z[k] + Z*[M-k]
-      const float br = zk.x - zm.x, bi = zk.y + zm.y;  // Z[k] - Z*[M-k]
-      const float2 w = sSplit[k];
-      const float wbr = w.x * br - w.y * bi, wbi = w.x * bi + w.y * br;
-      const float xr = 0.5f * (ar + wbi), xi = 0.5f * (ai - wbr);
-      sMag[k * ms + s] = sqrtf(xr * xr + xi * xi);
+      sMag[k * ms + s] = m.x;
     } else {
-      const float2 a = z_at<kBlue>(zf, k, chirp);
-      const float2 c = z_at<kBlue>(zf, k == 0 ? 0 : g.L - k, chirp);
-      const float pr = a.x + c.x, pi = a.y - c.y;  // Z[k] + Z*[L-k]
-      const float qr = a.x - c.x, qi = a.y + c.y;  // Z[k] - Z*[L-k]
-      sMag[k * ms + 2 * s] = 0.5f * sqrtf(pr * pr + pi * pi);
-      if (2 * s + 1 < tf)
-        sMag[k * ms + 2 * s + 1] = 0.5f * sqrtf(qr * qr + qi * qi);
+      sMag[k * ms + 2 * s] = m.x;
+      if (2 * s + 1 < tf) sMag[k * ms + 2 * s + 1] = m.y;
     }
+  };
+  for (int i = tid; i < g.seq * F; i += NT) {
+    const int s = g.by_f.div(i), k = i - s * F;
+    put(s, k, bin_mags<kBlue, ODD>(Z + s * g.len, k, g.L, sSplit, chirp));
   }
   __syncthreads();
 
   // Store: consecutive threads take consecutive frames of one bin.
   float* dst = mag + (size_t)b * F * g.T;
-  for (int i = tid; i < (F << g.log2tf); i += kThreads) {
+  for (int i = tid; i < (F << g.log2tf); i += NT) {
     const int k = i >> g.log2tf, f = i & (tf - 1);
     const int t = t0 + f;
     if (t < g.T) dst[(size_t)k * g.T + t] = sMag[k * ms + f];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (B) The four-step FFT: one launch a pass over a chunk of sequences.
+// ---------------------------------------------------------------------------
+
+enum { kColumns = 0, kRowsLast = 1, kRowsMiddle = 2, kColumnsLast = 3 };
+
+// What one launch of a pass of (B) computes, by value in its parameters.
+struct FourStep {
+  int N, T, n_fft, hop;
+  int L;          // the transform's length
+  int P;          // the FFT's length: L, or Bluestein's pad
+  int n1, n2;     // P = n1 n2: columns of n1 points, rows of n2
+  int F;
+  int S;          // sequences a signal: T (even n_fft), ceil(T / 2) (odd)
+  int odd, blue;
+  long long seq0;  // the launch's first sequence of the B S
+  int groups;      // blocks a sequence
+  int width;       // columns (kColumns: a power of two), rows, or pairs
+  int log2width;
+  int reps;        // the last pass: representatives of the pairs
+  int a, q;        // the last pass: L = q A + a, A = n1 (rows), n2 (columns)
+  int region;      // float2 of each work region
+  // The pass's FFT of `len` points (n1 or n2), its table of order 2 len.
+  int len, log2len, log2q, n_stages, pow2;
+  Stage stage[kMaxStages];
+};
+
+// W_P^m = exp(-2 pi i m / P) for m in [0, P), P < 2^24.
+__device__ __forceinline__ float2 unit_root(int m, int P) {
+  float s, c;
+  sincospif(2.0f * static_cast<float>(m) / static_cast<float>(P), &s, &c);
+  return make_float2(c, -s);
+}
+
+// The row passes' FFT: sequences of len points, one after another.
+__device__ __forceinline__ void pass_fft(const FourStep& g, float2*& in,
+                                         float2*& out, const float2* sW,
+                                         const Stage* sStage, int seq,
+                                         int tid) {
+  if (g.pow2)
+    fft<kPow2, kThreads>(in, out, sW, sStage, g.n_stages, g.len, g.log2len,
+                         g.log2q, g.len, seq, tid);
+  else
+    fft<kMixed, kThreads>(in, out, sW, sStage, g.n_stages, g.len,
+                          g.log2len, g.log2q, g.len, seq, tid);
+}
+
+// One Stockham stage of radix R over 2^log2seq sequences laid out column
+// by column (point j of sequence f at j 2^log2seq + f): a warp's threads
+// take consecutive sequences at one butterfly, so they touch consecutive
+// words and share one twiddle.
+template <int R>
+__device__ __forceinline__ void stage_cols(const float2* in, float2* out,
+                                           const float2* sW, int len,
+                                           int half, const Stage st,
+                                           int log2seq, int tid) {
+  const int mr = len / R, ns = st.ns, seq = 1 << log2seq;
+  for (int i = tid; i < (mr << log2seq); i += kThreads) {
+    const int f = i & (seq - 1), j = i >> log2seq;
+    const int q = st.by_ns.div(j), k = j - q * ns;
+    radix_step<R>(in + (j << log2seq) + f,
+                  out + ((q * ns * R + k) << log2seq) + f, sW, mr << log2seq,
+                  ns << log2seq, k * st.tw, half);
+  }
+}
+
+// The column passes' FFT of len points (table of order 2 len) over
+// 2^log2seq sequences in that layout; on return `in` holds the transform.
+__device__ __forceinline__ void fft_cols(float2*& in, float2*& out,
+                                         const float2* sW,
+                                         const Stage* sStage, int n_stages,
+                                         int len, int log2seq, int tid) {
+  for (int s = 0; s < n_stages; ++s) {
+    const Stage st = sStage[s];
+    if (st.radix == 8)
+      stage_cols<8>(in, out, sW, len, len, st, log2seq, tid);
+    else if (st.radix == 4)
+      stage_cols<4>(in, out, sW, len, len, st, log2seq, tid);
+    else if (st.radix == 2)
+      stage_cols<2>(in, out, sW, len, len, st, log2seq, tid);
+    else if (st.radix == 3)
+      stage_cols<3>(in, out, sW, len, len, st, log2seq, tid);
+    else if (st.radix == 5)
+      stage_cols<5>(in, out, sW, len, len, st, log2seq, tid);
+    else
+      stage_cols<7>(in, out, sW, len, len, st, log2seq, tid);
+    __syncthreads();
+    float2* tmp = in;
+    in = out;
+    out = tmp;
+  }
+}
+
+// The axis index (row or column) of the last pass's sequence `sl`: the
+// representative of pair sl / 2, or (odd sl) its partner (a - x) mod A.
+__device__ __forceinline__ int axis_of(int a, int A, int u0, int sl) {
+  const int u = u0 + (sl >> 1), h0 = a / 2 + 1;
+  const int x = u < h0 ? u : a + 1 + (u - h0);
+  if (!(sl & 1)) return x;
+  const int y = a - x;
+  return y < 0 ? y + A : y;
+}
+
+template <int PASS>
+__global__ void __launch_bounds__(kThreads) stft_4step_kernel(
+    const float* __restrict__ audio, const float* __restrict__ window,
+    const float2* __restrict__ twiddle, const float2* __restrict__ split,
+    const float2* __restrict__ chirp, const float2* __restrict__ chirp_fft,
+    float2* __restrict__ scratch, float* __restrict__ mag,
+    const FourStep g) {
+  constexpr int NT = kThreads;
+  extern __shared__ float4 smem4[];
+  float2* regA = reinterpret_cast<float2*>(smem4);
+  float2* regB = regA + g.region;
+  float2* sW = regB + g.region;  // len + 1 values of order 2 len
+  __shared__ Stage sStage[kMaxStages];
+
+  const int tid = threadIdx.x;
+  const int local = blockIdx.x / g.groups;
+  const int grp = blockIdx.x - local * g.groups;
+  const long long gs = g.seq0 + local;
+  const int b = static_cast<int>(gs / g.S);
+  const int s = static_cast<int>(gs - (long long)b * g.S);
+  float2* seq_scratch = scratch + (size_t)local * g.P;
+  const int n1 = g.n1, n2 = g.n2;
+
+  for (int i = tid; i <= g.len; i += NT) cp_async8(sW + i, twiddle + i);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < kMaxStages; ++st)
+    if (tid == st) sStage[st] = g.stage[st];
+
+  float2* in = regA;
+  float2* out = regB;
+  if (PASS == kColumns) {
+    // The block's C columns (a power of two) row by row, point a of
+    // column c at [a][c]: consecutive columns, coalesced.
+    const int C = g.width, lc = g.log2width;
+    const int c0 = grp * C;
+    const float* src = audio + (size_t)b * g.N;
+    const long long t0 = g.odd ? 2LL * s : s;
+    const long long base = t0 * g.hop;
+    const bool second = g.odd && t0 + 1 < g.T;
+    for (int i = tid; i < n1 * C; i += NT) {
+      const int c = i & (C - 1), r = i >> lc, col = c0 + c;
+      const int n = r * n2 + col;
+      float2 v = make_float2(0.f, 0.f);
+      if (col < n2 && n < g.L) {
+        if (!g.odd) {
+          const long long at = base + 2LL * n;
+          const float2 w = __ldg(reinterpret_cast<const float2*>(window) + n);
+          v = make_float2(at < g.N ? __ldg(src + at) * w.x : 0.f,
+                          at + 1 < g.N ? __ldg(src + at + 1) * w.y : 0.f);
+        } else {
+          const float w = __ldg(window + n);
+          const long long at = base + n, at2 = at + g.hop;
+          v.x = at < g.N ? __ldg(src + at) * w : 0.f;
+          if (second && at2 < g.N) v.y = __ldg(src + at2) * w;
+        }
+        if (g.blue) v = cmul(v, __ldg(chirp + n));
+      }
+      regA[i] = v;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    fft_cols(in, out, sW, sStage, g.n_stages, n1, lc, tid);
+    // Times W_P^(col k1), written row by row as [k1][col].
+    for (int i = tid; i < n1 * C; i += NT) {
+      const int c = i & (C - 1), k1 = i >> lc, col = c0 + c;
+      if (col < n2)
+        seq_scratch[(size_t)k1 * n2 + col] =
+            cmul(in[i], unit_root(col * k1, g.P));
+    }
+    return;
+  }
+
+  if (PASS == kRowsMiddle) {
+    const int r0 = grp * g.width;
+    const int rows = min(g.width, n1 - r0);
+    float2* rows_at = seq_scratch + (size_t)r0 * n2;
+    const float2* cf = chirp_fft + (size_t)r0 * n2;  // [k1][k2]
+    for (int i = tid; i < rows * n2; i += NT) regA[i] = rows_at[i];
+    cp_async_wait<0>();
+    __syncthreads();
+    pass_fft(g, in, out, sW, sStage, rows, tid);
+    for (int i = tid; i < rows * n2; i += NT)
+      in[i] = conjugate(cmul(in[i], __ldg(cf + i)));
+    __syncthreads();
+    pass_fft(g, in, out, sW, sStage, rows, tid);
+    for (int i = tid; i < rows * n2; i += NT) {
+      const int r = i / n2, m2 = i - r * n2;
+      rows_at[i] = cmul(in[i], unit_root((r0 + r) * m2, g.P));
+    }
+    return;
+  }
+
+  // The last pass: `width` pairs of rows (kRowsLast: sequences one after
+  // another) or of columns (kColumnsLast: 2 width sequences, a power of
+  // two, column by column), each of Q points along the other axis.
+  constexpr bool kRows = PASS == kRowsLast;
+  const int A = kRows ? n1 : n2, Q = kRows ? n2 : n1;
+  const int u0 = grp * g.width;
+  const int nseq = 2 * min(g.width, g.reps - u0);
+  const int a = g.a, log2slots = g.log2width + 1;
+  if (kRows) {
+    for (int i = tid; i < nseq * Q; i += NT) {
+      const int sl = i / Q, p = i - sl * Q;
+      regA[i] = seq_scratch[(size_t)axis_of(a, A, u0, sl) * n2 + p];
+    }
+  } else {
+    for (int i = tid; i < (n1 << log2slots); i += NT) {
+      const int sl = i & ((1 << log2slots) - 1), p = i >> log2slots;
+      regA[i] = sl < nseq
+                    ? seq_scratch[(size_t)p * n2 + axis_of(a, A, u0, sl)]
+                    : make_float2(0.f, 0.f);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (kRows)
+    pass_fft(g, in, out, sW, sStage, nseq, tid);
+  else
+    fft_cols(in, out, sW, sStage, g.n_stages, n1, log2slots, tid);
+
+  // Z[j] at (x, p), j = x + A p; its partner Z[L - j] at ((a - x) mod A,
+  // q - p - [x > a]) in the pair's other sequence; Z[0] is its own.  Bins
+  // j < L (even n_fft, and bin L from Z[0]) or j < F (odd: two frames).
+  const auto at = [=](int sl, int p) {
+    return kRows ? sl * Q + p : (p << log2slots) + sl;
+  };
+  const int jmax = g.odd ? g.F : g.L;
+  float* dst = mag + (size_t)b * g.F * g.T;
+  for (int i = tid; i < nseq * Q; i += NT) {
+    const int sl = kRows ? i / Q : i % nseq;
+    const int p = kRows ? i - sl * Q : i / nseq;
+    const int x = axis_of(a, A, u0, sl);
+    if ((sl & 1) && x == axis_of(a, A, u0, sl ^ 1)) continue;  // once
+    const int j = x + A * p;
+    if (j >= jmax) continue;
+    float2 zk = in[at(sl, p)], zm = zk;
+    int jm = 0;
+    if (j > 0) {
+      const int pm = g.q - p - (x > a ? 1 : 0);
+      zm = in[at(sl ^ 1, pm)];
+      jm = g.L - j;
+    }
+    if (g.blue) {
+      zk = cmul(__ldg(chirp + j), conjugate(zk));
+      zm = cmul(__ldg(chirp + jm), conjugate(zm));
+    }
+    if (!g.odd) {
+      dst[(size_t)j * g.T + s] = split_mag(zk, zm, __ldg(split + j));
+      if (j == 0)
+        dst[(size_t)g.L * g.T + s] = split_mag(zk, zk, __ldg(split + g.L));
+    } else {
+      const float pr = zk.x + zm.x, pi = zk.y - zm.y;  // Z[k] + Z*[L-k]
+      const float qr = zk.x - zm.x, qi = zk.y + zm.y;  // Z[k] - Z*[L-k]
+      dst[(size_t)j * g.T + 2 * s] = 0.5f * sqrtf(pr * pr + pi * pi);
+      if (2 * s + 1 < g.T)
+        dst[(size_t)j * g.T + 2 * s + 1] = 0.5f * sqrtf(qr * qr + qi * qi);
+    }
   }
 }
 
@@ -536,22 +946,50 @@ bool exact(unsigned d, long long top) {
   return top * (long long)(m * d - (1ull << 31)) < (1ll << 31);
 }
 
+// The stages of an FFT of `len` points (table of order 2 half) over `seq`
+// sequences from the host's radices: false unless they multiply to len in
+// the order the kernels run them (a power of two: one 2 or one 4 for
+// log2(len) mod 3, then 8s; otherwise radices 2, 3, 4, 5 and 7) and every
+// division of a mixed-radix stage is exact.
+bool plan_stages(Stage* out, int len, int half, const int* radices,
+                 int n_stages, int seq) {
+  if (n_stages < 0 || n_stages > kMaxStages) return false;
+  const int log2len = log2_exact(len);
+  int ns = 1;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    const int first = log2len % 3;
+    const bool pow2_ok =
+        r == (s > 0 || first == 0 ? 8 : first == 1 ? 2 : 4);
+    const bool mixed_ok = r >= 2 && r <= 7 && r != 6;
+    if (len % (ns * r) != 0 || !(log2len < 0 ? mixed_ok : pow2_ok))
+      return false;
+    out[s] = {r, ns, 2 * half / (r * ns), FastDiv::of(len / r),
+              FastDiv::of(ns)};
+    if (log2len < 0 && (!exact(len / r, (long long)seq * len / r) ||
+                        !exact(ns, len / r)))
+      return false;
+    ns *= r;
+  }
+  return ns == len;
+}
+
 }  // namespace
 
-// Launch over B signals of N samples.  window is n_fft floats; twiddle
-// half + 1 complex (float2) values exp(-pi i j / half), half = L (the
-// planned transform of L points) or P/2 (Bluestein); split (even n_fft
-// under Bluestein) n_fft/2 + 1 values exp(-2 pi i k / n_fft), else unused;
-// chirp (L values exp(-i pi (n^2 mod 2L) / L)) and chirp_fft (P values:
-// the P-point FFT of the chirp's conjugate over |m| < L, divided by P)
-// under Bluestein, else unused.  `radices` (n_stages of 2, 3, 4, 5, 7, 8)
-// multiply to L, or to `pad` = P (0: no Bluestein); for a power of two 2^e
-// they are one 2 (e mod 3 = 1) or one 4 (e mod 3 = 2), then 8s, and
+// (A): launch over B signals of N samples.  window is n_fft floats;
+// twiddle half + 1 complex (float2) values exp(-pi i j / half), half = L
+// (the planned transform of L points) or P/2 (Bluestein); split (even
+// n_fft under Bluestein) n_fft/2 + 1 values exp(-2 pi i k / n_fft), else
+// unused; chirp (L values exp(-i pi (n^2 mod 2L) / L)) and chirp_fft (P
+// values: the P-point FFT of the chirp's conjugate over |m| < L, divided by
+// P) under Bluestein, else unused.  `radices` (n_stages of 2, 3, 4, 5, 7,
+// 8) multiply to L, or to `pad` = P (0: no Bluestein); for a power of two
+// 2^e they are one 2 (e mod 3 = 1) or one 4 (e mod 3 = 2), then 8s, and
 // otherwise one 2 when the power of two's exponent is odd, then 4s, 3s,
-// 5s and 7s.  `tf` (frames a block) is a
-// power of two in [1, 32]; `vec` asks for 16-byte copies and needs
-// hop % 4 == 0, N % 4 == 0 and a 16-byte aligned audio pointer.  Returns a
-// cudaError_t (0 on success).
+// 5s and 7s.  `tf` (frames a block) is a power of two in [1, 32]; `vec`
+// asks for 16-byte copies (n_fft <= 4096) and needs hop % 4 == 0,
+// N % 4 == 0 and a 16-byte aligned audio pointer.  Returns a cudaError_t
+// (0 on success); cudaErrorInvalidValue where the block would not fit.
 extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
                                   const void* twiddle, const void* split,
                                   const void* chirp, const void* chirp_fft,
@@ -559,13 +997,12 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
                                   int hop, int tf, int vec,
                                   const int* radices, int n_stages, int pad,
                                   int device, void* stream) {
-  if (n_fft < 2 || n_fft > 4096 || hop < 1 || B < 1 || N < 1 || T < 1 ||
-      tf < 1 || tf > 32 || log2_exact(tf) < 0 || n_stages < 0 ||
-      n_stages > kMaxStages ||
-      (vec && (hop % 4 != 0 || N % 4 != 0 ||
+  if (n_fft < 2 || hop < 1 || B < 1 || N < 1 || T < 1 || tf < 1 ||
+      tf > 32 || log2_exact(tf) < 0 ||
+      (vec && (n_fft > kStagedMax || hop % 4 != 0 || N % 4 != 0 ||
                reinterpret_cast<uintptr_t>(audio) % 16 != 0)))
     return cudaErrorInvalidValue;
-  const bool odd = n_fft & 1;
+  const bool odd = n_fft & 1, wide = n_fft > kStagedMax;
   Geometry g = {};
   g.N = N;
   g.T = T;
@@ -585,27 +1022,10 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
   const int kind = pad ? kBluestein : g.log2len >= 0 ? kPow2 : kMixed;
   if (pad && (g.log2len < 0 || pad < 2 * g.L - 1 || pad > kMaxPad ||
               chirp == nullptr || chirp_fft == nullptr ||
-              (!odd && split == nullptr)))
+              (!odd && split == nullptr) || (odd && wide)))
     return cudaErrorInvalidValue;
-  // The plan: it multiplies to len; a power of two's is one 2 or one 4
-  // for log2(len) mod 3, then 8s.
-  int ns = 1;
-  for (int s = 0; s < n_stages; ++s) {
-    const int r = radices[s];
-    const int first = g.log2len % 3;
-    const bool pow2_ok =
-        r == (s > 0 || first == 0 ? 8 : first == 1 ? 2 : 4);
-    const bool mixed_ok = r >= 2 && r <= 7 && r != 6;
-    if (g.len % (ns * r) != 0 || !(kind == kMixed ? mixed_ok : pow2_ok))
-      return cudaErrorInvalidValue;
-    g.stage[s] = {r, ns, 2 * g.half / (r * ns), FastDiv::of(g.len / r),
-                  FastDiv::of(ns)};
-    if (kind == kMixed && (!exact(g.len / r, (long long)g.seq * g.len / r) ||
-                           !exact(ns, g.len / r)))
-      return cudaErrorInvalidValue;
-    ns *= r;
-  }
-  if (ns != g.len) return cudaErrorInvalidValue;
+  if (!plan_stages(g.stage, g.len, g.half, radices, n_stages, g.seq))
+    return cudaErrorInvalidValue;
   g.by_len = FastDiv::of(g.len);
   g.by_f = FastDiv::of(g.F);
   if (!exact(g.len, (long long)g.seq * g.len) ||
@@ -616,7 +1036,7 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
   if (tiles * B > 0x7fffffffLL) return cudaErrorInvalidValue;
   g.tiles = static_cast<int>(tiles);
   const size_t smem =
-      sizeof(float) * (2 * (size_t)g.region + n_fft) +
+      sizeof(float) * (2 * (size_t)g.region + (wide ? 0 : n_fft)) +
       sizeof(float2) * ((size_t)g.half + 1 + (pad && !odd ? g.F : 0));
   if (smem + sizeof(Stage) * kMaxStages > kMaxSmem)
     return cudaErrorInvalidValue;
@@ -624,24 +1044,151 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto kernel =
-      kind == kPow2  ? stft_fft_kernel<kPow2, false>
-      : kind == kMixed ? (odd ? stft_fft_kernel<kMixed, true>
-                              : stft_fft_kernel<kMixed, false>)
-                       : (odd ? stft_fft_kernel<kBluestein, true>
-                              : stft_fft_kernel<kBluestein, false>);
+      wide ? (kind == kPow2    ? stft_fft_kernel<kPow2, false, true>
+              : kind == kMixed ? (odd ? stft_fft_kernel<kMixed, true, true>
+                                      : stft_fft_kernel<kMixed, false, true>)
+                               : stft_fft_kernel<kBluestein, false, true>)
+      : kind == kPow2  ? stft_fft_kernel<kPow2, false, false>
+      : kind == kMixed ? (odd ? stft_fft_kernel<kMixed, true, false>
+                              : stft_fft_kernel<kMixed, false, false>)
+                       : (odd ? stft_fft_kernel<kBluestein, true, false>
+                              : stft_fft_kernel<kBluestein, false, false>);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<static_cast<unsigned>(tiles * B), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(tiles * B), wide ? kWideThreads : kThreads,
+           smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), static_cast<const float*>(window),
       static_cast<const float2*>(twiddle), static_cast<const float2*>(split),
       static_cast<const float2*>(chirp),
       static_cast<const float2*>(chirp_fft), static_cast<float*>(mag), g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// (B): the passes over sequences [seq0, seq0 + seqs) of B signals' S
+// sequences each (S = T, or ceil(T / 2) for an odd n_fft), through
+// `scratch` (seqs P complex values).  P = pad (Bluestein) or L = n1 n2;
+// n1 <= 8192, n2 <= 2048.  window n_fft floats; twiddle1 / twiddle2 the
+// n1 + 1 and n2 + 1 values exp(-pi i j / n) of the column and row FFTs;
+// split (even n_fft) the F values exp(-2 pi i k / n_fft); under Bluestein
+// chirp (L values, as for (A)) and chirp_fft (P values in the [k1][k2]
+// layout: entry k1 n2 + k2 holds the transform at k1 + n1 k2).  radices1 /
+// radices2 plan the n1- and n2-point FFTs as for (A).  `cols` (a power of
+// two) columns a block of the first pass, `rows` rows a block of
+// Bluestein's middle pass, `pairs` pairs a block of the last pass.
+// Returns a cudaError_t (0 on success).
+extern "C" int avsep_stft_4step_fwd(
+    const void* audio, const void* window, const void* twiddle1,
+    const void* twiddle2, const void* split, const void* chirp,
+    const void* chirp_fft, void* scratch, void* mag, int B, int N, int T,
+    int n_fft, int hop, int n1, int n2, const int* radices1, int n_stages1,
+    const int* radices2, int n_stages2, int pad, int cols, int rows,
+    int pairs, long long seq0, int seqs, int device, void* stream) {
+  const bool odd = n_fft & 1;
+  const int L = odd ? n_fft : n_fft / 2, P = pad ? pad : L;
+  const int S = odd ? (T + 1) / 2 : T;
+  if (n_fft < 2 || hop < 1 || B < 1 || N < 1 || T < 1 || n1 < 2 ||
+      n2 < 2 || n1 > kMaxColumn || n2 > kMaxRow ||
+      (long long)n1 * n2 != P || P >= (1 << 24) ||
+      (pad && (log2_exact(pad) < 0 || pad < 2 * L - 1 || chirp == nullptr ||
+               chirp_fft == nullptr)) ||
+      (!odd && split == nullptr) || cols < 1 || log2_exact(cols) < 0 ||
+      rows < 1 || pairs < 1 || log2_exact(pairs) < 0 || seqs < 1 ||
+      seq0 < 0 ||
+      seq0 + seqs > (long long)B * S)
+    return cudaErrorInvalidValue;
+  // Each pass: its FFT (length, radices, sequences a block) and work region.
+  const bool cols_last = pad != 0;
+  FourStep g[3] = {};
+  int passes[3] = {kColumns, cols_last ? kRowsMiddle : kRowsLast,
+                   kColumnsLast};
+  const int n_passes = cols_last ? 3 : 2;
+  for (int p = 0; p < n_passes; ++p) {
+    FourStep& f = g[p];
+    f.N = N;
+    f.T = T;
+    f.n_fft = n_fft;
+    f.hop = hop;
+    f.L = L;
+    f.P = P;
+    f.n1 = n1;
+    f.n2 = n2;
+    f.F = n_fft / 2 + 1;
+    f.S = S;
+    f.odd = odd;
+    f.blue = pad != 0;
+    f.seq0 = seq0;
+    const int pass = passes[p];
+    const bool on_columns = pass == kColumns || pass == kColumnsLast;
+    f.len = on_columns ? n1 : n2;
+    f.log2len = log2_exact(f.len);
+    f.log2q = f.log2len < 0 ? -1 : f.log2len + 1;
+    f.pow2 = f.log2len >= 0;
+    f.n_stages = on_columns ? n_stages1 : n_stages2;
+    int seq = 0;
+    if (pass == kColumns) {
+      f.width = cols;
+      f.log2width = log2_exact(cols);
+      f.groups = (n2 + cols - 1) / cols;
+      seq = cols;
+      f.region = n1 * cols;
+    } else if (pass == kRowsMiddle) {
+      f.width = rows;
+      f.groups = (n1 + rows - 1) / rows;
+      seq = rows;
+      f.region = rows * n2;
+    } else {
+      const int A = pass == kRowsLast ? n1 : n2;
+      f.a = L % A;
+      f.q = L / A;
+      f.reps = f.a / 2 + 1 + (A - f.a) / 2;  // + ceil((A - a - 1) / 2)
+      f.width = pairs;
+      f.log2width = log2_exact(pairs);
+      f.groups = (f.reps + pairs - 1) / pairs;
+      seq = 2 * pairs;
+      f.region = seq * (pass == kRowsLast ? n2 : n1);
+    }
+    if (!plan_stages(f.stage, f.len, f.len, on_columns ? radices1 : radices2,
+                     f.n_stages, seq) ||
+        (long long)f.groups * seqs > 0x7fffffffLL ||
+        (2 * (size_t)f.region + f.len + 1) * sizeof(float2) +
+                sizeof(Stage) * kMaxStages > kMaxSmem)
+      return cudaErrorInvalidValue;
+  }
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float2* tables[3] = {static_cast<const float2*>(twiddle1),
+                             static_cast<const float2*>(twiddle2),
+                             static_cast<const float2*>(twiddle1)};
+  for (int p = 0; p < n_passes; ++p) {
+    const auto kernel =
+        passes[p] == kColumns      ? stft_4step_kernel<kColumns>
+        : passes[p] == kRowsLast   ? stft_4step_kernel<kRowsLast>
+        : passes[p] == kRowsMiddle ? stft_4step_kernel<kRowsMiddle>
+                                   : stft_4step_kernel<kColumnsLast>;
+    const size_t smem = (2 * (size_t)g[p].region + g[p].len + 1) *
+                        sizeof(float2);
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<static_cast<unsigned>((long long)g[p].groups * seqs), kThreads,
+             smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(audio), static_cast<const float*>(window),
+        tables[p], static_cast<const float2*>(split),
+        static_cast<const float2*>(chirp),
+        static_cast<const float2*>(chirp_fft),
+        static_cast<float2*>(scratch), static_cast<float*>(mag), g[p]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 extern "C" const char* avsep_error_string(int code) {

@@ -5,8 +5,9 @@ tensor launches the kernel (or the call raises), a CPU tensor runs the plain
 PyTorch version.  `LAUNCHES` counts kernel launches per wrapper and dtype
 (the bfloat16 instances under `name[bf16]`; the projection's weight
 split, its own launch, under `audio_proj_split` and
-`audio_proj_split[bf16]` by the dtype of x), and only those: plain-version
-calls never touch it.
+`audio_proj_split[bf16]` by the dtype of x; the STFT's four-step FFT once
+a call under `stft_mag_4step_fwd`, whatever its passes and chunks), and
+only those: plain-version calls never touch it.
 """
 
 from typing import Callable, Sequence
@@ -20,7 +21,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GRID_X_MAX = 2 ** 31 - 1
 
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
-            "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_dft_fwd": 0,
+            "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_4step_fwd": 0,
             "flash_attn_fwd[bf16]": 0, "flash_attn_bwd[bf16]": 0,
             "audio_proj_fwd[bf16]": 0, "audio_proj_split": 0,
             "audio_proj_split[bf16]": 0}

@@ -1,28 +1,29 @@
-"""Fused STFT magnitude: the CUDA kernels `csrc/stft_fft.cu` and
-`csrc/stft_mag.cu`, and their plain PyTorch version.
+"""Fused STFT magnitude: the CUDA kernels of `csrc/stft_fft.cu`, and their
+plain PyTorch version.
 
 Port of `av_separation_tpu/ops/pallas/stft.py` (`_stft_kernel`, called from
 `stft_magnitude_pallas`): framing, the symmetric Hann window, the rDFT and
-the magnitude, in one launch.  Reference semantics (reference
-dataset.py:122-135): frame i starts at sample i * hop, no centering, samples
-past N are zero, T defaults to 1 + N // hop.  The on-device data generator
-(`data/device_synthetic.py`) runs it once per generated batch; the serving
-path keeps `ops/stft.py`'s matmul DFT, as the JAX `Separator` keeps the XLA
-STFT.
+the magnitude.  Reference semantics (reference dataset.py:122-135): frame i
+starts at sample i * hop, no centering, samples past N are zero, T defaults
+to 1 + N // hop.  The on-device data generator (`data/device_synthetic.py`)
+runs it once per generated batch; the serving path keeps `ops/stft.py`'s
+matmul DFT, as the JAX `Separator` keeps the XLA STFT.
 
-Two routes on the card, chosen by shape (not a fallback: an error in either
-raises):
-  - n_fft in [2, 4096], at any hop and any number of signals:
-    `stft_fft.cu`, an FFT in shared memory.  An even n_fft transforms
-    L = n_fft / 2 points (two samples packed into one complex value, then
-    the real split step), an odd one L = n_fft points (two frames packed
-    into one complex sequence, then separated).  A 7-smooth L takes a
-    Stockham FFT of radices 2, 3, 4, 5, 7 and 8; any other L takes
-    Bluestein's chirp-z transform through a power-of-two FFT of
-    P >= 2L - 1 points.  Launches count under `stft_mag_fwd`.
-  - n_fft above 4096, at any hop and any number of signals: `stft_mag.cu`,
-    the matrix DFT against windowed cos/sin bases, 32 frames a block
-    (`dft_plan`); launches count under `stft_mag_dft_fwd`.
+An FFT for every n_fft >= 2, at any hop and any number of signals.  An even
+n_fft transforms L = n_fft / 2 points (two samples packed into one complex
+value, then the real split step), an odd one L = n_fft points (two frames
+packed into one complex sequence, then separated).  A 7-smooth L takes a
+Stockham FFT of radices 2, 3, 4, 5, 7 and 8; any other L takes Bluestein's
+chirp-z transform through a power-of-two FFT of P >= 2L - 1 points.  Two
+regimes on the card, chosen by shape (`route`; not a fallback: an error in
+either raises):
+  - 'fft', one block a tile of frames with the whole transform in shared
+    memory, wherever one frame's block fits (every n_fft up to 4096, and
+    above it up to n_fft 16384 for a power-of-two L, 19,208 for a 7-smooth
+    one, 8,190 under Bluestein): one launch, counted under `stft_mag_fwd`;
+  - 'four_step', the four-step FFT of L (or P) = n1 n2 points through a
+    global scratch (`four_step_plan`), two passes (three under Bluestein) a
+    chunk of frames: counted once a call under `stft_mag_4step_fwd`.
 """
 
 from __future__ import annotations
@@ -37,21 +38,27 @@ import torch
 
 from av_separation_torch.ops import kernels
 from av_separation_torch.ops.kernels import _build
-from av_separation_torch.ops.stft import (dft_basis, hann_symmetric,
-                                          stft_magnitude)
+from av_separation_torch.ops.stft import hann_symmetric, stft_magnitude
 
-TILE_FRAMES = 32            # frames per block of the DFT route (stft_mag.cu)
 MAX_SMEM_BYTES = 232448     # shared memory a block may use (H100)
-DFT_STATIC_SMEM = 32 * 12   # stft_mag.cu's per-frame offsets and lengths
-STAGE_STRIDE = 33           # its (bin, frame) stage's row stride
 MAX_GRID_X = 2 ** 31 - 1
 # A block's share of an SM's 233,472 bytes (less 1 KB a block) when four,
 # two or one blocks reside on it (H100).
 SMEM_SHARES = (57344, 115712, MAX_SMEM_BYTES)
-FFT_SIZES = (2, 4096)       # n_fft the FFT route takes; above, the DFT's
-FFT_TILES = (8, 4, 2, 1)    # frames a block of the FFT route
+STAGED_MAX = 4096           # n_fft up to which a block stages span and window
+FFT_TILES = (8, 4, 2, 1)    # frames a block of the 'fft' regime
+WIDE_TILES = (2, 1)         # the same above n_fft 4096
 MAX_STAGES = 12             # kMaxStages in stft_fft.cu
 STAGE_TABLE_BYTES = 20 * MAX_STAGES  # its static shared Stage table
+MAX_PAD = 8192              # Bluestein's P in the 'fft' regime (kMaxPad)
+# The four-step regime: row and column lengths (kMaxRow, kMaxColumn), the
+# complex points a block works on, and the scratch a chunk of sequences
+# may hold (it stays in the H100's 50 MB L2).
+MAX_ROW = 2048
+MAX_COLUMN = 8192
+BLOCK_POINTS = 4096
+SCRATCH_BYTES = 32 << 20
+MAX_FOUR_STEP = 1 << 24     # P < 2^24: sincospif's argument 2m / P exact
 
 
 def stft_magnitude_fwd_torch(audio: torch.Tensor, n_fft: int, hop: int,
@@ -61,7 +68,7 @@ def stft_magnitude_fwd_torch(audio: torch.Tensor, n_fft: int, hop: int,
 
 
 class FftPlan(NamedTuple):
-    """What the FFT route runs for one n_fft."""
+    """The transform of one n_fft."""
     length: int                # L: the complex transform's length
     radices: Tuple[int, ...]   # the Stockham stages, over L or over `pad`
     pad: int                   # Bluestein's P (2^k >= 2L - 1), else 0
@@ -89,10 +96,10 @@ def radices(n: int) -> Optional[Tuple[int, ...]]:
 
 
 def fft_plan(n_fft: int) -> FftPlan:
-    """The FFT route's transform of one n_fft: L = n_fft / 2 (even) or
-    n_fft (odd); L's own radices when it is 7-smooth, else Bluestein over
-    the power of two P >= 2L - 1 (n_fft 448: L 224, radices 2, 4, 4, 7;
-    514: L 257, P 1024)."""
+    """The transform of one n_fft: L = n_fft / 2 (even) or n_fft (odd);
+    L's own radices when it is 7-smooth, else Bluestein over the power of
+    two P >= 2L - 1 (n_fft 448: L 224, radices 2, 4, 4, 7; 514: L 257,
+    P 1024)."""
     length = n_fft // 2 if n_fft % 2 == 0 else n_fft
     plan = radices(length)
     if plan is not None:
@@ -101,103 +108,70 @@ def fft_plan(n_fft: int) -> FftPlan:
     return FftPlan(length, radices(pad), pad)
 
 
-def route(n_fft: int) -> str:
-    """'fft' for n_fft in [2, 4096], 'dft' above (and below, where no
-    route serves it and the checks raise)."""
-    lo, hi = FFT_SIZES
-    return "fft" if lo <= n_fft <= hi else "dft"
-
-
-def launch_shape(n_fft: int) -> Tuple[int, int]:
-    """DFT route: (threads per block, padded bin count): one bin per thread,
-    at most 4 warps a block, the bins split evenly over ceil(warps / 4)
-    blocks."""
-    warps = -(-(n_fft // 2 + 1) // 32)
-    groups = -(-warps // 4)
-    threads = 32 * -(-warps // groups)
-    return threads, groups * threads
-
-
-class DftPlan(NamedTuple):
-    """How the DFT route (`stft_mag.cu`) runs one call."""
-    kind: str                # "staged_vec", "staged" or "global"
-    threads: int             # bins a block, one a thread
-    f_pad: int               # bins padded to a multiple of `threads`
-    grid: Tuple[int, int]    # (tiles of 32 frames, bin groups)
-    smem_bytes: int          # dynamic shared memory a block
-
-
-DFT_KINDS = ("staged_vec", "staged", "global")  # stft_mag.cu's KIND order
-
-
-def dft_plan(n_fft: int, hop: int, signals: int, num_frames: int) -> DftPlan:
-    """The DFT route's launch.  A signal of at least 32 frames whose
-    32-frame span, 31 hop + n_fft samples, fits in shared memory stages
-    that span (four samples a load where n_fft and hop are multiples of 4):
-    a block is 32 frames of one signal.  Otherwise a block reads 32
-    consecutive frames of the flattened (signal, frame) index from global
-    memory (a large hop, or fewer than 32 frames a signal: n_fft 4098 at
-    one frame over 66,000 signals).  Signals fold into grid x."""
-    if n_fft < 2 or hop < 1 or signals < 1 or num_frames < 1:
-        raise ValueError(f"no DFT launch for n_fft {n_fft}, hop {hop}, "
-                         f"{signals} signals of {num_frames} frames")
-    threads, f_pad = launch_shape(n_fft)
-    stage = threads * STAGE_STRIDE
-    span = (TILE_FRAMES - 1) * hop + n_fft
-    if num_frames >= TILE_FRAMES and \
-            4 * max(span, stage) + DFT_STATIC_SMEM <= MAX_SMEM_BYTES:
-        kind = "staged" if n_fft % 4 or hop % 4 else "staged_vec"
-        floats = max(span, stage)
-        blocks = signals * -(-num_frames // TILE_FRAMES)
-    else:
-        kind, floats = "global", stage
-        blocks = -(-signals * num_frames // TILE_FRAMES)
-    if blocks > MAX_GRID_X:
-        raise ValueError(f"{blocks} blocks of {TILE_FRAMES} frames exceed "
-                         f"the grid's {MAX_GRID_X}")
-    return DftPlan(kind, threads, f_pad, (blocks, f_pad // threads),
-                   4 * floats)
-
-
 def fft_sequences(n_fft: int, tile: int) -> int:
-    """Complex sequences of one FFT block: one a frame (even n_fft), one a
-    pair of frames (odd)."""
+    """Complex sequences of one 'fft' block: one a frame (even n_fft), one
+    a pair of frames (odd)."""
     return (tile + 1) // 2 if n_fft % 2 else tile
 
 
 def fft_region_floats(n_fft: int, hop: int, tile: int) -> int:
-    """Floats of each of the FFT block's two work regions
-    (`region_floats` in stft_fft.cu): the staged span, the sequences of
-    the FFT's ping-pong and the (bin, frame) stage all fit; rounded up to
-    4 so the next region stays 16-byte aligned."""
+    """Floats of each of the 'fft' block's two work regions
+    (`region_floats` in stft_fft.cu): the staged span (up to n_fft 4096),
+    the sequences of the FFT's ping-pong and the (bin, frame) stage all
+    fit; rounded up to 4 so the next region stays 16-byte aligned."""
     plan = fft_plan(n_fft)
     f = n_fft // 2 + 1
+    span = (tile - 1) * hop + n_fft if n_fft <= STAGED_MAX else 0
     r = max(2 * fft_sequences(n_fft, tile) * (plan.pad or plan.length),
-            (tile - 1) * hop + n_fft, f * (tile + 1))
+            span, f * (tile + 1))
     return -(-r // 4) * 4
 
 
 def fft_smem_bytes(n_fft: int, hop: int, tile: int) -> int:
-    """Shared memory of one FFT block (`smem_bytes` in stft_fft.cu plus
-    the static stage table): two work regions, the FFT's twiddle table,
-    the split step's (even n_fft under Bluestein; otherwise it is the
-    twiddle table), the window."""
+    """Shared memory of one 'fft' block (`smem` in stft_fft.cu plus the
+    static stage table): two work regions, the FFT's twiddle table, the
+    split step's (even n_fft under Bluestein; otherwise it is the twiddle
+    table), the window (staged up to n_fft 4096)."""
     plan = fft_plan(n_fft)
     half = plan.pad // 2 if plan.pad else plan.length
     split = n_fft // 2 + 1 if plan.pad and n_fft % 2 == 0 else 0
+    window = n_fft if n_fft <= STAGED_MAX else 0
     return (4 * 2 * fft_region_floats(n_fft, hop, tile)
-            + 8 * (half + 1 + split) + 4 * n_fft + STAGE_TABLE_BYTES)
+            + 8 * (half + 1 + split) + 4 * window + STAGE_TABLE_BYTES)
+
+
+def route(n_fft: int) -> str:
+    """'fft' where one frame's block of the whole transform fits shared
+    memory (every n_fft in [2, 4096]; above, without staging and with at
+    most P 8192 under Bluestein), else 'four_step'.  n_fft below 2 has no
+    route: the checks raise."""
+    plan = fft_plan(max(n_fft, 2))
+    if plan.pad > MAX_PAD:
+        return "four_step"
+    return "fft" if fft_smem_bytes(n_fft, 1, 1) <= MAX_SMEM_BYTES \
+        else "four_step"
 
 
 def fft_tile_frames(n_fft: int, hop: int, signals: int, num_frames: int,
                     sm_count: int) -> int:
-    """Frames a block of the FFT route, a power of two <= 8.  Among the
+    """Frames a block of the 'fft' regime, a power of two <= 8.  Among the
     tiles whose blocks let four share an SM (else two, else one), the
     largest whose grid gives every SM at least two blocks, or the smallest
     (for an odd n_fft, whose sequence holds two frames, 2 rather than 1).
     On an H100 (`tools/torch_stft_sweep.py tiles`) four resident blocks
     beat larger tiles at n_fft 1102, 514 and 401, and 8 frames beat 16 at
-    512.  One frame fits at every n_fft in [2, 4096] and every hop."""
+    512.  Above n_fft 4096 (512 threads a block, whose registers let at
+    most three share an SM) two frames where they fit, else one: two beat
+    one at 8192 / 1024 (one block an SM against two) and at 4410 / 441
+    (`variants --rows large`).  One frame fits at every n_fft of the
+    regime and every hop."""
+    if n_fft > STAGED_MAX:
+        tiles = [t for t in WIDE_TILES
+                 if fft_smem_bytes(n_fft, hop, t) <= MAX_SMEM_BYTES]
+        for t in tiles:
+            if signals * -(-num_frames // t) >= 2 * sm_count:
+                return t
+        return tiles[-1]
     for share in SMEM_SHARES:
         tiles = [t for t in FFT_TILES
                  if fft_smem_bytes(n_fft, hop, t) <= share]
@@ -211,20 +185,59 @@ def fft_tile_frames(n_fft: int, hop: int, signals: int, num_frames: int,
     raise ValueError(f"no FFT tile fits shared memory at n_fft {n_fft}")
 
 
-@functools.lru_cache(maxsize=8)
-def _bases(n_fft: int, device: torch.device
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """DFT route: the windowed bases (n_fft, F_pad) on `device`, zero past
-    column F."""
-    _, f_pad = launch_shape(n_fft)
-    cos_np, sin_np = dft_basis(n_fft)
-    pad = ((0, 0), (0, f_pad - cos_np.shape[1]))
-    return (torch.as_tensor(np.pad(cos_np, pad), device=device),
-            torch.as_tensor(np.pad(sin_np, pad), device=device))
+class FourStepPlan(NamedTuple):
+    """What the 'four_step' regime runs for one n_fft: P = n1 n2 points
+    (P = L, or Bluestein's pad), columns of n1 points and rows of n2."""
+    length: int                  # L
+    pad: int                     # Bluestein's P, else 0
+    n1: int                      # the column FFTs' length
+    n2: int                      # the row FFTs' length, P's largest
+    #                              divisor up to MAX_ROW
+    radices1: Tuple[int, ...]
+    radices2: Tuple[int, ...]
+    cols: int                    # columns a block of the first pass (2^k)
+    rows: int                    # rows a block of Bluestein's middle pass
+    pairs: int                   # pairs a block of the last pass (2^k)
+    sequences: int               # sequences a chunk (the scratch's)
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def four_step_plan(n_fft: int) -> FourStepPlan:
+    """The four-step plan of one n_fft: n2 the largest divisor of P up to
+    2048, n1 = P / n2 (up to 8192); about BLOCK_POINTS points a block in
+    every pass; chunks of sequences whose scratch fits SCRATCH_BYTES.
+    n_fft 32768: L 16384 = 8 x 2048; 8194: L 4097, P 16384 = 8 x 2048."""
+    plan = fft_plan(n_fft)
+    size = plan.pad or plan.length
+    n2 = next(d for d in range(min(size, MAX_ROW), 0, -1) if size % d == 0)
+    n1 = size // n2
+    if n1 > MAX_COLUMN or size >= MAX_FOUR_STEP or n1 < 2 or n2 < 2:
+        raise ValueError(f"n_fft {n_fft}: no four-step split of {size} "
+                         f"points into columns <= {MAX_COLUMN} and rows "
+                         f"<= {MAX_ROW}")
+    cols = _pow2_floor(BLOCK_POINTS // n1)
+    while cols > 1 and cols // 2 >= n2:
+        cols //= 2
+    rows = max(1, BLOCK_POINTS // n2)
+    q = n1 if plan.pad else n2          # the last pass's sequence length
+    pairs = _pow2_floor(BLOCK_POINTS // (2 * q))
+    return FourStepPlan(plan.length, plan.pad, n1, n2, radices(n1),
+                        radices(n2), cols, rows, pairs,
+                        max(1, SCRATCH_BYTES // (8 * size)))
+
+
+def four_step_sequences(n_fft: int, num_frames: int) -> int:
+    """Sequences of one signal: a frame each (even n_fft), a pair of
+    frames each (odd)."""
+    return -(-num_frames // 2) if n_fft % 2 else num_frames
 
 
 class FftTables(NamedTuple):
-    """The FFT route's constant tables, float32, each computed in float64
+    """The 'fft' regime's constant tables, float32, each computed in float64
     (complex values as (re, im) rows)."""
     window: np.ndarray     # (n_fft,) the symmetric Hann window
     twiddle: np.ndarray    # (h + 1, 2) exp(-2 pi i j / 2h), h = L, or P / 2
@@ -243,9 +256,24 @@ def _unit(phase_num: np.ndarray, phase_den: int) -> np.ndarray:
         np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32))
 
 
+def _chirp_tables(length: int, pad: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Bluestein's chirp c*[n] (L rows) and the P-point FFT of the chirp
+    over |m| < L, divided by P (P rows).  The phase n^2 mod 2L is taken in
+    integers, so no angle grows with n."""
+    n = np.arange(length, dtype=np.int64)
+    sq = (n * n) % (2 * length)
+    chirp = _unit(sq, 2 * length)               # exp(-i pi n^2 / L)
+    c = np.exp(1j * np.pi * sq / length)        # exp(+i pi n^2 / L)
+    b = np.zeros(pad, np.complex128)
+    b[:length] = c
+    b[pad - length + 1:] = c[1:][::-1]
+    spec = np.fft.fft(b) / pad
+    return chirp, np.ascontiguousarray(
+        np.stack([spec.real, spec.imag], axis=1).astype(np.float32))
+
+
 def fft_tables(n_fft: int) -> FftTables:
-    """The tables of one n_fft (see `FftTables`).  Bluestein's chirp phase
-    n^2 mod 2L is taken in integers, so no angle grows with n."""
+    """The tables of one n_fft (see `FftTables`)."""
     plan = fft_plan(n_fft)
     length, pad = plan.length, plan.pad
     half = pad // 2 if pad else length
@@ -259,18 +287,35 @@ def fft_tables(n_fft: int) -> FftTables:
         split = twiddle
     chirp, chirp_fft = empty, empty
     if pad:
-        n = np.arange(length, dtype=np.int64)
-        sq = (n * n) % (2 * length)
-        chirp = _unit(sq, 2 * length)               # exp(-i pi n^2 / L)
-        c = np.exp(1j * np.pi * sq / length)        # exp(+i pi n^2 / L)
-        b = np.zeros(pad, np.complex128)
-        b[:length] = c
-        b[pad - length + 1:] = c[1:][::-1]
-        spec = np.fft.fft(b) / pad
-        chirp_fft = np.ascontiguousarray(
-            np.stack([spec.real, spec.imag], axis=1).astype(np.float32))
+        chirp, chirp_fft = _chirp_tables(length, pad)
     return FftTables(hann_symmetric(n_fft).astype(np.float32), twiddle,
                      split, chirp, chirp_fft)
+
+
+class FourStepTables(NamedTuple):
+    """The 'four_step' regime's tables, float32 from float64."""
+    window: np.ndarray     # (n_fft,)
+    twiddle1: np.ndarray   # (n1 + 1, 2) exp(-2 pi i j / 2 n1)
+    twiddle2: np.ndarray   # (n2 + 1, 2) exp(-2 pi i j / 2 n2)
+    split: np.ndarray      # (n_fft/2 + 1, 2) exp(-2 pi i k / n_fft): even
+    chirp: np.ndarray      # (L, 2): Bluestein
+    chirp_fft: np.ndarray  # (P, 2) as FftTables', in the [k1][k2] layout:
+    #                        row k1 n2 + k2 holds entry k1 + n1 k2
+
+
+def four_step_tables(n_fft: int) -> FourStepTables:
+    p = four_step_plan(n_fft)
+    empty = np.zeros((0, 2), np.float32)
+    split = empty if n_fft % 2 else _unit(np.arange(n_fft // 2 + 1), n_fft)
+    chirp, chirp_fft = empty, empty
+    if p.pad:
+        chirp, spec = _chirp_tables(p.length, p.pad)
+        chirp_fft = np.ascontiguousarray(
+            spec.reshape(p.n2, p.n1, 2).transpose(1, 0, 2).reshape(-1, 2))
+    return FourStepTables(hann_symmetric(n_fft).astype(np.float32),
+                          _unit(np.arange(p.n1 + 1), 2 * p.n1),
+                          _unit(np.arange(p.n2 + 1), 2 * p.n2), split,
+                          chirp, chirp_fft)
 
 
 @functools.lru_cache(maxsize=8)
@@ -278,14 +323,11 @@ def _fft_tables(n_fft: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
     return tuple(torch.as_tensor(t, device=device) for t in fft_tables(n_fft))
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    lib = _build.load("stft_mag")
-    fn = lib.avsep_stft_mag_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+@functools.lru_cache(maxsize=8)
+def _four_step_tables(n_fft: int, device: torch.device
+                      ) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in four_step_tables(n_fft))
 
 
 @functools.lru_cache(maxsize=None)
@@ -300,35 +342,49 @@ def _fft_entry():
 
 
 @functools.lru_cache(maxsize=None)
+def _four_step_entry():
+    lib = _build.load("stft_fft")
+    fn = lib.avsep_stft_4step_fwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] * 2 \
+        + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(audio: torch.Tensor, n_fft: int, hop: int, num_frames: int,
-           kind: str = "dft") -> None:
-    """The kernels' input checks; `kind` names the route ('dft' or 'fft')
-    whose own limits are checked."""
+def _check(audio: torch.Tensor, n_fft: int, hop: int,
+           num_frames: int) -> None:
+    """The kernels' input checks, and the limits of the route `n_fft`
+    takes: the 'fft' regime's grid (a grid this large takes the tile it
+    would on any card), the four-step split's reach."""
     if audio.dtype != torch.float32:
         raise ValueError(f"audio must be float32, got {audio.dtype}")
     if not audio.is_contiguous():
         raise ValueError("audio must be contiguous")
     if audio.dim() < 1 or audio.shape[-1] < 1:
         raise ValueError(f"audio must be (..., N), got {tuple(audio.shape)}")
+    if n_fft < 2:
+        raise ValueError(f"n_fft {n_fft} must be at least 2")
     if hop < 1:
         raise ValueError(f"hop {hop} must be positive")
     if num_frames < 1:
         raise ValueError(f"num_frames {num_frames} must be positive")
-    if kind == "fft":
-        lo, hi = FFT_SIZES
-        if not lo <= n_fft <= hi:
-            raise ValueError(f"n_fft {n_fft} is outside the FFT route's "
-                             f"[{lo}, {hi}]")
+    if route(n_fft) == "four_step":
+        four_step_plan(n_fft)
         return
-    if n_fft < 2:
-        raise ValueError(f"n_fft {n_fft} must be at least 2")
     signals = math.prod(audio.shape[:-1])
     if signals:
-        dft_plan(n_fft, hop, signals, num_frames)
+        tile = fft_tile_frames(n_fft, hop, signals, num_frames, 1)
+        if signals * -(-num_frames // tile) > MAX_GRID_X:
+            raise ValueError(f"{signals} signals of {num_frames} frames in "
+                             f"tiles of {tile} exceed the grid's "
+                             f"{MAX_GRID_X} blocks")
 
 
 def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
@@ -336,7 +392,7 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
     """|STFT| of (..., N) float32 audio -> (..., n_fft // 2 + 1, T).
 
     CPU tensors take the plain version; CUDA tensors launch the FFT kernel
-    for n_fft in [2, 4096] and the matrix-DFT kernel above.
+    of the shape's regime (`route`).
     """
     if audio.device.type == "cpu":
         return stft_magnitude_fwd_torch(audio, n_fft, hop, num_frames)
@@ -345,8 +401,7 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
     n = audio.shape[-1]
     if num_frames is None:
         num_frames = 1 + n // hop
-    kind = route(n_fft)
-    _check(audio, n_fft, hop, num_frames, kind)
+    _check(audio, n_fft, hop, num_frames)
     lead = audio.shape[:-1]
     b = math.prod(lead)
     freq_bins = n_fft // 2 + 1
@@ -356,10 +411,10 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
         return out.reshape(*lead, freq_bins, num_frames)
     index = audio.device.index
     stream = torch.cuda.current_stream(audio.device).cuda_stream
-    if kind == "fft":
+    if route(n_fft) == "fft":
         tables = _fft_tables(n_fft, audio.device)
         tile = fft_tile_frames(n_fft, hop, b, num_frames, _sm_count(index))
-        vec = int(hop % 4 == 0 and n % 4 == 0
+        vec = int(n_fft <= STAGED_MAX and hop % 4 == 0 and n % 4 == 0
                   and audio.data_ptr() % 16 == 0)
         plan = fft_plan(n_fft)
         lib, fn = _fft_entry()
@@ -369,14 +424,22 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
                 len(plan.radices), plan.pad, index, stream)
         _build.check(lib, rc, "stft_mag_fwd")
         kernels.LAUNCHES["stft_mag_fwd"] += 1
-    else:
-        plan = dft_plan(n_fft, hop, b, num_frames)
-        cos_b, sin_b = _bases(n_fft, audio.device)
-        lib, fn = _entry()
-        rc = fn(audio.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
-                out.data_ptr(), b, n, num_frames, n_fft, hop, freq_bins,
-                plan.f_pad, plan.threads, DFT_KINDS.index(plan.kind), index,
-                stream)
-        _build.check(lib, rc, "stft_mag_dft_fwd")
-        kernels.LAUNCHES["stft_mag_dft_fwd"] += 1
+        return out.reshape(*lead, freq_bins, num_frames)
+    plan = four_step_plan(n_fft)
+    tables = _four_step_tables(n_fft, audio.device)
+    total = b * four_step_sequences(n_fft, num_frames)
+    chunk = min(total, plan.sequences)
+    scratch = torch.empty((chunk, plan.pad or plan.length, 2),
+                          dtype=torch.float32, device=audio.device)
+    r1 = (ctypes.c_int * len(plan.radices1))(*plan.radices1)
+    r2 = (ctypes.c_int * len(plan.radices2))(*plan.radices2)
+    lib, fn = _four_step_entry()
+    for seq0 in range(0, total, chunk):
+        rc = fn(audio.data_ptr(), *(t.data_ptr() for t in tables),
+                scratch.data_ptr(), out.data_ptr(), b, n, num_frames, n_fft,
+                hop, plan.n1, plan.n2, r1, len(plan.radices1), r2,
+                len(plan.radices2), plan.pad, plan.cols, plan.rows,
+                plan.pairs, seq0, min(chunk, total - seq0), index, stream)
+        _build.check(lib, rc, "stft_mag_4step_fwd")
+    kernels.LAUNCHES["stft_mag_4step_fwd"] += 1
     return out.reshape(*lead, freq_bins, num_frames)

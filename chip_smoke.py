@@ -11,7 +11,8 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            each kernel instance's registers and spills (for example
            flash_bwd_dkv_kernel<float,256,128,1>,
            flash_fwd_kernel_wgmma<128,2>) and the instances that spill;
-           fails if an STFT FFT instance, a bf16 `wgmma` flash or
+           fails if an STFT instance (nine one-block, four four-step
+           passes), a bf16 `wgmma` flash or
            projection instance or a flash instance above dh 256 spills.
   kernels  first one m16n8k8 3xTF32 tensor-core product against float64
            (the fragment layouts of the flash kernels).  Then each kernel
@@ -56,14 +57,19 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            (bf16 products of rounded weights: another function) beside
            it, timed only.  Each projection row has a row of its weight
            split (three bf16 parts a weight, bit for bit against the
-           plain split).  The STFT magnitude on its FFT route at
-           every kind of length (radix 2-8, Bluestein, odd n_fft, odd
-           hops) on the scaled, 44.1 kHz and demo device batches, an odd
-           shape and 70,000 signals (more than 65,535); its matrix-DFT
-           route, for n_fft above 4096, at 8192 / 1024, at 4410 / 441 on
-           the 44.1 kHz batch (scalar loads), and at 4098 / 4098 over
-           66,000 signals of one frame (frames read from global memory);
-           its library yardstick is torch.stft (cuFFT).  Last, past
+           plain split).  The STFT magnitude's FFT at every kind of
+           length (radix 2-8, Bluestein, odd n_fft, odd hops) on the
+           scaled, 44.1 kHz and demo device batches, an odd shape and
+           70,000 signals (more than 65,535); above n_fft 4096 at one
+           frame a block (8192 / 1024 and 16384 / 4096 scaled, 4410 / 441
+           at 44.1 kHz, 4098 / 4098 over 66,000 one-frame signals under
+           Bluestein) and by the four-step FFT (8194 / 2048 under
+           Bluestein and odd 10125 / 2205 at 44.1 kHz, 32768 / 8192 over
+           8 x 441,000 samples); each row names its transform; every
+           row is held against its plain version (above n_fft 4096 at
+           the tolerance plus the plain version's own error against
+           float64, and against float64 at the tolerance); its library
+           yardstick is torch.stft (cuFFT).  Last, past
            grid y's 65,535: flash at B*H 65,536 (B 16,384, H 4, T 16,
            dh 32, both dtypes; dh 128 in bf16) at dropout 0 and 0.1,
            the projection at B 65,536 (T 8, D 64) at both dtypes.  A
@@ -272,11 +278,12 @@ KERNELS = {
         "replaces": PALLAS + "stft.py:95",
         "also_replaces": [],
     },
-    "stft_mag_dft_fwd": {
-        "source": "av_separation_torch/csrc/stft_mag.cu",
+    "stft_mag_4step_fwd": {
+        "source": "av_separation_torch/csrc/stft_fft.cu",
         "replaces": PALLAS + "stft.py:95",
         "also_replaces": [],
-        "note": "the route for n_fft above 4096",
+        "note": "the four-step FFT: n_fft whose one-frame block does not "
+                "fit shared memory; counted once a call",
     },
 }
 # The bfloat16 instances of three kernels: the same sources and wrappers
@@ -317,7 +324,7 @@ KERNEL_NAMES = {
     "mask_decoder_fwd": ("mask_decoder_hidden_kernel",
                          "mask_decoder_mask_kernel"),
     "stft_mag_fwd": ("stft_fft_kernel",),
-    "stft_mag_dft_fwd": ("stft_mag_kernel",),
+    "stft_mag_4step_fwd": ("stft_4step_kernel",),
 }
 ATTN_SEED = -12345  # an int32 dropout seed with the sign bit set
 
@@ -362,11 +369,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, names=None):
+def device_ms(fn, iters: int, names=None, per_call=None):
     """Device time of one call of fn() from a torch.profiler trace of
     `iters` calls: the kernels whose names contain one of `names` (a
-    wrapper's own kernels, one each per launch), or every kernel and copy
-    of the call (a library call), summed and divided by `iters`.
+    wrapper's own kernels, one each per launch, or `per_call` of them in
+    all a call), or every kernel and copy of the call (a library call),
+    summed and divided by `iters`.
 
     A trace can come back short of events; one whose counts are not
     `iters` per kernel name (per launch) is taken again, up to three
@@ -391,9 +399,12 @@ def device_ms(fn, iters: int, names=None):
                 counts[e.name] = counts.get(e.name, 0) + 1
         whole = counts and all(c % iters == 0 for c in counts.values())
         if names is not None:
-            whole = whole and sum(counts.values()) == iters * len(names)
+            whole = whole and sum(counts.values()) == iters * (
+                per_call or len(names))
         if whole:
             return us / iters / 1e3
+    emit({"device_ms_short_trace": {"iters": iters, "per_call": per_call,
+                                    "counts": counts}})
     return "not measured"
 
 
@@ -444,9 +455,10 @@ def phase_env(state):
 
 
 def phase_build(state):
-    """Builds every kernel; fails if an instance of the STFT's FFT kernel
-    (one per transform: power of two, mixed radix and Bluestein, even and
-    odd n_fft) spills or is missing, or if an instance of the flash
+    """Builds every kernel; fails if an instance of the STFT's FFT kernels
+    spills or is missing (nine of the one-block kernel: power of two, mixed
+    radix and Bluestein, even and odd n_fft, up to and above n_fft 4096;
+    the four passes of the four-step kernel), or if an instance of the flash
     pair's `wgmma` kernels, of its chunked kernels above dh 256 or of the
     projection's `wgmma` kernel spills."""
     import re
@@ -457,13 +469,14 @@ def phase_build(state):
     secs = time.perf_counter() - t0
     usage = {name: _ptxas_usage(log) for name, log in logs.items()}
     fft = {k: v for k, v in usage.get("stft_fft", {}).items()
-           if k.startswith("stft_fft_kernel")}
+           if k.startswith(("stft_fft_kernel", "stft_4step_kernel"))}
     spills = {k: [int(n) for ln in v
                   for n in re.findall(r"(\d+) bytes spill", ln)]
               for k, v in fft.items()}
-    if logs.get("stft_fft") and (len(fft) != 5 or any(
+    if logs.get("stft_fft") and (len(fft) != 13 or any(
             sum(n) for n in spills.values())):
-        raise AssertionError(f"stft_fft_kernel instances {fft}")
+        raise AssertionError(f"stft_fft_kernel / stft_4step_kernel "
+                             f"instances {fft}")
     spilling = {k: n for u in usage.values() for k, v in u.items()
                 if (n := sum(int(x) for ln in v
                              for x in re.findall(r"(\d+) bytes spill", ln)))}
@@ -562,7 +575,8 @@ def make_record(results, failures):
     results[name] and each failure to `failures`."""
 
     def record(name, shape, err, tol, extra_errs, fn_k, fn_p, fn_lib,
-               nbytes, flops, iters, op_rate="3xTF32", **extra):
+               nbytes, flops, iters, op_rate="3xTF32", per_call=None,
+               **extra):
         # Each C entry point sets the tensors' device and restores the
         # caller's (csrc/device_guard.cuh); with one card, what can be
         # read back is that the current device is unchanged.
@@ -574,11 +588,16 @@ def make_record(results, failures):
         # turns (kernel, plain, plain, kernel), each the mean of the two;
         # then device times from a profiler trace: the kernel's own device
         # kernels per launch, every device kernel of one library call.
-        times = [cuda_ms(fn, iters) for fn in (fn_k, fn_p, fn_p, fn_k)]
-        ms, plain_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        # A row without a plain version (its bases too large) times the
+        # kernel alone.
+        times = [cuda_ms(fn, iters) if fn is not None else None
+                 for fn in (fn_k, fn_p, fn_p, fn_k)]
+        ms = (times[0] + times[3]) / 2
+        plain_ms = (times[1] + times[2]) / 2 if fn_p is not None else None
         lib_ms = cuda_ms(fn_lib, iters) if fn_lib is not None else None
         dev_ms = device_ms(fn_k, iters, KERNEL_NAMES.get(name) or
-                           KERNEL_NAMES[KERNELS[name].get("wrapper", name)])
+                           KERNEL_NAMES[KERNELS[name].get("wrapper", name)],
+                           per_call)
         lib_dev_ms = device_ms(fn_lib, iters) if fn_lib is not None else None
         bound_ms, bound_by = bound(nbytes, flops, op_rate)
         ok = err <= tol and all(e <= t for e, t in extra_errs.values()) \
@@ -981,19 +1000,29 @@ def _stft_rows(record, gen):
     514 / 128, odd n_fft 401 / 160), the 44.1 kHz one (882 / 441, L 441 =
     3^2 7^2 at an odd hop; Bluestein 1102 / 441) and demo's (512; Bluestein
     62 / 30); noise at an odd shape (3 x 2,001, n_fft 128, hop 64) and
-    beyond grid.y's 65,535 (70,000 x 1,024, 128 / 64).  The DFT route at
-    n_fft 8192, hop 1024 on the scaled batch (staged, float4), at 4410 /
-    441 on the 44.1 kHz batch (staged, scalar loads) and at 4098 / 4098
-    over 66,000 signals of one frame (frames read from global memory).  Float32 sums of n_fft
-    windowed samples in another order: max abs error 2e-4 on the
+    beyond grid.y's 65,535 (70,000 x 1,024, 128 / 64).  Above n_fft 4096,
+    one frame a block: 8192 / 1024 and 16384 / 4096 on the scaled batch, 4410 /
+    441 on the 44.1 kHz batch (mixed radix, L 2205) and 66,000 signals of
+    one 4,098-sample frame (Bluestein at P 8192); the four-step FFT:
+    8194 / 2048 (Bluestein, P 16384 = 8 x 2048) and 10125 / 2205 (odd
+    n_fft, L = 5 x 2025) on the 44.1 kHz batch, 32768 / 8192 on 8 noise
+    signals of 441,000 samples (L 16384 = 8 x 2048).  Float32 sums of
+    n_fft windowed samples in another order: max abs error 2e-4 on the
     tone rows of 16 kHz and 8 kHz and the odd shape (peaks ~90-120), 2e-4
-    x max(1, peak / 100) on the others; and against float64 (torch.stft
-    in float64) within tests/test_kernels.py's 5e-4 + 1e-4 relative.  Bound: the
-    audio read once and the spectra written once, against the least work
-    of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame (the DFT route's
-    matrix DFT does 4 n_fft F).  Library: torch.stft with the symmetric
-    Hann window, no centering, on the zero-padded signal, then abs (cuFFT;
-    timed only, never called by the port)."""
+    x max(1, peak / 100) on the others, against the plain version.  Above
+    n_fft 4096 the plain version's own float32 sums of n_fft products lie
+    further than that from float64 (torch.stft in float64), so there the
+    kernel is held against float64 at that tolerance and against the
+    plain version at that tolerance plus the plain version's measured
+    error against float64 (the triangle inequality's bound); each row
+    records the kernel's, the plain version's and torch.stft's float32
+    errors against float64.  Every row against float64 within
+    tests/test_kernels.py's 5e-4 + 1e-4 relative.  Bound:
+    the audio read once and the spectra written once, against the least
+    work of a real FFT, 2.5 n_fft log2(n_fft) FLOPs a frame.  Library:
+    torch.stft with the symmetric Hann window, no centering, on the
+    zero-padded signal, then abs (cuFFT; timed only, never called by the
+    port)."""
     import torch.nn.functional as F
 
     from av_separation_torch.config import get_config
@@ -1001,8 +1030,9 @@ def _stft_rows(record, gen):
                                                            draw_variates,
                                                            step_generator)
     from av_separation_torch.ops.kernels.stft import (
-        dft_plan, fft_plan, route, stft_magnitude_fwd,
-        stft_magnitude_fwd_torch)
+        fft_plan, fft_tile_frames, four_step_plan, four_step_sequences,
+        route, stft_magnitude_fwd, stft_magnitude_fwd_torch)
+    from av_separation_torch.ops.stft import dft_basis
 
     def tones(cfg):
         v = draw_variates(step_generator(0, 0, "cuda"), cfg, 8)
@@ -1018,6 +1048,9 @@ def _stft_rows(record, gen):
     # 66,000 signals of one 4,098-sample frame (1.1 GB), drawn on the card.
     frames1 = torch.randn(66000, 4098, device="cuda",
                           generator=torch.Generator("cuda").manual_seed(1))
+    # 8 signals of 441,000 samples (10 s at 44.1 kHz).
+    long8 = torch.randn(8, 441000, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(2))
     # (label, audio, n_fft, hop, iters, tolerance rule[, frames]): "flat"
     # 2e-4, or "peak", 2e-4 scaled by the peak over 100; frames default to
     # 1 + N // hop.
@@ -1036,11 +1069,21 @@ def _stft_rows(record, gen):
               20, "peak"),
              ("demo device batch, Bluestein", demo, 62, 30, 20, "peak"),
              ("70,000 signals", many, 128, 64, 20, "peak"),
-             ("scaled device batch, DFT route", scaled, 8192, 1024, 5,
+             ("scaled device batch, one frame a block", scaled, 8192, 1024,
+              10, "peak"),
+             ("44.1 kHz device batch, 100 ms window, mixed radix", k44, 4410,
+              441, 10, "peak"),
+             ("scaled device batch, L 8192", scaled, 16384, 4096, 10,
               "peak"),
-             ("44.1 kHz device batch, DFT route, 100 ms window", k44, 4410,
-              441, 5, "peak"),
-             ("66,000 signals, DFT route, one frame each", frames1, 4098,
+             ("44.1 kHz device batch, four-step Bluestein", k44, 8194, 2048,
+              5, "peak"),
+             ("44.1 kHz device batch, four-step, odd n_fft", k44, 10125,
+              2205, 5, "peak"),
+             ("8 x 10 s at 44.1 kHz, four-step", long8, 32768, 8192, 5,
+              "peak"),
+             # Last: a trace of a 1.1 GB call has left later traces short
+             # of events.
+             ("66,000 signals of one frame, Bluestein", frames1, 4098,
               4098, 5, "peak", 1)]
     for label, audio, n_fft, hop, iters, rule, *frames in cases:
         b, n = audio.shape
@@ -1064,29 +1107,65 @@ def _stft_rows(record, gen):
         ref64 = lib(audio.double(), window=window.double())
         over64 = float(((k.double() - ref64).abs()
                         - 1e-4 * ref64.abs()).max())
-        torch.cuda.synchronize()
-        peak = float(p.max())
+        peak = float(ref64.max())
         tol = 2e-4 * (max(1.0, peak / 100.0) if rule == "peak" else 1.0)
+        plain_err64 = max_err(p, ref64)
+        checks = {"float64 excess over 1e-4 rel": (over64, 5e-4)}
+        tol_plain = tol
+        if n_fft > 4096:
+            checks["float64 max abs"] = (max_err(k, ref64), tol)
+            tol_plain = tol + plain_err64
+        torch.cuda.synchronize()
         nbytes = 4 * (b * n + b * f * t)
         flops = 2.5 * n_fft * np.log2(n_fft) * t * b
-        name = {"fft": "stft_mag_fwd", "dft": "stft_mag_dft_fwd"}[route(n_fft)]
-        plan = fft_plan(n_fft) if name == "stft_mag_fwd" else None
+        plan = fft_plan(n_fft)
+        if route(n_fft) == "fft":
+            name, per_call = "stft_mag_fwd", None
+            transform = {"regime": "one block a tile of frames",
+                         "length": plan.length,
+                         "radices": list(plan.radices),
+                         "bluestein_pad": plan.pad,
+                         "frames_a_block": fft_tile_frames(
+                             n_fft, hop, b, t,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)}
+        else:
+            name = "stft_mag_4step_fwd"
+            fs = four_step_plan(n_fft)
+            seqs = b * four_step_sequences(n_fft, t)
+            chunks = -(-seqs // min(seqs, fs.sequences))
+            # Each chunk: the columns, under Bluestein the middle rows, and
+            # the last pass (rows, or under Bluestein the columns).
+            passes = (["columns", "rows_middle", "columns_last"] if fs.pad
+                      else ["columns", "rows_last"])
+            per_call = chunks * len(passes)
+            transform = {"regime": "four-step", "length": fs.length,
+                         "bluestein_pad": fs.pad,
+                         "L1 x L2": f"{fs.n1} x {fs.n2}",
+                         "radices": [list(fs.radices1),
+                                     list(fs.radices2)],
+                         "chunks": chunks,
+                         "passes": passes}
         record(name, f"{label} B={b} N={n} n_fft={n_fft} hop={hop} T={t}",
-               max_err(k, p), tol,
-               {"float64 excess over 1e-4 rel": (over64, 5e-4)},
+               max_err(k, p), tol_plain, checks,
                lambda: stft_magnitude_fwd(audio, n_fft, hop, frames),
                lambda: stft_magnitude_fwd_torch(audio, n_fft, hop, frames),
                lib, nbytes, flops, iters, op_rate="float32",
-               peak=peak, tol_rule="2e-4" if rule == "flat"
-               else "2e-4 x max(1, peak / 100)",
-               transform={"dft_block": dft_plan(n_fft, hop, b, t).kind}
-               if plan is None else {
-                   "length": plan.length, "radices": list(plan.radices),
-                   "bluestein_pad": plan.pad},
+               per_call=per_call, peak=peak,
+               err_vs_float64=max_err(k, ref64),
+               plain_err_vs_float64=plain_err64,
+               library_err_vs_float64=max_err(lib_out, ref64),
+               tol_rule=("2e-4" if rule == "flat"
+                         else "2e-4 x max(1, peak / 100)")
+               + (" + the plain version's error against float64"
+                  if n_fft > 4096 else ""),
+               transform=transform,
                library_max_abs_err=max_err(lib_out, p),
                library="torch.stft(center=False, symmetric Hann).abs()")
         del k, p, lib_out, ref64
-    del cases, frames1, many
+        torch.cuda.empty_cache()
+    del cases, frames1, many, long8
+    dft_basis.cache_clear()     # 4.3 GB of host bases at n_fft 32768
     torch.cuda.empty_cache()
 
 
@@ -1797,8 +1876,8 @@ def _group(name: str) -> str:
         return "mask_decoder_fwd (ours)"
     if "stft_fft" in low:
         return "stft_mag_fwd (ours)"
-    if "stft_mag" in low:
-        return "stft_mag_dft_fwd (ours)"
+    if "stft_4step" in low:
+        return "stft_mag_4step_fwd (ours)"
     if "memcpy" in low or "memset" in low:
         return "memcpy / memset"
     if "fprop" in low or "grad" in low or "conv" in low or "cudnn" in low:

@@ -282,7 +282,7 @@ def test_serve_answers_over_http_and_stops_on_sigint():
     assert json.loads(out.splitlines()[-1]) == {"kernel_launches": {
         name: 0 for name in ("flash_attn_fwd", "flash_attn_bwd",
                              "audio_proj_fwd", "mask_decoder_fwd",
-                             "stft_mag_fwd", "stft_mag_dft_fwd",
+                             "stft_mag_fwd", "stft_mag_4step_fwd",
                              "flash_attn_fwd[bf16]", "flash_attn_bwd[bf16]",
                              "audio_proj_fwd[bf16]", "audio_proj_split",
                              "audio_proj_split[bf16]")}}

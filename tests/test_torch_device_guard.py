@@ -53,8 +53,8 @@ def test_every_entry_point_that_takes_a_device_uses_the_guard():
         "flash_bwd_wgmma.cu:avsep_flash_bwd_wgmma",
         "flash_fwd_wgmma.cu:avsep_flash_fwd_wgmma",
         "mask_decoder.cu:avsep_mask_decoder_fwd",
-        "stft_fft.cu:avsep_stft_fft_fwd",
-        "stft_mag.cu:avsep_stft_mag_fwd"])
+        "stft_fft.cu:avsep_stft_4step_fwd",
+        "stft_fft.cu:avsep_stft_fft_fwd"])
 
 
 @pytest.mark.parametrize("path", sorted(p.name for p in CSRC.glob("*.cu")))

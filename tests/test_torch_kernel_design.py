@@ -6,13 +6,17 @@ their plain versions there).  These tests hold, in numpy, the algorithms the
 kernels implement, against the port's plain versions and the JAX Pallas
 kernels in interpret mode:
 
-  - `csrc/stft_fft.cu`: the FFT of every n_fft in [2, 4096] (half-length
+  - `csrc/stft_fft.cu`: the FFT of every n_fft >= 2 (half-length
     packing of an even n_fft, two frames a sequence for an odd one;
     Stockham stages over the host's plan of radices 2, 3, 4, 5, 7 and 8,
     or Bluestein's chirp-z transform over a power of two; the kernel's own
     float32 tables, butterfly constants and index arithmetic: shifts and
     masks for a power of two, multiply-and-shift divisions otherwise)
     plus the split or separation step into the bins of the real transform;
+    one block a tile of frames, or one a frame above 4096 where it fits,
+    and beyond the four-step FFT's passes (columns, twiddles, rows, under
+    Bluestein the chirp's product and the inverse's transposed passes, the
+    last pass's pairs) with the plan of every n_fft in (4096, 65536];
   - `csrc/flash_attn_fwd.cu`: 3xTF32 products (TF32 big and small parts
     by the kernel's mask, or by cvt.rna.tf32.f32; big*small + small*big +
     big*big) inside the kernel's tile-by-tile online softmax; 1xTF32 does
@@ -30,9 +34,6 @@ kernels in interpret mode:
     test_torch_proj_wgmma_design.py's;
   - the widths the projection and decoder kernels are not built for, run
     zero-padded to the next one they are;
-  - `csrc/stft_mag.cu`: the DFT route's blocks (32 frames of one signal
-    staged in shared memory, or 32 frames of the flattened (signal, frame)
-    index read from global memory) and the frames each block reads;
 and the wrappers' choice of route, plan and tile by shape.
 """
 
@@ -47,18 +48,19 @@ from jax.experimental.pallas import tpu as pltpu
 from av_separation_torch.ops.kernels.attention import (flash_attn_bwd_torch,
                                                        flash_attn_fwd_torch,
                                                        keep_mask)
-from av_separation_torch.ops.kernels.stft import (DFT_STATIC_SMEM,
-                                                  FFT_SIZES, FFT_TILES,
+from av_separation_torch.ops.kernels.stft import (FFT_TILES, MAX_PAD,
                                                   MAX_SMEM_BYTES, MAX_STAGES,
-                                                  SMEM_SHARES, STAGE_STRIDE,
-                                                  TILE_FRAMES,
-                                                  _check, dft_plan, fft_plan,
+                                                  SMEM_SHARES, STAGED_MAX,
+                                                  STAGE_TABLE_BYTES,
+                                                  _check, fft_plan,
                                                   fft_sequences,
                                                   fft_smem_bytes, fft_tables,
-                                                  fft_tile_frames, radices,
+                                                  fft_tile_frames,
+                                                  four_step_plan,
+                                                  four_step_sequences,
+                                                  four_step_tables, radices,
                                                   route,
                                                   stft_magnitude_fwd_torch)
-from av_separation_torch.ops.stft import dft_basis
 
 CSRC = Path(__file__).resolve().parents[1] / "av_separation_torch" / "csrc"
 
@@ -392,7 +394,7 @@ class TestFftStft:
         # checked at each q d - 1 (the largest remainder, where an error
         # would show first) and at the range's end.
         reach = {}
-        for n_fft in range(FFT_SIZES[0], FFT_SIZES[1] + 1):
+        for n_fft in range(2, STAGED_MAX + 1):
             for tile in FFT_TILES:
                 if fft_smem_bytes(n_fft, 1, tile) > MAX_SMEM_BYTES:
                     continue
@@ -464,12 +466,13 @@ class TestFftStft:
 
 
 class TestStftRoute:
-    # The FFT route: every n_fft in [2, 4096], whatever its factors (448:
-    # L 224 = 2^5 7; 402: L 201 = 3 67); the matrix DFT above (8192).
+    # One block a frame: every n_fft in [2, 4096], whatever its factors
+    # (448: L 224 = 2^5 7; 402: L 201 = 3 67), and above wherever that
+    # block fits (8192); the four-step FFT beyond (8194: P 16384).
     @pytest.mark.parametrize("n_fft,want", [
         (8, "fft"), (128, "fft"), (512, "fft"), (4096, "fft"), (4, "fft"),
-        (400, "fft"), (12, "fft"), (8192, "dft"), (480, "fft"),
-        (448, "fft"), (402, "fft")])
+        (400, "fft"), (12, "fft"), (8192, "fft"), (480, "fft"),
+        (448, "fft"), (402, "fft"), (8194, "four_step")])
     def test_route_by_n_fft(self, n_fft, want):
         assert route(n_fft) == want
 
@@ -561,137 +564,382 @@ class TestStftRoute:
             < fft_smem_bytes(4096, 1024, 8)
 
     @pytest.mark.parametrize("audio,n_fft,hop,match", [
-        (torch.zeros(2, 300), 4097, 32, "n_fft 4097"),
+        (torch.zeros(2, 0), 512, 32, "audio must be"),
         (torch.zeros(2, 300, dtype=torch.float64), 512, 128, "float32"),
         (torch.zeros(2, 300), 1, 1, "n_fft 1"),
         (torch.zeros(2, 300), 64, 0, "hop 0")])
     def test_fft_route_inputs_are_checked(self, audio, n_fft, hop, match):
         with pytest.raises(ValueError, match=match):
-            _check(audio, n_fft, hop, 1 + audio.shape[-1] // max(hop, 1),
-                   "fft")
+            _check(audio, n_fft, hop, 1 + audio.shape[-1] // max(hop, 1))
 
     def test_fft_route_takes_any_hop_and_signal_count(self):
         # Odd hops and n_fft, hops that are no multiple of 4, and more
         # than 65,535 signals (more than a grid's y dimension holds).
         for n_fft, hop in ((882, 441), (401, 160), (64, 30), (2, 1)):
-            _check(torch.zeros(2, 900), n_fft, hop, 1 + 900 // hop, "fft")
-        _check(torch.zeros(70000, 8), 8, 4, 3, "fft")
-
-    def test_dft_route_keeps_its_checks(self):
-        # The DFT route now takes the shapes it once refused (a 32-frame
-        # span beyond shared memory, a hop or n_fft that is no multiple of
-        # 4); it still refuses other dtypes, n_fft below 2 and more blocks
-        # than grid x holds.
-        audio = torch.zeros(2, 300)
-        _check(audio, 512, 2048, 1, "dft")
-        _check(audio, 8192, 30, 1 + 300 // 30, "dft")
-        _check(audio, 4410, 441, 1, "dft")
-        with pytest.raises(ValueError, match="float32"):
-            _check(audio.double(), 8192, 32, 10, "dft")
-        with pytest.raises(ValueError, match="n_fft 1"):
-            _check(audio, 1, 1, 301, "dft")
-        with pytest.raises(ValueError, match="grid"):
-            _check(torch.empty(2 ** 31, 40, device="meta"), 8192, 1, 41,
-                   "dft")
+            _check(torch.zeros(2, 900), n_fft, hop, 1 + 900 // hop)
+        _check(torch.zeros(70000, 8), 8, 4, 3)
 
 
-def dft_blocks_emulated(audio: np.ndarray, n_fft: int, hop: int,
-                        frames: int):
-    """(B, N) -> (B, F, T) as stft_mag.cu's blocks produce it under
-    `dft_plan`: each block and lane finds its (signal, frame) and the
-    samples it reads (the staged span, zero past N, or the frame's own
-    offset and length), the DFT of those samples goes to (signal, :, frame)
-    (in float64 against the float32 bases), and every output is written
-    exactly once."""
+def unit_root(m, p):
+    """stft_fft.cu's `unit_root`: W_P^m from sincospif(2m / P), the
+    argument the float32 quotient 2m / P; float64 cos and sin of pi times
+    it, rounded to float32, stand for sincospif (within an ulp of it)."""
+    x = (np.float32(2) * np.asarray(m, np.float32)) / np.float32(p)
+    ang = np.pi * x.astype(np.float64)
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+def four_step_passes(n_fft: int) -> tuple:
+    """A model of the plan `avsep_stft_4step_fwd` (stft_fft.cu) derives
+    for each pass of the four-step regime from `four_step_plan`: its name,
+    FFT length, sequences a block, blocks a sequence, work region (complex
+    values) and shared memory (two regions, the FFT's table of len + 1
+    values, the static stage table)."""
+    p = four_step_plan(n_fft)
+    size = p.pad or p.length
+    out = [dict(name="columns", len=p.n1, seq=p.cols,
+                groups=-(-p.n2 // p.cols), region=p.n1 * p.cols)]
+    if p.pad:
+        out.append(dict(name="rows_middle", len=p.n2, seq=p.rows,
+                        groups=-(-p.n1 // p.rows), region=p.rows * p.n2))
+    axis = p.n2 if p.pad else p.n1
+    a = p.length % axis
+    reps = a // 2 + 1 + (axis - a) // 2
+    last = dict(name="columns_last" if p.pad else "rows_last",
+                len=p.n1 if p.pad else p.n2, seq=2 * p.pairs,
+                groups=-(-reps // p.pairs), reps=reps, a=a,
+                q=p.length // axis, axis=axis)
+    last["region"] = 2 * p.pairs * (p.n1 if p.pad else p.n2)
+    out.append(last)
+    for d in out:
+        d["smem"] = 8 * (2 * d["region"] + d["len"] + 1) + STAGE_TABLE_BYTES
+        d["size"] = size
+    return tuple(out)
+
+
+def four_step_emulated(audio: np.ndarray, n_fft: int, hop: int,
+                       num_frames: int) -> np.ndarray:
+    """(B, N) float32 -> (B, F, T) float32 by the four-step passes of
+    stft_fft.cu, in float32: pack (under Bluestein times the chirp, zero
+    to P) into the [a][c] matrix of n = n2 a + c; the columns' n1-point
+    Stockham FFTs, times W_P^(c k1), as [k1][c]; then the rows' n2-point
+    FFTs (no Bluestein), or under Bluestein the rows' FFTs, times the
+    chirp's transform in the [k1][k2] layout, conjugated, the rows' FFTs,
+    times W_P^(k1 m2) and the columns' FFTs; last, block by block over the
+    representatives of the pairs (x, (a - x) mod A), the split (or the
+    separation of two frames) from Z[j] and its partner at
+    (q - p - [x > a]) in the pair's other sequence.  Every bin of every
+    frame must be written exactly once."""
+    f32 = np.float32
+    plan, tables = four_step_plan(n_fft), four_step_tables(n_fft)
+    last = four_step_passes(n_fft)[-1]
+    length, n1, n2 = plan.length, plan.n1, plan.n2
+    size = plan.pad or length
+    odd = n_fft % 2 == 1
     b, n = audio.shape
-    plan = dft_plan(n_fft, hop, b, frames)
-    cos_b, sin_b = (x.astype(np.float64) for x in dft_basis(n_fft))
-    out = np.full((b, n_fft // 2 + 1, frames), np.nan)
-    tiles = -(-frames // TILE_FRAMES)
-    rows, where = [], []
-    for blk in range(plan.grid[0]):
-        if plan.kind == "global":
-            f0 = blk * TILE_FRAMES
-            for lane in range(TILE_FRAMES):
-                fb, ft = divmod(f0 + lane, frames)
-                if fb >= b:
+    seqs = four_step_sequences(n_fft, num_frames)
+    frames = 2 * seqs if odd else seqs
+    extra = max(0, (frames - 1) * hop + n_fft - n)
+    padded = np.pad(audio, ((0, 0), (0, extra)))
+    idx = np.arange(frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    x = padded[:, idx] * tables.window               # (B, frames, n_fft)
+    if odd:
+        x[:, num_frames:] = 0.0                      # the pair's second
+        zr, zi = x[:, 0::2], x[:, 1::2]
+    else:
+        zr, zi = x[..., 0::2], x[..., 1::2]
+    if plan.pad:
+        zr, zi = _cmul(zr, zi, tables.chirp[:, 0], tables.chirp[:, 1])
+        pad = ((0, 0), (0, 0), (0, size - length))
+        zr, zi = np.pad(zr, pad), np.pad(zi, pad)
+
+    def cols_fft(ar, ai):    # (.., n1, n2) [a][c] -> [c][k1]
+        return stockham(np.swapaxes(ar, -1, -2).copy(),
+                        np.swapaxes(ai, -1, -2).copy(), plan.radices1,
+                        tables.twiddle1, n1)
+
+    def rows_fft(ar, ai):    # (.., n1, n2), over the rows
+        return stockham(ar, ai, plan.radices2, tables.twiddle2, n2)
+
+    ar, ai = cols_fft(zr.reshape(b, seqs, n1, n2), zi.reshape(b, seqs, n1, n2))
+    c, k1 = np.meshgrid(np.arange(n2), np.arange(n1), indexing="ij")
+    ar, ai = _cmul(ar, ai, *unit_root(c * k1, size))
+    ar, ai = np.swapaxes(ar, -1, -2), np.swapaxes(ai, -1, -2)  # [k1][c]
+    ar, ai = rows_fft(ar, ai)
+    if plan.pad:
+        cf = tables.chirp_fft.reshape(n1, n2, 2)
+        ar, ai = _cmul(ar, ai, cf[..., 0], cf[..., 1])
+        ar, ai = rows_fft(ar, -ai)
+        k1, m2 = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
+        ar, ai = _cmul(ar, ai, *unit_root(k1 * m2, size))
+        ar, ai = cols_fft(ar, ai)                    # [m2][m1]
+    # The last pass: the sequences along its axis x, positions p.
+    big, q_len = last["axis"], last["len"]
+    a, q, reps = last["a"], last["q"], last["reps"]
+    f = n_fft // 2 + 1
+    jmax = f if odd else length
+    out = np.full((b, f, num_frames), np.nan, f32)
+
+    def put(k, t, value):
+        assert np.isnan(out[:, k, t]).all(), "a bin written twice"
+        out[:, k, t] = value
+
+    def z_at(x, p, j):
+        zr_, zi_ = ar[:, :, x, p], ai[:, :, x, p]
+        if plan.pad:  # c*[j] conj(v)
+            return _cmul(tables.chirp[j, 0], tables.chirp[j, 1], zr_, -zi_)
+        return zr_, zi_
+
+    h0 = a // 2 + 1
+    for u0 in range(0, reps, plan.pairs):
+        for u in range(u0, min(u0 + plan.pairs, reps)):
+            x0 = u if u < h0 else a + 1 + (u - h0)
+            pair = (x0, (a - x0) % big)
+            for slot, x in enumerate(pair):
+                if slot and x == pair[0]:
                     continue
-                start = ft * hop
-                length = max(0, n - start)
-                row = np.zeros(n_fft)
-                row[:min(n_fft, length)] = audio[fb, start:start + n_fft]
-                rows.append(row)
-                where.append((fb, ft))
-        else:
-            sb, t0 = divmod(blk, tiles)
-            t0 *= TILE_FRAMES
-            span = (TILE_FRAMES - 1) * hop + n_fft
-            assert 4 * span <= plan.smem_bytes
-            staged = np.zeros(span)
-            got = audio[sb, t0 * hop:t0 * hop + span]
-            staged[:len(got)] = got
-            for lane in range(TILE_FRAMES):
-                if t0 + lane < frames:
-                    rows.append(staged[lane * hop:lane * hop + n_fft])
-                    where.append((sb, t0 + lane))
-    rows = np.stack(rows)
-    mag = np.sqrt((rows @ cos_b) ** 2 + (rows @ sin_b) ** 2)
-    for (fb, ft), m in zip(where, mag):
-        assert np.isnan(out[fb, :, ft]).all(), "a frame written twice"
-        out[fb, :, ft] = m
-    assert not np.isnan(out).any(), "a frame never written"
-    return out, plan
+                p = np.arange(q_len)
+                j = x + big * p
+                keep = j < jmax
+                p, j = p[keep], j[keep]
+                pm = np.where(j > 0, q - p - (x > a), p)
+                jm = np.where(j > 0, length - j, 0)
+                zkr, zki = z_at(x, p, j)
+                zmr, zmi = z_at(pair[1 - slot], pm, jm)
+                zmr = np.where(j > 0, zmr, zkr)
+                zmi = np.where(j > 0, zmi, zki)
+                if not odd:
+                    def split_mag(wr, wi, zmr, zmi):
+                        ar_, ai_ = zkr + zmr, zki - zmi
+                        br, bi = zkr - zmr, zki + zmi
+                        wbr, wbi = wr * br - wi * bi, wr * bi + wi * br
+                        xr, xi = f32(0.5) * (ar_ + wbi), f32(0.5) * (ai_ - wbr)
+                        return np.sqrt(xr * xr + xi * xi)
+                    mag = split_mag(tables.split[j, 0], tables.split[j, 1],
+                                    zmr, zmi)
+                    put(j, slice(None), np.moveaxis(mag, 1, 2)
+                        .reshape(b, len(j), seqs)[:, :, :num_frames])
+                    if j.size and j[0] == 0:
+                        top = split_mag(tables.split[length, 0],
+                                        tables.split[length, 1], zkr, zki)
+                        put(length, slice(None), top[..., 0])
+                else:
+                    pr, pi = zkr + zmr, zki - zmi
+                    qr, qi = zkr - zmr, zki + zmi
+                    first = f32(0.5) * np.sqrt(pr * pr + pi * pi)
+                    second = f32(0.5) * np.sqrt(qr * qr + qi * qi)
+                    both = np.stack([first, second], axis=2)  # (B, S, 2, J)
+                    both = np.moveaxis(both.reshape(b, 2 * seqs, len(j)), 1,
+                                       2)[:, :, :num_frames]
+                    put(j, slice(None), both)
+    assert not np.isnan(out).any(), "a bin never written"
+    return out
 
 
+def float64_tol(want):
+    """tests/test_kernels.py's tolerance for the Pallas kernel against
+    float64 numpy: 5e-4 + 1e-4 relative (as an absolute bound)."""
+    return 5e-4 + 1e-4 * np.abs(want)
+
+
+@pytest.fixture
+def drop_plain_bases():
+    """The plain bases of a large n_fft (up to 1 GB at 16384) are cached
+    by the port's and the JAX package's `dft_basis`; let them go after
+    the test."""
+    yield
+    from av_separation_torch.ops.stft import dft_basis
+    from av_separation_tpu.ops.stft import dft_basis as jax_dft_basis
+    dft_basis.cache_clear()
+    jax_dft_basis.cache_clear()
+
+
+@pytest.mark.usefixtures("drop_plain_bases")
+class TestLargeNfft:
+    # Every n_fft in (4096, 65536], in eight runs: its regime ('fft' where
+    # one frame's block fits 227 KB, else 'four_step'), a shared memory
+    # that fits, stages within the kernel's cap, every FastDiv exact over
+    # its range, a grid within its cap at 70,000 signals of one frame.
+    @pytest.mark.parametrize("lo", range(4097, 65537, 7680))
+    def test_every_n_fft_has_a_plan_that_fits(self, lo):
+        counts = {"fft": 0, "four_step": 0}
+        for n_fft in range(lo, min(lo + 7680, 65537)):
+            kind = route(n_fft)
+            counts[kind] += 1
+            plan = fft_plan(n_fft)
+            if kind == "fft":
+                assert plan.pad <= MAX_PAD and len(plan.radices) <= MAX_STAGES
+                assert fft_smem_bytes(n_fft, 1, 1) <= MAX_SMEM_BYTES, n_fft
+                tile = fft_tile_frames(n_fft, 441, 70000, 3, 132)
+                assert tile in (1, 2)
+                assert fft_smem_bytes(n_fft, 441, tile) <= MAX_SMEM_BYTES
+                assert 70000 * -(-3 // tile) <= 2 ** 31 - 1
+                for d, top in kernel_divisions(n_fft, tile):
+                    m = ((1 << 31) + d - 1) // d
+                    assert top * (m * d - (1 << 31)) < 1 << 31, (n_fft, d)
+                continue
+            fs = four_step_plan(n_fft)
+            size = fs.pad or fs.length
+            assert fs.n1 * fs.n2 == size < 1 << 24
+            assert fs.n2 <= 2048 and fs.n1 <= 8192
+            assert np.prod(fs.radices1) == fs.n1
+            assert np.prod(fs.radices2) == fs.n2
+            assert max(len(fs.radices1), len(fs.radices2)) <= MAX_STAGES
+            assert fs.cols & (fs.cols - 1) == 0
+            assert fs.pairs & (fs.pairs - 1) == 0
+            assert fs.sequences * 8 * size <= max(32 << 20, 8 * size)
+            for p in four_step_passes(n_fft):
+                assert p["smem"] <= MAX_SMEM_BYTES, (n_fft, p)
+                assert p["groups"] * fs.sequences <= 2 ** 31 - 1
+                seq, ln = p["seq"], p["len"]
+                if ln & (ln - 1):   # mixed radix: FastDiv by len / r, ns
+                    ns = 1
+                    for r in (fs.radices1 if ln == fs.n1 else fs.radices2):
+                        for d, top in ((ln // r, seq * ln // r),
+                                       (ns, ln // r)):
+                            m = ((1 << 31) + d - 1) // d
+                            assert top * (m * d - (1 << 31)) < 1 << 31
+                        ns *= r
+        hi = min(lo + 7680, 65537)
+        assert counts["fft"] + counts["four_step"] == hi - lo
+        if lo == 4097:   # 4097 itself: L 4097 needs P 16384
+            assert counts["fft"] > 0 and route(4097) == "four_step"
+
+    # One frame a block (the 'fft' regime above 4096: nothing staged, the
+    # same arithmetic): a power of two (8192, 16384), the mixed radix (4410:
+    # L 2205 = 3^2 5 7^2) and Bluestein at P 8192 (4098: L 2049), against
+    # the plain version at 2e-4 x max(1, peak / 100).
+    @pytest.mark.parametrize("n_fft,hop,n", [(8192, 1024, 12000),
+                                             (16384, 4096, 20000),
+                                             (4410, 441, 6000),
+                                             (4098, 4098, 8196)])
+    def test_one_frame_a_block_matches_plain(self, n_fft, hop, n):
+        assert route(n_fft) == "fft"
+        audio = rand((2, n), 70 + n_fft)
+        frames = 1 + n // hop
+        ours = fft_stft_emulated(audio, n_fft, hop, frames, tile=1)
+        plain = stft_magnitude_fwd_torch(torch.from_numpy(audio), n_fft,
+                                         hop).numpy()
+        assert ours.shape == plain.shape == (2, n_fft // 2 + 1, frames)
+        np.testing.assert_allclose(ours, plain, atol=plain_tol(plain.max()),
+                                   rtol=0)
+
+    def test_four_step_matches_plain_under_bluestein(self):
+        # n_fft 8194: L 4097 = 17 241, P 16384 = 8 x 2048, three passes.
+        audio = rand((2, 12000), 80)
+        frames = 1 + 12000 // 2048
+        ours = four_step_emulated(audio, 8194, 2048, frames)
+        plain = stft_magnitude_fwd_torch(torch.from_numpy(audio), 8194,
+                                         2048).numpy()
+        assert ours.shape == plain.shape == (2, 4098, frames)
+        np.testing.assert_allclose(ours, plain, atol=plain_tol(plain.max()),
+                                   rtol=0)
+
+    # Against float64 numpy where the plain bases (2 n_fft F floats) are
+    # too large to build here: a power of two (32768: 8 x 2048; 65536: 16 x
+    # 2048), 7-smooth lengths (19600: L 9800 = 5 x 1960; odd 10125 = 5 x
+    # 2025, two frames a sequence, an odd frame count) and odd Bluestein
+    # (8193, P 32768 = 16 x 2048).
+    @pytest.mark.parametrize("n_fft,hop,n", [(32768, 8192, 50000),
+                                             (65536, 16384, 70000),
+                                             (19600, 4900, 30000),
+                                             (10125, 2205, 14000),
+                                             (8193, 2048, 13000)])
+    def test_four_step_matches_float64(self, n_fft, hop, n):
+        from av_separation_torch.data.synthetic import stft_magnitude_np
+        assert route(n_fft) == "four_step"
+        audio = rand((2, n), 90 + n_fft % 97)
+        frames = 1 + n // hop
+        ours = four_step_emulated(audio, n_fft, hop, frames)
+        want = np.stack([stft_magnitude_np(a, n_fft, hop, frames)
+                         for a in audio])
+        assert ours.shape == want.shape == (2, n_fft // 2 + 1, frames)
+        assert np.all(np.abs(ours - want) <= float64_tol(want))
+        assert np.abs(ours - want).max() <= plain_tol(want.max())
+
+    # The last pass's pairs: the orbits of x -> (a - x) mod A cover the
+    # axis once, each sequence's partner holds Z[L - j].
+    @pytest.mark.parametrize("n_fft", [8194, 32768, 10125, 8193])
+    def test_last_pass_pairs_cover_the_axis(self, n_fft):
+        last = four_step_passes(n_fft)[-1]
+        a, big, reps = last["a"], last["axis"], last["reps"]
+        h0 = a // 2 + 1
+        seen = []
+        for u in range(reps):
+            x = u if u < h0 else a + 1 + (u - h0)
+            y = (a - x) % big
+            seen += [x] if x == y else [x, y]
+        assert sorted(seen) == list(range(big))
+        length = four_step_plan(n_fft).length
+        assert last["q"] * big + a == length
+
+    def test_pass_model_follows_the_c_entry(self):
+        # `four_step_passes` copies the arithmetic of the C entry point's
+        # plan: each line it copies must still be there, word for word.
+        src = (CSRC / "stft_fft.cu").read_text()
+        body = " ".join(src[src.index('"C" int avsep_stft_4step_fwd'):]
+                        .split())
+        for line in ("f.groups = (n2 + cols - 1) / cols;",
+                     "f.region = n1 * cols;",
+                     "f.groups = (n1 + rows - 1) / rows;",
+                     "f.region = rows * n2;",
+                     "const int A = pass == kRowsLast ? n1 : n2;",
+                     "f.a = L % A;", "f.q = L / A;",
+                     "f.reps = f.a / 2 + 1 + (A - f.a) / 2;",
+                     "f.groups = (f.reps + pairs - 1) / pairs;",
+                     "seq = 2 * pairs;",
+                     "f.region = seq * (pass == kRowsLast ? n2 : n1);",
+                     "f.len = on_columns ? n1 : n2;",
+                     "(2 * (size_t)f.region + f.len + 1) * sizeof(float2) "
+                     "+ sizeof(Stage) * kMaxStages > kMaxSmem"):
+            assert line in body, line
+        assert STAGE_TABLE_BYTES == 20 * MAX_STAGES
+        assert "static_assert(sizeof(Stage) == 20," in src
+        assert f"constexpr int kMaxStages = {MAX_STAGES};" in src
+
+    def test_four_step_tables(self):
+        # The chirp's transform in the [k1][k2] layout; the stages' tables
+        # of order 2 n1 and 2 n2; the split table of order n_fft.
+        plan, tables = four_step_plan(8194), four_step_tables(8194)
+        spec = fft_tables(4098).chirp_fft   # P 8192: the same formula
+        assert spec.shape == (8192, 2)
+        cf = tables.chirp_fft.reshape(plan.n1, plan.n2, 2)
+        k1, k2 = 3, 100
+        ref = np.fft.fft(np.r_[
+            np.exp(1j * np.pi * (np.arange(4097) ** 2 % 8194) / 4097),
+            np.zeros(16384 - 2 * 4097 + 1),
+            np.exp(1j * np.pi * (np.arange(4096, 0, -1) ** 2 % 8194)
+                   / 4097)]) / 16384
+        np.testing.assert_allclose(cf[k1, k2, 0] + 1j * cf[k1, k2, 1],
+                                   ref[k1 + plan.n1 * k2], atol=1e-7)
+        assert tables.twiddle1.shape == (plan.n1 + 1, 2)
+        assert tables.twiddle2.shape == (plan.n2 + 1, 2)
+        assert tables.split.shape == (4098, 2)
+        np.testing.assert_array_equal(
+            tables.split[:, 0],
+            np.cos(-2 * np.pi * np.arange(4098) / 8194).astype(np.float32))
+
+    @pytest.mark.parametrize("audio,n_fft,hop,match", [
+        (torch.zeros(2, 9000, dtype=torch.float64), 8192, 1024, "float32"),
+        (torch.zeros(9000, 2).t(), 32768, 8192, "contiguous"),
+        # 2^31 signals of 41 frames: one frame a block exceeds grid x (a
+        # meta tensor: no memory).
+        (torch.empty(2 ** 31, 40, device="meta"), 8192, 1, "grid")])
+    def test_large_n_fft_inputs_are_checked(self, audio, n_fft, hop, match):
+        with pytest.raises(ValueError, match=match):
+            _check(audio, n_fft, hop, 1 + audio.shape[-1] // hop)
+
+    def test_four_step_takes_any_signal_count(self):
+        # No grid cap: a chunk of sequences a launch.
+        _check(torch.empty(2 ** 31, 40, device="meta"), 32768, 1, 41)
+        plan = four_step_plan(32768)
+        assert plan.sequences == (32 << 20) // (8 * 16384)
+
+
+@pytest.mark.usefixtures("drop_plain_bases")
 class TestDftRoute:
-    # n_fft above 4096 at any hop and signal count: the launch plan (block
-    # kind, bins a block, grid, shared memory) fits the card and covers
-    # every bin and frame.
-    @pytest.mark.parametrize("hop", [1, 441, 4410])
-    @pytest.mark.parametrize("n_fft", [4098, 4410, 16384])
-    def test_plan_fits_and_covers(self, n_fft, hop):
-        f = n_fft // 2 + 1
-        span = (TILE_FRAMES - 1) * hop + n_fft
-        for signals, n in ((1, 64000), (70000, 64000), (70000, n_fft),
-                           (3, 100)):
-            frames = 1 + n // hop
-            plan = dft_plan(n_fft, hop, signals, frames)
-            assert plan.threads % 32 == 0 and plan.threads <= 128
-            assert plan.f_pad >= f and plan.f_pad % plan.threads == 0
-            assert plan.grid[1] == plan.f_pad // plan.threads <= 65535
-            assert plan.grid[0] < 2 ** 31
-            assert plan.smem_bytes + DFT_STATIC_SMEM <= MAX_SMEM_BYTES
-            stage = 4 * plan.threads * STAGE_STRIDE
-            if plan.kind == "global":
-                assert plan.smem_bytes == stage
-                blocks = -(-signals * frames // TILE_FRAMES)
-                assert frames < TILE_FRAMES or max(
-                    4 * span, stage) + DFT_STATIC_SMEM > MAX_SMEM_BYTES
-            else:
-                assert frames >= TILE_FRAMES
-                assert plan.smem_bytes == max(4 * span, stage)
-                assert (plan.kind == "staged_vec") == \
-                    (n_fft % 4 == 0 and hop % 4 == 0)
-                blocks = signals * -(-frames // TILE_FRAMES)
-            assert plan.grid[0] == blocks
-
-    @pytest.mark.parametrize("n_fft,hop,shape,kind", [
-        (4410, 441, (2, 17640), "staged"),       # 41 frames, 18,081 floats
-        (4410, 441, (3, 8820), "global"),        # 21 frames a signal
-        (4098, 4098, (40, 4098), "global"),      # 2 frames a signal
-        (8192, 1024, (2, 40000), "staged_vec"),  # the card's 8192 row's
-        (4098, 2048, (2, 70000), "global")])     # a span beyond 227 KB
-    def test_blocks_read_the_reference_frames(self, n_fft, hop, shape,
-                                              kind):
-        audio = rand(shape, 95)
-        frames = 1 + shape[1] // hop
-        got, plan = dft_blocks_emulated(audio, n_fft, hop, frames)
-        assert plan.kind == kind
-        want = stft_magnitude_fwd_torch(torch.from_numpy(audio), n_fft,
-                                        hop).numpy()
-        np.testing.assert_allclose(got, want,
-                                   atol=2e-4 * max(1.0, want.max() / 100))
-
+    # The plain version (a matrix DFT against float64-built bases) at the
+    # n_fft above 4096, against the Pallas kernel in interpret mode.
     def test_plain_matches_pallas_at_4410_441(self):
         # The 44.1 kHz 100 ms window (n_fft 4410, hop 441): the plain
         # version against the Pallas kernel in interpret mode (float32
@@ -709,6 +957,24 @@ class TestDftRoute:
         assert got.shape == want.shape == (2, 2206, 41)
         np.testing.assert_allclose(got, want,
                                    atol=2e-4 * max(1.0, want.max() / 100))
+
+    def test_plain_matches_pallas_at_8192(self):
+        # n_fft 8192, two frames (hop 1024): the plain version and the
+        # one-frame-a-block emulation against the Pallas kernel.
+        import jax.numpy as jnp
+
+        from av_separation_tpu.ops.pallas.stft import stft_magnitude_pallas
+        audio = rand((1, 9216), 97)
+        want = stft_magnitude_fwd_torch(torch.from_numpy(audio), 8192,
+                                        1024, 2).numpy()
+        ours = fft_stft_emulated(audio, 8192, 1024, 2, tile=1)
+        with pltpu.force_tpu_interpret_mode():
+            got = np.asarray(stft_magnitude_pallas(jnp.asarray(audio), 8192,
+                                                   1024, 2))
+        assert got.shape == want.shape == (1, 4097, 2)
+        tol = 2e-4 * max(1.0, want.max() / 100)
+        np.testing.assert_allclose(got, want, atol=tol)
+        np.testing.assert_allclose(ours, got, atol=tol)
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,7 @@ from av_separation_torch.ops.kernels.audio_proj import (audio_proj_fwd,
                                                         audio_projection)
 from av_separation_torch.ops.kernels.decoder import (mask_decoder,
                                                      mask_decoder_fwd)
-from av_separation_torch.ops.kernels.stft import (launch_shape,
-                                                  stft_magnitude_fwd)
+from av_separation_torch.ops.kernels.stft import stft_magnitude_fwd
 
 SEED = -1234567  # an int32 dropout seed with the sign bit set
 
@@ -182,21 +181,13 @@ class TestStft:
         (torch.zeros(300, 2).t(), 64, 32, "contiguous"),
         (torch.zeros(2, 300), 1, 32, "n_fft 1"),
         (torch.zeros(2, 0), 8192, 32, "audio must be"),
-        # 2^31 signals of 41 frames: more blocks of 32 frames than grid x
-        # holds (a meta tensor: no memory).
+        # 2^31 signals of 41 frames at one frame a block: more blocks than
+        # grid x holds (a meta tensor: no memory).
         (torch.empty(2 ** 31, 40, device="meta"), 8192, 1, "grid")])
     def test_kernel_inputs_are_checked(self, audio, n_fft, hop, match):
         from av_separation_torch.ops.kernels.stft import _check
         with pytest.raises(ValueError, match=match):
             _check(audio, n_fft, hop, 1 + audio.shape[-1] // hop)
-
-    @pytest.mark.parametrize("n_fft,threads,f_pad", [
-        (512, 96, 288), (128, 96, 96), (1024, 128, 640), (256, 96, 192),
-        (4, 32, 32)])
-    def test_launch_shape_covers_every_bin(self, n_fft, threads, f_pad):
-        assert launch_shape(n_fft) == (threads, f_pad)
-        assert f_pad >= n_fft // 2 + 1 and f_pad % threads == 0
-        assert threads % 32 == 0 and threads <= 128
 
 
 class TestDispatch:
@@ -228,13 +219,14 @@ class TestDispatch:
                          torch.zeros(2 * 3), torch.zeros(1, 3, 4), 2)
         stft_magnitude_fwd(torch.zeros(2, 300), 64, 32)   # the FFT route's
         stft_magnitude_fwd(torch.zeros(2, 300), 56, 32)   # the FFT route's
-        stft_magnitude_fwd(torch.zeros(2, 300), 4100, 32)  # the DFT route's
+        stft_magnitude_fwd(torch.zeros(2, 300), 4100, 32)  # one a frame
+        stft_magnitude_fwd(torch.zeros(2, 300), 8194, 32)  # the four-step
         assert kernels.LAUNCHES == {"flash_attn_fwd": 0,
                                     "flash_attn_bwd": 0,
                                     "audio_proj_fwd": 0,
                                     "mask_decoder_fwd": 0,
                                     "stft_mag_fwd": 0,
-                                    "stft_mag_dft_fwd": 0,
+                                    "stft_mag_4step_fwd": 0,
                                     "flash_attn_fwd[bf16]": 0,
                                     "flash_attn_bwd[bf16]": 0,
                                     "audio_proj_fwd[bf16]": 0,
