@@ -1,5 +1,6 @@
 // Flash attention backward, float32 on the tensor cores in 3xTF32 and
-// bfloat16 above head dim 256 in bf16 products, for Hopper (sm_90a).
+// bfloat16 above head dim 256 in bf16 `mma.sync` products, for Hopper
+// (sm_90a).
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_bwd_hpacked_kernel`
 // (packed (B, T, H*dh) layout, `_flash_hpacked_bwd_rule`),
@@ -84,11 +85,20 @@
 //   and dO staged at full width) and accumulates only its own columns, so
 //   a warp holds the accumulators of dh 128.  200 KB of shared memory at
 //   float32: one 4-warp block an SM.
-// - Head dims above 256 (any multiple of 128, `flash_bwd_*_kernel_wide`):
-//   the same column split, but S^T and dP^T (S and dP) are summed over
-//   128-column chunks that stream through the ring with the tile's rows;
-//   a last step stages the rows' own columns (Q and dO for dK/dV, K for
-//   dQ).  K and V (Q and dO) are re-read from L2 for every tile.
+// - Head dims above 256 (any multiple of 128,
+//   `flash_bwd_*_kernel_cluster`): a thread-block cluster of nc = dh / 128
+//   blocks (grid z; cluster.cuh) shares a block's 64 keys (dK/dV) or rows
+//   (dQ), block c holding chunk c of every operand and gradient (above dh
+//   2048 block r owns chunks r, r + C, ... of a cluster of C, their
+//   accumulators in a scratch buffer).  Each
+//   block computes its partials S^T_c and dP^T_c (S_c and dP_c) for a
+//   32-row (32-key) tile, the cluster sums the nc partials in block order
+//   through distributed shared memory (one cluster barrier a tile), and
+//   each block forms the same P, Pd, dS and takes its own columns of dV,
+//   dK (dQ): 4 nc + 3 nc = 7 nc chunk products a tile pair, the count of
+//   the kernels up to dh 256 (the chunked kernels they replace took
+//   nc (4 nc + 3)).  The order of every sum is fixed: no atomics, two
+//   runs bit-identical.  bf16 keeps mma.sync.m16n8k16 here.
 // - Rows past T are zero-filled by the copies; a query past Tq gets lse
 //   +inf in the dK/dV kernel (p = 0), a key past Tk gets p = 0 in the dQ
 //   kernel, and neither is stored.
@@ -100,6 +110,8 @@
 
 #include <type_traits>
 
+#include "chunk_frags.cuh"
+#include "cluster.cuh"
 #include "dropout_hash.cuh"
 #include "grid_fold.cuh"
 #include "mma_3xtf32.cuh"
@@ -131,6 +143,8 @@ struct Params {
   float scale;
   float keep;  // 1 - rate
   DropoutHash drop;
+  int nc;          // column chunks above dh 256 (cluster.cuh)
+  float* scratch;  // the accumulators of a block's chunks after its first
 };
 
 template <typename T>
@@ -671,94 +685,246 @@ flash_bwd_dq_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Head dims above 256 (any multiple of 128): the column split of dh 256,
-// with S^T (S) and dP^T (dP) summed over 128-column chunks that stream
-// through the ring instead of being staged at full width.
+// Head dims above 256 (any multiple of 128): a cluster of nc = dh / 128
+// blocks along grid z (cluster.cuh), block c (its rank) owning column chunk
+// c of every operand and of the gradients.  Each
+// block computes the partial S (S^T) and dP (dP^T) over its own 128
+// columns, puts them in its exchange buffer, and after one cluster barrier
+// sums the nc partials in rank order (its own from its shared memory, the
+// others' from the cluster's, `cluster_sum`): every block then holds the
+// same S and dP, forms the same P, Pd and dS,
+// and takes its own columns of the gradient products.  A tile pair costs
+// the dK/dV blocks 4 nc chunk products (S^T, dP^T, dV, dK) and the dQ
+// blocks 3 nc (S, dP, dQ): 7 nc, none repeated; no atomics.  The streamed
+// operands come through a 2-stage cp.async ring whose next stage is issued
+// right after the barrier (every thread of the block is then past the
+// stage it refills); the exchange buffers alternate by tile, so one
+// barrier a tile suffices.  Above 128 kClusterMax (kMulti) a cluster of
+// C = cluster_blocks(nc) blocks shares the tile, block r owning chunks
+// r + i C (cluster.cuh): it adds the partials of its chunks after the
+// first to its partials in chunk order, and keeps their gradient
+// accumulators in the scratch buffer (which the dK/dV and dQ launches
+// share, one after the other), their operands read from global memory
+// (chunk_frags.cuh); still 7 nc chunk products a tile pair.
 // ---------------------------------------------------------------------------
-// dK/dV: a block owns 64 keys and one group of 128 output columns.  For
-// each 16-row query tile, steps c < nc stage chunk c of K, V, Q and dO;
-// step nc stages the block's columns of Q and dO with the rows' lse, delta
-// and hash words.  K and V are re-read from L2 for every query tile.
+constexpr int kClusterTile = 32;  // query rows (dK/dV) or keys (dQ) a tile
+
+// Another chunk's partial over 8 of its columns [c, c + 8), in 3xTF32: for
+// a warp's 16 rows [r0, r0 + 16) of `a` (the A operand's rows) and N 8-row
+// tiles from row n0 of `b` (the B operand's rows), into acc[N].
+template <int N>
+__device__ __forceinline__ void chunk_partial_f32(
+    float (&acc)[N][4], const GlobalRows<float>& a, const GlobalRows<float>& b,
+    int r0, int n0, int c, int g, int t) {
+  float x[4];
+  unsigned ab[4], as[4];
+  gfrag_a(a, r0, c, g, t, x);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(x[e], ab[e], as[e]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float y[2];
+    unsigned bb[2], bs[2];
+    gfrag_b_rows(b, n0 + n * 8, c, g, t, y);
+    split(y[0], bb[0], bs[0]);
+    split(y[1], bb[1], bs[1]);
+    mma_3xtf32(acc[n], ab, as, bb, bs);
+  }
+}
+
+// The same over 16 columns [c, c + 16) in bf16.
+template <int N>
+__device__ __forceinline__ void chunk_partial_bf16(
+    float (&acc)[N][4], const GlobalRows<bf16>& a, const GlobalRows<bf16>& b,
+    int r0, int n0, int c, int g, int t) {
+  unsigned x[4];
+  gfrag_a(a, r0, c, g, t, x);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    unsigned y[2];
+    gfrag_b_rows(b, n0 + n * 8, c, g, t, y);
+    mma_bf16(acc[n], x, y);
+  }
+}
+
+// Rows [0, n) of the (time, dh) operand at `base` (strides s) of this
+// block's (batch, head): the block index read afresh (`unfold_again`, over
+// `tiles` row tiles a pair), so that a kernel at its register cap holds
+// none of it across its tile loop.
 template <typename T>
-struct WideDkvLayout {
-  static constexpr int kS = kGroup + 16 / sizeof(T);
-  static constexpr int kKV = kBlock * kS;   // a chunk of K or V
-  static constexpr int kRows = kTile * kS;  // a chunk of Q or dO
-  static constexpr int kOperands = 2 * kKV + 2 * kRows;
-  static constexpr int kStage = kOperands + 4 * kTile * (4 / sizeof(T));
-  static constexpr size_t kBytes = 2 * kStage * sizeof(T);
+__device__ __forceinline__ GlobalRows<T> rows_of(const void* base,
+                                                 const long long* s, int n,
+                                                 int tiles, int H) {
+  const int bh = unfold_again(tiles).pair;
+  return {head<T>(base, s, bh / H, bh % H), s[2], n};
+}
+
+// A float4 of this block's shared memory, loaded where the code stands:
+// the compiler may not hoist it out of a loop and hold it (or what is
+// made of it) in registers.
+__device__ __forceinline__ void ld_shared4_here(float (&d)[4],
+                                                const float4* p) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p)))
+               : "memory");
+}
+
+// A gradient's accumulators of another chunk, C fragments of its 8 DN
+// columns [c0, c0 + 8 DN) in the scratch buffer (float4 dn at
+// acc[dn * blockDim.x]; zero before the first tile), += C B over the N
+// 8-column C fragments of a tile's 8 N queries or keys (as A: `c_as_a` /
+// `c_pair_as_a`), which `put_partials` parked in shared memory (fragment
+// n at c[32 n]), and rows [k0, k0 + 8 N) of `b`.  One k step at a time
+// across the columns, its A fragment read back from shared memory for
+// each product, so that none is held across the column loop (the dQ
+// kernel holds its first chunk's accumulators beside it).
+template <typename T, int N, int DN>
+__device__ __forceinline__ void chunk_products(float4* acc, bool first,
+                                               const float4* c,
+                                               const GlobalRows<T>& b,
+                                               int k0, int c0, int g, int t) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kSteps = kF32 ? N : N / 2;
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n) {
+#pragma unroll 1
+    for (int dn = 0; dn < DN; ++dn) {
+      unsigned ab[4], as[4];
+      if constexpr (kF32) {
+        float f[4];
+        ld_shared4_here(f, c + 32 * n);
+        c_as_a(f, ab, as);
+      } else {
+        float f0[4], f1[4];
+        ld_shared4_here(f0, c + 64 * n);
+        ld_shared4_here(f1, c + 64 * n + 32);
+        c_pair_as_a(f0, f1, ab);
+      }
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      if (!first || n > 0) load4(d, acc + dn * blockDim.x);
+      if constexpr (kF32) {
+        float y[2];
+        unsigned bb[2], bs[2];
+        gfrag_b_cols(b, k0 + n * 8, c0 + dn * 8, g, t, y);
+        split(y[0], bb[0], bs[0]);
+        split(y[1], bb[1], bs[1]);
+        mma_3xtf32(d, ab, as, bb, bs);
+      } else {
+        unsigned bb[2];
+        gfrag_b_cols(b, k0 + n * 16, c0 + dn * 8, g, t, bb);
+        mma_bf16(d, ab, bb);
+      }
+      store4(acc + dn * blockDim.x, d);
+    }
+  }
+}
+
+// A warp's accumulators of another chunk (N float4 a thread in the
+// scratch buffer, C fragments of rows [r0, r0 + 16)) into columns
+// [c, c + 8 N) of a (time, dh) output of T, rows past n not stored.
+template <typename T, int N>
+__device__ __forceinline__ void store_chunk(const float4* acc, T* out,
+                                            long long stride, int r0, int n,
+                                            int c, int g, int t) {
+#pragma unroll 1
+  for (int dn = 0; dn < N; ++dn) {
+    float d[4];
+    load4(d, acc + dn * blockDim.x);
+    const int col = c + dn * 8 + 2 * t;
+    if (r0 + g < n) store2(out + (r0 + g) * stride + col, d[0], d[1]);
+    if (r0 + g + 8 < n)
+      store2(out + (r0 + g + 8) * stride + col, d[2], d[3]);
+  }
+}
+
+// dK/dV: a cluster owns 64 keys; K_c and V_c stay in shared memory, and
+// 32-row tiles of Q_c and dO_c, with the rows' lse, delta and hash words,
+// stream through the ring.
+template <typename T>
+struct ClusterDkvLayout {
+  static constexpr int kS = kGroup + 16 / sizeof(T);  // operand row stride
+  static constexpr int kKV = kBlock * kS;             // K_c or V_c
+  static constexpr int kRows = kClusterTile * kS;     // Q_c or dO_c
+  static constexpr int kOperands = 2 * kRows;
+  static constexpr int kStage = kOperands + 4 * kClusterTile * (4 / sizeof(T));
+  static constexpr int kQN = kClusterTile / 8;        // 8-query tiles
+  // One exchange buffer: S^T, then dP^T partials (floats).
+  static constexpr int kX = 2 * kWarps * kQN * 32 * 4;
+  static constexpr size_t kBytes =
+      (2 * kKV + 2 * kStage) * sizeof(T) + 2 * kX * sizeof(float);
+  static_assert(kBytes <= 232448 && kStage * sizeof(T) % 16 == 0,
+                "shared memory");
 };
 
-template <typename T>
+template <typename T, bool kMulti>
 __global__ void __launch_bounds__(32 * kWarps, 1)
-flash_bwd_dkv_kernel_wide(const Params p, int nc) {
-  using L = WideDkvLayout<T>;
+flash_bwd_dkv_kernel_cluster(const Params p) {
+  using L = ClusterDkvLayout<T>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kS = L::kS;
   constexpr int kThreads = 32 * kWarps;
   constexpr int kDN = kGroup / 8;
-  constexpr int kQN = kTile / 8;
+  constexpr int kQN = L::kQN;
   extern __shared__ float4 smem4[];
-  T* ring = reinterpret_cast<T*>(smem4);
+  T* sK = reinterpret_cast<T*>(smem4);
+  T* sV = sK + L::kKV;
+  T* ring = sV + L::kKV;
+  float* sX = reinterpret_cast<float*>(ring + 2 * L::kStage);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int kw = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int cs = gridDim.z;  // blocks of the cluster
+  const unsigned rank = cluster_rank();
+  const int col0 = rank * kGroup;
   const TileOf at = unfold((p.Tk + kBlock - 1) / kBlock);
   const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
   const int k0 = at.tile * kBlock;
-  const int col0 = blockIdx.z * kGroup;
-  const T* qb = head<T>(p.q, p.sq, b, h);
-  const T* ob = head<T>(p.dout, p.sdo, b, h);
-  const T* kb = head<T>(p.k, p.sk, b, h);
-  const T* vb = head<T>(p.v, p.sv, b, h);
+  const T* qb = head<T>(p.q, p.sq, b, h) + col0;
+  const T* ob = head<T>(p.dout, p.sdo, b, h) + col0;
   const float* lse = p.lse + (long long)bh * p.Tq;
   const float* delta = p.delta + (long long)bh * p.Tq;
-  const int n_tiles = (p.Tq + kTile - 1) / kTile;
-  const int n_steps = n_tiles * (nc + 1);
+  const int n_tiles = (p.Tq + kClusterTile - 1) / kClusterTile;
+  // The block's chunks after its first (kMulti): rank + i cs, i < chunks.
+  const int chunks = chunks_per_block(p.nc);
 
-  auto load_step = [&](int i) {
-    T* st = ring + (i & 1) * L::kStage;
-    const int j = i / (nc + 1), c = i % (nc + 1);
-    const int r0 = j * kTile;
-    const int cc = c < nc ? c * kGroup : col0;
-    if (c < nc) {
-      // The block's keys, decoded afresh (the kernel is at its register
-      // cap; k0 held across the loop spilled).
-      const int kt = unfold_again((p.Tk + kBlock - 1) / kBlock).tile * kBlock;
-      load_tile<T, kGroup, kS, kBlock, kThreads>(st, kb + cc, p.sk[2], kt,
-                                                 p.Tk, tid);
-      load_tile<T, kGroup, kS, kBlock, kThreads>(st + L::kKV, vb + cc,
-                                                 p.sv[2], kt, p.Tk, tid);
-    }
-    T* rows = st + 2 * L::kKV;
-    load_tile<T, kGroup, kS, kTile, kThreads>(rows, qb + cc, p.sq[2], r0,
-                                              p.Tq, tid);
-    load_tile<T, kGroup, kS, kTile, kThreads>(rows + L::kRows, ob + cc,
-                                              p.sdo[2], r0, p.Tq, tid);
-    if (c == nc && tid < kTile) {
+  auto load_stage = [&](int j) {
+    T* st = ring + (j & 1) * L::kStage;
+    const int r0 = j * kClusterTile;
+    load_tile<T, kGroup, kS, kClusterTile, kThreads>(st, qb, p.sq[2], r0,
+                                                     p.Tq, tid);
+    load_tile<T, kGroup, kS, kClusterTile, kThreads>(st + L::kRows, ob,
+                                                     p.sdo[2], r0, p.Tq, tid);
+    if (tid < kClusterTile) {
       float* sl = reinterpret_cast<float*>(st + L::kOperands);
       const int row = r0 + tid;
       if (row < p.Tq) {
         cp_async4(sl + tid, lse + row, 4);
-        cp_async4(sl + kTile + tid, delta + row, 4);
+        cp_async4(sl + kClusterTile + tid, delta + row, 4);
       } else {
         sl[tid] = INFINITY;  // p = exp(s - inf) = 0
-        sl[kTile + tid] = 0.f;
+        sl[kClusterTile + tid] = 0.f;
       }
       if (p.drop.on) {
         const HashRow hr = hash_row(
             p.drop, unfold_again((p.Tk + kBlock - 1) / kBlock).pair, row);
-        reinterpret_cast<unsigned*>(sl)[2 * kTile + tid] = hr.tile;
-        reinterpret_cast<unsigned*>(sl)[3 * kTile + tid] = hr.row;
+        reinterpret_cast<unsigned*>(sl)[2 * kClusterTile + tid] = hr.tile;
+        reinterpret_cast<unsigned*>(sl)[3 * kClusterTile + tid] = hr.row;
       }
     }
-    cp_async_commit();
   };
 
-  float dk[kDN][4], dv[kDN][4], s[kQN][4], dp[kQN][4];
+  load_tile<T, kGroup, kS, kBlock, kThreads>(
+      sK, head<T>(p.k, p.sk, b, h) + col0, p.sk[2], k0, p.Tk, tid);
+  load_tile<T, kGroup, kS, kBlock, kThreads>(
+      sV, head<T>(p.v, p.sv, b, h) + col0, p.sv[2], k0, p.Tk, tid);
+  load_stage(0);
+  cp_async_commit();
+
+  float dk[kDN][4], dv[kDN][4];
 #pragma unroll
   for (int n = 0; n < kDN; ++n)
 #pragma unroll
@@ -768,222 +934,307 @@ flash_bwd_dkv_kernel_wide(const Params p, int nc) {
     hc0 = hash_col(p.drop, k0 + kw * 16 + g);
     hc1 = hash_col(p.drop, k0 + kw * 16 + g + 8);
   }
+  const T* kt = sK + kw * 16 * kS;
+  const T* vt = sV + kw * 16 * kS;
   const float inv_keep = 1.f / p.keep;
+  // This warp's partials: float4 (n, lane) of S^T, then of dP^T.
+  const int xoff = kw * kQN * 32 + lane;
 
-  load_step(0);
-  for (int i = 0; i < n_steps; ++i) {
-    if (i + 1 < n_steps) {
-      load_step(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
     __syncthreads();
-    const T* st = ring + (i & 1) * L::kStage;
-    const int c = i % (nc + 1);
-    const T* sQ = st + 2 * L::kKV;
-    const T* sO = sQ + L::kRows;
-    if (c == 0) {
+    const T* st = ring + (j & 1) * L::kStage;
+    const T* sQ = st;
+    const T* sO = st + L::kRows;
+    float* xb = sX + (j & 1) * L::kX;
+
+    // The partials S^T_c = K_c Q_c^T and dP^T_c = V_c dO_c^T of this
+    // warp's 16 keys and the tile's 32 queries.
+    float s[kQN][4], dp[kQN][4];
 #pragma unroll
-      for (int n = 0; n < kQN; ++n)
+    for (int n = 0; n < kQN; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    }
-    if (c < nc) {
-      const T* kt = st + kw * 16 * kS;
-      const T* vt = st + L::kKV + kw * 16 * kS;
-      if constexpr (kF32) {
-        for (int kk = 0; kk < kGroup / 8; ++kk) {
-          unsigned ab[4], as[4];
-          load_a<kS>(kt, kk * 8, g, t, ab, as);
-#pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
-            unsigned bb[2], bs[2];
-            split(qr[0], bb[0], bs[0]);
-            split(qr[4], bb[1], bs[1]);
-            mma_3xtf32(s[n], ab, as, bb, bs);
-          }
-          load_a<kS>(vt, kk * 8, g, t, ab, as);
-#pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
-            unsigned bb[2], bs[2];
-            split(orow[0], bb[0], bs[0]);
-            split(orow[4], bb[1], bs[1]);
-            mma_3xtf32(dp[n], ab, as, bb, bs);
-          }
-        }
-      } else {
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    if constexpr (kF32) {
 #pragma unroll 2
-        for (int kk = 0; kk < kGroup / 16; ++kk) {
-          unsigned a[4];
-          load_a_bf16<kS>(kt, kk * 16, g, t, a);
-#pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kS>(sQ, n * 8, kk * 16, g, t, bb);
-            mma_bf16(s[n], a, bb);
-          }
-          load_a_bf16<kS>(vt, kk * 16, g, t, a);
-#pragma unroll
-          for (int n = 0; n < kQN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kS>(sO, n * 8, kk * 16, g, t, bb);
-            mma_bf16(dp[n], a, bb);
-          }
-        }
-      }
-    } else {
-      // S^T and dP^T are whole: P^T, Pd^T, dS^T, then dV and dK from the
-      // block's own columns of dO and Q.
-      const float* sl = reinterpret_cast<const float*>(st + L::kOperands);
-      const unsigned* sh = reinterpret_cast<const unsigned*>(sl);
-#pragma unroll
-      for (int n = 0; n < kQN; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n * 8 + 2 * t + e;
-          const float l = sl[col], dl = sl[kTile + col];
-          const float p0 = expf(s[n][e] * p.scale - l);
-          const float p1 = expf(s[n][2 + e] * p.scale - l);
-          float pd0 = p0, pd1 = p1, d0 = dp[n][e], d1 = dp[n][2 + e];
-          if (p.drop.on) {
-            const HashRow hr = {sh[2 * kTile + col], sh[3 * kTile + col]};
-            const bool keep0 = hash_keep(p.drop, hr, hc0);
-            const bool keep1 = hash_keep(p.drop, hr, hc1);
-            pd0 = keep0 ? p0 * inv_keep : 0.f;
-            d0 = keep0 ? d0 * inv_keep : 0.f;
-            pd1 = keep1 ? p1 * inv_keep : 0.f;
-            d1 = keep1 ? d1 * inv_keep : 0.f;
-          }
-          s[n][e] = pd0;
-          s[n][2 + e] = pd1;
-          dp[n][e] = p0 * (d0 - dl) * p.scale;
-          dp[n][2 + e] = p1 * (d1 - dl) * p.scale;
-        }
-      }
-      if constexpr (kF32) {
+      for (int kk = 0; kk < kGroup / 8; ++kk) {
+        unsigned ab[4], as[4];
+        load_a<kS>(kt, kk * 8, g, t, ab, as);
 #pragma unroll
         for (int n = 0; n < kQN; ++n) {
-          unsigned ab[4], as[4];
-          c_as_a(s[n], ab, as);
-          const float* orow = sO + (n * 8 + 2 * t) * kS + g;
+          const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(qr[0], bb[0], bs[0]);
+          split(qr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], ab, as, bb, bs);
+        }
+        load_a<kS>(vt, kk * 8, g, t, ab, as);
 #pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(orow[dn * 8], bb[0], bs[0]);
-            split(orow[kS + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(dv[dn], ab, as, bb, bs);
-          }
-          c_as_a(dp[n], ab, as);
-          const float* qr = sQ + (n * 8 + 2 * t) * kS + g;
+        for (int n = 0; n < kQN; ++n) {
+          const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(orow[0], bb[0], bs[0]);
+          split(orow[4], bb[1], bs[1]);
+          mma_3xtf32(dp[n], ab, as, bb, bs);
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int kk = 0; kk < kGroup / 16; ++kk) {
+        unsigned a[4];
+        load_a_bf16<kS>(kt, kk * 16, g, t, a);
 #pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(qr[dn * 8], bb[0], bs[0]);
-            split(qr[kS + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(dk[dn], ab, as, bb, bs);
+        for (int n = 0; n < kQN; ++n) {
+          unsigned bb[2];
+          load_b_rows<kS>(sQ, n * 8, kk * 16, g, t, bb);
+          mma_bf16(s[n], a, bb);
+        }
+        load_a_bf16<kS>(vt, kk * 16, g, t, a);
+#pragma unroll
+        for (int n = 0; n < kQN; ++n) {
+          unsigned bb[2];
+          load_b_rows<kS>(sO, n * 8, kk * 16, g, t, bb);
+          mma_bf16(dp[n], a, bb);
+        }
+      }
+    }
+    if constexpr (kMulti) {
+      // The partials of the block's other chunks, added in chunk order:
+      // S^T, then dP^T.
+      const int r0 = j * kClusterTile;
+      const int tiles = (p.Tk + kBlock - 1) / kBlock;
+      const int kr = unfold_again(tiles).tile * kBlock + kw * 16;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const GlobalRows<T> ga = rows_of<T>(half ? p.v : p.k,
+                                            half ? p.sv : p.sk, p.Tk, tiles,
+                                            p.H);
+        const GlobalRows<T> gb = rows_of<T>(half ? p.dout : p.q,
+                                            half ? p.sdo : p.sq, p.Tq, tiles,
+                                            p.H);
+        float (&acc)[kQN][4] = half ? dp : s;
+        for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+          const int cc = (rank + i * cs) * kGroup;
+          if constexpr (kF32) {
+#pragma unroll 1
+            for (int kk = 0; kk < kGroup / 8; ++kk)
+              chunk_partial_f32<kQN>(acc, ga, gb, kr, r0, cc + kk * 8, g, t);
+          } else {
+#pragma unroll 1
+            for (int kk = 0; kk < kGroup / 16; ++kk)
+              chunk_partial_bf16<kQN>(acc, ga, gb, kr, r0, cc + kk * 16, g,
+                                      t);
           }
         }
-      } else {
+      }
+    }
+    put_partials<kQN>(xb, &s[0][0], 32, xoff);
+    put_partials<kQN>(xb + L::kX / 2, &dp[0][0], 32, xoff);
+    cluster_sync();
+    // Every thread of the block is past tile j - 1: refill its stage.
+    if (j + 1 < n_tiles) load_stage(j + 1);
+    cp_async_commit();
+    cluster_sum<kQN>(&s[0][0], xb, 32, xoff, cs, rank);
+    cluster_sum<kQN>(&dp[0][0], xb + L::kX / 2, 32, xoff, cs, rank);
+
+    // P^T, then Pd^T into s and dS^T into dp; rows g, g + 8 are keys,
+    // column 2t + e of tile n is query n * 8 + 2t + e of the tile.
+    const float* sl = reinterpret_cast<const float*>(st + L::kOperands);
+    const unsigned* sh = reinterpret_cast<const unsigned*>(sl);
+#pragma unroll
+    for (int n = 0; n < kQN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * t + e;
+        const float l = sl[col], dl = sl[kClusterTile + col];
+        const float p0 = expf(s[n][e] * p.scale - l);
+        const float p1 = expf(s[n][2 + e] * p.scale - l);
+        float pd0 = p0, pd1 = p1, d0 = dp[n][e], d1 = dp[n][2 + e];
+        if (p.drop.on) {
+          const HashRow hr = {sh[2 * kClusterTile + col],
+                              sh[3 * kClusterTile + col]};
+          const bool keep0 = hash_keep(p.drop, hr, hc0);
+          const bool keep1 = hash_keep(p.drop, hr, hc1);
+          pd0 = keep0 ? p0 * inv_keep : 0.f;
+          d0 = keep0 ? d0 * inv_keep : 0.f;
+          pd1 = keep1 ? p1 * inv_keep : 0.f;
+          d1 = keep1 ? d1 * inv_keep : 0.f;
+        }
+        s[n][e] = pd0;
+        s[n][2 + e] = pd1;
+        dp[n][e] = p0 * (d0 - dl) * p.scale;
+        dp[n][2 + e] = p1 * (d1 - dl) * p.scale;
+      }
+    }
+
+    // dV_c += Pd^T dO_c, dK_c += dS^T Q_c: the C fragments as A operands,
+    // the dO_c and Q_c rows as B.  (kMulti: below, every chunk alike.)
+    if constexpr (kF32 && !kMulti) {
+#pragma unroll
+      for (int n = 0; n < kQN; ++n) {
+        unsigned ab[4], as[4];
+        c_as_a(s[n], ab, as);
+        const float* orow = sO + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(orow[dn * 8], bb[0], bs[0]);
+          split(orow[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dv[dn], ab, as, bb, bs);
+        }
+        c_as_a(dp[n], ab, as);
+        const float* qr = sQ + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(qr[dn * 8], bb[0], bs[0]);
+          split(qr[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dk[dn], ab, as, bb, bs);
+        }
+      }
+    } else if constexpr (!kMulti) {
+#pragma unroll
+      for (int kb2 = 0; kb2 < kQN / 2; ++kb2) {
         unsigned a[4];
-        c_pair_as_a(s[0], s[1], a);
+        c_pair_as_a(s[2 * kb2], s[2 * kb2 + 1], a);
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
           unsigned bb[2];
-          load_b_cols<kS>(sO, 0, dn * 8, g, t, bb);
+          load_b_cols<kS>(sO, kb2 * 16, dn * 8, g, t, bb);
           mma_bf16(dv[dn], a, bb);
         }
-        c_pair_as_a(dp[0], dp[1], a);
+        c_pair_as_a(dp[2 * kb2], dp[2 * kb2 + 1], a);
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
           unsigned bb[2];
-          load_b_cols<kS>(sQ, 0, dn * 8, g, t, bb);
+          load_b_cols<kS>(sQ, kb2 * 16, dn * 8, g, t, bb);
           mma_bf16(dk[dn], a, bb);
         }
       }
     }
-    __syncthreads();  // the stage just read is the next copy's target
+    if constexpr (kMulti) {
+      // dV_c += Pd^T dO_c, dK_c += dS^T Q_c for every chunk c the block
+      // owns, its first too, their accumulators in the scratch buffer
+      // (place i for chunk i; zero before the first tile: dV at float4
+      // dn, dK at kDN + dn) and the dO_c and Q_c rows read from global
+      // memory: the 128 accumulators a thread of the one-chunk kernel
+      // holds, beside this kernel's other work, spilled.  Pd^T and dS^T
+      // wait in this thread's places of the other exchange buffer, which
+      // every block of the cluster has finished reading (it passed this
+      // tile's barrier) and this block refills next tile.
+      float* park = sX + ((j + 1) & 1) * L::kX;
+      put_partials<kQN>(park, &s[0][0], 32, xoff);
+      put_partials<kQN>(park + L::kX / 2, &dp[0][0], 32, xoff);
+      const int r0 = j * kClusterTile;
+      const int tiles = (p.Tk + kBlock - 1) / kBlock;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const GlobalRows<T> gb = rows_of<T>(half ? p.q : p.dout,
+                                            half ? p.sq : p.sdo, p.Tq, tiles,
+                                            p.H);
+        const float4* c =
+            reinterpret_cast<const float4*>(park + half * L::kX / 2) + xoff;
+        for (int i = 0; i < chunks && rank + i * cs < p.nc; ++i)
+          chunk_products<T, kQN, kDN>(
+              acc_place(p.scratch, i, chunks, 2 * kDN) + half * kDN * kThreads,
+              j == 0, c, gb, r0, (rank + i * cs) * kGroup, g, t);
+      }
+    }
   }
+  // No block leaves while another may still read its exchange buffer.
+  cluster_sync();
 
-  // The ring is idle: each warp stages dK and dV in 16 rows of its own.
+  // Each warp's K_c and V_c rows are its alone: stage dK and dV there.
   const TileOf end = unfold_again((p.Tk + kBlock - 1) / kBlock);
   const int eb = end.pair / p.H, eh = end.pair % p.H;
   const int ek = end.tile * kBlock + kw * 16;
-  store_rows<T, kDN, kS>(dk, ring + kw * 16 * kS,
-                         head<T>(p.dk, p.sdk, eb, eh) + col0, p.sdk[2], ek,
-                         p.Tk, lane);
-  store_rows<T, kDN, kS>(dv, ring + (kWarps + kw) * 16 * kS,
-                         head<T>(p.dv, p.sdv, eb, eh) + col0, p.sdv[2], ek,
-                         p.Tk, lane);
+  if constexpr (kMulti) {
+    for (int i = 0; i < chunks && rank + i * cs < p.nc; ++i) {
+      const int cc = (rank + i * cs) * kGroup;
+      const float4* acc = acc_place(p.scratch, i, chunks, 2 * kDN);
+      store_chunk<T, kDN>(acc + kDN * kThreads, head<T>(p.dk, p.sdk, eb, eh),
+                          p.sdk[2], ek, p.Tk, cc, g, t);
+      store_chunk<T, kDN>(acc, head<T>(p.dv, p.sdv, eb, eh), p.sdv[2], ek,
+                          p.Tk, cc, g, t);
+    }
+  } else {
+    store_rows<T, kDN, kS>(dk, sK + kw * 16 * kS,
+                           head<T>(p.dk, p.sdk, eb, eh) + col0, p.sdk[2], ek,
+                           p.Tk, lane);
+    store_rows<T, kDN, kS>(dv, sV + kw * 16 * kS,
+                           head<T>(p.dv, p.sdv, eb, eh) + col0, p.sdv[2], ek,
+                           p.Tk, lane);
+  }
 }
 
-// dQ: a block owns 64 query rows and one group of 128 output columns.  For
-// each 16-key tile, steps c < nc stage chunk c of Q, dO, K and V; step nc
-// stages the tile's K rows of the block's columns.  Q and dO are re-read
-// from L2 for every key tile.
+// dQ: a cluster owns 64 query rows; Q_c and dO_c stay in shared memory,
+// and 32-key tiles of K_c and V_c stream through the ring.
 template <typename T>
-struct WideDqLayout {
+struct ClusterDqLayout {
   static constexpr int kS = kGroup + 16 / sizeof(T);
-  static constexpr int kQ = kBlock * kS;   // a chunk of Q or dO
-  static constexpr int kKV = kTile * kS;   // a chunk of K or V
-  static constexpr int kStage = 2 * kQ + 2 * kKV;
-  static constexpr size_t kBytes = 2 * kStage * sizeof(T);
+  static constexpr int kQ = kBlock * kS;          // Q_c or dO_c
+  static constexpr int kKV = kClusterTile * kS;   // K_c or V_c of a tile
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kKN = kClusterTile / 8;    // 8-key tiles
+  static constexpr int kX = 2 * kWarps * kKN * 32 * 4;  // S, then dP
+  static constexpr size_t kBytes =
+      (2 * kQ + 2 * kStage) * sizeof(T) + 2 * kX * sizeof(float);
+  static_assert(kBytes <= 232448, "shared memory");
 };
 
-template <typename T>
+template <typename T, bool kMulti>
 __global__ void __launch_bounds__(32 * kWarps, 1)
-flash_bwd_dq_kernel_wide(const Params p, int nc) {
-  using L = WideDqLayout<T>;
+flash_bwd_dq_kernel_cluster(const Params p) {
+  using L = ClusterDqLayout<T>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kS = L::kS;
   constexpr int kThreads = 32 * kWarps;
   constexpr int kDN = kGroup / 8;
-  constexpr int kKN = kTile / 8;
+  constexpr int kKN = L::kKN;
   extern __shared__ float4 smem4[];
-  T* ring = reinterpret_cast<T*>(smem4);
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* sO = sQ + L::kQ;
+  T* ring = sO + L::kQ;  // stage s: K_c at ring + s kStage, V_c after it
+  float* sX = reinterpret_cast<float*>(ring + 2 * L::kStage);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int rw = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int cs = gridDim.z;  // blocks of the cluster
+  const unsigned rank = cluster_rank();
+  const int col0 = rank * kGroup;
   const TileOf at = unfold((p.Tq + kBlock - 1) / kBlock);
   const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = at.tile * kBlock;
-  const int col0 = blockIdx.z * kGroup;
-  const T* qb = head<T>(p.q, p.sq, b, h);
-  const T* ob = head<T>(p.dout, p.sdo, b, h);
-  const T* kb = head<T>(p.k, p.sk, b, h);
-  const T* vb = head<T>(p.v, p.sv, b, h);
-  const int n_tiles = (p.Tk + kTile - 1) / kTile;
-  const int n_steps = n_tiles * (nc + 1);
+  const T* kb = head<T>(p.k, p.sk, b, h) + col0;
+  const T* vb = head<T>(p.v, p.sv, b, h) + col0;
+  const int n_tiles = (p.Tk + kClusterTile - 1) / kClusterTile;
+  // The block's chunks after its first (kMulti): rank + i cs, i < chunks.
+  const int chunks = chunks_per_block(p.nc);
+  const GlobalRows<T> gk = {kb - col0, p.sk[2], p.Tk};
+  const GlobalRows<T> gv = {vb - col0, p.sv[2], p.Tk};
+  const GlobalRows<T> gq = {head<T>(p.q, p.sq, b, h), p.sq[2], p.Tq};
+  const GlobalRows<T> gdo = {head<T>(p.dout, p.sdo, b, h), p.sdo[2], p.Tq};
 
-  auto load_step = [&](int i) {
-    T* st = ring + (i & 1) * L::kStage;
-    const int j = i / (nc + 1), c = i % (nc + 1);
-    const int r0 = j * kTile;
-    if (c < nc) {
-      // The block's rows, decoded afresh (as the dK/dV kernel's keys).
-      const int qt = unfold_again((p.Tq + kBlock - 1) / kBlock).tile * kBlock;
-      load_tile<T, kGroup, kS, kBlock, kThreads>(st, qb + c * kGroup,
-                                                 p.sq[2], qt, p.Tq, tid);
-      load_tile<T, kGroup, kS, kBlock, kThreads>(st + L::kQ, ob + c * kGroup,
-                                                 p.sdo[2], qt, p.Tq, tid);
-      load_tile<T, kGroup, kS, kTile, kThreads>(st + 2 * L::kQ,
-                                                kb + c * kGroup, p.sk[2], r0,
-                                                p.Tk, tid);
-      load_tile<T, kGroup, kS, kTile, kThreads>(
-          st + 2 * L::kQ + L::kKV, vb + c * kGroup, p.sv[2], r0, p.Tk, tid);
-    } else {
-      load_tile<T, kGroup, kS, kTile, kThreads>(st + 2 * L::kQ, kb + col0,
-                                                p.sk[2], r0, p.Tk, tid);
-    }
-    cp_async_commit();
+  auto load_stage = [&](int j) {
+    T* st = ring + (j & 1) * L::kStage;
+    const int r0 = j * kClusterTile;
+    load_tile<T, kGroup, kS, kClusterTile, kThreads>(st, kb, p.sk[2], r0,
+                                                     p.Tk, tid);
+    load_tile<T, kGroup, kS, kClusterTile, kThreads>(st + L::kKV, vb,
+                                                     p.sv[2], r0, p.Tk, tid);
   };
 
-  const int row0 = q0 + rw * 16 + g;
+  load_tile<T, kGroup, kS, kBlock, kThreads>(
+      sQ, head<T>(p.q, p.sq, b, h) + col0, p.sq[2], q0, p.Tq, tid);
+  load_tile<T, kGroup, kS, kBlock, kThreads>(
+      sO, head<T>(p.dout, p.sdo, b, h) + col0, p.sdo[2], q0, p.Tq, tid);
+  load_stage(0);
+  cp_async_commit();
+
+  const int row0 = q0 + rw * 16 + g;  // and row0 + 8
   const long long base = (long long)bh * p.Tq;
   const float lse0 = row0 < p.Tq ? p.lse[base + row0] : 0.f;
   const float lse1 = row0 + 8 < p.Tq ? p.lse[base + row0 + 8] : 0.f;
@@ -994,118 +1245,166 @@ flash_bwd_dq_kernel_wide(const Params p, int nc) {
     hr0 = hash_row(p.drop, bh, row0);
     hr1 = hash_row(p.drop, bh, row0 + 8);
   }
-  float dq[kDN][4], s[kKN][4], dp[kKN][4];
+  float dq[kDN][4];
 #pragma unroll
   for (int n = 0; n < kDN; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const T* qw = sQ + rw * 16 * kS;
+  const T* ow = sO + rw * 16 * kS;
   const float inv_keep = 1.f / p.keep;
+  const int xoff = rw * kKN * 32 + lane;
 
-  load_step(0);
-  for (int i = 0; i < n_steps; ++i) {
-    if (i + 1 < n_steps) {
-      load_step(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
     __syncthreads();
-    const T* st = ring + (i & 1) * L::kStage;
-    const int j = i / (nc + 1), c = i % (nc + 1);
-    const T* sK = st + 2 * L::kQ;
-    if (c == 0) {
+    const T* sK = ring + (j & 1) * L::kStage;
+    const T* sV = sK + L::kKV;
+    float* xb = sX + (j & 1) * L::kX;
+
+    // The partials S_c = Q_c K_c^T and dP_c = dO_c V_c^T of this warp's
+    // 16 rows and the tile's 32 keys.
+    float s[kKN][4], dp[kKN][4];
 #pragma unroll
-      for (int n = 0; n < kKN; ++n)
+    for (int n = 0; n < kKN; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    }
-    if (c < nc) {
-      const T* qw = st + rw * 16 * kS;
-      const T* ow = st + L::kQ + rw * 16 * kS;
-      const T* sV = sK + L::kKV;
-      if constexpr (kF32) {
-        for (int kk = 0; kk < kGroup / 8; ++kk) {
-          unsigned qab[4], qas[4], oab[4], oas[4];
-          load_a<kS>(qw, kk * 8, g, t, qab, qas);
-          load_a<kS>(ow, kk * 8, g, t, oab, oas);
-#pragma unroll
-          for (int n = 0; n < kKN; ++n) {
-            const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
-            const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
-            unsigned bb[2], bs[2];
-            split(kr[0], bb[0], bs[0]);
-            split(kr[4], bb[1], bs[1]);
-            mma_3xtf32(s[n], qab, qas, bb, bs);
-            split(vr[0], bb[0], bs[0]);
-            split(vr[4], bb[1], bs[1]);
-            mma_3xtf32(dp[n], oab, oas, bb, bs);
-          }
-        }
-      } else {
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    if constexpr (kF32) {
 #pragma unroll 2
-        for (int kk = 0; kk < kGroup / 16; ++kk) {
-          unsigned qa[4], oa[4];
-          load_a_bf16<kS>(qw, kk * 16, g, t, qa);
-          load_a_bf16<kS>(ow, kk * 16, g, t, oa);
-#pragma unroll
-          for (int n = 0; n < kKN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kS>(sK, n * 8, kk * 16, g, t, bb);
-            mma_bf16(s[n], qa, bb);
-            load_b_rows<kS>(sV, n * 8, kk * 16, g, t, bb);
-            mma_bf16(dp[n], oa, bb);
-          }
-        }
-      }
-    } else {
-      const int kt0 = j * kTile;
-#pragma unroll
-      for (int n = 0; n < kKN; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = kt0 + n * 8 + 2 * t + e;
-          const bool valid = key < p.Tk;
-          const float p0 = valid ? expf(s[n][e] * p.scale - lse0) : 0.f;
-          const float p1 = valid ? expf(s[n][2 + e] * p.scale - lse1) : 0.f;
-          float d0 = dp[n][e], d1 = dp[n][2 + e];
-          if (p.drop.on) {
-            const HashCol hc = hash_col(p.drop, key);
-            d0 = hash_keep(p.drop, hr0, hc) ? d0 * inv_keep : 0.f;
-            d1 = hash_keep(p.drop, hr1, hc) ? d1 * inv_keep : 0.f;
-          }
-          s[n][e] = p0 * (d0 - dl0) * p.scale;
-          s[n][2 + e] = p1 * (d1 - dl1) * p.scale;
-        }
-      }
-      if constexpr (kF32) {
+      for (int kk = 0; kk < kGroup / 8; ++kk) {
+        unsigned qab[4], qas[4], oab[4], oas[4];
+        load_a<kS>(qw, kk * 8, g, t, qab, qas);
+        load_a<kS>(ow, kk * 8, g, t, oab, oas);
 #pragma unroll
         for (int n = 0; n < kKN; ++n) {
-          unsigned ab[4], as[4];
-          c_as_a(s[n], ab, as);
-          const float* kr = sK + (n * 8 + 2 * t) * kS + g;
+          const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+          const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
+          unsigned bb[2], bs[2];
+          split(kr[0], bb[0], bs[0]);
+          split(kr[4], bb[1], bs[1]);
+          mma_3xtf32(s[n], qab, qas, bb, bs);
+          split(vr[0], bb[0], bs[0]);
+          split(vr[4], bb[1], bs[1]);
+          mma_3xtf32(dp[n], oab, oas, bb, bs);
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int kk = 0; kk < kGroup / 16; ++kk) {
+        unsigned qa[4], oa[4];
+        load_a_bf16<kS>(qw, kk * 16, g, t, qa);
+        load_a_bf16<kS>(ow, kk * 16, g, t, oa);
 #pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(kr[dn * 8], bb[0], bs[0]);
-            split(kr[kS + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(dq[dn], ab, as, bb, bs);
+        for (int n = 0; n < kKN; ++n) {
+          unsigned bb[2];
+          load_b_rows<kS>(sK, n * 8, kk * 16, g, t, bb);
+          mma_bf16(s[n], qa, bb);
+          load_b_rows<kS>(sV, n * 8, kk * 16, g, t, bb);
+          mma_bf16(dp[n], oa, bb);
+        }
+      }
+    }
+    if constexpr (kMulti) {
+      // The partials of the block's other chunks, added in chunk order.
+      const int kt = j * kClusterTile, qr = q0 + rw * 16;
+      for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+        const int cc = (rank + i * cs) * kGroup;
+        if constexpr (kF32) {
+#pragma unroll 1
+          for (int kk = 0; kk < kGroup / 8; ++kk) {
+            chunk_partial_f32<kKN>(s, gq, gk, qr, kt, cc + kk * 8, g, t);
+            chunk_partial_f32<kKN>(dp, gdo, gv, qr, kt, cc + kk * 8, g, t);
+          }
+        } else {
+#pragma unroll 1
+          for (int kk = 0; kk < kGroup / 16; ++kk) {
+            chunk_partial_bf16<kKN>(s, gq, gk, qr, kt, cc + kk * 16, g, t);
+            chunk_partial_bf16<kKN>(dp, gdo, gv, qr, kt, cc + kk * 16, g, t);
           }
         }
-      } else {
+      }
+    }
+    put_partials<kKN>(xb, &s[0][0], 32, xoff);
+    put_partials<kKN>(xb + L::kX / 2, &dp[0][0], 32, xoff);
+    cluster_sync();
+    if (j + 1 < n_tiles) load_stage(j + 1);
+    cp_async_commit();
+    cluster_sum<kKN>(&s[0][0], xb, 32, xoff, cs, rank);
+    cluster_sum<kKN>(&dp[0][0], xb + L::kX / 2, 32, xoff, cs, rank);
+
+    // ds into s; keys past Tk weigh 0.
+    const int kt0 = j * kClusterTile;
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt0 + n * 8 + 2 * t + e;
+        const bool valid = key < p.Tk;
+        const float p0 = valid ? expf(s[n][e] * p.scale - lse0) : 0.f;
+        const float p1 = valid ? expf(s[n][2 + e] * p.scale - lse1) : 0.f;
+        float d0 = dp[n][e], d1 = dp[n][2 + e];
+        if (p.drop.on) {
+          const HashCol hc = hash_col(p.drop, key);
+          d0 = hash_keep(p.drop, hr0, hc) ? d0 * inv_keep : 0.f;
+          d1 = hash_keep(p.drop, hr1, hc) ? d1 * inv_keep : 0.f;
+        }
+        s[n][e] = p0 * (d0 - dl0) * p.scale;
+        s[n][2 + e] = p1 * (d1 - dl1) * p.scale;
+      }
+    }
+
+    // dQ_c += ds K_c: ds as the A operand, K_c rows as B.
+    if constexpr (kF32) {
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        unsigned ab[4], as[4];
+        c_as_a(s[n], ab, as);
+        const float* kr = sK + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+        for (int dn = 0; dn < kDN; ++dn) {
+          unsigned bb[2], bs[2];
+          split(kr[dn * 8], bb[0], bs[0]);
+          split(kr[kS + dn * 8], bb[1], bs[1]);
+          mma_3xtf32(dq[dn], ab, as, bb, bs);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kb2 = 0; kb2 < kKN / 2; ++kb2) {
         unsigned a[4];
-        c_pair_as_a(s[0], s[1], a);
+        c_pair_as_a(s[2 * kb2], s[2 * kb2 + 1], a);
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
           unsigned bb[2];
-          load_b_cols<kS>(sK, 0, dn * 8, g, t, bb);
+          load_b_cols<kS>(sK, kb2 * 16, dn * 8, g, t, bb);
           mma_bf16(dq[dn], a, bb);
         }
       }
     }
-    __syncthreads();  // the stage just read is the next copy's target
+    if constexpr (kMulti) {
+      // dQ_c' += ds K_c' for the block's other chunks c', their
+      // accumulators through the scratch buffer (zero before the first
+      // tile); ds waits in the other exchange buffer, as in dK/dV.
+      float* park = sX + ((j + 1) & 1) * L::kX;
+      put_partials<kKN>(park, &s[0][0], 32, xoff);
+      for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i)
+        chunk_products<T, kKN, kDN>(extra_acc(p.scratch, i, chunks, kDN),
+                                    j == 0,
+                                    reinterpret_cast<const float4*>(park) +
+                                        xoff,
+                                    gk, kt0, (rank + i * cs) * kGroup, g, t);
+    }
   }
+  cluster_sync();
 
-  store_rows<T, kDN, kS>(dq, ring + rw * 16 * kS,
+  // This warp's Q_c rows are its alone now: stage dQ there.
+  store_rows<T, kDN, kS>(dq, sQ + rw * 16 * kS,
                          head<T>(p.dq, p.sdq, b, h) + col0, p.sdq[2],
                          q0 + rw * 16, p.Tq, lane);
+  if constexpr (kMulti) {
+    for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i)
+      store_chunk<T, kDN>(extra_acc(p.scratch, i, chunks, kDN),
+                          head<T>(p.dq, p.sdq, b, h), p.sdq[2], q0 + rw * 16,
+                          p.Tq, (rank + i * cs) * kGroup, g, t);
+  }
 }
 
 // Sets the kernel's shared-memory attribute the first time it launches on
@@ -1175,23 +1474,47 @@ cudaError_t launch_delta(const Params& p, long long bh, int dh,
 }
 
 // Head dims above 256: the delta kernel at a run-time width, then the
-// chunked dK/dV and dQ kernels, one block per 128 output columns.
-template <typename T>
-cudaError_t launch_wide(const Params& p, int B, int dh, cudaStream_t stream) {
+// cluster dK/dV and dQ kernels, a cluster of dh / 128 blocks each.
+template <typename T, bool kMulti>
+cudaError_t launch_cluster_bwd(const Params& p, int B, int dh,
+                               cudaStream_t stream) {
   const long long bh = (long long)B * p.H;
-  const int nc = dh / kGroup;
+  const int cs = cluster_blocks(p.nc);
   static unsigned done_dkv = 0, done_dq = 0;
   cudaError_t err = launch_delta<T>(p, bh, dh, stream);
   if (err != cudaSuccess) return err;
-  err = launch_one(flash_bwd_dkv_kernel_wide<T>,
-                   folded_grid((p.Tk + kBlock - 1) / kBlock, bh, 1, nc),
-                   32 * kWarps,
-                   WideDkvLayout<T>::kBytes, stream, &done_dkv, p, nc);
+  err = launch_cluster(flash_bwd_dkv_kernel_cluster<T, kMulti>,
+                       folded_grid((p.Tk + kBlock - 1) / kBlock, bh, 1, cs),
+                       32 * kWarps, ClusterDkvLayout<T>::kBytes, stream,
+                       &done_dkv, p);
   if (err != cudaSuccess) return err;
-  return launch_one(flash_bwd_dq_kernel_wide<T>,
-                    folded_grid((p.Tq + kBlock - 1) / kBlock, bh, 1, nc),
-                    32 * kWarps,
-                    WideDqLayout<T>::kBytes, stream, &done_dq, p, nc);
+  return launch_cluster(flash_bwd_dq_kernel_cluster<T, kMulti>,
+                        folded_grid((p.Tq + kBlock - 1) / kBlock, bh, 1, cs),
+                        32 * kWarps, ClusterDqLayout<T>::kBytes, stream,
+                        &done_dq, p);
+}
+
+template <typename T>
+cudaError_t launch_cluster_bwd(const Params& p, int B, int dh,
+                               cudaStream_t stream) {
+  if (dh <= 256 || dh % kGroup) return cudaErrorInvalidValue;
+  return p.nc > kClusterMax ? launch_cluster_bwd<T, true>(p, B, dh, stream)
+                            : launch_cluster_bwd<T, false>(p, B, dh, stream);
+}
+
+// The scratch buffer of the cluster kernels' chunks (cluster.cuh), shared
+// by the dK/dV launch (every chunk a block owns, dK and dV: 2 * 16 float4
+// a thread) and the dQ launch after it (the chunks after the first, 16).
+long long bwd_scratch_bytes(int B, int H, int Tq, int Tk, int dh) {
+  if (dh <= 256 || dh % kGroup) return 0;
+  const long long bh = (long long)B * H;
+  const int nc = dh / kGroup;
+  const long long dkv = acc_places_bytes((Tk + kBlock - 1) / kBlock * bh,
+                                         nc, chunks_per_block(nc),
+                                         32 * kWarps, 2 * kGroup / 8);
+  const long long dq = extra_acc_bytes((Tq + kBlock - 1) / kBlock * bh,
+                                       dh / kGroup, 32 * kWarps, kGroup / 8);
+  return dkv > dq ? dkv : dq;
 }
 
 // A grid of at most one 4-warp block an SM leaves half the warps the SMs
@@ -1221,11 +1544,11 @@ cudaError_t launch(const Params& p, int B, int sms, cudaStream_t stream) {
 
 // The head dims the wrapper pads to: 32 (demo), 64 (the reference's
 // default model), 128 (the rest), 256 (any dh in (128, 256], as two column
-// groups).
+// groups), and above 256 any multiple of 128.
 template <typename T>
 cudaError_t dispatch(const Params& p, int B, int dh, int sms,
                      cudaStream_t s) {
-  if (dh > 256) return launch_wide<T>(p, B, dh, s);
+  if (dh > 256) return launch_cluster_bwd<T>(p, B, dh, s);
   switch (dh) {
     case 32: return launch<T, 32, 32>(p, B, sms, s);
     case 64: return launch<T, 64, 64>(p, B, sms, s);
@@ -1240,8 +1563,7 @@ template <>
 cudaError_t dispatch<bf16>(const Params& p, int B, int dh, int sms,
                            cudaStream_t s) {
   (void)sms;
-  if (dh <= 256) return cudaErrorInvalidValue;
-  return launch_wide<bf16>(p, B, dh, s);
+  return launch_cluster_bwd<bf16>(p, B, dh, s);
 }
 
 }  // namespace
@@ -1254,11 +1576,16 @@ extern "C" int avsep_flash_attn_bwd(
     void* dv, int B, int H, int Tq, int Tk, int dh,
     const long long* strides,  // 3 each for q, k, v, o, dO, dQ, dK, dV
     float scale, float keep, unsigned threshold, unsigned seed, int hq,
-    int hk, int dropout, int dtype, int device, void* stream) {
+    int hk, int dropout, int dtype, int device, void* stream,
+    void* scratch) {
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (bwd_scratch_bytes(B, H, Tq, Tk, dh) > 0 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
+  p.nc = dh / kGroup;
+  p.scratch = static_cast<float*>(scratch);
   p.q = q;
   p.k = k;
   p.v = v;
@@ -1295,6 +1622,24 @@ extern "C" int avsep_flash_attn_bwd(
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// Bytes of the scratch buffer a call at these sizes takes (`scratch`, float
+// aligned); 0 up to dh 128 kClusterMax.
+extern "C" long long avsep_flash_attn_bwd_scratch(int B, int H, int Tq,
+                                                  int Tk, int dh) {
+  return bwd_scratch_bytes(B, H, Tq, Tk, dh);
+}
+
+// Shared memory of a block of the cluster kernels (bytes): kernel 0 dK/dV,
+// 1 dQ; dtype 0 float32, 1 bfloat16.
+extern "C" int avsep_flash_attn_bwd_cluster_smem(int kernel, int dtype) {
+  const size_t bytes[2][2] = {
+      {ClusterDkvLayout<float>::kBytes, ClusterDkvLayout<bf16>::kBytes},
+      {ClusterDqLayout<float>::kBytes, ClusterDqLayout<bf16>::kBytes}};
+  return kernel >= 0 && kernel < 2 && dtype >= 0 && dtype < 2
+             ? static_cast<int>(bytes[kernel][dtype])
+             : -1;
 }
 
 extern "C" const char* avsep_error_string(int code) {

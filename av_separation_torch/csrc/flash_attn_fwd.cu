@@ -1,5 +1,5 @@
-// Flash attention forward, float32 on the tensor cores in 3xTF32 and
-// bfloat16 above head dim 256 in bf16 products, for Hopper (sm_90a).
+// Flash attention forward in float32 on the tensor cores in 3xTF32, for
+// Hopper (sm_90a).  (bfloat16 runs on flash_fwd_wgmma.cu at every head dim.)
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_fwd_hpacked_kernel`
 // (packed (B, T, H*dh) layout, called from `_flash_hpacked_call`),
@@ -57,15 +57,6 @@
 // - Bank conflicts.  Q, K and V rows are dh+4 floats apart: the A loads of
 //   Q and the B loads of K hit bank 4g + t, the B loads of V (rows 2t,
 //   2t+1) bank 8t + g (+4): 32 distinct banks per load.
-// - bfloat16 runs here only above dh 256 (up to 256 it runs on
-//   flash_fwd_wgmma.cu): the same tiles with bf16 operands, one
-//   mma.sync.m16n8k16 product where float32 takes three, float32
-//   accumulators, online-softmax statistics and lse.  p is rounded to bf16
-//   before PV, as the Pallas kernels do (`p.astype(v.dtype)`); l sums the
-//   unrounded float32 p; o = acc / (l (1 - rate)) is stored in bf16.  Two C
-//   fragments of S (16 keys) are the A fragment of PV as they stand
-//   (mma_bf16.cuh); V's B fragment takes two 16-bit loads a register.
-//   Rows are DH + 8 bf16 apart (16 bytes of pad, as the float rows' 4).
 // - Head dims above 128 (a column split): dh is zero-padded to 256 by the
 //   wrapper and a block owns one group of 128 output columns
 //   (blockIdx.z).  Every block computes S = Q K^T over all 256 columns (Q
@@ -73,12 +64,22 @@
 //   only, so a warp holds the O accumulators of dh 128.  The blocks of a
 //   row block compute the same m and l; the group-0 block writes lse.  At
 //   float32 that is 167 KB of shared memory, one 4-warp block an SM.
-// - Head dims above 256 (any multiple of 128, `flash_fwd_kernel_wide`):
-//   full-width Q and K tiles no longer fit, so q k^T is summed over
-//   128-column chunks that stream through the ring (a step stages one
-//   chunk of Q and of the 32-key K tile; a last step the tile's V columns
-//   of the block), each block still owning one group of 128 output
-//   columns.  Q is re-read from L2 for every key tile: simple, not fast.
+// - Head dims above 256 (any multiple of 128,
+//   `flash_fwd_kernel_cluster`): full-width Q and K tiles no longer fit a
+//   block, so a thread-block cluster of nc = dh / 128 blocks (grid z,
+//   cluster dims (1, 1, nc); cluster.cuh) shares 64 query rows, block c
+//   holding chunk c of Q, K, V and O (above dh 2048, where a cluster
+//   cannot hold nc blocks, block r owns chunks r, r + C, ... of a cluster
+//   of C: their partials added to its own, their O accumulators in a
+//   scratch buffer, their operands read from global memory).  Each block
+//   computes its partial S_c = Q_c K_c^T for a 32-key tile, the cluster
+//   sums the nc partials in block order through distributed shared memory
+//   (one cluster barrier a tile), and each block runs the same softmax
+//   and O_c += P V_c: 2 nc
+//   chunk products a tile pair, none computed twice (the chunked kernel
+//   it replaces took nc (nc + 1), re-reading Q from L2 for every tile).
+//   101 KB of shared memory a block, two blocks an SM: Q_c and a 2-stage
+//   ring of K_c / V_c tiles, the partials in the consumed K_c tile.
 // - Output.  Each warp writes its O rows into its own (now unused) Q rows
 //   of shared memory and stores them as 16-byte row chunks, packed
 //   (B, T, H, dh) memory through the o strides.
@@ -87,10 +88,12 @@
 
 #include <type_traits>
 
+#include "chunk_frags.cuh"
+#include "cluster.cuh"
 #include "dropout_hash.cuh"
 #include "grid_fold.cuh"
 #include "mma_3xtf32.cuh"
-#include "mma_bf16.cuh"
+#include "mma_bf16.cuh"  // load_tile, store2
 #include "device_guard.cuh"
 
 namespace {
@@ -114,6 +117,8 @@ struct Params {
   float scale;
   float keep;  // 1 - rate
   DropoutHash drop;
+  int nc;          // column chunks above dh 256 (cluster.cuh)
+  float* scratch;  // the accumulators of a block's chunks after its first
 };
 
 // DQK: the head dim of Q K^T; DV: the columns of O (and V) a block owns,
@@ -388,64 +393,89 @@ cudaError_t set_smem_once(Kernel kernel, size_t bytes, unsigned* done) {
   return err;
 }
 
-// Head dims above 256 (any multiple of 128): a block owns 64 query rows
-// and one group of 128 output columns (blockIdx.z), as the dh-256 split,
-// but q k^T is summed over 128-column chunks that stream through the ring
-// with the keys: for each 32-key tile, steps c < nc stage Q's and K's
-// chunk c, and step nc stages the tile's V rows of the block's columns.
-// Q is re-read from L2 for every key tile.
-template <typename T>
-struct WideLayout {
-  static constexpr int kS = kGroup + 16 / sizeof(T);  // row stride
-  static constexpr int kQ = kBlockQ * kS;            // Q chunk
-  static constexpr int kStage = kQ + kBlockK * kS;   // then K chunk or V
-  static constexpr size_t kBytes = 2 * kStage * sizeof(T);
+// Head dims above 256 (any multiple of 128): a cluster of nc = dh / 128
+// blocks shares 64 query rows, block c (its rank, blockIdx.z) owning
+// column chunk c of Q, K, V and O.  For each 32-key tile
+// the block computes the partial S_c = Q_c K_c^T over its own 128 columns
+// only, puts it in its exchange buffer, and after one cluster barrier sums
+// the nc partials in rank order (its own from its shared memory, the
+// others' from the cluster's): every block then holds the same S and runs
+// the same online softmax, and O_c += P V_c takes its own V columns.
+// 2 nc chunk products a tile pair, none repeated.  Q_c stays in shared
+// memory; K_c and V_c stream through a 2-stage cp.async ring, the next
+// tile's copy issued after the barrier (which every thread passes only
+// once done with the stage it refills).  The exchange buffer is the K_c
+// tile just consumed, so buffers alternate with the stages and one
+// barrier a tile suffices (tile j + 2 refills a stage only after every
+// block has passed tile j + 1's barrier, so after reading tile j's
+// partials); a block takes 101 KB, two an SM, so one block's barrier and
+// loads from the cluster run under the other's products.
+// Above 128 kClusterMax (kMulti) a cluster of C = cluster_blocks(nc) blocks
+// shares the rows, block r owning chunks r + i C (cluster.cuh): it adds
+// the partials of its chunks after the first to its partial S in chunk
+// order, and keeps their O accumulators in the scratch buffer, their
+// operands read from global memory (chunk_frags.cuh); still 2 nc chunk
+// products a tile pair.
+constexpr int kClusterKeys = 32;  // keys a tile above dh 256
+
+struct ClusterLayout {
+  static constexpr int kS = kGroup + 4;                // float row stride
+  static constexpr int kQ = kBlockQ * kS;               // Q_c
+  static constexpr int kKV = kClusterKeys * kS;         // K_c or V_c
+  static constexpr int kStage = 2 * kKV;                // K_c, then V_c
+  static constexpr int kStages = 2;
+  static constexpr int kKN = kClusterKeys / 8;          // 8-key tiles of S
+  static constexpr int kX = kRowWarps * kKN * 32 * 4;   // partials (floats)
+  static constexpr size_t kBytes = (kQ + kStages * kStage) * sizeof(float);
+  static_assert(kX <= kKV && 2 * kBytes <= 232448, "shared memory");
 };
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowWarps, 1)
-flash_fwd_kernel_wide(const Params p, int nc) {
-  using L = WideLayout<T>;
-  constexpr bool kF32 = std::is_same<T, float>::value;
+template <bool kMulti>
+__global__ void __launch_bounds__(32 * kRowWarps, 2)
+flash_fwd_kernel_cluster(const Params p) {
+  using L = ClusterLayout;
   constexpr int kS = L::kS;
   constexpr int kThreads = 32 * kRowWarps;
   constexpr int kDN = kGroup / 8;
-  constexpr int kKN = kBlockK / 8;
+  constexpr int kKN = L::kKN;
   extern __shared__ float4 smem4[];
-  T* ring = reinterpret_cast<T*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sKV = sQ + L::kQ;  // stage s: K_c at sKV + s kStage, V_c after it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int rw = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int cs = gridDim.z;  // blocks of the cluster
+  const unsigned rank = cluster_rank();
+  const int col0 = rank * kGroup;
   const TileOf at = unfold((p.Tq + kBlockQ - 1) / kBlockQ);
   const int bh = at.pair;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = at.tile * kBlockQ;
-  const int col0 = blockIdx.z * kGroup;
-  const T* qb = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.svb + h * p.svh + col0;
-  const int n_tiles = (p.Tk + kBlockK - 1) / kBlockK;
-  const int n_steps = n_tiles * (nc + 1);
+  const float* kb =
+      static_cast<const float*>(p.k) + b * p.skb + h * p.skh + col0;
+  const float* vb =
+      static_cast<const float*>(p.v) + b * p.svb + h * p.svh + col0;
+  const int n_tiles = (p.Tk + kClusterKeys - 1) / kClusterKeys;
+  // The block's chunks after its first (kMulti): rank + i cs, i < chunks.
+  const int chunks = chunks_per_block(p.nc);
+  const GlobalRows<float> gq = {
+      static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh, p.sqt, p.Tq};
+  const GlobalRows<float> gk = {kb - col0, p.skt, p.Tk};
+  const GlobalRows<float> gv = {vb - col0, p.svt, p.Tk};
 
-  auto load_step = [&](int i) {
-    T* st = ring + (i & 1) * L::kStage;
-    const int j = i / (nc + 1), c = i % (nc + 1);
-    if (c < nc) {
-      load_tile<T, kGroup, kS, kBlockQ, kThreads>(st, qb + c * kGroup, p.sqt,
-                                                  q0, p.Tq, tid);
-      load_tile<T, kGroup, kS, kBlockK, kThreads>(
-          st + L::kQ, kb + c * kGroup, p.skt, j * kBlockK, p.Tk, tid);
-    } else {
-      load_tile<T, kGroup, kS, kBlockK, kThreads>(st + L::kQ, vb, p.svt,
-                                                  j * kBlockK, p.Tk, tid);
-    }
-    cp_async_commit();
-  };
+  load_tile<float, kGroup, kS, kBlockQ, kThreads>(
+      sQ, static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh + col0,
+      p.sqt, q0, p.Tq, tid);
+  load_tile<float, kGroup, kS, kClusterKeys, kThreads>(sKV, kb, p.skt, 0,
+                                                       p.Tk, tid);
+  load_tile<float, kGroup, kS, kClusterKeys, kThreads>(sKV + L::kKV, vb,
+                                                       p.svt, 0, p.Tk, tid);
+  cp_async_commit();
 
-  float o[kDN][4], s[kKN][4];
+  float o[kDN][4];
 #pragma unroll
   for (int n = 0; n < kDN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;
@@ -456,139 +486,198 @@ flash_fwd_kernel_wide(const Params p, int nc) {
     hr0 = hash_row(p.drop, bh, row0);
     hr1 = hash_row(p.drop, bh, row0 + 8);
   }
+  const float* qw = sQ + rw * 16 * kS;
+  // This warp's partials: float4 (n, lane) of the buffer.
+  const int xoff = rw * kKN * 32 + lane;
 
-  load_step(0);
-  for (int i = 0; i < n_steps; ++i) {
-    if (i + 1 < n_steps) {
-      load_step(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
     __syncthreads();
-    const T* st = ring + (i & 1) * L::kStage;
-    const int j = i / (nc + 1), c = i % (nc + 1);
-    const T* qw = st + rw * 16 * kS;
-    const T* sK = st + L::kQ;
-    if (c == 0) {
+    float* sK = sKV + (j & 1) * L::kStage;
+    const float* sV = sK + L::kKV;
+
+    // The partial S_c = Q_c K_c^T of this warp's 16 rows and the tile.
+    float s[kKN][4];
 #pragma unroll
-      for (int n = 0; n < kKN; ++n)
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < kKN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < kGroup / 8; ++kk) {
+      unsigned ab[4], as[4];
+      load_a_frag(qw + kk * 8, kS, g, t, ab, as);
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+        unsigned bb[2], bs[2];
+        split(kr[0], bb[0], bs[0]);
+        split(kr[4], bb[1], bs[1]);
+        mma_3xtf32(s[n], ab, as, bb, bs);
+      }
     }
-    if (c < nc) {
-      // S += Q_c K_c^T over this chunk's 128 columns.
-      if constexpr (kF32) {
-#pragma unroll 4
+    if constexpr (kMulti) {
+      // The partials of the block's other chunks, added in chunk order.
+      for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+        const int cc = (rank + i * cs) * kGroup;
+#pragma unroll 1
         for (int kk = 0; kk < kGroup / 8; ++kk) {
+          float a[4];
           unsigned ab[4], as[4];
-          load_a_frag(qw + kk * 8, kS, g, t, ab, as);
+          gfrag_a(gq, q0 + rw * 16, cc + kk * 8, g, t, a);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(a[e], ab[e], as[e]);
 #pragma unroll
           for (int n = 0; n < kKN; ++n) {
-            const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+            float bv[2];
             unsigned bb[2], bs[2];
-            split(kr[0], bb[0], bs[0]);
-            split(kr[4], bb[1], bs[1]);
+            gfrag_b_rows(gk, j * kClusterKeys + n * 8, cc + kk * 8, g, t,
+                         bv);
+            split(bv[0], bb[0], bs[0]);
+            split(bv[1], bb[1], bs[1]);
             mma_3xtf32(s[n], ab, as, bb, bs);
           }
         }
-      } else {
-#pragma unroll 4
-        for (int kk = 0; kk < kGroup / 16; ++kk) {
-          unsigned a[4];
-          load_a_bf16<kS>(qw, kk * 16, g, t, a);
+      }
+    }
+    // Every warp is done with K_c: its tile takes the partials.
+    __syncthreads();
+    float* xb = sK;
+    put_partials<kKN>(xb, &s[0][0], 32, xoff);
+    cluster_sync();
+    // Every thread of the block is past tile j - 1, and every block past
+    // reading its partials: refill its stage.
+    if (j + 1 < n_tiles) {
+      float* next = sKV + ((j + 1) & 1) * L::kStage;
+      const int r0 = (j + 1) * kClusterKeys;
+      load_tile<float, kGroup, kS, kClusterKeys, kThreads>(next, kb, p.skt,
+                                                           r0, p.Tk, tid);
+      load_tile<float, kGroup, kS, kClusterKeys, kThreads>(
+          next + L::kKV, vb, p.svt, r0, p.Tk, tid);
+    }
+    cp_async_commit();
+    // S: the cs partials in rank order.
+    cluster_sum<kKN>(&s[0][0], xb, 32, xoff, cs, rank);
+
+    // Online softmax on the fragments; keys past Tk score -inf, weigh 0.
+    const int k0 = j * kClusterKeys;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = k0 + n * 8 + 2 * t + e < p.Tk;
+        s[n][e] = valid ? s[n][e] * p.scale : -INFINITY;
+        s[n][2 + e] = valid ? s[n][2 + e] * p.scale : -INFINITY;
+        mx0 = fmaxf(mx0, s[n][e]);
+        mx1 = fmaxf(mx1, s[n][2 + e]);
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float alpha0 = expf(m0 - mx0), alpha1 = expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = expf(s[n][e] - m0);
+        float p1 = expf(s[n][2 + e] - m1);
+        l0 += p0;
+        l1 += p1;
+        if (p.drop.on) {
+          const int key = k0 + n * 8 + 2 * t + e;
+          if (!hash_keep(p.drop, hr0, key)) p0 = 0.f;
+          if (!hash_keep(p.drop, hr1, key)) p1 = 0.f;
+        }
+        s[n][e] = p0;
+        s[n][2 + e] = p1;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kDN; ++n) {
+      o[n][0] *= alpha0;
+      o[n][1] *= alpha0;
+      o[n][2] *= alpha1;
+      o[n][3] *= alpha1;
+    }
+
+    // O_c += P V_c: A's k = t, t + 4 are keys 2t, 2t + 1 of each 8-key tile.
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+      unsigned ab[4], as[4];
+      split(s[n][0], ab[0], as[0]);
+      split(s[n][2], ab[1], as[1]);
+      split(s[n][1], ab[2], as[2]);
+      split(s[n][3], ab[3], as[3]);
+      const float* vr = sV + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+      for (int dn = 0; dn < kDN; ++dn) {
+        unsigned bb[2], bs[2];
+        split(vr[dn * 8], bb[0], bs[0]);
+        split(vr[kS + dn * 8], bb[1], bs[1]);
+        mma_3xtf32(o[dn], ab, as, bb, bs);
+      }
+    }
+    if constexpr (kMulti) {
+      // O_c' += P V_c' for the block's other chunks c', their accumulators
+      // through the scratch buffer (zero before the first tile).
+      for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+        const int cc = (rank + i * cs) * kGroup;
+        float4* acc = extra_acc(p.scratch, i, chunks, kDN);
+#pragma unroll 1
+        for (int dn = 0; dn < kDN; ++dn) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          if (j > 0) load4(d, acc + dn * kThreads);
+          d[0] *= alpha0;
+          d[1] *= alpha0;
+          d[2] *= alpha1;
+          d[3] *= alpha1;
 #pragma unroll
           for (int n = 0; n < kKN; ++n) {
-            unsigned bb[2];
-            load_b_rows<kS>(sK, n * 8, kk * 16, g, t, bb);
-            mma_bf16(s[n], a, bb);
+            unsigned ab[4], as[4], bb[2], bs[2];
+            split(s[n][0], ab[0], as[0]);
+            split(s[n][2], ab[1], as[1]);
+            split(s[n][1], ab[2], as[2]);
+            split(s[n][3], ab[3], as[3]);
+            float bv[2];
+            gfrag_b_cols(gv, k0 + n * 8, cc + dn * 8, g, t, bv);
+            split(bv[0], bb[0], bs[0]);
+            split(bv[1], bb[1], bs[1]);
+            mma_3xtf32(d, ab, as, bb, bs);
           }
-        }
-      }
-    } else {
-      // The tile's S is whole: online softmax, then O += P V.
-      const int k0 = j * kBlockK;
-      const T* sV = sK;
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int n = 0; n < kKN; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool valid = k0 + n * 8 + 2 * t + e < p.Tk;
-          s[n][e] = valid ? s[n][e] * p.scale : -INFINITY;
-          s[n][2 + e] = valid ? s[n][2 + e] * p.scale : -INFINITY;
-          mx0 = fmaxf(mx0, s[n][e]);
-          mx1 = fmaxf(mx1, s[n][2 + e]);
-        }
-      }
-      mx0 = quad_max(mx0);
-      mx1 = quad_max(mx1);
-      const float alpha0 = expf(m0 - mx0), alpha1 = expf(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= alpha0;
-      l1 *= alpha1;
-#pragma unroll
-      for (int n = 0; n < kKN; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float p0 = expf(s[n][e] - m0);
-          float p1 = expf(s[n][2 + e] - m1);
-          l0 += p0;
-          l1 += p1;
-          if (p.drop.on) {
-            const int key = k0 + n * 8 + 2 * t + e;
-            if (!hash_keep(p.drop, hr0, key)) p0 = 0.f;
-            if (!hash_keep(p.drop, hr1, key)) p1 = 0.f;
-          }
-          s[n][e] = p0;
-          s[n][2 + e] = p1;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kDN; ++n) {
-        o[n][0] *= alpha0;
-        o[n][1] *= alpha0;
-        o[n][2] *= alpha1;
-        o[n][3] *= alpha1;
-      }
-      if constexpr (kF32) {
-#pragma unroll
-        for (int n = 0; n < kKN; ++n) {
-          unsigned ab[4], as[4];
-          split(s[n][0], ab[0], as[0]);
-          split(s[n][2], ab[1], as[1]);
-          split(s[n][1], ab[2], as[2]);
-          split(s[n][3], ab[3], as[3]);
-          const float* vr = sV + (n * 8 + 2 * t) * kS + g;
-#pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2], bs[2];
-            split(vr[dn * 8], bb[0], bs[0]);
-            split(vr[kS + dn * 8], bb[1], bs[1]);
-            mma_3xtf32(o[dn], ab, as, bb, bs);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kb2 = 0; kb2 < kKN / 2; ++kb2) {
-          unsigned a[4];
-          c_pair_as_a(s[2 * kb2], s[2 * kb2 + 1], a);
-#pragma unroll
-          for (int dn = 0; dn < kDN; ++dn) {
-            unsigned bb[2];
-            load_b_cols<kS>(sV, kb2 * 16, dn * 8, g, t, bb);
-            mma_bf16(o[dn], a, bb);
-          }
+          store4(acc + dn * kThreads, d);
         }
       }
     }
-    __syncthreads();  // the stage just read is the next copy's target
   }
+  // No block leaves while another may still read its exchange buffer.
+  cluster_sync();
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float inv0 = 1.f / (l0 * p.keep), inv1 = 1.f / (l1 * p.keep);
-  T* ow = ring + rw * 16 * kS;  // the ring is idle: stage O there
+  if constexpr (kMulti) {
+    // The other chunks' O rows, straight from the fragments.
+    float* orow = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
+    for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+      const int cc = (rank + i * cs) * kGroup;
+      const float4* acc = extra_acc(p.scratch, i, chunks, kDN);
+#pragma unroll 1
+      for (int dn = 0; dn < kDN; ++dn) {
+        float d[4];
+        load4(d, acc + dn * kThreads);
+        const int col = cc + dn * 8 + 2 * t;
+        if (row0 < p.Tq)
+          store2(orow + row0 * p.sot + col, d[0] * inv0, d[1] * inv0);
+        if (row0 + 8 < p.Tq)
+          store2(orow + (row0 + 8) * p.sot + col, d[2] * inv1, d[3] * inv1);
+      }
+    }
+  }
+  // This warp's Q rows are its alone: stage O there, then store 16-byte
+  // row chunks of the block's 128 columns.
+  float* ow = sQ + rw * 16 * kS;
 #pragma unroll
   for (int n = 0; n < kDN; ++n) {
     store2(ow + g * kS + n * 8 + 2 * t, o[n][0] * inv0, o[n][1] * inv0);
@@ -596,35 +685,38 @@ flash_fwd_kernel_wide(const Params p, int nc) {
            o[n][3] * inv1);
   }
   __syncwarp();
-  T* ob = static_cast<T*>(p.o) + b * p.sob + h * p.soh + col0;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = kGroup / kVec;
+  float* ob = static_cast<float*>(p.o) + b * p.sob + h * p.soh + col0;
+  constexpr int kChunks = kGroup / 4;
 #pragma unroll 4
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * kVec;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
     const int row = q0 + rw * 16 + r;
     if (row < p.Tq)
       *reinterpret_cast<float4*>(ob + row * p.sot + c) =
           *reinterpret_cast<const float4*>(ow + r * kS + c);
   }
-  if (t == 0 && blockIdx.z == 0) {
+  if (t == 0 && col0 == 0) {
     if (row0 < p.Tq) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(l0);
     if (row0 + 8 < p.Tq)
       p.lse[(long long)bh * p.Tq + row0 + 8] = m1 + logf(l1);
   }
 }
 
-template <typename T>
-cudaError_t launch_wide(const Params& p, int B, int dh, cudaStream_t stream) {
-  using L = WideLayout<T>;
+template <bool kMulti>
+cudaError_t launch_cluster_fwd(const Params& p, int B, cudaStream_t stream) {
   static unsigned done = 0;
-  cudaError_t err = set_smem_once(flash_fwd_kernel_wide<T>, L::kBytes, &done);
-  if (err != cudaSuccess) return err;
-  const int nc = dh / kGroup;
-  const dim3 grid =
-      folded_grid((p.Tq + kBlockQ - 1) / kBlockQ, (long long)B * p.H, 1, nc);
-  flash_fwd_kernel_wide<T><<<grid, 32 * kRowWarps, L::kBytes, stream>>>(p, nc);
-  return cudaGetLastError();
+  return launch_cluster(
+      flash_fwd_kernel_cluster<kMulti>,
+      folded_grid((p.Tq + kBlockQ - 1) / kBlockQ, (long long)B * p.H, 1,
+                  cluster_blocks(p.nc)),
+      32 * kRowWarps, ClusterLayout::kBytes, stream, &done, p);
+}
+
+// The scratch buffer of the cluster kernel's extra chunks (cluster.cuh).
+long long fwd_scratch_bytes(int B, int H, int Tq, int dh) {
+  if (dh <= 256 || dh % kGroup) return 0;
+  return extra_acc_bytes((long long)((Tq + kBlockQ - 1) / kBlockQ) * B * H,
+                         dh / kGroup, 32 * kRowWarps, kGroup / 8);
 }
 
 template <typename T, int DQK, int DV, int SPLIT>
@@ -643,15 +735,19 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 // The head dims the wrapper pads to: 32 (demo), 64 (the reference's
 // default model), 128 (the rest), 256 (any dh in (128, 256], as two
-// column groups), and above 256 any multiple of 128 (`launch_wide`).  A
+// column groups), and above 256 any multiple of 128 (`launch_cluster_fwd`;
+// above 128 kClusterMax a block owns several chunks).  A
 // grid of at most one 4-warp block an SM leaves half the warps the SMs
 // could hold idle: split each block's keys over two warp groups instead
 // (not at 256, whose block holds an SM's shared memory).
 template <typename T>
 cudaError_t dispatch(const Params& p, int B, int dh, int sms,
                      cudaStream_t s) {
-  if (dh > 256)
-    return dh % kGroup ? cudaErrorInvalidValue : launch_wide<T>(p, B, dh, s);
+  if (dh > 256) {
+    if (dh % kGroup) return cudaErrorInvalidValue;
+    return p.nc > kClusterMax ? launch_cluster_fwd<true>(p, B, s)
+                              : launch_cluster_fwd<false>(p, B, s);
+  }
   const long long blocks =
       (long long)((p.Tq + kBlockQ - 1) / kBlockQ) * B * p.H;
   const bool split = blocks <= sms;
@@ -670,15 +766,6 @@ cudaError_t dispatch(const Params& p, int B, int dh, int sms,
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// bfloat16 up to dh 256 runs on csrc/flash_fwd_wgmma.cu; here only above.
-template <>
-cudaError_t dispatch<bf16>(const Params& p, int B, int dh, int sms,
-                           cudaStream_t s) {
-  (void)sms;
-  if (dh <= 256 || dh % kGroup) return cudaErrorInvalidValue;
-  return launch_wide<bf16>(p, B, dh, s);
 }
 
 // One m16n8k8 product in 3xTF32 by one warp, for checking the fragment
@@ -704,7 +791,8 @@ __global__ void mma_3xtf32_probe_kernel(const float* a, const float* b,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o; lse is float32 at both).
+// dtype: 0 float32 (q, k, v, o and lse); bfloat16 runs on
+// flash_fwd_wgmma.cu at every head dim, so 1 is refused here.
 extern "C" int avsep_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int H, int Tq, int Tk, int dh,
@@ -713,11 +801,16 @@ extern "C" int avsep_flash_attn_fwd(
     long long svb, long long svh, long long svt,
     long long sob, long long soh, long long sot,
     float scale, float keep, unsigned threshold, unsigned seed, int hq,
-    int hk, int dropout, int dtype, int device, void* stream) {
+    int hk, int dropout, int dtype, int device, void* stream,
+    void* scratch) {
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
+  p.nc = dh / kGroup;
+  p.scratch = static_cast<float*>(scratch);
+  if (fwd_scratch_bytes(B, H, Tq, dh) > 0 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   p.q = q;
   p.k = k;
   p.v = v;
@@ -743,13 +836,21 @@ extern "C" int avsep_flash_attn_fwd(
                                  device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (dtype == 0)
-    err = dispatch<float>(p, B, dh, sms, s);
-  else if (dtype == 1)
-    err = dispatch<bf16>(p, B, dh, sms, s);
-  else
-    err = cudaErrorInvalidValue;
+  err = dtype == 0 ? dispatch<float>(p, B, dh, sms, s)
+                   : cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// Shared memory of a block of the cluster kernel (bytes).
+extern "C" int avsep_flash_attn_fwd_cluster_smem() {
+  return static_cast<int>(ClusterLayout::kBytes);
+}
+
+// Bytes of the scratch buffer a call at these sizes takes (`scratch`, float
+// aligned); 0 up to dh 128 kClusterMax.
+extern "C" long long avsep_flash_attn_fwd_scratch(int B, int H, int Tq,
+                                                  int dh) {
+  return fwd_scratch_bytes(B, H, Tq, dh);
 }
 
 extern "C" int avsep_mma_3xtf32_probe(const void* a, const void* b, void* c,

@@ -1,8 +1,9 @@
 // Flash attention forward in bfloat16 for Hopper (sm_90a): warpgroup
 // products (`wgmma`) on tiles that TMA brings into a shared-memory ring
-// guarded by mbarriers.  The bf16 instances of csrc/flash_attn_fwd.cu at
-// head dims 32, 64, 128 and 256 (the float32 instances, and bf16 above 256,
-// stay there).
+// guarded by mbarriers, at head dims 32, 64, 128 and 256, and above 256 on
+// a thread-block cluster whose blocks own 128-column chunks
+// (`flash_fwd_kernel_wgmma_cluster`, below).  Float32 runs on
+// csrc/flash_attn_fwd.cu.
 //
 // Replaces: av_separation_tpu/ops/pallas/attention.py `_fwd_hpacked_kernel`
 // (packed (B, T, H*dh)), `_fwd_packed_kernel` (split (B*H, T, dh)) and the
@@ -69,7 +70,10 @@
 #include <math.h>
 
 #include <chrono>
+#include <type_traits>
 
+#include "chunk_frags.cuh"
+#include "cluster.cuh"
 #include "dropout_hash.cuh"
 #include "grid_fold.cuh"
 #include "wgmma_tma.cuh"
@@ -87,6 +91,21 @@ struct Params {
   float scale_log2;  // scale * log2(e)
   float keep;        // 1 - rate
   DropoutHash drop;
+};
+
+// Above dh 128 kClusterMax, the chunks a cluster block owns after its
+// first (cluster.cuh): q, k, v and their (batch, head, time) strides, and
+// the scratch buffer of their accumulators.  Only the cluster kernel's
+// multi-chunk instance takes them: with them in Params the one-chunk
+// instance compiled to 219 registers in place of 229 and ran 8-16% slower
+// (tools/torch_flash_rows.py, in turns on the H100).
+struct MultiParams : Params {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  long long sqb, sqh, sqt, skb, skh, skt, svb, svh, svt;
+  int nc;  // column chunks
+  float* scratch;
 };
 
 // The block's Q panels, then as many K / V stages as fit, up to 4.
@@ -291,6 +310,335 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// Above head dim 256 (any multiple of 128): a cluster of nc = dh / 128
+// blocks shares 64 query rows, block c (its rank,
+// blockIdx.z) owning column chunk c of Q, K, V and O.  One warpgroup a
+// block, its thread 0 issuing the TMA copies.  For each 64-key tile the
+// block computes the partial S_c = Q_c K_c^T (m64n64k16 over its own 128
+// columns) and puts it in the K_c panel it has just consumed.  The
+// partials are summed once, spread over the cluster: of a thread's 8
+// float4 of S, float4 i is summed (in rank order) by block i % nc
+// (`reduce_slots`), which writes the sum over its own partial, and every
+// block gathers the 8 sums (`gather_slots`), so every block holds the same
+// S and runs the same online softmax; then O_c += P V_c on the block's own
+// V panel.  2 nc chunk products a tile pair.  The gather of tile j waits
+// for the barrier of tile j + 1, so one cluster barrier a tile orders both
+// halves: iteration j computes S_j's partial, passes the barrier, reduces
+// its slots of S_j and gathers S_{j-1}, then runs the softmax and P V of
+// tile j - 1 (cluster.cuh).  Against every block summing all nc partials,
+// the loads from other blocks fall from 8 (nc - 1) to about
+// 16 (nc - 1) / nc float4 a thread and tile.  K_c and V_c panels stream
+// through a 3-stage ring: a stage serves S_j and the exchange in iteration
+// j, the gather and P V in iteration j + 1, and takes tile j + 3 after the
+// barrier of iteration j + 2.  A block takes 113 KB, two an SM, so one
+// block's barrier and loads from the cluster run under the other's
+// products.  Above 128 kClusterMax (kMulti) a cluster of
+// C = cluster_blocks(nc) blocks shares the rows, block r owning chunks
+// r + i C (cluster.cuh): it adds the partials of its chunks after the
+// first to its partial S in chunk order, on mma.sync.m16n8k16 with their
+// operands read from global memory (chunk_frags.cuh), and keeps their O
+// accumulators in the scratch buffer; still 2 nc chunk products a tile
+// pair.
+constexpr int kChunk = 128;  // head-dim columns a block of a cluster
+
+struct ClusterLayout {
+  using P = Panel<kChunk>;
+  static constexpr int kThreads = 128;
+  static constexpr int kQ = P::kBytes;          // Q_c
+  static constexpr int kStage = 2 * P::kBytes;  // K_c panel, then V_c
+  static constexpr int kStages = 3;
+  static constexpr int kBarOffset = kQ + kStages * kStage;
+  static constexpr int kUsed = kBarOffset + 8 * kStages;
+  // The panels need 1024-byte alignment; the rest of two blocks' share of
+  // an SM (233,472 bytes less 1 KB each kept by the card) is the slack for
+  // aligning the dynamic shared memory's start.
+  static constexpr size_t kBytes = (233472 - 2 * 1024) / 2;
+  static_assert(kThreads * 8 * 16 <= P::kBytes && kUsed < kBytes,
+                "shared memory");
+};
+
+template <bool kMulti>
+using ClusterParams = std::conditional_t<kMulti, MultiParams, Params>;
+
+template <bool kMulti>
+__global__ void __launch_bounds__(128, 2)
+flash_fwd_kernel_wgmma_cluster(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv,
+                               const ClusterParams<kMulti> p) {
+  using L = ClusterLayout;
+  using P = Panel<kChunk>;
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  if (smem + L::kUsed > smem_raw + L::kBytes) __trap();
+  char* sQ = smem;
+  char* sKV = smem + L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+
+  const int tid = threadIdx.x;
+  const int cs = gridDim.z;  // blocks of the cluster
+  const unsigned rank = cluster_rank();
+  const int col0 = rank * kChunk;
+  const TileOf at = unfold((p.Tq + kPanelRows - 1) / kPanelRows);
+  const int bh = at.pair;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = at.tile * kPanelRows;
+  const int n_tiles = (p.Tk + kBlockK - 1) / kBlockK;
+
+  // Tile jj's K_c and V_c panels into their stage (thread 0).
+  auto load_tile_kv = [&](int jj) {
+    const int ss = jj % L::kStages;
+    char* st = sKV + ss * L::kStage;
+    mbar_expect_tx(&full[ss], L::kStage + (jj == 0 ? L::kQ : 0));
+    tma_panel<kChunk>(st, &mk, &full[ss], col0, h, jj * kBlockK, b);
+    tma_panel<kChunk>(st + P::kBytes, &mv, &full[ss], col0, h, jj * kBlockK,
+                      b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    tma_prefetch_desc(&mq);
+    tma_prefetch_desc(&mk);
+    tma_prefetch_desc(&mv);
+    load_tile_kv(0);  // with Q_c, on the same barrier
+    tma_panel<kChunk>(sQ, &mq, &full[0], col0, h, q0, b);
+  }
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 16 * w + g;  // and row0 + 8
+  const uint32_t q_addr = smem_u32(sQ);
+  HashRow hr0 = {0u, 0u}, hr1 = {0u, 0u};
+  if (p.drop.on) {
+    hr0 = hash_row(p.drop, bh, row0);
+    hr1 = hash_row(p.drop, bh, row0 + 8);
+  }
+  float o[kChunk / 2];
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, exp2 domain
+  float l0 = 0.f, l1 = 0.f;              // this lane's part of the sums
+
+  // Iteration j: S_j's partial into its K_c panel (j < n_tiles); the
+  // barrier; tile j + 1's copy; the reduction of this block's slots of S_j
+  // and the gather of S_{j-1}'s sums; the softmax and P V of tile j - 1
+  // (j >= 1).
+  for (int j = 0; j <= n_tiles; ++j) {
+    float sc[32];
+    float* xs = reinterpret_cast<float*>(sKV + (j % L::kStages) * L::kStage);
+    if (j < n_tiles) {
+      mbar_wait(&full[j % L::kStages], (j / L::kStages) & 1);
+      wgmma_fence();
+      product_ss<kChunk>(sc, q_addr, smem_u32(xs));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if constexpr (kMulti) {
+        // The partials of the block's other chunks (rank + i cs, i <
+        // chunks), added in chunk order: accumulator register 4n + 2hh + e
+        // is the m16n8 C fragment's.
+        const int chunks = chunks_per_block(p.nc);
+        const GlobalRows<bf16> gq = {p.q + b * p.sqb + h * p.sqh, p.sqt,
+                                     p.Tq};
+        const GlobalRows<bf16> gk = {p.k + b * p.skb + h * p.skh, p.skt,
+                                     p.Tk};
+        for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+          const int cc = (rank + i * cs) * kChunk;
+#pragma unroll 1
+          for (int kk = 0; kk < kChunk / 16; ++kk) {
+            unsigned a[4];
+            gfrag_a(gq, q0 + 16 * w, cc + 16 * kk, g, t, a);
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              unsigned bb[2];
+              gfrag_b_rows(gk, j * kBlockK + 8 * n, cc + 16 * kk, g, t, bb);
+              float d[4] = {sc[4 * n], sc[4 * n + 1], sc[4 * n + 2],
+                            sc[4 * n + 3]};
+              mma_bf16(d, a, bb);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sc[4 * n + e] = d[e];
+            }
+          }
+        }
+      }
+      __syncthreads();  // every warp's products have read the K_c panel
+      put_partials<8>(xs, sc, L::kThreads, tid);
+    }
+    // The exchange's reads and writes of the panels come before the TMA
+    // copies that will refill them (another proxy).
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    cluster_sync();
+    // Tile j + 1 into the stage of tile j - 2, whose panels every block of
+    // the cluster is done with.
+    if (tid == 0 && j + 1 < n_tiles) load_tile_kv(j + 1);
+    if (j < n_tiles) reduce_slots<8>(xs, xs, L::kThreads, tid, cs, rank);
+    if (j == 0) continue;
+    const char* prev = sKV + ((j - 1) % L::kStages) * L::kStage;
+    gather_slots<8>(sc, reinterpret_cast<const float*>(prev), L::kThreads,
+                    tid, 0, cs, rank);
+
+    // Online softmax of tile j - 1 on the fragments: register 4n + 2hh + e
+    // is row row0 + 8 hh, key k0 + 8n + 2t + e.
+    const int k0 = (j - 1) * kBlockK;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = k0 + 8 * n + 2 * t + e < p.Tk;
+        sc[4 * n + e] = valid ? sc[4 * n + e] * p.scale_log2 : -INFINITY;
+        sc[4 * n + 2 + e] =
+            valid ? sc[4 * n + 2 + e] * p.scale_log2 : -INFINITY;
+        mx0 = fmaxf(mx0, sc[4 * n + e]);
+        mx1 = fmaxf(mx1, sc[4 * n + 2 + e]);
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+    const unsigned ktile =
+        static_cast<unsigned>(k0 / p.drop.hk) * 0x27D4EB2Fu;
+    const int kbase = k0 % p.drop.hk;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = exp2f(sc[4 * n + e] - m0);
+        float p1 = exp2f(sc[4 * n + 2 + e] - m1);
+        l0 += p0;
+        l1 += p1;
+        if (p.drop.on) {
+          const HashCol hc = {
+              static_cast<unsigned>(kbase + 8 * n + 2 * t + e) * 0x61C88647u,
+              ktile};
+          if (!hash_keep(p.drop, hr0, hc)) p0 = 0.f;
+          if (!hash_keep(p.drop, hr1, hc)) p1 = 0.f;
+        }
+        sc[4 * n + e] = p0;
+        sc[4 * n + 2 + e] = p1;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n) {
+      o[4 * n + 0] *= alpha0;
+      o[4 * n + 1] *= alpha0;
+      o[4 * n + 2] *= alpha1;
+      o[4 * n + 3] *= alpha1;
+    }
+
+    // O_c += bf16(P) V_c over tile j - 1's 64 keys (four k16 steps).
+    unsigned a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_as_a(sc, kk, a[kk]);
+    wgmma_fence();
+    product_rs<kChunk, kChunk>(o, a, smem_u32(prev) + P::kBytes, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if constexpr (kMulti) {
+      // O_c' += bf16(P) V_c' for the block's other chunks c', their
+      // accumulators through the scratch buffer (zero before tile 0).
+      const int chunks = chunks_per_block(p.nc);
+      const GlobalRows<bf16> gv = {p.v + b * p.svb + h * p.svh, p.svt,
+                                   p.Tk};
+      for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+        const int cc = (rank + i * cs) * kChunk;
+        float4* acc = extra_acc(p.scratch, i, chunks, kChunk / 8);
+#pragma unroll 1
+        for (int dn = 0; dn < kChunk / 8; ++dn) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          if (j > 1) load4(d, acc + dn * L::kThreads);
+          d[0] *= alpha0;
+          d[1] *= alpha0;
+          d[2] *= alpha1;
+          d[3] *= alpha1;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            unsigned bb[2];
+            gfrag_b_cols(gv, k0 + 16 * kk, cc + 8 * dn, g, t, bb);
+            mma_bf16(d, a[kk], bb);
+          }
+          store4(acc + dn * L::kThreads, d);
+        }
+      }
+    }
+  }
+  // No block leaves while another may still read its shared memory.
+  cluster_sync();
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / (l0 * p.keep), inv1 = 1.f / (l1 * p.keep);
+  if constexpr (kMulti) {
+    const int chunks = chunks_per_block(p.nc);
+    bf16* orow = static_cast<bf16*>(p.o) + b * p.sob + h * p.soh;
+    for (int i = 1; i < chunks && rank + i * cs < p.nc; ++i) {
+      const int cc = (rank + i * cs) * kChunk;
+      const float4* acc = extra_acc(p.scratch, i, chunks, kChunk / 8);
+#pragma unroll 1
+      for (int dn = 0; dn < kChunk / 8; ++dn) {
+        float d[4];
+        load4(d, acc + dn * L::kThreads);
+        const int col = cc + 8 * dn + 2 * t;
+        if (row0 < p.Tq)
+          *reinterpret_cast<__nv_bfloat162*>(orow + row0 * p.sot + col) =
+              __floats2bfloat162_rn(d[0] * inv0, d[1] * inv0);
+        if (row0 + 8 < p.Tq)
+          *reinterpret_cast<__nv_bfloat162*>(orow + (row0 + 8) * p.sot +
+                                             col) =
+              __floats2bfloat162_rn(d[2] * inv1, d[3] * inv1);
+      }
+    }
+  }
+  bf16* ob = static_cast<bf16*>(p.o) + b * p.sob + h * p.soh + col0;
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (row0 < p.Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * p.sot + col) =
+          __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    if (row0 + 8 < p.Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * p.sot + col) =
+          __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+  }
+  if (t == 0 && rank == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (row0 < p.Tq)
+      p.lse[(long long)bh * p.Tq + row0] = (m0 + log2f(l0)) * kLn2;
+    if (row0 + 8 < p.Tq)
+      p.lse[(long long)bh * p.Tq + row0 + 8] = (m1 + log2f(l1)) * kLn2;
+  }
+}
+
+template <bool kMulti>
+cudaError_t launch_cluster_fwd(const CUtensorMap& mq, const CUtensorMap& mk,
+                               const CUtensorMap& mv,
+                               const ClusterParams<kMulti>& p, int B, int nc,
+                               cudaStream_t stream) {
+  static unsigned done = 0;
+  return launch_cluster(
+      flash_fwd_kernel_wgmma_cluster<kMulti>,
+      folded_grid((p.Tq + kPanelRows - 1) / kPanelRows, (long long)B * p.H,
+                  1, cluster_blocks(nc)),
+      ClusterLayout::kThreads, ClusterLayout::kBytes, stream, &done, mq, mk,
+      mv, p);
+}
+
+// The scratch buffer of the cluster kernel's extra chunks (cluster.cuh).
+long long fwd_scratch_bytes(int B, int H, int Tq, int dh) {
+  if (dh <= 256 || dh % kChunk) return 0;
+  return extra_acc_bytes(
+      (long long)((Tq + kPanelRows - 1) / kPanelRows) * B * H, dh / kChunk,
+      ClusterLayout::kThreads, kChunk / 8);
+}
+
 template <int DH, int NC>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                    const CUtensorMap& mv, const Params& p, int B, int device,
@@ -337,16 +685,18 @@ extern "C" int avsep_flash_fwd_wgmma(
     long long svb, long long svh, long long svt, long long sob,
     long long soh, long long sot, float scale, float keep,
     unsigned threshold, unsigned seed, int hq, int hk, int dropout,
-    int device, void* stream) {
+    int device, void* stream, void* scratch) {
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (fwd_scratch_bytes(B, H, Tq, dh) > 0 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   if (!encode_map(&mq, q, dh, H, Tq, B, sqh, sqt, sqb) ||
       !encode_map(&mk, k, dh, H, Tk, B, skh, skt, skb) ||
       !encode_map(&mv, v, dh, H, Tk, B, svh, svt, svb))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+  MultiParams p;
   p.o = o;
   p.lse = static_cast<float*>(lse);
   p.H = H; p.Tq = Tq; p.Tk = Tk;
@@ -358,6 +708,14 @@ extern "C" int avsep_flash_fwd_wgmma(
   p.drop.hq = hq;
   p.drop.hk = hk;
   p.drop.on = dropout;
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.sqb = sqb; p.sqh = sqh; p.sqt = sqt;
+  p.skb = skb; p.skh = skh; p.skt = skt;
+  p.svb = svb; p.svh = svh; p.svt = svt;
+  p.nc = dh / kChunk;
+  p.scratch = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32: return static_cast<int>(dispatch<32>(mq, mk, mv, p, B, device, s));
@@ -366,8 +724,25 @@ extern "C" int avsep_flash_fwd_wgmma(
       return static_cast<int>(dispatch<128>(mq, mk, mv, p, B, device, s));
     case 256:
       return static_cast<int>(dispatch<256>(mq, mk, mv, p, B, device, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(
+          dh <= 256 || dh % kChunk ? cudaErrorInvalidValue
+          : p.nc > kClusterMax
+              ? launch_cluster_fwd<true>(mq, mk, mv, p, B, p.nc, s)
+              : launch_cluster_fwd<false>(mq, mk, mv, p, B, p.nc, s));
   }
+}
+
+// Shared memory of a block of the cluster kernel (bytes).
+extern "C" int avsep_flash_fwd_wgmma_cluster_smem() {
+  return static_cast<int>(ClusterLayout::kBytes);
+}
+
+// Bytes of the scratch buffer a call at these sizes takes (`scratch`, float
+// aligned); 0 up to dh 128 kClusterMax.
+extern "C" long long avsep_flash_fwd_wgmma_scratch(int B, int H, int Tq,
+                                                   int dh) {
+  return fwd_scratch_bytes(B, H, Tq, dh);
 }
 
 // Host microseconds of one tensor-map encode, the mean of `iters`; -1

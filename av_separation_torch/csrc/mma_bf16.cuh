@@ -14,19 +14,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "chunk_frags.cuh"  // mma_bf16
 #include "mma_3xtf32.cuh"  // cp_async16
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Two floats rounded to nearest-even bf16 (the JAX `astype`), lo in the
 // low half.

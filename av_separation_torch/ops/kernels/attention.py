@@ -16,12 +16,21 @@ The kernels are built for head dims 32, 64, 128 and 256, and for every
 multiple of 128 above 256.  bfloat16 at 32-256 runs on the Hopper kernels
 of `csrc/flash_fwd_wgmma.cu` and `csrc/flash_bwd_wgmma.cu` (`wgmma`, TMA,
 mbarriers); float32 at 32-256 on the 3xTF32 `mma.sync` kernels (256 as two
-column groups of 128, each a block's); both dtypes above 256 on the
-`mma.sync` kernels' column split with q k^T summed over 128-column chunks
-that stream through the ring.  Any other head dim is zero-padded to the
-next built one (`padded_fwd`, `padded_bwd`) and run at the softmax scale of
-its true width: zero columns change neither q k^T nor the kept columns of
-p v, and the gradients are sliced back.
+column groups of 128, each a block's).  Above 256 a thread-block cluster
+shares each tile of rows, each block owning 128-column chunks of the head
+dim (`csrc/cluster.cuh`): one chunk a block up to dh 2048 (a cluster of
+dh / 128 blocks), ceil(dh / 2048) above, where the accumulators of a
+block's chunks after its first live in a scratch buffer.  Each block
+computes its chunks' partial q k^T (and dO v^T), the cluster sums the
+partials in block order through distributed shared memory, and each block
+takes its own columns of p v and of the gradients, so no product is
+computed twice.
+The bf16 forward runs there on `wgmma` (`flash_fwd_wgmma.cu`), the float32
+forward and both backwards on `mma.sync` (`flash_attn_fwd.cu`,
+`flash_attn_bwd.cu`).  Any other head dim is zero-padded to the next built
+one (`padded_fwd`, `padded_bwd`) and run at the softmax scale of its true
+width: zero columns change neither q k^T nor the kept columns of p v, and
+the gradients are sliced back.
 
 In bfloat16 (q, k, v and the cotangent bf16; lse float32) the kernels and
 the plain versions round where the Pallas kernels do: products of bf16
@@ -125,9 +134,9 @@ def _packed_empty(like: torch.Tensor) -> torch.Tensor:
 def padded_head_dim(dh: int) -> int:
     """The built head dim a head dim of `dh` runs at: the next of
     HEAD_DIMS up to 256, the next multiple of 128 above.  Above 256 the
-    full-width q and k tiles no longer fit a block's shared memory, so the
-    kernels sum q k^T over 128-column chunks streamed through their ring,
-    and each block owns one group of 128 output columns."""
+    full-width q and k tiles no longer fit a block's shared memory, so a
+    thread-block cluster shares the rows, each block owning 128-column
+    chunks of every operand (one up to dh 2048; `csrc/cluster.cuh`)."""
     for built in HEAD_DIMS:
         if dh <= built:
             return built
@@ -135,8 +144,10 @@ def padded_head_dim(dh: int) -> int:
 
 
 def wgmma_route(dtype: torch.dtype, dh: int) -> bool:
-    """True where a CUDA call runs on the `wgmma` kernels: bfloat16 at a
-    built head dim up to 256."""
+    """True where a CUDA call runs on the `wgmma` kernels of both passes:
+    bfloat16 at a built head dim up to 256.  (Above 256 the bf16 forward
+    runs on `flash_fwd_wgmma.cu`'s cluster kernel, the backward on
+    `flash_attn_bwd.cu`'s.)"""
     return dtype == torch.bfloat16 and dh in HEAD_DIMS
 
 
@@ -254,7 +265,7 @@ def _fwd_entry():
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -267,7 +278,8 @@ def _wgmma_fwd_entry():
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -308,9 +320,34 @@ def _bwd_entry():
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_entry(source: str, symbol: str, n_sizes: int):
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = [ctypes.c_int] * n_sizes
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _scratch(source: str, symbol: str, device: torch.device,
+             *sizes: int) -> Optional[torch.Tensor]:
+    """The scratch buffer of a cluster launch above head dim 128 * 16,
+    whose blocks own several column chunks and keep the accumulators of
+    all but the first there (csrc/cluster.cuh): as many bytes as the
+    library's `symbol` says for these sizes; None (a null pointer) where it
+    takes none."""
+    nbytes = _scratch_entry(source, symbol, len(sizes))(*sizes)
+    if not nbytes:
+        return None
+    return torch.empty(nbytes // 4, dtype=torch.float32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 DELTA_ROWS = 4  # query rows a delta block (one warp a row)
@@ -387,8 +424,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (o, lse): o (B, H, Tq, dh) in q's dtype (float32 or bfloat16)
     as a view of packed (B, Tq, H, dh) memory, lse (B, H, Tq) float32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (the
-    `wgmma` one in bfloat16 up to dh 256), at a head dim that is not built
+    tensors take the plain version; CUDA tensors launch the kernel (in
+    bfloat16 one of `flash_fwd_wgmma.cu`), at a head dim that is not built
     through `padded_fwd` (and then o is a slice of the padded memory).
     """
     if not _device(q):
@@ -396,9 +433,14 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return padded_fwd(_launch_fwd, q, k, v, rate, seed)
 
 
-def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                rate: float, seed: int, scale: Optional[float] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def fwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rate: float,
+             seed: int, scale: Optional[float] = None):
+    """(o, lse, scratch, args): the outputs of one forward launch at a
+    built head dim, its scratch buffer (None up to dh 2048; to be held
+    until the launch) and the arguments of a C forward entry point up to
+    the device (both entry points take them; `avsep_flash_attn_fwd` the
+    dtype code after them; both the device, the stream and the scratch
+    pointer last)."""
     _check(q, k, v)
     b, h, tq, dh = q.shape
     if scale is None:
@@ -406,17 +448,31 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tk = k.shape[2]
     o = _packed_empty(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, tq, tk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], scale, *_dropout_args(rate, seed, tq, tk))
-    if wgmma_route(q.dtype, dh):
+    if q.dtype == torch.bfloat16:
+        scratch = _scratch("flash_fwd_wgmma", "avsep_flash_fwd_wgmma_scratch",
+                           q.device, b, h, tq, dh)
+    else:
+        scratch = _scratch("flash_attn_fwd", "avsep_flash_attn_fwd_scratch",
+                           q.device, b, h, tq, dh)
+    return o, lse, scratch, args
+
+
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                rate: float, seed: int, scale: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    o, lse, scratch, args = fwd_call(q, k, v, rate, seed, scale)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:   # up to 256 and the cluster kernel
         lib, fn = _wgmma_fwd_entry()
-        rc = fn(*args, q.device.index, stream)
+        rc = fn(*args, q.device.index, stream, _ptr(scratch))
     else:
         lib, fn = _fwd_entry()
-        rc = fn(*args, kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
+        rc = fn(*args, kernels.DTYPE_CODES[q.dtype], q.device.index, stream,
+                _ptr(scratch))
     _build.check(lib, rc, "flash_attn_fwd")
     kernels.count_launch("flash_attn_fwd", q.dtype)
     return o, lse
@@ -469,8 +525,14 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return padded_bwd(_launch_bwd, q, k, v, o, do, lse, rate, seed)
 
 
-def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
-                scale: Optional[float] = None):
+def bwd_call(q, k, v, o, do, lse, rate: float, seed: int,
+             scale: Optional[float] = None):
+    """(dq, dk, dv, delta, scratch, args): the gradients of one backward
+    launch at a built head dim, its delta and scratch buffers (scratch None
+    up to dh 2048 and on the wgmma route; both to be held until the
+    launch) and the arguments of a C backward entry point up to the device
+    (`avsep_flash_attn_bwd` takes the dtype code after them, then the
+    device, the stream and the scratch pointer)."""
     _check(q, k, v, backward=True)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape:
@@ -487,18 +549,30 @@ def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
     dq, dk, dv = _packed_empty(q), _packed_empty(k), _packed_empty(v)
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dh,
             (ctypes.c_longlong * len(strides))(*strides),
             scale, *_dropout_args(rate, seed, tq, tk))
-    if wgmma_route(q.dtype, dh):
+    scratch = None if wgmma_route(q.dtype, dh) else _scratch(
+        "flash_attn_bwd", "avsep_flash_attn_bwd_scratch", q.device, b, h, tq,
+        tk, dh)
+    return dq, dk, dv, delta, scratch, args
+
+
+def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
+                scale: Optional[float] = None):
+    # The delta and scratch buffers are held until the launch.
+    dq, dk, dv, _delta, scratch, args = bwd_call(q, k, v, o, do, lse, rate,
+                                                 seed, scale)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if wgmma_route(q.dtype, q.shape[-1]):
         lib, fn = _wgmma_bwd_entry()
         rc = fn(*args, q.device.index, stream)
     else:
         lib, fn = _bwd_entry()
-        rc = fn(*args, kernels.DTYPE_CODES[q.dtype], q.device.index, stream)
+        rc = fn(*args, kernels.DTYPE_CODES[q.dtype], q.device.index, stream,
+                _ptr(scratch))
     _build.check(lib, rc, "flash_attn_bwd")
     kernels.count_launch("flash_attn_bwd", q.dtype)
     return dq, dk, dv

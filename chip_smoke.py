@@ -34,11 +34,16 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            model) and dh 49 (zero-padded to 64 by the wrapper), dh 256
            and dh 200 (padded to 256: two column groups of 128); each
            backward is run twice and must give bit-identical gradients.
-           Head dims above 256: dh 512 and dh 320 (padded to 384), q k^T
-           summed over 128-column chunks.  The same in bfloat16 ([bf16]
-           rows, the `wgmma` kernels up to dh 256) at the scaled audio
-           self-attention (dh 128), the default model's dh 64, T 1024,
-           dh 256, dh 512 and 320, and the bench's demo batch (B 128, H 4,
+           Head dims above 256: dh 512, dh 320 (padded to 384), dh 1152
+           (B 2, H 1: a cluster of 9 blocks, the non-portable size) and
+           dh 2048 (B 1, H 1: 16 blocks, the largest cluster), each on a
+           thread-block cluster of dh / 128 blocks, one 128-column chunk
+           a block; dh 2176 (B 1, H 1: 17 chunks on 9 blocks, which own
+           two each but the last).  The same in bfloat16 ([bf16]
+           rows, the `wgmma` kernels up to dh 256, the forward's `wgmma`
+           cluster kernel above) at the scaled audio self-attention (dh
+           128), the default model's dh 64, T 1024, dh 256, dh 512, 320,
+           1152, 2048 and 2176, and the bench's demo batch (B 128, H 4,
            dh 32: self 63 x 63, cross 63 x 50): o and the gradients
            within 2 bf16 ulps of the plain version at their peak, lse
            1e-4, the bound at bf16's 989 TFLOP/s, SDPA in bf16 as the
@@ -293,12 +298,39 @@ for _name in ("flash_attn_fwd", "flash_attn_bwd", "audio_proj_fwd"):
     KERNELS[_name + "[bf16]"] = dict(KERNELS[_name], wrapper=_name,
                                      dtype="bfloat16")
 # The bf16 flash pair up to dh 256 runs on its Hopper kernels (wgmma, TMA,
-# mbarriers); above 256 on the mma.sync sources' chunked column split.
-for _name, _src in (("flash_attn_fwd", "flash_fwd_wgmma.cu"),
-                    ("flash_attn_bwd", "flash_bwd_wgmma.cu")):
+# mbarriers); above 256 on thread-block clusters of dh / 128 blocks: the
+# forward on flash_fwd_wgmma.cu's `wgmma` cluster kernel, the backward on
+# flash_attn_bwd.cu's (mma.sync), as float32's.
+for _name, _src, _note in (
+        ("flash_attn_fwd", "flash_fwd_wgmma.cu",
+         "dh above 256: flash_fwd_kernel_wgmma_cluster, the same source"),
+        ("flash_attn_bwd", "flash_bwd_wgmma.cu",
+         "dh above 256: flash_bwd_dkv_kernel_cluster / "
+         "flash_bwd_dq_kernel_cluster<bf16> in "
+         "av_separation_torch/csrc/flash_attn_bwd.cu")):
     KERNELS[_name + "[bf16]"].update(
-        source="av_separation_torch/csrc/" + _src,
-        note="dh above 256: " + KERNELS[_name]["source"])
+        source="av_separation_torch/csrc/" + _src, note=_note)
+for _name in ("flash_attn_fwd", "flash_attn_bwd"):
+    KERNELS[_name]["note"] = (
+        "dh above 256: a thread-block cluster of dh / 128 blocks, "
+        + ("flash_fwd_kernel_cluster" if _name.endswith("fwd") else
+           "flash_bwd_dkv_kernel_cluster / flash_bwd_dq_kernel_cluster"))
+# The device kernels of the wide route (above dh 256), by entry: listed in
+# the summary line, and held by the build phase to no spill.
+CLUSTER_INSTANCES = {
+    "flash_attn_fwd": ["flash_fwd_kernel_cluster<0>",
+                       "flash_fwd_kernel_cluster<1>"],
+    "flash_attn_fwd[bf16]": ["flash_fwd_kernel_wgmma_cluster<0>",
+                             "flash_fwd_kernel_wgmma_cluster<1>"],
+    "flash_attn_bwd": ["flash_bwd_dkv_kernel_cluster<float,0>",
+                       "flash_bwd_dq_kernel_cluster<float,0>",
+                       "flash_bwd_dkv_kernel_cluster<float,1>",
+                       "flash_bwd_dq_kernel_cluster<float,1>"],
+    "flash_attn_bwd[bf16]": ["flash_bwd_dkv_kernel_cluster<bf16,0>",
+                             "flash_bwd_dq_kernel_cluster<bf16,0>",
+                             "flash_bwd_dkv_kernel_cluster<bf16,1>",
+                             "flash_bwd_dq_kernel_cluster<bf16,1>"],
+}
 # The projection's pre-pass, its own launch, splits each weight into three
 # bf16 parts; it is counted under the instance it serves.
 KERNELS["audio_proj_fwd[bf16]"]["note"] = (
@@ -458,9 +490,12 @@ def phase_build(state):
     """Builds every kernel; fails if an instance of the STFT's FFT kernels
     spills or is missing (nine of the one-block kernel: power of two, mixed
     radix and Bluestein, even and odd n_fft, up to and above n_fft 4096;
-    the four passes of the four-step kernel), or if an instance of the flash
-    pair's `wgmma` kernels, of its chunked kernels above dh 256 or of the
-    projection's `wgmma` kernel spills."""
+    the four passes of the four-step kernel), if an instance of the flash
+    pair's `wgmma` kernels or of its cluster kernels above dh 256 spills or
+    one of the twelve cluster instances is missing (<..., 1>: a block
+    owning several chunks, above dh 2048), or if an instance of the
+    projection's `wgmma` kernel spills.  Reports the shared memory a block
+    of each cluster kernel takes, as the libraries export it."""
     import re
 
     from av_separation_torch.ops.kernels import _build
@@ -481,15 +516,18 @@ def phase_build(state):
                 if (n := sum(int(x) for ln in v
                              for x in re.findall(r"(\d+) bytes spill", ln)))}
     # The flash pair's Hopper instances (bf16 up to dh 256) and its
-    # chunked instances above dh 256 must not spill.
+    # cluster instances above dh 256 must not spill.
     flash = [k for name in ("flash_fwd_wgmma", "flash_bwd_wgmma",
                             "flash_attn_fwd", "flash_attn_bwd")
              for k in usage.get(name, {})
-             if "_wgmma" in k or "_wide" in k]
+             if "_wgmma" in k or "_cluster" in k]
+    cluster = [k for ks in CLUSTER_INSTANCES.values() for k in ks]
     if logs.get("flash_fwd_wgmma") and (
-            len(flash) < 7 or any(k in spilling for k in flash)):
+            len(flash) < 7 or any(k not in flash for k in cluster)
+            or any(k in spilling for k in flash)):
         raise AssertionError(f"flash instances {flash}, spilling "
                              f"{spilling}")
+    cluster_smem = _cluster_smem()
     # So must the projection's eight `wgmma` instances (conv1, conv2 at
     # each dtype, at 64 and 128 channels a block).
     proj = [k for k in usage.get("audio_proj", {})
@@ -499,7 +537,22 @@ def phase_build(state):
         raise AssertionError(f"projection instances {proj}, spilling "
                              f"{spilling}")
     return {"build_s": round(secs, 2), "spilling_instances": spilling,
-            "ptxas": usage}
+            "cluster_smem": cluster_smem, "ptxas": usage}
+
+
+def _cluster_smem():
+    """The shared memory (bytes) of a block of each cluster kernel, as the
+    built libraries export it."""
+    import ctypes
+
+    from av_separation_torch.ops.kernels import _build
+
+    fwd = _build.load("flash_attn_fwd").avsep_flash_attn_fwd_cluster_smem
+    wg = _build.load("flash_fwd_wgmma").avsep_flash_fwd_wgmma_cluster_smem
+    bwd = _build.load("flash_attn_bwd").avsep_flash_attn_bwd_cluster_smem
+    bwd.argtypes = [ctypes.c_int, ctypes.c_int]
+    return {"float32": {"fwd": fwd(), "dkv": bwd(0, 0), "dq": bwd(1, 0)},
+            "bfloat16": {"fwd": wg(), "dkv": bwd(0, 1), "dq": bwd(1, 1)}}
 
 
 def _template_args(rest: str) -> list:
@@ -663,14 +716,19 @@ def phase_kernels(state):
         ("long self Tk>512", 2, 4, 1024, 1024, 128, "self"),
         ("wide head self dh256", 8, 2, 501, 501, 256, "self"),
         ("wide head self dh200", 8, 2, 501, 501, 200, "self"),
-        # above 256: q k^T summed over 128-column chunks
+        # above 256: a cluster of dh / 128 blocks (dh 1152: 9, the
+        # non-portable size; dh 2048: 16, the largest); above 2048 blocks
+        # own several chunks (dh 2176: 17 chunks on 9 blocks)
         ("wide d1024 self dh512", 8, 2, 501, 501, 512, "self"),
         ("wide self dh320", 8, 2, 501, 501, 320, "self"),
+        ("wide self dh1152", 2, 1, 501, 501, 1152, "self"),
+        ("wide self dh2048", 1, 1, 501, 501, 2048, "self"),
+        ("wide self dh2176", 1, 1, 501, 501, 2176, "self"),
     ]
     # bfloat16: the scaled and default-model self-attention, the tiled
     # route at T 1024, the wide heads, and the bench's demo shapes (batch
     # 128: self-attention 63 x 63, cross-attention 63 x 50).
-    bf16_cases = [attn_cases[i] for i in (0, 5, 7, 8, 10, 11)] + [
+    bf16_cases = [attn_cases[i] for i in (0, 5, 7, 8, 10, 11, 12, 13, 14)] + [
         ("bench demo self", 128, 4, 63, 63, 32, "self"),
         ("bench demo cross", 128, 4, 63, 50, 32, "cross")]
     for rate in (0.0, 0.1):
@@ -3259,6 +3317,8 @@ def kernel_summary(state):
             "library_device_ms": head.get("library_device_ms"),
             "rate": head.get("rate"),
             "shape": head.get("shape"),
+            **({"cluster_instances": CLUSTER_INSTANCES[name]}
+               if name in CLUSTER_INSTANCES else {}),
             **({"note": meta["note"]} if "note" in meta else {}),
         })
     return {"kernels": out}

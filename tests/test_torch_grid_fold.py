@@ -35,7 +35,8 @@ def launch_plan(backward, dtype, b, h, tq, tk, dh, sms=SMS):
     as the .cu files build their grids (`folded_grid`): (kernel, tiles,
     pairs, groups), grid x holding `tiles * pairs` blocks (pairs = B*H;
     block x owns tile x % tiles of pair x // tiles), grid z the `groups`
-    of output columns.  A block tiles 64 rows (keys for dK/dV), 128 where
+    of output columns (above dh 256 the cluster's blocks, one 128-column
+    chunk each).  A block tiles 64 rows (keys for dK/dV), 128 where
     a `wgmma` kernel runs two consumer warpgroups, 4 query rows in the
     delta kernel; the `wgmma` kernels take one warpgroup where 64-row
     blocks give each block an SM of its own, and at dh 256."""
@@ -52,10 +53,13 @@ def launch_plan(backward, dtype, b, h, tq, tk, dh, sms=SMS):
         return [("flash_bwd_delta_kernel", cdiv(tq, 4), bh, 1),
                 ("flash_bwd_dkv_kernel_wgmma", cdiv(tk, 64), bh, groups),
                 ("flash_bwd_dq_kernel_wgmma", cdiv(tq, wg_rows(tq)), bh, 1)]
-    suffix = "_wide" if wide else ""
+    # Above dh 256 a cluster of `groups` blocks along z shares a tile.
+    suffix = "_cluster" if wide else ""
     if not backward:
-        return [("flash_fwd_kernel" + suffix, cdiv(tq, 64), bh, groups)]
-    return [("flash_bwd_delta_kernel" + suffix, cdiv(tq, 4), bh, 1),
+        wg = "_wgmma" if wide and dtype == torch.bfloat16 else ""
+        return [("flash_fwd_kernel" + wg + suffix, cdiv(tq, 64), bh, groups)]
+    return [("flash_bwd_delta_kernel" + ("_wide" if wide else ""),
+             cdiv(tq, 4), bh, 1),
             ("flash_bwd_dkv_kernel" + suffix, cdiv(tk, 64), bh, groups),
             ("flash_bwd_dq_kernel" + suffix, cdiv(tq, 64), bh, groups)]
 

@@ -103,8 +103,9 @@ class TestWideHeadDims:
 
 
 # Head dims above 256: padded to the next multiple of 128 and run on the
-# card by the chunked column split (csrc/flash_attn_fwd.cu
-# `flash_fwd_kernel_wide`, csrc/flash_attn_bwd.cu `flash_bwd_*_kernel_wide`).
+# card by a cluster of dh / 128 blocks (csrc/flash_attn_fwd.cu,
+# csrc/flash_fwd_wgmma.cu, csrc/flash_attn_bwd.cu `*_cluster`); their
+# schedule is emulated in tests/test_torch_wide_cluster_design.py.
 WIDE = {320: 384, 512: 512, 1024: 1024}
 
 
@@ -162,89 +163,6 @@ class TestHeadDimsAbove256:
         for name, g, w in zip("qkv", grads, want):
             assert g.shape == (qs if name == "q" else ks) and g.dtype == tdt
             np.testing.assert_allclose(g.float().numpy(), f(w), **tol,
-                                       err_msg=name)
-
-
-def wide_tiles_emulated(q, k, v, do, rate, seed, chunk=128, bk=32, bt=16):
-    """The chunked column split's schedule in numpy float32, one (batch,
-    head) at a time: the forward sums each 32-key tile's q k^T over
-    128-column chunks, then runs the online softmax and p v for the tile;
-    the dK/dV pass sums S^T and dP^T over the chunks for each 16-row query
-    tile, the dQ pass S and dP for each 16-key tile.  Returns o, lse, dq,
-    dk, dv."""
-    from av_separation_torch.ops.kernels.attention import keep_mask
-    b, h, tq, dh = q.shape
-    tk = k.shape[2]
-    scale = np.float32(1.0 / np.sqrt(dh))
-    keep = keep_mask(seed, b, h, tq, tk, rate).numpy() if rate > 0 \
-        else np.ones((b, h, tq, tk), bool)
-    inv = np.float32(1.0 / (1.0 - rate))
-
-    def chunked(a, bm):  # a (m, dh) @ bm (n, dh)^T over 128-column chunks
-        s = np.zeros((a.shape[0], bm.shape[0]), np.float32)
-        for c in range(0, dh, chunk):
-            s += a[:, c:c + chunk] @ bm[:, c:c + chunk].T
-        return s
-
-    o = np.zeros_like(q)
-    lse = np.zeros((b, h, tq), np.float32)
-    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
-    for bi in range(b):
-        for hi in range(h):
-            qq, kk_, vv, dd = q[bi, hi], k[bi, hi], v[bi, hi], do[bi, hi]
-            kp = keep[bi, hi]
-            m = np.full(tq, -np.inf, np.float32)
-            l = np.zeros(tq, np.float32)
-            acc = np.zeros((tq, dh), np.float32)
-            for k0 in range(0, tk, bk):
-                s = chunked(qq, kk_[k0:k0 + bk]) * scale
-                mn = np.maximum(m, s.max(1))
-                alpha = np.exp(m - mn)
-                p = np.exp(s - mn[:, None])
-                l = l * alpha + p.sum(1)
-                acc = acc * alpha[:, None] \
-                    + np.where(kp[:, k0:k0 + bk], p, 0) @ vv[k0:k0 + bk]
-                m = mn
-            o[bi, hi] = acc / (l * (1 - rate))[:, None]
-            lse[bi, hi] = m + np.log(l)
-            delta = (dd * o[bi, hi]).sum(1)
-            for r0 in range(0, tq, bt):  # dK/dV: 16-row query tiles
-                sl = slice(r0, r0 + bt)
-                p = np.exp(chunked(kk_, qq[sl]) * scale - lse[bi, hi, sl])
-                dp = chunked(vv, dd[sl])
-                kt = kp[sl].T
-                pd = np.where(kt, p * inv, 0)
-                ds = p * (np.where(kt, dp * inv, 0) - delta[sl]) * scale
-                dv[bi, hi] += pd @ dd[sl]
-                dk[bi, hi] += ds @ qq[sl]
-            for k0 in range(0, tk, bt):  # dQ: 16-key tiles
-                sl = slice(k0, k0 + bt)
-                p = np.exp(chunked(qq, kk_[sl]) * scale
-                           - lse[bi, hi][:, None])
-                dp = chunked(dd, vv[sl])
-                ds = p * (np.where(kp[:, sl], dp * inv, 0)
-                          - delta[:, None]) * scale
-                dq[bi, hi] += ds @ kk_[sl]
-    return o, lse, dq, dk, dv
-
-
-class TestWideChunkedSchedule:
-    # The chunked schedule at dh 512 against the plain float32 version:
-    # float32 sums in another order (chunk by chunk, tile by tile), so
-    # 2e-5 on o (O(1)) and 5e-5 on the gradients, 1e-4 on lse.
-    @pytest.mark.parametrize("rate", [0.0, 0.1])
-    def test_matches_plain_float32(self, rate):
-        q, k, v, do = (rand(s, i) for i, s in enumerate(
-            [(1, 2, 40, 512), (1, 2, 70, 512), (1, 2, 70, 512),
-             (1, 2, 40, 512)], 11))
-        got = wide_tiles_emulated(q, k, v, do, rate, SEED)
-        tq_, tk_, tv_, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
-        o, lse = flash_attn_fwd_torch(tq_, tk_, tv_, rate, SEED)
-        want = (o, lse) + flash_attn_bwd_torch(tq_, tk_, tv_, o, tdo, lse,
-                                               rate, SEED)
-        for name, g, w, tol in zip(("o", "lse", "dq", "dk", "dv"), got,
-                                   want, (2e-5, 1e-4, 5e-5, 5e-5, 5e-5)):
-            np.testing.assert_allclose(g, w.numpy(), atol=tol, rtol=1e-4,
                                        err_msg=name)
 
 
