@@ -2,7 +2,8 @@
 // dim 256 (flash_attn_fwd.cu, flash_fwd_wgmma.cu, flash_attn_bwd.cu): the
 // block's rank in its cluster, the cluster-wide barrier, loads from another
 // block's shared memory (distributed shared memory), the two forms of the
-// partials' exchange, and the launch.
+// partials' exchange, and the launch.  Also the exchange between two warps
+// of one block that the float32 kernels at head dim 256 use instead.
 //
 // The wide flash kernels split the head dim into nc = dh / 128 column
 // chunks and launch a cluster of C = cluster_blocks(nc) blocks along grid
@@ -137,6 +138,32 @@ __device__ __forceinline__ void put_partials(float* x, const float* d,
   for (int i = 0; i < N; ++i)
     reinterpret_cast<float4*>(x)[i * stride + off] =
         make_float4(d[4 * i], d[4 * i + 1], d[4 * i + 2], d[4 * i + 3]);
+}
+
+// Head dim 256 (flash_attn_fwd.cu, flash_attn_bwd.cu `*_pair`): no
+// cluster, but warps w and w + 4 of one 8-warp block, each owning one
+// 128-column half of the same 16 rows, exchange their partials through
+// the block's shared memory.  Each stores its own (`put_partials`), the
+// two meet at named barrier 1 + w of 64 threads (barrier 0 is
+// __syncthreads), and each adds the other's (`pair_sum`).
+__device__ __forceinline__ void pair_sync(int w) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + w) : "memory");
+}
+
+// d[0 .. 4N) += the partner's N float4 partials, put at float4
+// i * stride + off of its buffer x: S_0 + S_1 in both warps, the same
+// float (a sum of two floats does not depend on their order).
+template <int N>
+__device__ __forceinline__ void pair_sum(float* d, const float* x,
+                                         int stride, int off) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i * stride + off];
+    d[4 * i] += v.x;
+    d[4 * i + 1] += v.y;
+    d[4 * i + 2] += v.z;
+    d[4 * i + 3] += v.w;
+  }
 }
 
 // Float4 `i * stride + off` of buffer `x` in the block of rank `from`:

@@ -79,12 +79,15 @@
 //   bf16 for dQ = ds K and dK = ds^T Q.  A 16-query (16-key) tile is one
 //   k16 step; two C fragments are its A fragment as they stand
 //   (mma_bf16.cuh).  dQ, dK and dV are stored in bf16.
-// - Head dims above 128 (a column split, as the forward): dh is padded to
-//   256 and each dK/dV (dQ) block owns one group of 128 output columns
-//   (blockIdx.z).  It recomputes S and dP over all 256 columns (K, V, Q
-//   and dO staged at full width) and accumulates only its own columns, so
-//   a warp holds the accumulators of dh 128.  200 KB of shared memory at
-//   float32: one 4-warp block an SM.
+// - Head dims in (128, 256] (`flash_bwd_*_kernel_pair`, as the forward):
+//   dh is padded to 256; one 8-warp dK/dV (dQ) block owns 64 keys (rows),
+//   warps w and w + 4 the same 16 and one 128-column half each (K, V, Q
+//   and dO staged at full width).  Each warp computes its partial S^T and
+//   dP^T (S and dP) over its 128 columns, the two add each other's
+//   through shared memory at a named barrier, and each accumulates only
+//   its own columns, so a warp holds the accumulators of dh 128: 8 + 6 =
+//   14 chunk products a tile pair (the column split it replaces took
+//   22).  212 KB (211 KB) of shared memory: one 8-warp block an SM.
 // - Head dims above 256 (any multiple of 128,
 //   `flash_bwd_*_kernel_cluster`): a thread-block cluster of nc = dh / 128
 //   blocks (grid z; cluster.cuh) shares a block's 64 keys (dK/dV) or rows
@@ -124,7 +127,7 @@ constexpr int kWarps = 4;               // warps of a group
 constexpr int kBlock = 16 * kWarps;     // keys (dK/dV) or rows (dQ) a block
 constexpr int kTile = 16;               // query (dK/dV) or key (dQ) tile
 constexpr int kDeltaThreads = 128;
-constexpr int kGroup = 128;             // output columns a block above 128
+constexpr int kGroup = 128;             // columns of a half or a chunk
 
 struct Params {
   const void* q;
@@ -282,41 +285,39 @@ flash_bwd_delta_kernel_wide(const Params p, int dh) {
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: a block owns kBlock keys (and DV output columns) and walks the
-// query tiles.
+// dK, dV: a block owns kBlock keys and walks the query tiles (head dims
+// 32, 64 and 128).
 // ---------------------------------------------------------------------------
-template <typename T, int DQK, int DV, int SPLIT>
+template <int D, int SPLIT>
 struct DkvLayout {
   static constexpr int kThreads = 32 * kWarps * SPLIT;
-  static constexpr int kS = DQK + 16 / sizeof(T);  // operand row stride
+  static constexpr int kS = D + 4;  // operand row stride
   static constexpr int kRows = kTile * SPLIT;  // query rows a stage
-  static constexpr int kKV = kBlock * kS;    // one of K, V (elements)
-  // A stage (elements of T): Q rows, dO rows, then lse, delta and the
-  // hash's row part (tile and row terms) of each row (4-byte words).
-  static constexpr int kOperands = 2 * kRows * kS;  // elements of T
-  static constexpr int kStage = kOperands + 4 * kRows * (4 / sizeof(T));
-  static constexpr size_t kBytes = (2 * kKV + 2 * kStage) * sizeof(T);
-  // The split block hands dK, then dV (4 * 32 * DV / 8 floats a warp
-  // each) over through the idle ring: bf16's ring holds one at a time.
-  static_assert(SPLIT == 1 || 2 * kStage * sizeof(T) >=
-                kWarps * 32 * 4 * (DV / 8) * sizeof(float),
+  static constexpr int kKV = kBlock * kS;    // one of K, V (floats)
+  // A stage (floats): Q rows, dO rows, then lse, delta and the hash's row
+  // part (tile and row terms) of each row (4-byte words).
+  static constexpr int kOperands = 2 * kRows * kS;
+  static constexpr int kStage = kOperands + 4 * kRows;
+  static constexpr size_t kBytes = (2 * kKV + 2 * kStage) * sizeof(float);
+  // The split block hands dK, then dV (4 * 32 * D / 8 floats a warp each)
+  // over through the idle ring.
+  static_assert(SPLIT == 1 || 2 * kStage >= kWarps * 32 * 4 * (D / 8),
                 "hand-over does not fit the ring");
 };
 
-template <typename T, int DQK, int DV, int SPLIT>
-__global__ void __launch_bounds__(DkvLayout<T, DQK, DV, SPLIT>::kThreads,
-                                  DQK > DV ? 1 : 3 - SPLIT)
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(DkvLayout<D, SPLIT>::kThreads, 3 - SPLIT)
 flash_bwd_dkv_kernel(const Params p) {
-  using L = DkvLayout<T, DQK, DV, SPLIT>;
+  using L = DkvLayout<D, SPLIT>;
   constexpr int kS = L::kS;
   constexpr int kRows = L::kRows;
   constexpr int kThreads = L::kThreads;
-  constexpr int kDN = DV / 8;      // 8-wide column tiles of dK, dV
+  constexpr int kDN = D / 8;       // 8-wide column tiles of dK, dV
   constexpr int kQN = kTile / 8;   // 8-query tiles of S^T
   extern __shared__ float4 smem4[];
-  T* sK = reinterpret_cast<T*>(smem4);
-  T* sV = sK + L::kKV;
-  T* sRing = sV + L::kKV;
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + L::kKV;
+  float* sRing = sV + L::kKV;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -328,24 +329,21 @@ flash_bwd_dkv_kernel(const Params p) {
   const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
   const int k0 = at.tile * kBlock;
-  // This block's columns of dK, dV (a constant 0 up to dh 128).
-  const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
-  const T* qb = head<T>(p.q, p.sq, b, h);
-  const T* ob = head<T>(p.dout, p.sdo, b, h);
+  const float* qb = head<float>(p.q, p.sq, b, h);
+  const float* ob = head<float>(p.dout, p.sdo, b, h);
   const float* lse = p.lse + (long long)bh * p.Tq;
   const float* delta = p.delta + (long long)bh * p.Tq;
   const int n_stages = (p.Tq + kRows - 1) / kRows;
 
   auto load_stage = [&](int j) {
-    T* st = sRing + (j & 1) * L::kStage;
+    float* st = sRing + (j & 1) * L::kStage;
     const int r0 = j * kRows;
-    load_tile<T, DQK, kS, kRows, kThreads>(st, qb, p.sq[2], r0, p.Tq, tid);
-    load_tile<T, DQK, kS, kRows, kThreads>(st + kRows * kS, ob, p.sdo[2], r0,
-                                           p.Tq, tid);
+    load_tile<float, D, kS, kRows, kThreads>(st, qb, p.sq[2], r0, p.Tq, tid);
+    load_tile<float, D, kS, kRows, kThreads>(st + kRows * kS, ob, p.sdo[2],
+                                             r0, p.Tq, tid);
     if (tid < kRows) {
-      float* sl =
-          reinterpret_cast<float*>(st + L::kOperands);
+      float* sl = st + L::kOperands;
       const int row = r0 + tid;
       if (row < p.Tq) {
         cp_async4(sl + tid, lse + row, 4);
@@ -363,10 +361,10 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   };
 
-  load_tile<T, DQK, kS, kBlock, kThreads>(sK, head<T>(p.k, p.sk, b, h),
-                                          p.sk[2], k0, p.Tk, tid);
-  load_tile<T, DQK, kS, kBlock, kThreads>(sV, head<T>(p.v, p.sv, b, h),
-                                          p.sv[2], k0, p.Tk, tid);
+  load_tile<float, D, kS, kBlock, kThreads>(
+      sK, head<float>(p.k, p.sk, b, h), p.sk[2], k0, p.Tk, tid);
+  load_tile<float, D, kS, kBlock, kThreads>(
+      sV, head<float>(p.v, p.sv, b, h), p.sv[2], k0, p.Tk, tid);
   load_stage(0);
   cp_async_commit();
 
@@ -380,8 +378,8 @@ flash_bwd_dkv_kernel(const Params p) {
     hc0 = hash_col(p.drop, k0 + kw * 16 + g);
     hc1 = hash_col(p.drop, k0 + kw * 16 + g + 8);
   }
-  const T* kt = sK + kw * 16 * kS;
-  const T* vt = sV + kw * 16 * kS;
+  const float* kt = sK + kw * 16 * kS;
+  const float* vt = sV + kw * 16 * kS;
   const float inv_keep = 1.f / p.keep;
 
   for (int j = 0; j < n_stages; ++j) {
@@ -393,14 +391,13 @@ flash_bwd_dkv_kernel(const Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* st = sRing + (j & 1) * L::kStage;
+    const float* st = sRing + (j & 1) * L::kStage;
     const int c0 = part * kTile;  // this group's rows of the stage
 
     if (j * kRows + c0 < p.Tq) {
-      const T* sQ = st + c0 * kS;
-      const T* sO = st + (kRows + c0) * kS;
-      const float* sl = reinterpret_cast<const float*>(
-                            st + L::kOperands) + c0;
+      const float* sQ = st + c0 * kS;
+      const float* sO = st + (kRows + c0) * kS;
+      const float* sl = st + L::kOperands + c0;
       const unsigned* sh = reinterpret_cast<const unsigned*>(sl);
 
       // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys.
@@ -412,7 +409,7 @@ flash_bwd_dkv_kernel(const Params p) {
       // Two k-steps at a time, one in the split block (the second
       // spilled there).
 #pragma unroll(SPLIT == 1 ? 2 : 1)
-      for (int kk = 0; kk < DQK / 8; ++kk) {
+      for (int kk = 0; kk < D / 8; ++kk) {
         unsigned ab[4], as[4];
         load_a<kS>(kt, kk * 8, g, t, ab, as);
 #pragma unroll
@@ -467,7 +464,7 @@ flash_bwd_dkv_kernel(const Params p) {
       for (int n = 0; n < kQN; ++n) {
         unsigned ab[4], as[4];
         c_as_a(s[n], ab, as);
-        const float* orow = sO + (n * 8 + 2 * t) * kS + col0 + g;
+        const float* orow = sO + (n * 8 + 2 * t) * kS + g;
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
           unsigned bb[2], bs[2];
@@ -476,7 +473,7 @@ flash_bwd_dkv_kernel(const Params p) {
           mma_3xtf32(dv[dn], ab, as, bb, bs);
         }
         c_as_a(dp[n], ab, as);
-        const float* qr = sQ + (n * 8 + 2 * t) * kS + col0 + g;
+        const float* qr = sQ + (n * 8 + 2 * t) * kS + g;
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
           unsigned bb[2], bs[2];
@@ -492,7 +489,7 @@ flash_bwd_dkv_kernel(const Params p) {
 
   if (SPLIT == 2) {
     // dK, then dV, through the idle ring, added in a fixed order.
-    float* x = reinterpret_cast<float*>(sRing) + kw * 32 * 4 * kDN;
+    float* x = sRing + kw * 32 * 4 * kDN;
     if (part == 1) hand_over(dk, x, lane);
     __syncthreads();
     if (part == 0) take_over(dk, x, lane);
@@ -505,44 +502,42 @@ flash_bwd_dkv_kernel(const Params p) {
   const TileOf end = unfold_again((p.Tk + kBlock - 1) / kBlock);
   const int eb = end.pair / p.H, eh = end.pair % p.H;
   const int ek = end.tile * kBlock + kw * 16;
-  store_rows<T, kDN, kS>(dk, sK + kw * 16 * kS,
-                         head<T>(p.dk, p.sdk, eb, eh) + col0, p.sdk[2], ek,
-                         p.Tk, lane);
-  store_rows<T, kDN, kS>(dv, sV + kw * 16 * kS,
-                         head<T>(p.dv, p.sdv, eb, eh) + col0, p.sdv[2], ek,
-                         p.Tk, lane);
+  store_rows<float, kDN, kS>(dk, sK + kw * 16 * kS,
+                             head<float>(p.dk, p.sdk, eb, eh), p.sdk[2], ek,
+                             p.Tk, lane);
+  store_rows<float, kDN, kS>(dv, sV + kw * 16 * kS,
+                             head<float>(p.dv, p.sdv, eb, eh), p.sdv[2], ek,
+                             p.Tk, lane);
 }
 
 // ---------------------------------------------------------------------------
-// dQ: a block owns kBlock query rows (and DV output columns) and walks the
-// key tiles.
+// dQ: a block owns kBlock query rows and walks the key tiles (head dims
+// 32, 64 and 128).
 // ---------------------------------------------------------------------------
-template <typename T, int DQK, int DV, int SPLIT>
+template <int D, int SPLIT>
 struct DqLayout {
   static constexpr int kThreads = 32 * kWarps * SPLIT;
-  static constexpr int kS = DQK + 16 / sizeof(T);  // operand row stride
+  static constexpr int kS = D + 4;  // operand row stride
   static constexpr int kKeys = kTile * SPLIT;  // keys a stage
   static constexpr int kQ = kBlock * kS;      // one of Q, dO
   static constexpr int kKV = kKeys * kS;      // one of K, V of a stage
-  static constexpr size_t kBytes = (2 * kQ + 4 * kKV) * sizeof(T);
-  static_assert(SPLIT == 1 || 4 * kKV * sizeof(T) >=
-                kWarps * 32 * 4 * (DV / 8) * sizeof(float),
+  static constexpr size_t kBytes = (2 * kQ + 4 * kKV) * sizeof(float);
+  static_assert(SPLIT == 1 || 4 * kKV >= kWarps * 32 * 4 * (D / 8),
                 "hand-over does not fit the ring");
 };
 
-template <typename T, int DQK, int DV, int SPLIT>
-__global__ void __launch_bounds__(DqLayout<T, DQK, DV, SPLIT>::kThreads,
-                                  DQK > DV ? 1 : 3 - SPLIT)
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(DqLayout<D, SPLIT>::kThreads, 3 - SPLIT)
 flash_bwd_dq_kernel(const Params p) {
-  using L = DqLayout<T, DQK, DV, SPLIT>;
+  using L = DqLayout<D, SPLIT>;
   constexpr int kS = L::kS;
   constexpr int kThreads = L::kThreads;
-  constexpr int kDN = DV / 8;      // 8-wide column tiles of dQ
+  constexpr int kDN = D / 8;       // 8-wide column tiles of dQ
   constexpr int kKN = kTile / 8;   // 8-key tiles of S
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);
-  T* sO = sQ + L::kQ;   // dO rows
-  T* sKV = sO + L::kQ;  // stage s: K at sKV + 2 s kKV, V after it
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sO = sQ + L::kQ;   // dO rows
+  float* sKV = sO + L::kQ;  // stage s: K at sKV + 2 s kKV, V after it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -554,20 +549,19 @@ flash_bwd_dq_kernel(const Params p) {
   const int bh = at.pair;
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = at.tile * kBlock;
-  // This block's columns of dQ (a constant 0 up to dh 128).
-  const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
-  const T* kb = head<T>(p.k, p.sk, b, h);
-  const T* vb = head<T>(p.v, p.sv, b, h);
+  const float* kb = head<float>(p.k, p.sk, b, h);
+  const float* vb = head<float>(p.v, p.sv, b, h);
   const int n_stages = (p.Tk + L::kKeys - 1) / L::kKeys;
 
-  load_tile<T, DQK, kS, kBlock, kThreads>(sQ, head<T>(p.q, p.sq, b, h),
-                                          p.sq[2], q0, p.Tq, tid);
-  load_tile<T, DQK, kS, kBlock, kThreads>(sO, head<T>(p.dout, p.sdo, b, h),
-                                          p.sdo[2], q0, p.Tq, tid);
-  load_tile<T, DQK, kS, L::kKeys, kThreads>(sKV, kb, p.sk[2], 0, p.Tk, tid);
-  load_tile<T, DQK, kS, L::kKeys, kThreads>(sKV + L::kKV, vb, p.sv[2], 0,
-                                            p.Tk, tid);
+  load_tile<float, D, kS, kBlock, kThreads>(
+      sQ, head<float>(p.q, p.sq, b, h), p.sq[2], q0, p.Tq, tid);
+  load_tile<float, D, kS, kBlock, kThreads>(
+      sO, head<float>(p.dout, p.sdo, b, h), p.sdo[2], q0, p.Tq, tid);
+  load_tile<float, D, kS, L::kKeys, kThreads>(sKV, kb, p.sk[2], 0, p.Tk,
+                                              tid);
+  load_tile<float, D, kS, L::kKeys, kThreads>(sKV + L::kKV, vb, p.sv[2], 0,
+                                              p.Tk, tid);
   cp_async_commit();
 
   const int row0 = q0 + rw * 16 + g;  // and row0 + 8
@@ -584,18 +578,18 @@ flash_bwd_dq_kernel(const Params p) {
   float dq[kDN][4];
 #pragma unroll
   for (int n = 0; n < kDN; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  const T* qw = sQ + rw * 16 * kS;
-  const T* ow = sO + rw * 16 * kS;
+  const float* qw = sQ + rw * 16 * kS;
+  const float* ow = sO + rw * 16 * kS;
   const float inv_keep = 1.f / p.keep;
 
   for (int j = 0; j < n_stages; ++j) {
     if (j + 1 < n_stages) {
-      T* next = sKV + ((j + 1) & 1) * 2 * L::kKV;
+      float* next = sKV + ((j + 1) & 1) * 2 * L::kKV;
       const int r0 = (j + 1) * L::kKeys;
-      load_tile<T, DQK, kS, L::kKeys, kThreads>(next, kb, p.sk[2], r0, p.Tk,
-                                                tid);
-      load_tile<T, DQK, kS, L::kKeys, kThreads>(next + L::kKV, vb, p.sv[2],
-                                                r0, p.Tk, tid);
+      load_tile<float, D, kS, L::kKeys, kThreads>(next, kb, p.sk[2], r0,
+                                                  p.Tk, tid);
+      load_tile<float, D, kS, L::kKeys, kThreads>(next + L::kKV, vb,
+                                                  p.sv[2], r0, p.Tk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -603,8 +597,8 @@ flash_bwd_dq_kernel(const Params p) {
     }
     __syncthreads();
     const int kt0 = j * L::kKeys + part * kTile;
-    const T* sK = sKV + (j & 1) * 2 * L::kKV + part * kTile * kS;
-    const T* sV = sK + L::kKV;
+    const float* sK = sKV + (j & 1) * 2 * L::kKV + part * kTile * kS;
+    const float* sV = sK + L::kKV;
 
     if (kt0 < p.Tk) {
       // S = Q K^T and dP = dO V^T for this warp's 16 rows and the tile.
@@ -614,7 +608,7 @@ flash_bwd_dq_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll 2
-      for (int kk = 0; kk < DQK / 8; ++kk) {
+      for (int kk = 0; kk < D / 8; ++kk) {
         unsigned qab[4], qas[4], oab[4], oas[4];
         load_a<kS>(qw, kk * 8, g, t, qab, qas);
         load_a<kS>(ow, kk * 8, g, t, oab, oas);
@@ -657,7 +651,7 @@ flash_bwd_dq_kernel(const Params p) {
       for (int n = 0; n < kKN; ++n) {
         unsigned ab[4], as[4];
         c_as_a(s[n], ab, as);
-        const float* kr = sK + (n * 8 + 2 * t) * kS + col0 + g;
+        const float* kr = sK + (n * 8 + 2 * t) * kS + g;
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
           unsigned bb[2], bs[2];
@@ -672,16 +666,411 @@ flash_bwd_dq_kernel(const Params p) {
   }
 
   if (SPLIT == 2) {
-    float* x = reinterpret_cast<float*>(sKV) + rw * (32 * 4 * kDN);
+    float* x = sKV + rw * (32 * 4 * kDN);
     if (part == 1) hand_over(dq, x, lane);
     __syncthreads();
     if (part == 1) return;
     take_over(dq, x, lane);
   }
   // This warp's Q rows are its alone now: stage dQ there.
-  store_rows<T, kDN, kS>(dq, sQ + rw * 16 * kS,
-                         head<T>(p.dq, p.sdq, b, h) + col0, p.sdq[2],
-                         q0 + rw * 16, p.Tq, lane);
+  store_rows<float, kDN, kS>(dq, sQ + rw * 16 * kS,
+                             head<float>(p.dq, p.sdq, b, h), p.sdq[2],
+                             q0 + rw * 16, p.Tq, lane);
+}
+
+// ---------------------------------------------------------------------------
+// Head dim 256 (any dh in (128, 256], zero-padded by the wrapper): one
+// 8-warp block owns 64 keys (dK/dV) or query rows (dQ), warps w and w + 4
+// (half 0 and half 1) the same 16, half c columns [128 c, 128 c + 128) of
+// every operand and gradient.  For each 16-row (16-key) tile each warp
+// computes its partials S^T_c and dP^T_c (S_c and dP_c) over its 128
+// columns, stores them and meets its partner at named barrier 1 + w
+// (`pair_sync`); both then hold S = S_0 + S_1 and dP = dP_0 + dP_1
+// (`pair_sum`, the same floats in both), form the same P, Pd and dS, and
+// take their own columns of dV, dK (dQ): 8 + 6 = 14 chunk products a tile
+// pair, none repeated; no atomics.  The operands at full width and the
+// partials take 212 KB (dK/dV) or 211 KB (dQ): one block, 8 warps an SM.
+// ---------------------------------------------------------------------------
+constexpr int kPairThreads = 2 * 32 * kWarps;
+constexpr int kPairS = 2 * kGroup + 4;  // float row stride
+constexpr int kPairW = 2 * kGroup;      // the padded head dim
+
+// dK/dV: K and V of the block's 64 keys stay; 16-row tiles of Q and dO,
+// with the rows' lse, delta and hash words, stream through the ring.
+struct PairDkvLayout {
+  static constexpr int kKV = kBlock * kPairS;          // K or V
+  static constexpr int kOperands = 2 * kTile * kPairS;  // Q, dO rows
+  static constexpr int kStage = kOperands + 4 * kTile;
+  static constexpr int kQN = kTile / 8;                // 8-query tiles
+  // The partials of every warp: S^T, then dP^T, float4 (n, lane) each.
+  static constexpr int kWarpX = 2 * kQN * 32 * 4;
+  static constexpr int kX = 2 * kWarps * kWarpX;
+  static constexpr size_t kBytes =
+      (2 * kKV + 2 * kStage + kX) * sizeof(float);
+  static_assert(kBytes <= 232448 && kStage * sizeof(float) % 16 == 0,
+                "shared memory");
+};
+
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_bwd_dkv_kernel_pair(const Params p) {
+  using L = PairDkvLayout;
+  constexpr int kS = kPairS;
+  constexpr int kDN = kGroup / 8;
+  constexpr int kQN = L::kQN;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + L::kKV;
+  float* ring = sV + L::kKV;
+  float* sX = ring + 2 * L::kStage;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int kw = warp % kWarps;    // which 16 keys
+  const int half = warp / kWarps;  // which 128 columns
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = half * kGroup;
+  const TileOf at = unfold((p.Tk + kBlock - 1) / kBlock);
+  const int bh = at.pair;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = at.tile * kBlock;
+  const float* qb = head<float>(p.q, p.sq, b, h);
+  const float* ob = head<float>(p.dout, p.sdo, b, h);
+  const float* lse = p.lse + (long long)bh * p.Tq;
+  const float* delta = p.delta + (long long)bh * p.Tq;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+
+  auto load_stage = [&](int j) {
+    float* st = ring + (j & 1) * L::kStage;
+    const int r0 = j * kTile;
+    load_tile<float, kPairW, kS, kTile, kPairThreads>(st, qb, p.sq[2], r0,
+                                                      p.Tq, tid);
+    load_tile<float, kPairW, kS, kTile, kPairThreads>(
+        st + kTile * kS, ob, p.sdo[2], r0, p.Tq, tid);
+    if (tid < kTile) {
+      float* sl = st + L::kOperands;
+      const int row = r0 + tid;
+      if (row < p.Tq) {
+        cp_async4(sl + tid, lse + row, 4);
+        cp_async4(sl + kTile + tid, delta + row, 4);
+      } else {
+        sl[tid] = INFINITY;  // p = exp(s - inf) = 0
+        sl[kTile + tid] = 0.f;
+      }
+      if (p.drop.on) {
+        const HashRow hr = hash_row(
+            p.drop, unfold_again((p.Tk + kBlock - 1) / kBlock).pair, row);
+        reinterpret_cast<unsigned*>(sl)[2 * kTile + tid] = hr.tile;
+        reinterpret_cast<unsigned*>(sl)[3 * kTile + tid] = hr.row;
+      }
+    }
+  };
+
+  load_tile<float, kPairW, kS, kBlock, kPairThreads>(
+      sK, head<float>(p.k, p.sk, b, h), p.sk[2], k0, p.Tk, tid);
+  load_tile<float, kPairW, kS, kBlock, kPairThreads>(
+      sV, head<float>(p.v, p.sv, b, h), p.sv[2], k0, p.Tk, tid);
+  load_stage(0);
+  cp_async_commit();
+
+  float dk[kDN][4], dv[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  HashCol hc0 = {0u, 0u}, hc1 = {0u, 0u};
+  if (p.drop.on) {
+    hc0 = hash_col(p.drop, k0 + kw * 16 + g);
+    hc1 = hash_col(p.drop, k0 + kw * 16 + g + 8);
+  }
+  const float* kt = sK + kw * 16 * kS + col0;
+  const float* vt = sV + kw * 16 * kS + col0;
+  const float inv_keep = 1.f / p.keep;
+  // This warp's partials and its partner's: S^T, then dP^T.
+  float* xw = sX + (half * kWarps + kw) * L::kWarpX;
+  const float* xp = sX + ((1 - half) * kWarps + kw) * L::kWarpX;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_stage(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* st = ring + (j & 1) * L::kStage;
+    const float* sQ = st + col0;
+    const float* sO = st + kTile * kS + col0;
+
+    // The partials S^T_c = K_c Q_c^T and dP^T_c = V_c dO_c^T of this
+    // warp's 16 keys and the tile's 16 queries.
+    float s[kQN][4], dp[kQN][4];
+#pragma unroll
+    for (int n = 0; n < kQN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < kGroup / 8; ++kk) {
+      unsigned ab[4], as[4];
+      load_a<kS>(kt, kk * 8, g, t, ab, as);
+#pragma unroll
+      for (int n = 0; n < kQN; ++n) {
+        const float* qr = sQ + (n * 8 + g) * kS + kk * 8 + t;
+        unsigned bb[2], bs[2];
+        split(qr[0], bb[0], bs[0]);
+        split(qr[4], bb[1], bs[1]);
+        mma_3xtf32(s[n], ab, as, bb, bs);
+      }
+      load_a<kS>(vt, kk * 8, g, t, ab, as);
+#pragma unroll
+      for (int n = 0; n < kQN; ++n) {
+        const float* orow = sO + (n * 8 + g) * kS + kk * 8 + t;
+        unsigned bb[2], bs[2];
+        split(orow[0], bb[0], bs[0]);
+        split(orow[4], bb[1], bs[1]);
+        mma_3xtf32(dp[n], ab, as, bb, bs);
+      }
+    }
+    // S^T = S^T_0 + S^T_1, dP^T = dP^T_0 + dP^T_1.
+    put_partials<kQN>(xw, &s[0][0], 32, lane);
+    put_partials<kQN>(xw + kQN * 32 * 4, &dp[0][0], 32, lane);
+    pair_sync(kw);
+    pair_sum<kQN>(&s[0][0], xp, 32, lane);
+    pair_sum<kQN>(&dp[0][0], xp + kQN * 32 * 4, 32, lane);
+
+    // P^T, then Pd^T into s and dS^T into dp; rows g, g + 8 are keys,
+    // column 2t + e of tile n is query n * 8 + 2t + e of the tile.
+    const float* sl = st + L::kOperands;
+    const unsigned* sh = reinterpret_cast<const unsigned*>(sl);
+#pragma unroll
+    for (int n = 0; n < kQN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * t + e;
+        const float l = sl[col], dl = sl[kTile + col];
+        const float p0 = expf(s[n][e] * p.scale - l);
+        const float p1 = expf(s[n][2 + e] * p.scale - l);
+        float pd0 = p0, pd1 = p1, d0 = dp[n][e], d1 = dp[n][2 + e];
+        if (p.drop.on) {
+          const HashRow hr = {sh[2 * kTile + col], sh[3 * kTile + col]};
+          const bool keep0 = hash_keep(p.drop, hr, hc0);
+          const bool keep1 = hash_keep(p.drop, hr, hc1);
+          pd0 = keep0 ? p0 * inv_keep : 0.f;
+          d0 = keep0 ? d0 * inv_keep : 0.f;
+          pd1 = keep1 ? p1 * inv_keep : 0.f;
+          d1 = keep1 ? d1 * inv_keep : 0.f;
+        }
+        s[n][e] = pd0;
+        s[n][2 + e] = pd1;
+        dp[n][e] = p0 * (d0 - dl) * p.scale;
+        dp[n][2 + e] = p1 * (d1 - dl) * p.scale;
+      }
+    }
+
+    // dV_c += Pd^T dO_c, dK_c += dS^T Q_c: the C fragments as A operands,
+    // the dO_c and Q_c rows n * 8 + 2t, + 1 as B.
+#pragma unroll
+    for (int n = 0; n < kQN; ++n) {
+      unsigned ab[4], as[4];
+      c_as_a(s[n], ab, as);
+      const float* orow = sO + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+      for (int dn = 0; dn < kDN; ++dn) {
+        unsigned bb[2], bs[2];
+        split(orow[dn * 8], bb[0], bs[0]);
+        split(orow[kS + dn * 8], bb[1], bs[1]);
+        mma_3xtf32(dv[dn], ab, as, bb, bs);
+      }
+      c_as_a(dp[n], ab, as);
+      const float* qr = sQ + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+      for (int dn = 0; dn < kDN; ++dn) {
+        unsigned bb[2], bs[2];
+        split(qr[dn * 8], bb[0], bs[0]);
+        split(qr[kS + dn * 8], bb[1], bs[1]);
+        mma_3xtf32(dk[dn], ab, as, bb, bs);
+      }
+    }
+    __syncthreads();  // the stage and the partials just read are refilled
+  }
+
+  // Each warp's half of its K and V rows is its alone: stage dK_c and
+  // dV_c there.
+  const TileOf end = unfold_again((p.Tk + kBlock - 1) / kBlock);
+  const int eb = end.pair / p.H, eh = end.pair % p.H;
+  const int ek = end.tile * kBlock + kw * 16;
+  store_rows<float, kDN, kS>(dk, sK + kw * 16 * kS + col0,
+                             head<float>(p.dk, p.sdk, eb, eh) + col0,
+                             p.sdk[2], ek, p.Tk, lane);
+  store_rows<float, kDN, kS>(dv, sV + kw * 16 * kS + col0,
+                             head<float>(p.dv, p.sdv, eb, eh) + col0,
+                             p.sdv[2], ek, p.Tk, lane);
+}
+
+// dQ: Q and dO of the block's 64 rows stay; 16-key tiles of K and V
+// stream through the ring.
+struct PairDqLayout {
+  static constexpr int kQ = kBlock * kPairS;     // Q or dO
+  static constexpr int kKV = kTile * kPairS;     // K or V of a tile
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kKN = kTile / 8;          // 8-key tiles
+  static constexpr int kWarpX = 2 * kKN * 32 * 4;  // S, then dP
+  static constexpr int kX = 2 * kWarps * kWarpX;
+  static constexpr size_t kBytes =
+      (2 * kQ + 2 * kStage + kX) * sizeof(float);
+  static_assert(kBytes <= 232448, "shared memory");
+};
+
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_bwd_dq_kernel_pair(const Params p) {
+  using L = PairDqLayout;
+  constexpr int kS = kPairS;
+  constexpr int kDN = kGroup / 8;
+  constexpr int kKN = L::kKN;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sO = sQ + L::kQ;
+  float* ring = sO + L::kQ;  // stage s: K at ring + s kStage, V after it
+  float* sX = ring + 2 * L::kStage;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rw = warp % kWarps;    // which 16 rows
+  const int half = warp / kWarps;  // which 128 columns
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = half * kGroup;
+  const TileOf at = unfold((p.Tq + kBlock - 1) / kBlock);
+  const int bh = at.pair;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = at.tile * kBlock;
+  const float* kb = head<float>(p.k, p.sk, b, h);
+  const float* vb = head<float>(p.v, p.sv, b, h);
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+
+  load_tile<float, kPairW, kS, kBlock, kPairThreads>(
+      sQ, head<float>(p.q, p.sq, b, h), p.sq[2], q0, p.Tq, tid);
+  load_tile<float, kPairW, kS, kBlock, kPairThreads>(
+      sO, head<float>(p.dout, p.sdo, b, h), p.sdo[2], q0, p.Tq, tid);
+  load_tile<float, kPairW, kS, kTile, kPairThreads>(ring, kb, p.sk[2], 0,
+                                                    p.Tk, tid);
+  load_tile<float, kPairW, kS, kTile, kPairThreads>(ring + L::kKV, vb,
+                                                    p.sv[2], 0, p.Tk, tid);
+  cp_async_commit();
+
+  const int row0 = q0 + rw * 16 + g;  // and row0 + 8
+  const long long base = (long long)bh * p.Tq;
+  const float lse0 = row0 < p.Tq ? p.lse[base + row0] : 0.f;
+  const float lse1 = row0 + 8 < p.Tq ? p.lse[base + row0 + 8] : 0.f;
+  const float dl0 = row0 < p.Tq ? p.delta[base + row0] : 0.f;
+  const float dl1 = row0 + 8 < p.Tq ? p.delta[base + row0 + 8] : 0.f;
+  HashRow hr0 = {0u, 0u}, hr1 = {0u, 0u};
+  if (p.drop.on) {
+    hr0 = hash_row(p.drop, bh, row0);
+    hr1 = hash_row(p.drop, bh, row0 + 8);
+  }
+  float dq[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const float* qw = sQ + rw * 16 * kS + col0;
+  const float* ow = sO + rw * 16 * kS + col0;
+  const float inv_keep = 1.f / p.keep;
+  // This warp's partials and its partner's: S, then dP.
+  float* xw = sX + (half * kWarps + rw) * L::kWarpX;
+  const float* xp = sX + ((1 - half) * kWarps + rw) * L::kWarpX;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      float* next = ring + ((j + 1) & 1) * L::kStage;
+      const int r0 = (j + 1) * kTile;
+      load_tile<float, kPairW, kS, kTile, kPairThreads>(next, kb, p.sk[2],
+                                                        r0, p.Tk, tid);
+      load_tile<float, kPairW, kS, kTile, kPairThreads>(
+          next + L::kKV, vb, p.sv[2], r0, p.Tk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = ring + (j & 1) * L::kStage + col0;
+    const float* sV = sK + L::kKV;
+
+    // The partials S_c = Q_c K_c^T and dP_c = dO_c V_c^T of this warp's
+    // 16 rows and the tile's 16 keys.
+    float s[kKN][4], dp[kKN][4];
+#pragma unroll
+    for (int n = 0; n < kKN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < kGroup / 8; ++kk) {
+      unsigned qab[4], qas[4], oab[4], oas[4];
+      load_a<kS>(qw, kk * 8, g, t, qab, qas);
+      load_a<kS>(ow, kk * 8, g, t, oab, oas);
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+        const float* vr = sV + (n * 8 + g) * kS + kk * 8 + t;
+        unsigned bb[2], bs[2];
+        split(kr[0], bb[0], bs[0]);
+        split(kr[4], bb[1], bs[1]);
+        mma_3xtf32(s[n], qab, qas, bb, bs);
+        split(vr[0], bb[0], bs[0]);
+        split(vr[4], bb[1], bs[1]);
+        mma_3xtf32(dp[n], oab, oas, bb, bs);
+      }
+    }
+    // S = S_0 + S_1, dP = dP_0 + dP_1.
+    put_partials<kKN>(xw, &s[0][0], 32, lane);
+    put_partials<kKN>(xw + kKN * 32 * 4, &dp[0][0], 32, lane);
+    pair_sync(rw);
+    pair_sum<kKN>(&s[0][0], xp, 32, lane);
+    pair_sum<kKN>(&dp[0][0], xp + kKN * 32 * 4, 32, lane);
+
+    // ds into s; keys past Tk weigh 0.
+    const int kt0 = j * kTile;
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt0 + n * 8 + 2 * t + e;
+        const bool valid = key < p.Tk;
+        const float p0 = valid ? expf(s[n][e] * p.scale - lse0) : 0.f;
+        const float p1 = valid ? expf(s[n][2 + e] * p.scale - lse1) : 0.f;
+        float d0 = dp[n][e], d1 = dp[n][2 + e];
+        if (p.drop.on) {
+          const HashCol hc = hash_col(p.drop, key);
+          d0 = hash_keep(p.drop, hr0, hc) ? d0 * inv_keep : 0.f;
+          d1 = hash_keep(p.drop, hr1, hc) ? d1 * inv_keep : 0.f;
+        }
+        s[n][e] = p0 * (d0 - dl0) * p.scale;
+        s[n][2 + e] = p1 * (d1 - dl1) * p.scale;
+      }
+    }
+
+    // dQ_c += ds K_c: ds as the A operand, K_c rows n * 8 + 2t, + 1 as B.
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+      unsigned ab[4], as[4];
+      c_as_a(s[n], ab, as);
+      const float* kr = sK + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+      for (int dn = 0; dn < kDN; ++dn) {
+        unsigned bb[2], bs[2];
+        split(kr[dn * 8], bb[0], bs[0]);
+        split(kr[kS + dn * 8], bb[1], bs[1]);
+        mma_3xtf32(dq[dn], ab, as, bb, bs);
+      }
+    }
+    __syncthreads();  // the stage and the partials just read are refilled
+  }
+
+  // This warp's half of its Q rows is its alone: stage dQ_c there.
+  store_rows<float, kDN, kS>(dq, sQ + rw * 16 * kS + col0,
+                             head<float>(p.dq, p.sdq, b, h) + col0, p.sdq[2],
+                             q0 + rw * 16, p.Tq, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1426,23 +1815,21 @@ cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T, int DQK, int DV, int SPLIT>
+template <int D, int SPLIT>
 cudaError_t launch_dkv(const Params& p, long long bh, cudaStream_t stream) {
-  using L = DkvLayout<T, DQK, DV, SPLIT>;
+  using L = DkvLayout<D, SPLIT>;
   static unsigned done = 0;
-  return launch_one(flash_bwd_dkv_kernel<T, DQK, DV, SPLIT>,
-                    folded_grid((p.Tk + kBlock - 1) / kBlock, bh, 1,
-                                DQK / DV),
+  return launch_one(flash_bwd_dkv_kernel<D, SPLIT>,
+                    folded_grid((p.Tk + kBlock - 1) / kBlock, bh),
                     L::kThreads, L::kBytes, stream, &done, p);
 }
 
-template <typename T, int DQK, int DV, int SPLIT>
+template <int D, int SPLIT>
 cudaError_t launch_dq(const Params& p, long long bh, cudaStream_t stream) {
-  using L = DqLayout<T, DQK, DV, SPLIT>;
+  using L = DqLayout<D, SPLIT>;
   static unsigned done = 0;
-  return launch_one(flash_bwd_dq_kernel<T, DQK, DV, SPLIT>,
-                    folded_grid((p.Tq + kBlock - 1) / kBlock, bh, 1,
-                                DQK / DV),
+  return launch_one(flash_bwd_dq_kernel<D, SPLIT>,
+                    folded_grid((p.Tq + kBlock - 1) / kBlock, bh),
                     L::kThreads, L::kBytes, stream, &done, p);
 }
 
@@ -1517,53 +1904,52 @@ long long bwd_scratch_bytes(int B, int H, int Tq, int Tk, int dh) {
   return dkv > dq ? dkv : dq;
 }
 
-// A grid of at most one 4-warp block an SM leaves half the warps the SMs
-// could hold idle: split each block's walk over two warp groups instead
-// (not above 128, whose block holds an SM's shared memory).
-template <typename T, int DQK, int DV>
+// Head dims 32, 64 and 128: a grid of at most one 4-warp block an SM
+// leaves half the warps the SMs could hold idle: split each block's walk
+// over two warp groups instead.
+template <int D>
 cudaError_t launch(const Params& p, int B, int sms, cudaStream_t stream) {
   const long long bh = (long long)B * p.H;
-  cudaError_t err = launch_delta<T>(p, bh, DQK, stream);
+  cudaError_t err = launch_delta<float>(p, bh, D, stream);
   if (err != cudaSuccess) return err;
-  if constexpr (DQK > DV) {
-    err = launch_dkv<T, DQK, DV, 1>(p, bh, stream);
-    if (err != cudaSuccess) return err;
-    return launch_dq<T, DQK, DV, 1>(p, bh, stream);
-  } else {
-    const long long dkv_blocks =
-        (long long)((p.Tk + kBlock - 1) / kBlock) * bh;
-    err = dkv_blocks <= sms ? launch_dkv<T, DQK, DV, 2>(p, bh, stream)
-                            : launch_dkv<T, DQK, DV, 1>(p, bh, stream);
-    if (err != cudaSuccess) return err;
-    const long long dq_blocks =
-        (long long)((p.Tq + kBlock - 1) / kBlock) * bh;
-    return dq_blocks <= sms ? launch_dq<T, DQK, DV, 2>(p, bh, stream)
-                            : launch_dq<T, DQK, DV, 1>(p, bh, stream);
-  }
+  const long long dkv_blocks = (long long)((p.Tk + kBlock - 1) / kBlock) * bh;
+  err = dkv_blocks <= sms ? launch_dkv<D, 2>(p, bh, stream)
+                          : launch_dkv<D, 1>(p, bh, stream);
+  if (err != cudaSuccess) return err;
+  const long long dq_blocks = (long long)((p.Tq + kBlock - 1) / kBlock) * bh;
+  return dq_blocks <= sms ? launch_dq<D, 2>(p, bh, stream)
+                          : launch_dq<D, 1>(p, bh, stream);
 }
 
-// The head dims the wrapper pads to: 32 (demo), 64 (the reference's
-// default model), 128 (the rest), 256 (any dh in (128, 256], as two column
-// groups), and above 256 any multiple of 128.
-template <typename T>
+// Head dim 256: the delta kernel, then the 8-warp pair kernels.
+cudaError_t launch_pair(const Params& p, int B, cudaStream_t stream) {
+  const long long bh = (long long)B * p.H;
+  static unsigned done_dkv = 0, done_dq = 0;
+  cudaError_t err = launch_delta<float>(p, bh, 256, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_one(flash_bwd_dkv_kernel_pair,
+                   folded_grid((p.Tk + kBlock - 1) / kBlock, bh),
+                   kPairThreads, PairDkvLayout::kBytes, stream, &done_dkv, p);
+  if (err != cudaSuccess) return err;
+  return launch_one(flash_bwd_dq_kernel_pair,
+                    folded_grid((p.Tq + kBlock - 1) / kBlock, bh),
+                    kPairThreads, PairDqLayout::kBytes, stream, &done_dq, p);
+}
+
+// Float32 at the head dims the wrapper pads to: 32 (demo), 64 (the
+// reference's default model), 128 (the rest), 256 (any dh in (128, 256],
+// on the pair kernels), and above 256 any multiple of 128.  (bfloat16 up
+// to dh 256 runs on csrc/flash_bwd_wgmma.cu; here only above.)
 cudaError_t dispatch(const Params& p, int B, int dh, int sms,
                      cudaStream_t s) {
-  if (dh > 256) return launch_cluster_bwd<T>(p, B, dh, s);
+  if (dh > 256) return launch_cluster_bwd<float>(p, B, dh, s);
   switch (dh) {
-    case 32: return launch<T, 32, 32>(p, B, sms, s);
-    case 64: return launch<T, 64, 64>(p, B, sms, s);
-    case 128: return launch<T, 128, 128>(p, B, sms, s);
-    case 256: return launch<T, 256, kGroup>(p, B, sms, s);
+    case 32: return launch<32>(p, B, sms, s);
+    case 64: return launch<64>(p, B, sms, s);
+    case 128: return launch<128>(p, B, sms, s);
+    case 256: return launch_pair(p, B, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// bfloat16 up to dh 256 runs on csrc/flash_bwd_wgmma.cu; here only above.
-template <>
-cudaError_t dispatch<bf16>(const Params& p, int B, int dh, int sms,
-                           cudaStream_t s) {
-  (void)sms;
-  return launch_cluster_bwd<bf16>(p, B, dh, s);
 }
 
 }  // namespace
@@ -1616,9 +2002,9 @@ extern "C" int avsep_flash_attn_bwd(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dtype == 0)
-    err = dispatch<float>(p, B, dh, sms, s);
+    err = dispatch(p, B, dh, sms, s);
   else if (dtype == 1)
-    err = dispatch<bf16>(p, B, dh, sms, s);
+    err = launch_cluster_bwd<bf16>(p, B, dh, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -1640,6 +2026,14 @@ extern "C" int avsep_flash_attn_bwd_cluster_smem(int kernel, int dtype) {
   return kernel >= 0 && kernel < 2 && dtype >= 0 && dtype < 2
              ? static_cast<int>(bytes[kernel][dtype])
              : -1;
+}
+
+// Shared memory of a block of the pair kernels at dh 256 (bytes): kernel 0
+// dK/dV, 1 dQ.
+extern "C" int avsep_flash_attn_bwd_pair_smem(int kernel) {
+  return kernel == 0   ? static_cast<int>(PairDkvLayout::kBytes)
+         : kernel == 1 ? static_cast<int>(PairDqLayout::kBytes)
+                       : -1;
 }
 
 extern "C" const char* avsep_error_string(int code) {

@@ -57,13 +57,17 @@
 // - Bank conflicts.  Q, K and V rows are dh+4 floats apart: the A loads of
 //   Q and the B loads of K hit bank 4g + t, the B loads of V (rows 2t,
 //   2t+1) bank 8t + g (+4): 32 distinct banks per load.
-// - Head dims above 128 (a column split): dh is zero-padded to 256 by the
-//   wrapper and a block owns one group of 128 output columns
-//   (blockIdx.z).  Every block computes S = Q K^T over all 256 columns (Q
-//   and K staged at full width), and PV over its own 128 columns of V
-//   only, so a warp holds the O accumulators of dh 128.  The blocks of a
-//   row block compute the same m and l; the group-0 block writes lse.  At
-//   float32 that is 167 KB of shared memory, one 4-warp block an SM.
+// - Head dims in (128, 256] (`flash_fwd_kernel_pair`): dh is zero-padded
+//   to 256 by the wrapper.  One 8-warp block owns 64 rows, warps w and
+//   w + 4 the same 16 rows and one 128-column half each (Q, K and V
+//   staged at full width): each warp computes its partial S over its 128
+//   columns, the two add each other's through the block's shared memory
+//   at a named barrier of 64 threads (no distributed shared memory, no
+//   cluster barrier), and each takes P V over its own 128 columns of V,
+//   so a warp holds the O accumulators of dh 128: 4 chunk products a tile
+//   pair (the column split it replaces, a block a 128-column group
+//   recomputing the whole S, took 6).  211 KB of shared memory, one
+//   8-warp block an SM.
 // - Head dims above 256 (any multiple of 128,
 //   `flash_fwd_kernel_cluster`): full-width Q and K tiles no longer fit a
 //   block, so a thread-block cluster of nc = dh / 128 blocks (grid z,
@@ -86,8 +90,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <type_traits>
-
 #include "chunk_frags.cuh"
 #include "cluster.cuh"
 #include "dropout_hash.cuh"
@@ -101,7 +103,7 @@ namespace {
 constexpr int kRowWarps = 4;              // warps over the query rows
 constexpr int kBlockQ = 16 * kRowWarps;   // 64 query rows per block
 constexpr int kBlockK = 32;               // keys per warp per tile
-constexpr int kGroup = 128;               // output columns a block above 128
+constexpr int kGroup = 128;  // columns of a half (dh 256) or chunk (above)
 
 struct Params {
   const void* q;
@@ -121,25 +123,22 @@ struct Params {
   float* scratch;  // the accumulators of a block's chunks after its first
 };
 
-// DQK: the head dim of Q K^T; DV: the columns of O (and V) a block owns,
-// DQK itself up to 128, one group of 128 above.  SPLIT warp groups of 4
-// share the block's 64 rows and take SPLIT consecutive 32-key tiles of
-// each stage, one each.
-template <typename T, int DQK, int DV, int SPLIT>
+// D: the head dim (32, 64 or 128).  SPLIT warp groups of 4 share the
+// block's 64 rows and take SPLIT consecutive 32-key tiles of each stage,
+// one each.
+template <int D, int SPLIT>
 struct Layout {
-  static constexpr int kPad = 16 / sizeof(T);  // 16 bytes a row
   static constexpr int kThreads = 32 * kRowWarps * SPLIT;
-  static constexpr int kSQ = DQK + kPad;  // row stride of the Q and K tiles
-  static constexpr int kSV = DV + kPad;   // row stride of the V tile
+  static constexpr int kS = D + 4;  // row stride of the Q, K and V tiles
   static constexpr int kKeys = kBlockK * SPLIT;  // keys per stage
-  static constexpr int kQ = kBlockQ * kSQ;
-  static constexpr int kK = kKeys * kSQ;
-  static constexpr int kStage = kK + kKeys * kSV;  // K rows, then V rows
-  static constexpr size_t kBytes = (kQ + 2 * kStage) * sizeof(T);
+  static constexpr int kQ = kBlockQ * kS;
+  static constexpr int kK = kKeys * kS;
+  static constexpr int kStage = 2 * kK;  // K rows, then V rows
+  static constexpr size_t kBytes = (kQ + 2 * kStage) * sizeof(float);
   // The split block's hand-over (O fragments, m and l of the second
   // group) goes through the idle ring.
-  static_assert(SPLIT == 1 || 2 * kStage * sizeof(T) >=
-                kRowWarps * (32 * 4 * (DV / 8) + 4 * 32) * sizeof(float),
+  static_assert(SPLIT == 1 || 2 * kStage >=
+                kRowWarps * (32 * 4 * (D / 8) + 4 * 32),
                 "hand-over does not fit the ring");
 };
 
@@ -153,19 +152,17 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <typename T, int DQK, int DV, int SPLIT>
-__global__ void __launch_bounds__(Layout<T, DQK, DV, SPLIT>::kThreads,
-                                  DQK > DV ? 1 : 3 - SPLIT)
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(Layout<D, SPLIT>::kThreads, 3 - SPLIT)
 flash_fwd_kernel(const Params p) {
-  using L = Layout<T, DQK, DV, SPLIT>;
-  constexpr int kSQ = L::kSQ;
-  constexpr int kSV = L::kSV;
+  using L = Layout<D, SPLIT>;
+  constexpr int kS = L::kS;
   constexpr int kThreads = L::kThreads;
-  constexpr int kDN = DV / 8;       // 8-wide column tiles of O
+  constexpr int kDN = D / 8;        // 8-wide column tiles of O
   constexpr int kKN = kBlockK / 8;  // 8-key tiles of S
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);
-  T* sKV = sQ + L::kQ;  // stage s: K at sKV + s kStage, V after it
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sKV = sQ + L::kQ;  // stage s: K at sKV + s kStage, V after it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -178,18 +175,17 @@ flash_fwd_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = at.tile * kBlockQ;
-  // This block's columns of O and V (a constant 0 up to dh 128).
-  const int col0 = DQK > DV ? blockIdx.z * DV : 0;
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.svb + h * p.svh + col0;
+  const float* qb = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
   const int n_stages = (p.Tk + L::kKeys - 1) / L::kKeys;
 
-  load_tile<T, DQK, kSQ, kBlockQ, kThreads>(sQ, qb, p.sqt, q0, p.Tq, tid);
-  load_tile<T, DQK, kSQ, L::kKeys, kThreads>(sKV, kb, p.skt, 0, p.Tk, tid);
-  load_tile<T, DV, kSV, L::kKeys, kThreads>(sKV + L::kK, vb, p.svt, 0, p.Tk,
-                                            tid);
+  load_tile<float, D, kS, kBlockQ, kThreads>(sQ, qb, p.sqt, q0, p.Tq, tid);
+  load_tile<float, D, kS, L::kKeys, kThreads>(sKV, kb, p.skt, 0, p.Tk,
+                                               tid);
+  load_tile<float, D, kS, L::kKeys, kThreads>(sKV + L::kK, vb, p.svt, 0,
+                                               p.Tk, tid);
   cp_async_commit();
 
   float o[kDN][4];
@@ -203,16 +199,16 @@ flash_fwd_kernel(const Params p) {
     hr0 = hash_row(p.drop, bh, row0);
     hr1 = hash_row(p.drop, bh, row0 + 8);
   }
-  const T* qw = sQ + rw * 16 * kSQ;
+  const float* qw = sQ + rw * 16 * kS;
 
   for (int j = 0; j < n_stages; ++j) {
     if (j + 1 < n_stages) {
-      T* next = sKV + ((j + 1) & 1) * L::kStage;
+      float* next = sKV + ((j + 1) & 1) * L::kStage;
       const int r0 = (j + 1) * L::kKeys;
-      load_tile<T, DQK, kSQ, L::kKeys, kThreads>(next, kb, p.skt, r0, p.Tk,
-                                                 tid);
-      load_tile<T, DV, kSV, L::kKeys, kThreads>(next + L::kK, vb, p.svt, r0,
-                                                p.Tk, tid);
+      load_tile<float, D, kS, L::kKeys, kThreads>(next, kb, p.skt, r0,
+                                                   p.Tk, tid);
+      load_tile<float, D, kS, L::kKeys, kThreads>(next + L::kK, vb, p.svt,
+                                                   r0, p.Tk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -220,8 +216,9 @@ flash_fwd_kernel(const Params p) {
     }
     __syncthreads();
     const int k0 = j * L::kKeys + part * kBlockK;
-    const T* sK = sKV + (j & 1) * L::kStage + part * kBlockK * kSQ;
-    const T* sV = sKV + (j & 1) * L::kStage + L::kK + part * kBlockK * kSV;
+    const float* sK = sKV + (j & 1) * L::kStage + part * kBlockK * kS;
+    const float* sV =
+        sKV + (j & 1) * L::kStage + L::kK + part * kBlockK * kS;
 
     if (k0 < p.Tk) {
       // S = Q K^T for this warp's 16 rows and its 32 keys.
@@ -230,12 +227,12 @@ flash_fwd_kernel(const Params p) {
       for (int n = 0; n < kKN; ++n)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 4
-      for (int kk = 0; kk < DQK / 8; ++kk) {
+      for (int kk = 0; kk < D / 8; ++kk) {
         unsigned ab[4], as[4];
-        load_a_frag(qw + kk * 8, kSQ, g, t, ab, as);
+        load_a_frag(qw + kk * 8, kS, g, t, ab, as);
 #pragma unroll
         for (int n = 0; n < kKN; ++n) {
-          const float* kr = sK + (n * 8 + g) * kSQ + kk * 8 + t;
+          const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
           unsigned bb[2], bs[2];
           split(kr[0], bb[0], bs[0]);
           split(kr[4], bb[1], bs[1]);
@@ -297,12 +294,12 @@ flash_fwd_kernel(const Params p) {
         split(s[n][2], ab[1], as[1]);
         split(s[n][1], ab[2], as[2]);
         split(s[n][3], ab[3], as[3]);
-        const float* vr = sV + (n * 8 + 2 * t) * kSV + g;
+        const float* vr = sV + (n * 8 + 2 * t) * kS + g;
 #pragma unroll
         for (int dn = 0; dn < kDN; ++dn) {
           unsigned bb[2], bs[2];
           split(vr[dn * 8], bb[0], bs[0]);
-          split(vr[kSV + dn * 8], bb[1], bs[1]);
+          split(vr[kS + dn * 8], bb[1], bs[1]);
           mma_3xtf32(o[dn], ab, as, bb, bs);
         }
       }
@@ -351,28 +348,27 @@ flash_fwd_kernel(const Params p) {
   }
 
   const float inv0 = 1.f / (l0 * p.keep), inv1 = 1.f / (l1 * p.keep);
-  // This warp's Q rows are its alone: stage O there (in T), then store
-  // 16-byte row chunks of the block's DV columns.
-  T* ow = sQ + rw * 16 * kSQ;
+  // This warp's Q rows are its alone: stage O there, then store 16-byte
+  // row chunks.
+  float* ow = sQ + rw * 16 * kS;
 #pragma unroll
   for (int n = 0; n < kDN; ++n) {
-    store2(ow + g * kSQ + n * 8 + 2 * t, o[n][0] * inv0, o[n][1] * inv0);
-    store2(ow + (g + 8) * kSQ + n * 8 + 2 * t, o[n][2] * inv1,
+    store2(ow + g * kS + n * 8 + 2 * t, o[n][0] * inv0, o[n][1] * inv0);
+    store2(ow + (g + 8) * kS + n * 8 + 2 * t, o[n][2] * inv1,
            o[n][3] * inv1);
   }
   __syncwarp();
-  T* ob = static_cast<T*>(p.o) + b * p.sob + h * p.soh + col0;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = DV / kVec;
+  float* ob = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
+  constexpr int kChunks = D / 4;
 #pragma unroll 4
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * kVec;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
     const int row = q0 + rw * 16 + r;
     if (row < p.Tq)
       *reinterpret_cast<float4*>(ob + row * p.sot + c) =
-          *reinterpret_cast<const float4*>(ow + r * kSQ + c);
+          *reinterpret_cast<const float4*>(ow + r * kS + c);
   }
-  if (t == 0 && blockIdx.z == 0) {
+  if (t == 0) {
     if (row0 < p.Tq) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(l0);
     if (row0 + 8 < p.Tq)
       p.lse[(long long)bh * p.Tq + row0 + 8] = m1 + logf(l1);
@@ -391,6 +387,216 @@ cudaError_t set_smem_once(Kernel kernel, size_t bytes, unsigned* done) {
                              static_cast<int>(bytes));
   if (err == cudaSuccess) *done |= 1u << (device & 31);
   return err;
+}
+
+// Head dim 256 (any dh in (128, 256], zero-padded by the wrapper): one
+// 8-warp block owns 64 query rows, warps w and w + 4 (half 0 and half 1)
+// the same 16 rows, half c columns [128 c, 128 c + 128) of Q, K, V and O.
+// For each 32-key tile each warp computes its partial S_c = Q_c K_c^T over
+// its 128 columns, stores it, and meets its partner at named barrier
+// 1 + w (`pair_sync`); both then hold S = S_0 + S_1 (`pair_sum`, the same
+// float in both), run the same online softmax and take O_c += P V_c over
+// their own columns: 4 chunk products a tile pair, none repeated.  Q and
+// a 2-stage cp.async ring of 32-key K and V tiles at full width, and the
+// partials, in 211 KB: one block, 8 warps an SM.
+struct PairLayout {
+  static constexpr int kThreads = 2 * 32 * kRowWarps;
+  static constexpr int kS = 2 * kGroup + 4;           // float row stride
+  static constexpr int kQ = kBlockQ * kS;
+  static constexpr int kKV = kBlockK * kS;            // K or V of a tile
+  static constexpr int kStage = 2 * kKV;              // K, then V
+  static constexpr int kKN = kBlockK / 8;             // 8-key tiles of S
+  static constexpr int kX = 2 * kRowWarps * kKN * 32 * 4;  // partials
+  static constexpr size_t kBytes = (kQ + 2 * kStage + kX) * sizeof(float);
+  static_assert(kBytes <= 232448, "shared memory");
+};
+
+__global__ void __launch_bounds__(PairLayout::kThreads, 1)
+flash_fwd_kernel_pair(const Params p) {
+  using L = PairLayout;
+  constexpr int kS = L::kS;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kDN = kGroup / 8;
+  constexpr int kKN = L::kKN;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sKV = sQ + L::kQ;  // stage s: K at sKV + s kStage, V after it
+  float* sX = sKV + 2 * L::kStage;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rw = warp % kRowWarps;    // which 16 rows
+  const int half = warp / kRowWarps;  // which 128 columns
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = half * kGroup;
+  const TileOf at = unfold((p.Tq + kBlockQ - 1) / kBlockQ);
+  const int bh = at.pair;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = at.tile * kBlockQ;
+  constexpr int kW = 2 * kGroup;
+  const float* kb = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
+  const int n_tiles = (p.Tk + kBlockK - 1) / kBlockK;
+
+  load_tile<float, kW, kS, kBlockQ, kThreads>(
+      sQ, static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh, p.sqt, q0,
+      p.Tq, tid);
+  load_tile<float, kW, kS, kBlockK, kThreads>(sKV, kb, p.skt, 0, p.Tk, tid);
+  load_tile<float, kW, kS, kBlockK, kThreads>(sKV + L::kKV, vb, p.svt, 0,
+                                              p.Tk, tid);
+  cp_async_commit();
+
+  float o[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
+  const int row0 = q0 + rw * 16 + g;
+  HashRow hr0 = {0u, 0u}, hr1 = {0u, 0u};
+  if (p.drop.on) {
+    hr0 = hash_row(p.drop, bh, row0);
+    hr1 = hash_row(p.drop, bh, row0 + 8);
+  }
+  const float* qw = sQ + rw * 16 * kS + col0;
+  // This warp's partials and its partner's: float4 (n, lane) of each.
+  float* xw = sX + (half * kRowWarps + rw) * kKN * 32 * 4;
+  const float* xp = sX + ((1 - half) * kRowWarps + rw) * kKN * 32 * 4;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      float* next = sKV + ((j + 1) & 1) * L::kStage;
+      const int r0 = (j + 1) * kBlockK;
+      load_tile<float, kW, kS, kBlockK, kThreads>(next, kb, p.skt, r0, p.Tk,
+                                                  tid);
+      load_tile<float, kW, kS, kBlockK, kThreads>(next + L::kKV, vb, p.svt,
+                                                  r0, p.Tk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = sKV + (j & 1) * L::kStage + col0;
+    const float* sV = sK + L::kKV;
+
+    // The partial S_c = Q_c K_c^T of this warp's 16 rows and the tile.
+    float s[kKN][4];
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < kGroup / 8; ++kk) {
+      unsigned ab[4], as[4];
+      load_a_frag(qw + kk * 8, kS, g, t, ab, as);
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        const float* kr = sK + (n * 8 + g) * kS + kk * 8 + t;
+        unsigned bb[2], bs[2];
+        split(kr[0], bb[0], bs[0]);
+        split(kr[4], bb[1], bs[1]);
+        mma_3xtf32(s[n], ab, as, bb, bs);
+      }
+    }
+    // S = S_0 + S_1.
+    put_partials<kKN>(xw, &s[0][0], 32, lane);
+    pair_sync(rw);
+    pair_sum<kKN>(&s[0][0], xp, 32, lane);
+
+    // Online softmax on the fragments; keys past Tk score -inf, weigh 0.
+    const int k0 = j * kBlockK;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = k0 + n * 8 + 2 * t + e < p.Tk;
+        s[n][e] = valid ? s[n][e] * p.scale : -INFINITY;
+        s[n][2 + e] = valid ? s[n][2 + e] * p.scale : -INFINITY;
+        mx0 = fmaxf(mx0, s[n][e]);
+        mx1 = fmaxf(mx1, s[n][2 + e]);
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float alpha0 = expf(m0 - mx0), alpha1 = expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = expf(s[n][e] - m0);
+        float p1 = expf(s[n][2 + e] - m1);
+        l0 += p0;
+        l1 += p1;
+        if (p.drop.on) {
+          const int key = k0 + n * 8 + 2 * t + e;
+          if (!hash_keep(p.drop, hr0, key)) p0 = 0.f;
+          if (!hash_keep(p.drop, hr1, key)) p1 = 0.f;
+        }
+        s[n][e] = p0;
+        s[n][2 + e] = p1;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kDN; ++n) {
+      o[n][0] *= alpha0;
+      o[n][1] *= alpha0;
+      o[n][2] *= alpha1;
+      o[n][3] *= alpha1;
+    }
+
+    // O_c += P V_c: A's k = t, t + 4 are keys 2t, 2t + 1 of each 8-key tile.
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+      unsigned ab[4], as[4];
+      split(s[n][0], ab[0], as[0]);
+      split(s[n][2], ab[1], as[1]);
+      split(s[n][1], ab[2], as[2]);
+      split(s[n][3], ab[3], as[3]);
+      const float* vr = sV + (n * 8 + 2 * t) * kS + g;
+#pragma unroll
+      for (int dn = 0; dn < kDN; ++dn) {
+        unsigned bb[2], bs[2];
+        split(vr[dn * 8], bb[0], bs[0]);
+        split(vr[kS + dn * 8], bb[1], bs[1]);
+        mma_3xtf32(o[dn], ab, as, bb, bs);
+      }
+    }
+    __syncthreads();  // the stage and the partials just read are refilled
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / (l0 * p.keep), inv1 = 1.f / (l1 * p.keep);
+  // This warp's half of its Q rows is its alone: stage O_c there, then
+  // store 16-byte row chunks of its 128 columns.
+  float* ow = sQ + rw * 16 * kS + col0;
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) {
+    store2(ow + g * kS + n * 8 + 2 * t, o[n][0] * inv0, o[n][1] * inv0);
+    store2(ow + (g + 8) * kS + n * 8 + 2 * t, o[n][2] * inv1,
+           o[n][3] * inv1);
+  }
+  __syncwarp();
+  float* ob = static_cast<float*>(p.o) + b * p.sob + h * p.soh + col0;
+  constexpr int kChunks = kGroup / 4;
+#pragma unroll 4
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const int row = q0 + rw * 16 + r;
+    if (row < p.Tq)
+      *reinterpret_cast<float4*>(ob + row * p.sot + c) =
+          *reinterpret_cast<const float4*>(ow + r * kS + c);
+  }
+  if (t == 0 && half == 0) {
+    if (row0 < p.Tq) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(l0);
+    if (row0 + 8 < p.Tq)
+      p.lse[(long long)bh * p.Tq + row0 + 8] = m1 + logf(l1);
+  }
 }
 
 // Head dims above 256 (any multiple of 128): a cluster of nc = dh / 128
@@ -719,28 +925,37 @@ long long fwd_scratch_bytes(int B, int H, int Tq, int dh) {
                          dh / kGroup, 32 * kRowWarps, kGroup / 8);
 }
 
-template <typename T, int DQK, int DV, int SPLIT>
+template <int D, int SPLIT>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using L = Layout<T, DQK, DV, SPLIT>;
+  using L = Layout<D, SPLIT>;
   static unsigned done = 0;
   cudaError_t err =
-      set_smem_once(flash_fwd_kernel<T, DQK, DV, SPLIT>, L::kBytes, &done);
+      set_smem_once(flash_fwd_kernel<D, SPLIT>, L::kBytes, &done);
   if (err != cudaSuccess) return err;
-  const dim3 grid = folded_grid((p.Tq + kBlockQ - 1) / kBlockQ,
-                                (long long)B * p.H, 1, DQK / DV);
-  flash_fwd_kernel<T, DQK, DV, SPLIT>
-      <<<grid, L::kThreads, L::kBytes, stream>>>(p);
+  const dim3 grid =
+      folded_grid((p.Tq + kBlockQ - 1) / kBlockQ, (long long)B * p.H);
+  flash_fwd_kernel<D, SPLIT><<<grid, L::kThreads, L::kBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pair(const Params& p, int B, cudaStream_t stream) {
+  using L = PairLayout;
+  static unsigned done = 0;
+  cudaError_t err = set_smem_once(flash_fwd_kernel_pair, L::kBytes, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid =
+      folded_grid((p.Tq + kBlockQ - 1) / kBlockQ, (long long)B * p.H);
+  flash_fwd_kernel_pair<<<grid, L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The head dims the wrapper pads to: 32 (demo), 64 (the reference's
-// default model), 128 (the rest), 256 (any dh in (128, 256], as two
-// column groups), and above 256 any multiple of 128 (`launch_cluster_fwd`;
-// above 128 kClusterMax a block owns several chunks).  A
-// grid of at most one 4-warp block an SM leaves half the warps the SMs
-// could hold idle: split each block's keys over two warp groups instead
-// (not at 256, whose block holds an SM's shared memory).
-template <typename T>
+// default model), 128 (the rest), 256 (any dh in (128, 256], on the
+// 8-warp pair kernel), and above 256 any multiple of 128
+// (`launch_cluster_fwd`; above 128 kClusterMax a block owns several
+// chunks).  Up to 128, a grid of at most one 4-warp block an SM leaves
+// half the warps the SMs could hold idle: split each block's keys over
+// two warp groups instead.
 cudaError_t dispatch(const Params& p, int B, int dh, int sms,
                      cudaStream_t s) {
   if (dh > 256) {
@@ -753,16 +968,13 @@ cudaError_t dispatch(const Params& p, int B, int dh, int sms,
   const bool split = blocks <= sms;
   switch (dh) {
     case 32:
-      return split ? launch<T, 32, 32, 2>(p, B, s)
-                   : launch<T, 32, 32, 1>(p, B, s);
+      return split ? launch<32, 2>(p, B, s) : launch<32, 1>(p, B, s);
     case 64:
-      return split ? launch<T, 64, 64, 2>(p, B, s)
-                   : launch<T, 64, 64, 1>(p, B, s);
+      return split ? launch<64, 2>(p, B, s) : launch<64, 1>(p, B, s);
     case 128:
-      return split ? launch<T, 128, 128, 2>(p, B, s)
-                   : launch<T, 128, 128, 1>(p, B, s);
+      return split ? launch<128, 2>(p, B, s) : launch<128, 1>(p, B, s);
     case 256:
-      return launch<T, 256, kGroup, 1>(p, B, s);
+      return launch_pair(p, B, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -836,14 +1048,18 @@ extern "C" int avsep_flash_attn_fwd(
                                  device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = dtype == 0 ? dispatch<float>(p, B, dh, sms, s)
-                   : cudaErrorInvalidValue;
+  err = dtype == 0 ? dispatch(p, B, dh, sms, s) : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
 // Shared memory of a block of the cluster kernel (bytes).
 extern "C" int avsep_flash_attn_fwd_cluster_smem() {
   return static_cast<int>(ClusterLayout::kBytes);
+}
+
+// Shared memory of a block of the pair kernel at dh 256 (bytes).
+extern "C" int avsep_flash_attn_fwd_pair_smem() {
+  return static_cast<int>(PairLayout::kBytes);
 }
 
 // Bytes of the scratch buffer a call at these sizes takes (`scratch`, float

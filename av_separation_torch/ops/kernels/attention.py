@@ -15,8 +15,10 @@ gradients are written into packed (B, T, H, dh) memory and returned as
 The kernels are built for head dims 32, 64, 128 and 256, and for every
 multiple of 128 above 256.  bfloat16 at 32-256 runs on the Hopper kernels
 of `csrc/flash_fwd_wgmma.cu` and `csrc/flash_bwd_wgmma.cu` (`wgmma`, TMA,
-mbarriers); float32 at 32-256 on the 3xTF32 `mma.sync` kernels (256 as two
-column groups of 128, each a block's).  Above 256 a thread-block cluster
+mbarriers); float32 at 32-256 on the 3xTF32 `mma.sync` kernels (256 on
+8-warp blocks, two warps to each 16 rows, one 128-column half each, that
+add their partial q k^T (and dO v^T) through shared memory, so no product
+is computed twice).  Above 256 a thread-block cluster
 shares each tile of rows, each block owning 128-column chunks of the head
 dim (`csrc/cluster.cuh`): one chunk a block up to dh 2048 (a cluster of
 dh / 128 blocks), ceil(dh / 2048) above, where the accumulators of a

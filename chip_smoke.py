@@ -9,11 +9,12 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   build    nvcc builds every kernel of `av_separation_torch/csrc/` (in
            parallel) into build/torch_kernels/; prints the build seconds,
            each kernel instance's registers and spills (for example
-           flash_bwd_dkv_kernel<float,256,128,1>,
+           flash_bwd_dkv_kernel_pair, flash_bwd_dkv_kernel<128,1>,
            flash_fwd_kernel_wgmma<128,2>) and the instances that spill;
            fails if an STFT instance (nine one-block, four four-step
-           passes), a bf16 `wgmma` flash or
-           projection instance or a flash instance above dh 256 spills.
+           passes), a bf16 `wgmma` flash or projection instance, a
+           float32 flash instance at dh 256 (the three `_pair` kernels)
+           or a flash instance above dh 256 spills or is missing.
   kernels  first one m16n8k8 3xTF32 tensor-core product against float64
            (the fragment layouts of the flash kernels).  Then each kernel
            against its plain PyTorch version on the card, at the shapes the
@@ -32,8 +33,9 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            cores in 3xTF32; the backward's bound counts its 5 least
            products), at dh 128, 32 and 64 (the reference's default
            model) and dh 49 (zero-padded to 64 by the wrapper), dh 256
-           and dh 200 (padded to 256: two column groups of 128); each
-           backward is run twice and must give bit-identical gradients.
+           and dh 200 (padded to 256: 8-warp blocks, two warps to each 16
+           rows, one 128-column half each); each backward is run twice
+           and must give bit-identical gradients.
            Head dims above 256: dh 512, dh 320 (padded to 384), dh 1152
            (B 2, H 1: a cluster of 9 blocks, the non-portable size) and
            dh 2048 (B 1, H 1: 16 blocks, the largest cluster), each on a
@@ -312,7 +314,11 @@ for _name, _src, _note in (
         source="av_separation_torch/csrc/" + _src, note=_note)
 for _name in ("flash_attn_fwd", "flash_attn_bwd"):
     KERNELS[_name]["note"] = (
-        "dh above 256: a thread-block cluster of dh / 128 blocks, "
+        "dh 129-256: 8-warp blocks, two warps to each 16 rows, one "
+        "128-column half each, "
+        + ("flash_fwd_kernel_pair" if _name.endswith("fwd") else
+           "flash_bwd_dkv_kernel_pair / flash_bwd_dq_kernel_pair")
+        + "; dh above 256: a thread-block cluster of dh / 128 blocks, "
         + ("flash_fwd_kernel_cluster" if _name.endswith("fwd") else
            "flash_bwd_dkv_kernel_cluster / flash_bwd_dq_kernel_cluster"))
 # The device kernels of the wide route (above dh 256), by entry: listed in
@@ -330,6 +336,14 @@ CLUSTER_INSTANCES = {
                              "flash_bwd_dq_kernel_cluster<bf16,0>",
                              "flash_bwd_dkv_kernel_cluster<bf16,1>",
                              "flash_bwd_dq_kernel_cluster<bf16,1>"],
+}
+# The float32 device kernels at dh 256 (any dh in (128, 256], padded), by
+# entry: listed in the summary line, and held by the build phase to no
+# spill.
+PAIR_INSTANCES = {
+    "flash_attn_fwd": ["flash_fwd_kernel_pair"],
+    "flash_attn_bwd": ["flash_bwd_dkv_kernel_pair",
+                       "flash_bwd_dq_kernel_pair"],
 }
 # The projection's pre-pass, its own launch, splits each weight into three
 # bf16 parts; it is counted under the instance it serves.
@@ -491,11 +505,12 @@ def phase_build(state):
     spills or is missing (nine of the one-block kernel: power of two, mixed
     radix and Bluestein, even and odd n_fft, up to and above n_fft 4096;
     the four passes of the four-step kernel), if an instance of the flash
-    pair's `wgmma` kernels or of its cluster kernels above dh 256 spills or
-    one of the twelve cluster instances is missing (<..., 1>: a block
-    owning several chunks, above dh 2048), or if an instance of the
-    projection's `wgmma` kernel spills.  Reports the shared memory a block
-    of each cluster kernel takes, as the libraries export it."""
+    pair's `wgmma` kernels, of its float32 pair kernels at dh 256 or of its
+    cluster kernels above dh 256 spills, or one of the three pair or
+    twelve cluster instances is missing (<..., 1>: a block owning several
+    chunks, above dh 2048), or if an instance of the projection's `wgmma`
+    kernel spills.  Reports the shared memory a block of each cluster and
+    pair kernel takes, as the libraries export it."""
     import re
 
     from av_separation_torch.ops.kernels import _build
@@ -515,15 +530,17 @@ def phase_build(state):
     spilling = {k: n for u in usage.values() for k, v in u.items()
                 if (n := sum(int(x) for ln in v
                              for x in re.findall(r"(\d+) bytes spill", ln)))}
-    # The flash pair's Hopper instances (bf16 up to dh 256) and its
-    # cluster instances above dh 256 must not spill.
+    # The flash pair's Hopper instances (bf16 up to dh 256), its float32
+    # pair instances at dh 256 and its cluster instances above dh 256
+    # must not spill.
     flash = [k for name in ("flash_fwd_wgmma", "flash_bwd_wgmma",
                             "flash_attn_fwd", "flash_attn_bwd")
              for k in usage.get(name, {})
-             if "_wgmma" in k or "_cluster" in k]
-    cluster = [k for ks in CLUSTER_INSTANCES.values() for k in ks]
+             if "_wgmma" in k or "_cluster" in k or "_pair" in k]
+    named = [k for ks in (*CLUSTER_INSTANCES.values(),
+                          *PAIR_INSTANCES.values()) for k in ks]
     if logs.get("flash_fwd_wgmma") and (
-            len(flash) < 7 or any(k not in flash for k in cluster)
+            len(flash) < 7 or any(k not in flash for k in named)
             or any(k in spilling for k in flash)):
         raise AssertionError(f"flash instances {flash}, spilling "
                              f"{spilling}")
@@ -541,18 +558,26 @@ def phase_build(state):
 
 
 def _cluster_smem():
-    """The shared memory (bytes) of a block of each cluster kernel, as the
-    built libraries export it."""
+    """The shared memory (bytes) of a block of each cluster kernel, and of
+    the float32 pair kernels at dh 256, as the built libraries export
+    it."""
     import ctypes
 
     from av_separation_torch.ops.kernels import _build
 
-    fwd = _build.load("flash_attn_fwd").avsep_flash_attn_fwd_cluster_smem
+    fwd_lib = _build.load("flash_attn_fwd")
+    bwd_lib = _build.load("flash_attn_bwd")
+    fwd = fwd_lib.avsep_flash_attn_fwd_cluster_smem
     wg = _build.load("flash_fwd_wgmma").avsep_flash_fwd_wgmma_cluster_smem
-    bwd = _build.load("flash_attn_bwd").avsep_flash_attn_bwd_cluster_smem
+    bwd = bwd_lib.avsep_flash_attn_bwd_cluster_smem
     bwd.argtypes = [ctypes.c_int, ctypes.c_int]
+    pair = bwd_lib.avsep_flash_attn_bwd_pair_smem
+    pair.argtypes = [ctypes.c_int]
     return {"float32": {"fwd": fwd(), "dkv": bwd(0, 0), "dq": bwd(1, 0)},
-            "bfloat16": {"fwd": wg(), "dkv": bwd(0, 1), "dq": bwd(1, 1)}}
+            "bfloat16": {"fwd": wg(), "dkv": bwd(0, 1), "dq": bwd(1, 1)},
+            "float32_pair_dh256": {
+                "fwd": fwd_lib.avsep_flash_attn_fwd_pair_smem(),
+                "dkv": pair(0), "dq": pair(1)}}
 
 
 def _template_args(rest: str) -> list:
@@ -1277,8 +1302,9 @@ def phase_configs(state):
     64), the named configs three_speaker (S 3), lrs2 (96x96 lips, T 376)
     and multihost (d 1024, 8 heads, S 4, 12 + 8 layers), and odd_width
     (ModelConfig() at d 196, 4 heads: dh 49 and widths the kernels run
-    zero-padded), wide_head (d 512, 2 heads: dh 256) and wide_d1024 (d
-    1024, 2 heads: dh 512, the chunked column split), at full width and
+    zero-padded), wide_head (d 512, 2 heads: dh 256, the pair kernels)
+    and wide_d1024 (d 1024, 2 heads: dh 512, a cluster of 4), at full
+    width and
     depth with seeded weights: one eval
     forward at batch 2 on the card
     against the same model and batch on the CPU (masks 1e-4, separated
@@ -1305,8 +1331,8 @@ def phase_configs(state):
     odd = dataclasses.replace(default, model=dataclasses.replace(
         default.model, d_model=196, nhead=4))  # dh 49, padded to 64
     wide = dataclasses.replace(default, model=dataclasses.replace(
-        default.model, d_model=512, nhead=2))  # dh 256: two column groups
-    # dh 512: q k^T summed over 128-column chunks, four column groups
+        default.model, d_model=512, nhead=2))  # dh 256: the pair kernels
+    # dh 512: q k^T summed over 128-column chunks, a cluster of 4 blocks
     wide512 = dataclasses.replace(default, model=dataclasses.replace(
         default.model, d_model=1024, nhead=2))
     cases = [("default", default)] + [
@@ -3319,6 +3345,8 @@ def kernel_summary(state):
             "shape": head.get("shape"),
             **({"cluster_instances": CLUSTER_INSTANCES[name]}
                if name in CLUSTER_INSTANCES else {}),
+            **({"pair_instances": PAIR_INSTANCES[name]}
+               if name in PAIR_INSTANCES else {}),
             **({"note": meta["note"]} if "note" in meta else {}),
         })
     return {"kernels": out}

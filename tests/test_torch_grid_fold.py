@@ -36,10 +36,12 @@ def launch_plan(backward, dtype, b, h, tq, tk, dh, sms=SMS):
     pairs, groups), grid x holding `tiles * pairs` blocks (pairs = B*H;
     block x owns tile x % tiles of pair x // tiles), grid z the `groups`
     of output columns (above dh 256 the cluster's blocks, one 128-column
-    chunk each).  A block tiles 64 rows (keys for dK/dV), 128 where
-    a `wgmma` kernel runs two consumer warpgroups, 4 query rows in the
-    delta kernel; the `wgmma` kernels take one warpgroup where 64-row
-    blocks give each block an SM of its own, and at dh 256."""
+    chunk each; the bf16 dK/dV kernel's two column groups at dh 256).  A
+    block tiles 64 rows (keys for dK/dV), 128 where a `wgmma` kernel runs
+    two consumer warpgroups, 4 query rows in the delta kernel; the
+    `wgmma` kernels take one warpgroup where 64-row blocks give each
+    block an SM of its own, and at dh 256.  Float32 at dh 256 runs on the
+    8-warp `_pair` kernels: one block of 64 rows, no column groups."""
     bh = b * h
     wide = dh > HEAD_DIMS[-1]
     groups = dh // WIDE_CHUNK if wide or dh == 256 else 1
@@ -53,8 +55,11 @@ def launch_plan(backward, dtype, b, h, tq, tk, dh, sms=SMS):
         return [("flash_bwd_delta_kernel", cdiv(tq, 4), bh, 1),
                 ("flash_bwd_dkv_kernel_wgmma", cdiv(tk, 64), bh, groups),
                 ("flash_bwd_dq_kernel_wgmma", cdiv(tq, wg_rows(tq)), bh, 1)]
-    # Above dh 256 a cluster of `groups` blocks along z shares a tile.
+    # Above dh 256 a cluster of `groups` blocks along z shares a tile; at
+    # 256 one 8-warp block, its warps two 128-column halves.
     suffix = "_cluster" if wide else ""
+    if dh == 256:
+        suffix, groups = "_pair", 1
     if not backward:
         wg = "_wgmma" if wide and dtype == torch.bfloat16 else ""
         return [("flash_fwd_kernel" + wg + suffix, cdiv(tq, 64), bh, groups)]

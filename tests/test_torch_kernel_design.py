@@ -1023,21 +1023,19 @@ def product(a: np.ndarray, b: np.ndarray, passes: int,
 
 
 def flash_tiles_emulated(q, k, v, rate, seed, passes, kind="mask",
-                         block_k=32, scale=None):
+                         block_k=32):
     """(Tq, dh), (Tk, dh) for one head -> (o, lse) as the kernel computes
     them: key tiles of 32, the running max and sum rescaled per tile, l
-    over the undropped p, dropped p zeroed before PV.  v may hold fewer
-    columns than q and k (one column group of a wide head); `scale`
-    defaults to 1 / sqrt(dh)."""
+    over the undropped p, dropped p zeroed before PV."""
     f32 = np.float32
     tq, dh = q.shape
     tk = k.shape[0]
-    scale = f32(1.0 / np.sqrt(dh) if scale is None else scale)
+    scale = f32(1.0 / np.sqrt(dh))
     keep = keep_mask(seed, 1, 1, tq, tk, rate).numpy()[0, 0] if rate \
         else np.ones((tq, tk), bool)
     m = np.full(tq, -np.inf, f32)
     l = np.zeros(tq, f32)
-    acc = np.zeros((tq, v.shape[1]), f32)
+    acc = np.zeros((tq, dh), f32)
     for k0 in range(0, tk, block_k):
         s = product(q, k[k0:k0 + block_k].T, passes, kind) * scale
         m_new = np.maximum(m, s.max(axis=1))
@@ -1099,27 +1097,25 @@ class TestThreeTf32:
 # ---------------------------------------------------------------------------
 
 def flash_bwd_tiles_emulated(q, k, v, o, do, lse, rate, seed, passes,
-                             block=64, tile=16, scale=None, cols=None):
+                             block=64, tile=16):
     """(Tq, dh), (Tk, dh) for one head -> (dq, dk, dv) as the kernels of
     flash_attn_bwd.cu compute them: delta = rowsum(dO * O); the dK/dV
     kernel over blocks of 64 keys walks 16-query tiles (S^T = K Q^T,
     dP^T = V dO^T, then dV += Pd^T dO and dK += dS^T Q); the dQ kernel over
     blocks of 64 rows walks 16-key tiles (S = Q K^T, dP = dO V^T, then
     dQ += dS K).  Every product in 3xTF32 (passes 3) or 1xTF32 (passes 1);
-    each tile's sum added to float32 accumulators; no atomics.  With
-    `cols` (a column group of a wide head) S and dP take every column and
-    the accumulators only `cols`: dq, dk, dv hold those columns."""
+    each tile's sum added to float32 accumulators; no atomics.  (Head dim
+    256 runs on the pair kernels: tests/test_torch_pair_design.py.)"""
     f32 = np.float32
     tq, dh = q.shape
     tk = k.shape[0]
-    scale = f32(1.0 / np.sqrt(dh) if scale is None else scale)
-    cols = slice(None) if cols is None else cols
+    scale = f32(1.0 / np.sqrt(dh))
     inv_keep = f32(1.0) / f32(1.0 - rate)
     keep = keep_mask(seed, 1, 1, tq, tk, rate).numpy()[0, 0] if rate \
         else np.ones((tq, tk), bool)
     delta = (do * o).sum(axis=1, dtype=f32)
-    dk = np.zeros_like(k[:, cols])
-    dv = np.zeros_like(v[:, cols])
+    dk = np.zeros_like(k)
+    dv = np.zeros_like(v)
     for k0 in range(0, tk, block):
         kb, vb = k[k0:k0 + block], v[k0:k0 + block]
         for q0 in range(0, tq, tile):
@@ -1131,9 +1127,9 @@ def flash_bwd_tiles_emulated(q, k, v, o, do, lse, rate, seed, passes,
             pd = np.where(kt, p * inv_keep, f32(0))
             dpt = np.where(kt, dpt * inv_keep, f32(0))
             ds = p * (dpt - delta[None, q0:q0 + tile]) * scale
-            dv[k0:k0 + block] += product(pd, dot[:, cols], passes)
-            dk[k0:k0 + block] += product(ds, qt[:, cols], passes)
-    dq = np.zeros_like(q[:, cols])
+            dv[k0:k0 + block] += product(pd, dot, passes)
+            dk[k0:k0 + block] += product(ds, qt, passes)
+    dq = np.zeros_like(q)
     for q0 in range(0, tq, block):
         qb, dob = q[q0:q0 + block], do[q0:q0 + block]
         for k0 in range(0, tk, tile):
@@ -1144,7 +1140,7 @@ def flash_bwd_tiles_emulated(q, k, v, o, do, lse, rate, seed, passes,
             kp = keep[q0:q0 + block, k0:k0 + tile]
             dp = np.where(kp, dp * inv_keep, f32(0))
             ds = p * (dp - delta[q0:q0 + block, None]) * scale
-            dq[q0:q0 + block] += product(ds, kt[:, cols], passes)
+            dq[q0:q0 + block] += product(ds, kt, passes)
     return dq, dk, dv
 
 
@@ -1205,61 +1201,6 @@ class TestBackwardThreeTf32:
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             np.testing.assert_allclose(g, np.asarray(w).reshape(g.shape),
                                        atol=5e-5, rtol=1e-4, err_msg=name)
-
-
-# ---------------------------------------------------------------------------
-# Head dims above 128: the flash kernels' column split.
-# ---------------------------------------------------------------------------
-
-GROUP = 128  # output columns a block owns above dh 128
-
-
-def column_split_emulated(q, k, v, do, rate, seed, dh):
-    """The kernels at a head dim dh in (128, 256]: q, k, v, do zero-padded
-    to 256 by the wrapper, the softmax scale of the true dh, and each
-    block owning one group of 128 output columns: the forward blocks of a
-    group compute S over all 256 columns and PV over their group's columns
-    of V (the group-0 blocks write lse); the dK/dV and dQ blocks recompute
-    S and dP over all 256 and accumulate their group's columns.  Returns
-    (o, lse, dq, dk, dv) sliced back to dh, and the lse of every group."""
-    pad = lambda x: np.pad(x, ((0, 0), (0, 256 - dh)))
-    qp, kp, vp, dop = (pad(x) for x in (q, k, v, do))
-    scale = 1.0 / np.sqrt(dh)
-    groups = [slice(g, g + GROUP) for g in range(0, 256, GROUP)]
-    fwd = [flash_tiles_emulated(qp, kp, vp[:, g], rate, seed, 3,
-                                scale=scale) for g in groups]
-    o = np.concatenate([f[0] for f in fwd], axis=1)
-    lses = [f[1] for f in fwd]
-    bwd = [flash_bwd_tiles_emulated(qp, kp, vp, o, dop, lses[0], rate,
-                                    seed, 3, scale=scale, cols=g)
-           for g in groups]
-    dq, dk, dv = (np.concatenate([b[i] for b in bwd], axis=1)[:, :dh]
-                  for i in range(3))
-    return o[:, :dh], lses[0], dq, dk, dv, lses
-
-
-class TestColumnSplit:
-    # Tq = Tk = 101 (partial tiles and blocks), dh 200 (padded) and 256:
-    # the split tiles in 3xTF32 against the plain float32 version at the
-    # true dh, at the card's tolerances for dh above 128 (3e-5 on o and
-    # the gradients: S sums 256 products; 1e-4 on lse).  Every group's
-    # blocks compute the same lse, so any of them may write it.
-    @pytest.mark.parametrize("rate", [0.0, 0.1])
-    @pytest.mark.parametrize("dh", [200, 256])
-    def test_matches_plain_float32(self, dh, rate):
-        t = 101
-        q, k, v, do = (rand((t, dh), s) for s in (80, 81, 82, 83))
-        ts = [torch.from_numpy(x)[None, None] for x in (q, k, v, do)]
-        o_ref, lse_ref = flash_attn_fwd_torch(*ts[:3], rate, SEED)
-        g_ref = flash_attn_bwd_torch(*ts[:3], o_ref, ts[3], lse_ref, rate,
-                                     SEED)
-        o, lse, dq, dk, dv, lses = column_split_emulated(q, k, v, do, rate,
-                                                         SEED, dh)
-        assert all(np.array_equal(x, lses[0]) for x in lses)
-        assert np.abs(o - o_ref[0, 0].numpy()).max() <= 3e-5
-        assert np.abs(lse - lse_ref[0, 0].numpy()).max() <= 1e-4
-        for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), g_ref):
-            assert np.abs(g - r[0, 0].numpy()).max() <= 3e-5, name
 
 
 # ---------------------------------------------------------------------------

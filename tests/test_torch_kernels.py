@@ -253,9 +253,10 @@ class TestDispatch:
         assert padded_head_dim(dh) == width
 
     @pytest.mark.parametrize("dh", [129, 200, 256])
-    def test_head_dims_above_128_pad_to_two_column_groups(self, dh):
-        # Above 128 the kernels run dh 256 as two groups of 128 output
-        # columns; the wrapper pads q, k, v (and o, dO) with zero columns.
+    def test_head_dims_above_128_pad_to_256_at_their_own_scale(self, dh):
+        # Above 128 the kernels run at dh 256; the wrapper pads q, k, v
+        # (and o, dO) with zero columns and passes the true dh's softmax
+        # scale.
         from av_separation_torch.ops.kernels.attention import _check
         assert padded_head_dim(dh) == 256
         q = torch.zeros(2, 2, 9, dh)

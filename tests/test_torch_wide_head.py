@@ -1,9 +1,10 @@
 """Head dims above 128: the flash wrappers' padded route (dh padded to 256,
-run on the card as two column groups of 128) against the JAX
-`flash_attention`, which runs any dh as a native narrow block, with the
-Pallas kernels in interpret mode.  Float32 on both sides; the same
-dropout bits.  The kernels' column split itself is emulated in numpy in
-tests/test_torch_kernel_design.py (TestColumnSplit).
+run on the card in float32 by 8-warp blocks whose warp pairs each own the
+two 128-column halves of 16 rows) against the JAX `flash_attention`,
+which runs any dh as a native narrow block, with the Pallas kernels in
+interpret mode.  Float32 on both sides; the same dropout bits.  The
+kernels' schedule and order of sums are emulated in numpy in
+tests/test_torch_pair_design.py.
 """
 
 import dataclasses

@@ -24,14 +24,17 @@ checkout's headers) and the rows of VARIANT_ROWS run through this
 checkout's route and through the variant's entry points, in turns (this,
 variant, variant, this), in one process: the device time of each (all
 its flash kernels a call), the largest difference of their outputs, and
-SDPA's device time beside the wide rows.  Where the variant has no source
+SDPA's device time beside each row.  Where the variant has no source
 for a row's route, this checkout's library runs it.  Sources are grouped
 by directory, one variant a directory.  --probe adds variants of this
 checkout's cluster kernels that time the cross-block exchange above dh
-256, their results wrong by design: `no_sum` drops the sums of the
-blocks' partials (each block keeps its own: no loads from other blocks),
-`no_exchange` also the cluster barriers of the tile loop and the
-partials' stores; the exchange's share of a row is its time less theirs.  --rows wide keeps the rows above dh 256.
+256 (and of its float32 pair kernels at dh 256, the exchange between two
+warps of a block), their results wrong by design: `no_sum` drops the
+sums of the partials (each block or warp keeps its own: no loads from
+other blocks or the partner warp), `no_exchange` also the cluster (pair)
+barriers of the tile loop and the partials' stores; the exchange's share
+of a row is its time less theirs.  --rows wide keeps the rows above dh
+256, --rows pair the float32 ones at (padded) dh 256.
 
 Device times come from `chip_smoke.device_ms` (torch.profiler kernel
 durations).  Needs a CUDA device.
@@ -80,6 +83,11 @@ CASES = [
     (16384, 4, 16, 16, 32, "self", 0.1, False, "f32"),
     (16384, 4, 16, 16, 32, "self", 0.1, False, "bf16"),
     (16384, 4, 16, 16, 128, "self", 0.0, False, "bf16"),
+    # dh 129-256 in float32: the 8-warp pair kernels, at 256 and padded
+    (8, 2, 501, 501, 256, "self", 0.0, True, "f32"),
+    (8, 2, 501, 501, 256, "self", 0.1, True, "f32"),
+    (8, 2, 501, 501, 200, "self", 0.1, False, "f32"),
+    (2, 2, 77, 150, 200, "cross", 0.0, False, "f32"),
 ]
 SOURCES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_attn_fwd",
            "flash_attn_bwd")
@@ -95,9 +103,9 @@ def instances(log: str):
                           m.group(1))
             args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16)|^(f)",
                               k.group(2) or "") if k else []
-            name = (k.group(1) + "<" + ",".join(
+            name = (k.group(1) + ("<" + ",".join(
                 a or ("bf16" if b else "float") for a, b, _ in args)
-                + ">") if k else m.group(1)
+                + ">" if args else "")) if k else m.group(1)
         elif name and "spill stores" in ln:
             spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
         elif name and "Used" in ln:
@@ -163,8 +171,9 @@ def case(args):
 
 
 # (label, B, H, T, dh, dtype, pass): the wide rows of PERF.md's kernel
-# table (dh 320 runs at 384) and, for the kernels this change leaves
-# alone, rows up to dh 256; each at dropout 0 and 0.1.
+# table (dh 320 runs at 384), the float32 rows at dh 256 and 200 (padded
+# to 256: the pair kernels) and rows up to dh 128 and in bf16; each at
+# dropout 0 and 0.1.
 VARIANT_ROWS = [(f"dh{dh} {dt} {ps}", 8, 2, 501, dh, dt, ps)
                 for dh in (512, 320) for dt in ("f32", "bf16")
                 for ps in ("fwd", "bwd")] + [
@@ -173,20 +182,24 @@ VARIANT_ROWS = [(f"dh{dh} {dt} {ps}", 8, 2, 501, dh, dt, ps)
     ("self dh64 f32 bwd", 8, 4, 501, 64, "f32", "bwd"),
     ("dh256 f32 fwd", 8, 2, 501, 256, "f32", "fwd"),
     ("dh256 f32 bwd", 8, 2, 501, 256, "f32", "bwd"),
+    ("dh200 f32 fwd", 8, 2, 501, 200, "f32", "fwd"),
+    ("dh200 f32 bwd", 8, 2, 501, 200, "f32", "bwd"),
     ("audio self dh128 bf16 fwd", 8, 4, 501, 128, "bf16", "fwd"),
     ("dh256 bf16 fwd", 8, 2, 501, 256, "bf16", "fwd")]
 
 
 PROBES = {
-    # Each block keeps its own partial: no partial or sum read from
-    # another block.
+    # Each block (each warp of a dh-256 pair) keeps its own partial: no
+    # partial or sum read from another block (or the partner warp).
     "no_sum": [r"\n *cluster_sum<[^;]*;", r"\n *(?:if \([^)]*\)\n *)?"
-               r"(?:reduce|gather)_slots<[^;]*;"],
-    # ... and no cluster barrier in the tile loop, no partial stored.
+               r"(?:reduce|gather)_slots<[^;]*;", r"\n *pair_sum<[^;]*;"],
+    # ... and no cluster (pair) barrier in the tile loop, no partial
+    # stored.
     "no_exchange": [r"\n *cluster_sum<[^;]*;", r"\n *(?:if \([^)]*\)\n *)?"
                     r"(?:reduce|gather)_slots<[^;]*;",
                     r"\n *cluster_sync\(\);(?=\n *(?://[^\n]*\n *)*"
-                    r"(?:if|//|$))", r"\n *put_partials<[^;]*;"],
+                    r"(?:if|//|$))", r"\n *put_partials<[^;]*;",
+                    r"\n *pair_sum<[^;]*;", r"\n *pair_sync\([^;]*;"],
 }
 PROBED = ("flash_attn_fwd", "flash_fwd_wgmma", "flash_attn_bwd")
 
@@ -257,7 +270,7 @@ def _variant_libs(sources):
     return libs
 
 
-def variants(sources, wide_only=False) -> int:
+def variants(sources, rows="all") -> int:
     import torch
     import torch.nn.functional as F
 
@@ -303,7 +316,8 @@ def variants(sources, wide_only=False) -> int:
     for label, b, h, t, dh, dt, ps in VARIANT_ROWS:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         width = A.padded_head_dim(dh)
-        if wide_only and width <= 256:
+        if rows == "wide" and width <= 256 or rows == "pair" and (
+                width != 256 or dt != "f32"):
             continue
         q, k, v = c._attn_inputs(b, h, t, t, dh, "self", gen, dtype)
         do = torch.randn(q.shape, generator=gen).to(dtype).cuda()
@@ -354,8 +368,7 @@ def variants(sources, wide_only=False) -> int:
                    "bit_identical": {n: all(torch.equal(x, y) for x, y in
                                             zip(mine, outs[n]))
                                      for n in names[1:]}}
-            if width > 256:
-                row["sdpa_device_ms"] = c.device_ms(sdpa, 20)
+            row["sdpa_device_ms"] = c.device_ms(sdpa, 20)
             print(json.dumps(row), flush=True)
             bad += not all(isinstance(x, float)
                            for ts in times.values() for x in ts)
@@ -374,8 +387,11 @@ def main() -> int:
     parser.add_argument("--probe", action="append", default=[],
                         choices=sorted(PROBES),
                         help="time this checkout without its exchange")
-    parser.add_argument("--rows", choices=("all", "wide"), default="all",
-                        help="wide: only the cases and rows above dh 256")
+    parser.add_argument("--rows", choices=("all", "wide", "pair"),
+                        default="all",
+                        help="wide: only the cases and rows above dh 256; "
+                             "pair: only the float32 ones at (padded) dh "
+                             "256")
     parser.add_argument("--case", help=argparse.SUPPRESS)
     args = parser.parse_args()
     args.root = str(Path(args.root).resolve())
@@ -392,11 +408,13 @@ def main() -> int:
     print(chip_smoke.card_line(), flush=True)
     if args.source or args.probe:
         return variants([p.resolve() for p in args.source]
-                        + _probe_sources(args.probe), args.rows == "wide")
+                        + _probe_sources(args.probe), args.rows)
     build()
     bad = 0
     for cs in CASES:
-        if args.timed and not cs[7] or args.rows == "wide" and cs[4] <= 256:
+        width = 256 if 128 < cs[4] <= 256 else cs[4]
+        if args.timed and not cs[7] or args.rows == "wide" and cs[4] <= 256 \
+                or args.rows == "pair" and (width != 256 or cs[8] != "f32"):
             continue
         try:
             r = subprocess.run(
