@@ -36,23 +36,40 @@
 // power of two 2^e in radix-8 stages after one radix-2 or radix-4 stage for
 // e mod 3 (L = 256: 4, 8, 8); another length one radix-2 stage when its
 // power of two has an odd exponent, then radix 4, 3, 5 and 7 (224: 2, 4, 4,
-// 7; 441: 3, 3, 7, 7).  A length with a prime factor above 7 (L = 257, 551,
-// 4093) takes Bluestein's chirp-z transform: with the chirp
-// c[n] = exp(i pi n^2 / L), X[k] = c*[k] sum_n (z[n] c*[n]) c[k-n], a
-// circular convolution of P >= 2L-1 points (a power of two): multiply by
-// c*[n] and zero-pad to P; P-point FFT; multiply by the transform of the
-// chirp (host float64, divided by P); conjugate; P-point FFT again (the
-// inverse, as conj(FFT(conj y))); X[k] = c*[k] conj(V[k]), taken as the
-// split step reads it.  The chirp's phase n^2 mod 2L is computed in
-// integers on the host, so no float32 angle grows with n.  Every stage
-// ping-pongs between two buffers with one __syncthreads, no digit
-// reversal; each butterfly reads z[j + r len/R], so a warp reads
-// consecutive words.  A power-of-two length indexes its stages by shifts
-// and masks; the mixed-radix plan divides by per-stage constants computed
-// on the host (`FastDiv`: a multiply and a shift), not `%`.  Twiddles,
-// window, chirp and its transform are float32 tables built on the host in
-// float64; the radix-3, -5, -7 and -8 butterflies' constants are float64
-// values rounded to float32.
+// 7; 441: 3, 3, 7, 7).  Any other L takes the first of three transforms
+// that applies (ops/kernels/stft.py `fft_plan`):
+//   - kRader (n_fft <= 4096): a prime L whose L - 1 = M is 7-smooth (257,
+//     401, 31).  With g a primitive root mod L, the gather a[q] = z[g^q] and
+//     b[m] = W_L^(g^-m): X[g^-p] = z[0] + (a (*) b)[p], a cyclic
+//     convolution of M points on the same stages: M-point FFT; times the
+//     host's FFT(b) / M; conjugate; M-point FFT again (the inverse, as
+//     conj(FFT(conj y))); X[k] = z[0] + conj(V[p(k)]) read through the
+//     host's table p(k), and X[0] = z[0] + A[0], the first FFT's DC bin;
+//   - kPrime (n_fft <= 4096): every prime factor of L at most 31, the same
+//     stages and then direct radix-11, -13, -17, -19, -23, -29 and -31
+//     stages (551 = 19 29: two stages, no convolution).  A prime stage is
+//     the p-point DFT in registers in its symmetric form, the (p - 1) / 2
+//     pairs v_j +- v_{p-j} against cos and sin of 2 pi j k / p;
+//   - kBluestein: any other L, the chirp-z transform: with the chirp
+//     c[n] = exp(i pi n^2 / L), X[k] = c*[k] sum_n (z[n] c*[n]) c[k-n], a
+//     circular convolution of P points, the smallest 7-smooth P >= 2L - 1
+//     (525 for L 257, 1120 for 551, 4116 for 2049): multiply by c*[n] and
+//     zero-pad to P; P-point FFT; multiply by the transform of the chirp
+//     (host float64, divided by P); conjugate; P-point FFT again;
+//     X[k] = c*[k] conj(V[k]), taken as the split step reads it.  The
+//     chirp's phase n^2 mod 2L is computed in integers on the host, so no
+//     float32 angle grows with n.
+// Every stage ping-pongs between two buffers with one __syncthreads, no
+// digit reversal; each butterfly reads z[j + r len/R], so a warp reads
+// consecutive words.  A power-of-two L (or Bluestein's P) indexes its
+// stages by shifts and masks; every other plan divides by per-stage
+// constants computed on the host (`FastDiv`: a multiply and a shift), not
+// `%`.  Twiddles (of order 2L,
+// or 2 half of the FFT's length: an odd P has no half-period sign and takes
+// the table of order 2P), window, chirp, Rader's tables and the transforms
+// are float32 tables built on the host in float64 (Rader's permutations in
+// integers); the radix-3, -5, -7, -8 and prime butterflies' constants are
+// float64 values rounded to float32.
 //
 // (A) A block owns one signal and a tile of `tf` frames (the grid folds
 // signals and tiles into x, so any number of signals runs).  Up to n_fft
@@ -76,13 +93,13 @@
 // gives every SM two blocks where the batch allows; above 4096 two frames
 // where they fit (one block an SM at n_fft 8192), else one.  Reach, from
 // the plan arithmetic (two work regions, the twiddle table of half + 1
-// values, the Bluestein split table, the staged window up to 4096, the
-// 240-byte stage table): every n_fft in [2, 4096]; above, one frame a
-// block (two for odd
-// n_fft) fits 227 KB for a power-of-two L up to 8192 (n_fft 16384: two
-// 64 KB regions and a 64 KB twiddle table, 196,888 bytes), a 7-smooth L up
-// to 9,604 (even n_fft up to 19,208, odd up to 9,375), and Bluestein at P
-// 8192 for an even n_fft up to 8,190 (196,856 bytes); 2,150 of the n_fft in
+// values, the Rader and Bluestein split table, Rader's z[0] and X[0] of
+// each sequence, the staged window up to 4096, the 240-byte stage table):
+// every n_fft in [2, 4096]; above, one frame a block (two for odd n_fft)
+// fits 227 KB for a power-of-two L up to 8192 (n_fft 16384: two 64 KB
+// regions and a 64 KB twiddle table, 196,888 bytes), a 7-smooth L up to
+// 9,604 (even n_fft up to 19,208, odd up to 9,375), and Bluestein at P up
+// to 8192 for an even n_fft up to 8,190; 2,150 of the n_fft in
 // (4096, 65536].
 //
 // (B) The four-step (Bailey) FFT of P = n1 n2 points (P = L, or Bluestein's
@@ -123,7 +140,8 @@
 // representatives, x in [0, a/2] or in [a + 1, a + 1 + ceil((A-a-1)/2)),
 // and loads each with its partner (2^k pairs a block).  The four-step
 // twiddles W_P^m come from sincospif(2m / P) in float32 (exact argument
-// for a power-of-two P; else within 2^-24 of it); the stages' tables are
+// for a power-of-two P (Bluestein's is one here); else within 2^-24 of
+// it); the stages' tables are
 // the host's, copied by cp.async while the pass loads its data.  The
 // host picks n2, the largest divisor of P up to 2048, and n1 = P / n2 up
 // to 8192 (every P up to 2^24 that is a power of two; every 7-smooth
@@ -143,12 +161,14 @@ constexpr int kStagedMax = 4096;   // (A) stages span and window up to here
 constexpr int kMaxStages = 12;     // L <= 9604, sub-lengths <= 8192: <= 8
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxPad = 8192;      // (A) Bluestein's P
+constexpr int kMaxPrime = 31;      // (A) the largest direct prime radix
 constexpr int kMaxRow = 2048;      // (B) n2
 constexpr int kMaxColumn = 8192;   // (B) n1
 
-// The three transforms: a power-of-two L, a 7-smooth L (mixed radix), and
-// Bluestein's chirp-z over a power-of-two P.
-enum { kPow2 = 0, kMixed = 1, kBluestein = 2 };
+// The transforms: a power-of-two L, a 7-smooth L (mixed radix),
+// Bluestein's chirp-z over a 7-smooth P, an L of prime factors up to 31
+// (mixed and prime radices), Rader's convolution over L - 1 for a prime L.
+enum { kPow2 = 0, kMixed = 1, kBluestein = 2, kPrime = 3, kRader = 4 };
 
 // n / d as (n m) >> 31 with m = ceil(2^31 / d): the error
 // n (m d - 2^31) / (d 2^31) stays below 1/d, too small to reach the next
@@ -178,7 +198,7 @@ static_assert(sizeof(Stage) == 20, "ops/kernels/stft.py STAGE_TABLE_BYTES");
 struct Geometry {
   int N, T, n_fft, hop, tf, log2tf, vec;
   int L;        // the transform's length: n_fft / 2 (even), n_fft (odd)
-  int len;      // the FFT's length: L, or Bluestein's P
+  int len;      // the FFT's length: L, L - 1 (Rader) or Bluestein's P
   int log2len;  // when len is a power of two
   int half;     // the twiddle table holds W^0 .. W^half, W = exp(-pi i/half)
   int log2q;    // log2(2 half) when len is a power of two
@@ -337,6 +357,124 @@ __device__ __forceinline__ void butterfly<8>(float2 (&v)[8]) {
   }
 }
 
+// cos and then sin of 2 pi k / p for k = 1 .. (p - 1) / 2, for each direct
+// prime radix p = 11, 13, 17, 19, 23, 29, 31 in turn: float64 rounded to
+// float32.  Every index is a constant of the unrolled butterfly, so each
+// value is an operand of its multiply-add, not a load.
+__constant__ float kPrimeTrig[136] = {
+    // 11: cos, then sin
+    0.8412535328311812f, 0.41541501300188644f, -0.142314838273285f,
+    -0.654860733945285f, -0.9594929736144974f,
+    0.5406408174555976f, 0.9096319953545183f, 0.9898214418809328f,
+    0.7557495743542583f, 0.28173255684142967f,
+    // 13: cos, then sin
+    0.8854560256532099f, 0.5680647467311559f, 0.120536680255323f,
+    -0.35460488704253545f, -0.7485107481711012f, -0.970941817426052f,
+    0.4647231720437685f, 0.8229838658936564f, 0.992708874098054f,
+    0.9350162426854148f, 0.6631226582407952f, 0.23931566428755768f,
+    // 17: cos, then sin
+    0.9324722294043558f, 0.7390089172206591f, 0.4457383557765383f,
+    0.09226835946330202f, -0.2736629900720829f, -0.6026346363792563f,
+    -0.850217135729614f, -0.9829730996839018f,
+    0.3612416661871529f, 0.6736956436465572f, 0.8951632913550623f,
+    0.9957341762950345f, 0.961825643172819f, 0.7980172272802396f,
+    0.5264321628773561f, 0.18374951781657037f,
+    // 19: cos, then sin
+    0.9458172417006346f, 0.7891405093963936f, 0.5469481581224269f,
+    0.24548548714079924f, -0.08257934547233227f, -0.4016954246529694f,
+    -0.6772815716257409f, -0.879473751206489f, -0.9863613034027223f,
+    0.32469946920468346f, 0.6142127126896678f, 0.8371664782625285f,
+    0.9694002659393304f, 0.9965844930066698f, 0.9157733266550574f,
+    0.7357239106731318f, 0.4759473930370737f, 0.16459459028073403f,
+    // 23: cos, then sin
+    0.9629172873477992f, 0.8544194045464886f, 0.6825531432186541f,
+    0.4600650377311522f, 0.20345601305263375f, -0.06824241336467088f,
+    -0.33487961217098616f, -0.5766803221148671f, -0.7757112907044197f,
+    -0.917211301505453f, -0.9906859460363306f,
+    0.2697967711570243f, 0.5195839500354336f, 0.730835964278124f,
+    0.8878852184023752f, 0.9790840876823229f, 0.9976687691905392f,
+    0.9422609221188205f, 0.8169698930104421f, 0.631087944326053f,
+    0.3984010898462414f, 0.1361666490962471f,
+    // 29: cos, then sin
+    0.9766205557100867f, 0.907575419670957f, 0.7960930657056438f,
+    0.6473862847818277f, 0.46840844069979015f, 0.26752833852922075f,
+    0.05413890858541761f, -0.16178199655276473f, -0.37013815533991423f,
+    -0.5611870653623823f, -0.7259954919231306f, -0.8568571761675893f,
+    -0.9476531711828025f, -0.9941379571543596f,
+    0.21497044021102407f, 0.4198891015602646f, 0.6051742151937652f,
+    0.7621620551276365f, 0.8835120444460229f, 0.963549992519223f,
+    0.9985334138511238f, 0.9868265225415261f, 0.9289767198167915f,
+    0.8276889981568906f, 0.6876994588534235f, 0.5155538571770216f,
+    0.3193015301359798f, 0.10811901842394192f,
+    // 31: cos, then sin
+    0.9795299412524945f, 0.9189578116202306f, 0.8207634412072763f,
+    0.6889669190756866f, 0.5289640103269624f, 0.3473052528448203f,
+    0.1514277775045767f, -0.05064916883871264f, -0.2506525322587204f,
+    -0.4403941515576344f, -0.6121059825476626f, -0.7587581226927909f,
+    -0.8743466161445821f, -0.9541392564000488f, -0.994869323391895f,
+    0.20129852008866006f, 0.39435585511331855f, 0.5712682150947923f,
+    0.7247927872291199f, 0.8486442574947509f, 0.9377521321470804f,
+    0.9884683243281114f, 0.9987165071710528f, 0.9680771188662043f,
+    0.8978045395707416f, 0.7907757369376989f, 0.6513724827222223f,
+    0.48530196253108104f, 0.29936312297335804f, 0.10116832198743272f,
+};
+
+// Where radix R's values start in kPrimeTrig.
+__host__ __device__ constexpr int trig_offset(int R) {
+  int at = 0;
+  for (int p = 11; p <= kMaxPrime; p += 2) {
+    const bool prime = p % 3 && p % 5 && p % 7;
+    if (prime && p == R) return at;
+    if (prime) at += p - 1;
+  }
+  return -1;
+}
+
+// One butterfly of a Stockham stage of a prime radix R (11 .. 31): reads
+// fin[r mr] times W^(r t), as `radix_step` does, and writes the R-point DFT
+// to fout[r ns] from the pairs a_j = v_j + v_(R-j), b_j = v_j - v_(R-j),
+// j = 1 .. H = (R - 1) / 2: X_0 = v_0 + sum_j a_j; X_m = c_m - i s_m and
+// X_(R-m) = c_m + i s_m, with c_m = v_0 + sum_j cos(2 pi m j / R) a_j and
+// s_m = sum_j sin(2 pi m j / R) b_j.  The pairs form as the inputs arrive
+// and each pair of outputs is stored once summed: 2H complex values live.
+template <int R>
+__device__ __forceinline__ void prime_step(const float2* fin, float2* fout,
+                                           const float2* sW, int mr, int ns,
+                                           int t, int half) {
+  constexpr int H = (R - 1) / 2, kC = trig_offset(R), kS = kC + H;
+  static_assert(kC >= 0 && R <= kMaxPrime, "a direct prime radix");
+  const float2 x0 = fin[0];
+  float2 a[H], b[H];
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    const float2 u = cmul(fin[j * mr], twiddle_at(sW, j * t, half));
+    const float2 w = cmul(fin[(R - j) * mr], twiddle_at(sW, (R - j) * t, half));
+    a[j - 1] = make_float2(u.x + w.x, u.y + w.y);
+    b[j - 1] = make_float2(u.x - w.x, u.y - w.y);
+  }
+  float2 sum = x0;
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+    sum = make_float2(sum.x + a[j].x, sum.y + a[j].y);
+  fout[0] = sum;
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    float2 c = x0, d = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      // cos is even and sin odd in e = m j mod R about R / 2.
+      const int e = (m * j) % R;
+      const float cv = kPrimeTrig[kC + (e <= H ? e : R - e) - 1];
+      const float sv = e <= H ? kPrimeTrig[kS + e - 1]
+                              : -kPrimeTrig[kS + R - e - 1];
+      c = make_float2(c.x + cv * a[j - 1].x, c.y + cv * a[j - 1].y);
+      d = make_float2(d.x + sv * b[j - 1].x, d.y + sv * b[j - 1].y);
+    }
+    fout[m * ns] = make_float2(c.x + d.y, c.y - d.x);        // c - i s
+    fout[(R - m) * ns] = make_float2(c.x - d.y, c.y + d.x);  // c + i s
+  }
+}
+
 // One butterfly of a Stockham stage of radix R: reads fin[r mr]
 // (mr = len/R), multiplies by W^{r t} (W = exp(-pi i / half), r t <
 // 2 half), takes the R-point DFT and writes fout[r ns].
@@ -366,8 +504,29 @@ __device__ __forceinline__ void stage(const float2* in, float2* out,
   for (int i = tid; i < seq * mr; i += NT) {
     const int f = st.mr.div(i), j = i - f * mr;
     const int q = st.by_ns.div(j), k = j - q * ns;
-    radix_step<R>(in + f * len + j, out + f * len + q * ns * R + k, sW, mr,
-                  ns, k * st.tw, half);
+    if constexpr (R > 8)
+      prime_step<R>(in + f * len + j, out + f * len + q * ns * R + k, sW, mr,
+                    ns, k * st.tw, half);
+    else
+      radix_step<R>(in + f * len + j, out + f * len + q * ns * R + k, sW,
+                    mr, ns, k * st.tw, half);
+  }
+}
+
+// A stage of a direct prime radix (kPrime's plans).
+template <int NT>
+__device__ __forceinline__ void prime_stage(const float2* in, float2* out,
+                                            const float2* sW, int len,
+                                            int half, const Stage st,
+                                            int seq, int tid) {
+  switch (st.radix) {
+    case 11: stage<11, NT>(in, out, sW, len, half, st, seq, tid); break;
+    case 13: stage<13, NT>(in, out, sW, len, half, st, seq, tid); break;
+    case 17: stage<17, NT>(in, out, sW, len, half, st, seq, tid); break;
+    case 19: stage<19, NT>(in, out, sW, len, half, st, seq, tid); break;
+    case 23: stage<23, NT>(in, out, sW, len, half, st, seq, tid); break;
+    case 29: stage<29, NT>(in, out, sW, len, half, st, seq, tid); break;
+    default: stage<31, NT>(in, out, sW, len, half, st, seq, tid); break;
   }
 }
 
@@ -397,8 +556,11 @@ __device__ __forceinline__ void fft(float2*& in, float2*& out,
                                     const float2* sW, const Stage* sStage,
                                     int n_stages, int len, int log2len,
                                     int log2q, int half, int seq, int tid) {
+  // Bluestein's P is 7-smooth, at times a power of two: then its stages
+  // are kPow2's (a branch uniform over the launch).
+  const bool shifts = KIND == kPow2 || (KIND == kBluestein && log2len >= 0);
   for (int s = 0, log2ns = 0; s < n_stages; ++s) {
-    if (KIND != kMixed) {
+    if (shifts) {
       const int first = log2ns == 0 ? log2len % 3 : 0;
       if (first == 1) {
         stage_pow2<2, NT>(in, out, sW, log2len, log2q, half, log2ns, seq,
@@ -425,8 +587,12 @@ __device__ __forceinline__ void fft(float2*& in, float2*& out,
         stage<3, NT>(in, out, sW, len, half, st, seq, tid);
       else if (st.radix == 5)
         stage<5, NT>(in, out, sW, len, half, st, seq, tid);
-      else
+      else if (KIND == kMixed || st.radix == 7)
         stage<7, NT>(in, out, sW, len, half, st, seq, tid);
+      else if (KIND != kPrime || st.radix == 8)
+        stage<8, NT>(in, out, sW, len, half, st, seq, tid);
+      else
+        prime_stage<NT>(in, out, sW, len, half, st, seq, tid);
     }
     __syncthreads();
     float2* tmp = in;
@@ -473,6 +639,29 @@ __device__ __forceinline__ float2 bin_mags(const float2* zf, int k, int L,
                      0.5f * sqrtf(qr * qr + qi * qi));
 }
 
+// The magnitudes of bin k under Rader, as `bin_mags` reads them: X[j] =
+// z[0] + conj(V[p(j)]) from the second FFT's output zf (bins[j] = p(j)),
+// and X[0] = z[0] + A[0].
+template <bool ODD>
+__device__ __forceinline__ float2 rader_mags(const float2* zf, int k, int L,
+                                             const float2* sSplit,
+                                             const int* __restrict__ bins,
+                                             float2 z0, float2 x0) {
+  const auto X = [=](int j) {
+    if (j == 0) return x0;
+    const float2 v = zf[__ldg(bins + j)];
+    return make_float2(z0.x + v.x, z0.y - v.y);
+  };
+  if (!ODD)
+    return make_float2(
+        split_mag(X(k == L ? 0 : k), X(k == 0 ? 0 : L - k), sSplit[k]), 0.f);
+  const float2 a = X(k), c = X(k == 0 ? 0 : L - k);
+  const float pr = a.x + c.x, pi = a.y - c.y;  // X[k] + X*[L-k]
+  const float qr = a.x - c.x, qi = a.y + c.y;  // X[k] - X*[L-k]
+  return make_float2(0.5f * sqrtf(pr * pr + pi * pi),
+                     0.5f * sqrtf(qr * qr + qi * qi));
+}
+
 // Floats of each of the two work regions of (A): the staged span (up to
 // n_fft 4096), the FFT's ping-pong buffer (seq sequences of len complex)
 // and the (bin, frame) stage all fit; rounded up to 4 floats so the next
@@ -487,30 +676,46 @@ inline int region_floats(int n_fft, int hop, int tf, int seq, int len) {
   return r > kMaxSmem ? kMaxSmem : static_cast<int>(r);
 }
 
-// ODD: n_fft is odd (two frames a sequence).  KIND: kPow2, kMixed or
-// kBluestein (which transforms len = P points by shifts, as kPow2 does).
-// WIDE: n_fft above 4096 (512 threads, nothing staged).
+// ODD: n_fft is odd (two frames a sequence).  KIND: kPow2 (stages by
+// shifts), kMixed, kPrime, kRader or kBluestein (stages by FastDiv, by
+// shifts at a power-of-two P; kPrime and kRader up to n_fft 4096).  WIDE:
+// n_fft above 4096 (512 threads, nothing staged).  perm: Rader's gather
+// g^q (M ints), then p(k) for the L bins.
+// Three blocks an SM for the even prime instance: at its own choice ptxas
+// takes 128 registers for radix 29 and 31 (two blocks), and the 80 that
+// three allow hold them without a spill (at four, 64, they spill; the odd
+// instance spills at 80, so it keeps its 128).  0: no minimum, ptxas's own
+// choice (40 and 48 registers for the kPow2 and kMixed instances, the same
+// as with no second bound).
+__host__ __device__ constexpr int min_blocks(int kind, bool odd) {
+  return kind == kPrime && !odd ? 3 : 0;
+}
+
 template <int KIND, bool ODD, bool WIDE>
-__global__ void __launch_bounds__(WIDE ? kWideThreads : kThreads)
+__global__ void __launch_bounds__(WIDE ? kWideThreads : kThreads,
+                                  min_blocks(KIND, ODD))
     stft_fft_kernel(const float* __restrict__ audio,
                     const float* __restrict__ window,
                     const float2* __restrict__ twiddle,
                     const float2* __restrict__ split,
                     const float2* __restrict__ chirp,
                     const float2* __restrict__ chirp_fft,
-                    float* __restrict__ mag, const Geometry g) {
+                    float* __restrict__ mag, const Geometry g,
+                    const int* __restrict__ perm) {
   constexpr int NT = WIDE ? kWideThreads : kThreads;
   constexpr bool kBlue = KIND == kBluestein;
-  constexpr bool kShifts = KIND != kMixed;
-  constexpr bool kOwnSplit = kBlue && !ODD;  // else the split is sW
+  constexpr bool kRad = KIND == kRader;
+  constexpr bool kShifts = KIND == kPow2;
+  constexpr bool kOwnSplit = (kBlue || kRad) && !ODD;  // else the split is sW
   extern __shared__ float4 smem4[];
   const int n_fft = g.n_fft, hop = g.hop, tf = g.tf, F = g.F;
   float* regA = reinterpret_cast<float*>(smem4);
   float* regB = regA + g.region;
   float2* sW = reinterpret_cast<float2*>(regB + g.region);  // half + 1
   float2* sSplit = kOwnSplit ? sW + g.half + 1 : sW;        // F (even)
-  float* sWin = reinterpret_cast<float*>(kOwnSplit ? sSplit + F
-                                                   : sW + g.half + 1);
+  // Rader: z[0] of each sequence, then X[0] (2 seq values).
+  float2* sDc = kOwnSplit ? sSplit + F : sW + g.half + 1;
+  float* sWin = reinterpret_cast<float*>(kRad ? sDc + 2 * g.seq : sDc);
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / g.tiles;
@@ -554,7 +759,7 @@ __global__ void __launch_bounds__(WIDE ? kWideThreads : kThreads)
   // The plan's stages into shared memory, each by its own thread (static
   // indices keep the kernel parameter out of local memory).
   __shared__ Stage sStage[kMaxStages];
-  if (KIND == kMixed) {
+  if (KIND != kPow2) {
 #pragma unroll
     for (int s = 0; s < kMaxStages; ++s)
       if (tid == s) sStage[s] = g.stage[s];
@@ -566,11 +771,35 @@ __global__ void __launch_bounds__(WIDE ? kWideThreads : kThreads)
   __syncthreads();
 
   // Window and pack into region A: seq sequences of len points (under
-  // Bluestein times the chirp c*[n], zero from L to P).
+  // Bluestein times the chirp c*[n], zero from L to P; under Rader the
+  // gather z[g^q], and z[0] of each sequence apart).
   {
     float2* z = reinterpret_cast<float2*>(regA);
     const int L = g.L, len = g.len;
-    if (WIDE) {
+    if (kRad) {
+      const bool pairs = !ODD && (hop & 1) == 0;  // as below
+      const auto packed = [=](int s, int n) {
+        float2 v = make_float2(0.f, 0.f);
+        if (!ODD) {
+          const float* x = sSpan + s * hop + 2 * n;
+          const float2 w = reinterpret_cast<const float2*>(sWin)[n];
+          const float2 xv = pairs ? *reinterpret_cast<const float2*>(x)
+                                  : make_float2(x[0], x[1]);
+          v = make_float2(xv.x * w.x, xv.y * w.y);
+        } else {
+          const float w = sWin[n];
+          const int f = 2 * s;
+          v.x = sSpan[f * hop + n] * w;
+          if (f + 1 < tf) v.y = sSpan[(f + 1) * hop + n] * w;
+        }
+        return v;
+      };
+      for (int i = tid; i < g.seq * len; i += NT) {
+        const int s = g.by_len.div(i);
+        z[i] = packed(s, __ldg(perm + (i - s * len)));
+      }
+      for (int s = tid; s < g.seq; s += NT) sDc[s] = packed(s, 0);
+    } else if (WIDE) {
       // Each sample and window value read once from global memory, zero
       // past N.
       const int N = g.N;
@@ -628,16 +857,25 @@ __global__ void __launch_bounds__(WIDE ? kWideThreads : kThreads)
 
   float2* in = reinterpret_cast<float2*>(regA);
   float2* out = reinterpret_cast<float2*>(regB);
-  fft<KIND, NT>(in, out, sW, sStage, g.n_stages, g.len, g.log2len, g.log2q,
-                g.half, g.seq, tid);
-  if (kBlue) {
-    // conj(V * chirp_fft): the second FFT then gives the conjugated
-    // inverse transform.
-    for (int i = tid; i < g.seq * g.len; i += NT)
-      in[i] = conjugate(cmul(in[i], __ldg(chirp_fft + (i & (g.len - 1)))));
-    __syncthreads();
+  // The FFT; under Bluestein and Rader twice, around the product with the
+  // host's table.  A loop, not two calls: one copy of the stages' code
+  // (on an H100 build Rader's instances take 40 and 44 registers, not 56
+  // and 48, Bluestein's 40, not 44; 1-2% less time).
+#pragma unroll 1
+  for (int pass = 0;; ++pass) {
     fft<KIND, NT>(in, out, sW, sStage, g.n_stages, g.len, g.log2len,
                   g.log2q, g.half, g.seq, tid);
+    if (!(kBlue || kRad) || pass == 1) break;
+    // conj(V * chirp_fft): the second FFT then gives the conjugated
+    // inverse transform.  Rader keeps X[0] = z[0] + A[0] first.
+    for (int i = tid; i < g.seq * g.len; i += NT) {
+      const int s = g.by_len.div(i), q = i - s * g.len;
+      const float2 a = in[i];
+      if (kRad && q == 0)
+        sDc[g.seq + s] = make_float2(sDc[s].x + a.x, sDc[s].y + a.y);
+      in[i] = conjugate(cmul(a, __ldg(chirp_fft + q)));
+    }
+    __syncthreads();
   }
 
   // The F bins of each frame and their magnitudes; k runs fastest, so the
@@ -655,7 +893,11 @@ __global__ void __launch_bounds__(WIDE ? kWideThreads : kThreads)
   };
   for (int i = tid; i < g.seq * F; i += NT) {
     const int s = g.by_f.div(i), k = i - s * F;
-    put(s, k, bin_mags<kBlue, ODD>(Z + s * g.len, k, g.L, sSplit, chirp));
+    if (kRad)
+      put(s, k, rader_mags<ODD>(Z + s * g.len, k, g.L, sSplit, perm + g.len,
+                                sDc[s], sDc[g.seq + s]));
+    else
+      put(s, k, bin_mags<kBlue, ODD>(Z + s * g.len, k, g.L, sSplit, chirp));
   }
   __syncthreads();
 
@@ -946,28 +1188,39 @@ bool exact(unsigned d, long long top) {
   return top * (long long)(m * d - (1ull << 31)) < (1ll << 31);
 }
 
+bool is_prime(int n) {
+  if (n < 2) return false;
+  for (int d = 2; d * d <= n; ++d)
+    if (n % d == 0) return false;
+  return true;
+}
+
 // The stages of an FFT of `len` points (table of order 2 half) over `seq`
 // sequences from the host's radices: false unless they multiply to len in
-// the order the kernels run them (a power of two: one 2 or one 4 for
-// log2(len) mod 3, then 8s; otherwise radices 2, 3, 4, 5 and 7) and every
-// division of a mixed-radix stage is exact.
+// the order the kernels run them (kPow2 and kBluestein at a power of two:
+// one 2 or one 4 for log2(len) mod 3, then 8s; kMixed: radices 2, 3, 4, 5
+// and 7; kRader and kBluestein: also 8; kPrime: also the primes 11 to 31)
+// and every division of a FastDiv stage is exact.
 bool plan_stages(Stage* out, int len, int half, const int* radices,
-                 int n_stages, int seq) {
+                 int n_stages, int seq, int kind) {
   if (n_stages < 0 || n_stages > kMaxStages) return false;
   const int log2len = log2_exact(len);
+  if ((kind == kPow2 && log2len < 0) || (kind == kMixed && log2len >= 0))
+    return false;
+  const bool shifts = kind == kPow2 || (kind == kBluestein && log2len >= 0);
   int ns = 1;
   for (int s = 0; s < n_stages; ++s) {
     const int r = radices[s];
     const int first = log2len % 3;
-    const bool pow2_ok =
-        r == (s > 0 || first == 0 ? 8 : first == 1 ? 2 : 4);
-    const bool mixed_ok = r >= 2 && r <= 7 && r != 6;
-    if (len % (ns * r) != 0 || !(log2len < 0 ? mixed_ok : pow2_ok))
-      return false;
+    const bool ok =
+        shifts  ? r == (s > 0 || first == 0 ? 8 : first == 1 ? 2 : 4)
+        : r > 8 ? kind == kPrime && r <= kMaxPrime && is_prime(r)
+                : r >= 2 && r != 6 && (r != 8 || kind != kMixed);
+    if (len % (ns * r) != 0 || !ok) return false;
     out[s] = {r, ns, 2 * half / (r * ns), FastDiv::of(len / r),
               FastDiv::of(ns)};
-    if (log2len < 0 && (!exact(len / r, (long long)seq * len / r) ||
-                        !exact(ns, len / r)))
+    if (kind != kPow2 && (!exact(len / r, (long long)seq * len / r) ||
+                          !exact(ns, len / r)))
       return false;
     ns *= r;
   }
@@ -978,31 +1231,35 @@ bool plan_stages(Stage* out, int len, int half, const int* radices,
 
 // (A): launch over B signals of N samples.  window is n_fft floats;
 // twiddle half + 1 complex (float2) values exp(-pi i j / half), half = L
-// (the planned transform of L points) or P/2 (Bluestein); split (even
-// n_fft under Bluestein) n_fft/2 + 1 values exp(-2 pi i k / n_fft), else
-// unused; chirp (L values exp(-i pi (n^2 mod 2L) / L)) and chirp_fft (P
-// values: the P-point FFT of the chirp's conjugate over |m| < L, divided by
-// P) under Bluestein, else unused.  `radices` (n_stages of 2, 3, 4, 5, 7,
-// 8) multiply to L, or to `pad` = P (0: no Bluestein); for a power of two
-// 2^e they are one 2 (e mod 3 = 1) or one 4 (e mod 3 = 2), then 8s, and
-// otherwise one 2 when the power of two's exponent is odd, then 4s, 3s,
-// 5s and 7s.  `tf` (frames a block) is a power of two in [1, 32]; `vec`
-// asks for 16-byte copies (n_fft <= 4096) and needs hop % 4 == 0,
-// N % 4 == 0 and a 16-byte aligned audio pointer.  Returns a cudaError_t
-// (0 on success); cudaErrorInvalidValue where the block would not fit.
+// (kPow2, kMixed, kPrime), len / 2 for an even FFT length len under kRader
+// (len = L - 1) and kBluestein (len = pad = P), else len; split (even n_fft
+// under kRader and kBluestein) n_fft/2 + 1 values exp(-2 pi i k / n_fft),
+// else unused; under kBluestein chirp (L values exp(-i pi (n^2 mod 2L) /
+// L)) and chirp_fft (P values: the P-point FFT of the chirp's conjugate over
+// |m| < L, divided by P); under kRader chirp_fft (L - 1 values: the FFT of
+// b[m] = W_L^(g^-m), divided by L - 1) and perm (2L - 1 ints: g^q mod L for
+// q < L - 1, then for each k < L the p with g^-p = k); else unused.
+// `radices` (n_stages) multiply to the FFT's length in the order
+// `plan_stages` takes; `kind` is the transform (kPrime and kRader up to
+// n_fft 4096), `pad` Bluestein's P (a 7-smooth P >= 2L - 1, at most 8192),
+// else 0.  `tf` (frames a block) is a power of two in [1, 32]; `vec` asks
+// for 16-byte copies (n_fft <= 4096) and needs hop % 4 == 0, N % 4 == 0 and
+// a 16-byte aligned audio pointer.  Returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue where the block would not fit.
 extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
                                   const void* twiddle, const void* split,
                                   const void* chirp, const void* chirp_fft,
-                                  void* mag, int B, int N, int T, int n_fft,
-                                  int hop, int tf, int vec,
-                                  const int* radices, int n_stages, int pad,
-                                  int device, void* stream) {
+                                  const void* perm, void* mag, int B, int N,
+                                  int T, int n_fft, int hop, int tf, int vec,
+                                  const int* radices, int n_stages, int kind,
+                                  int pad, int device, void* stream) {
   if (n_fft < 2 || hop < 1 || B < 1 || N < 1 || T < 1 || tf < 1 ||
-      tf > 32 || log2_exact(tf) < 0 ||
+      tf > 32 || log2_exact(tf) < 0 || kind < kPow2 || kind > kRader ||
       (vec && (n_fft > kStagedMax || hop % 4 != 0 || N % 4 != 0 ||
                reinterpret_cast<uintptr_t>(audio) % 16 != 0)))
     return cudaErrorInvalidValue;
   const bool odd = n_fft & 1, wide = n_fft > kStagedMax;
+  const bool blue = kind == kBluestein, rader = kind == kRader;
   Geometry g = {};
   g.N = N;
   g.T = T;
@@ -1012,19 +1269,21 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
   g.log2tf = log2_exact(tf);
   g.vec = vec;
   g.L = odd ? n_fft : n_fft / 2;
-  g.len = pad ? pad : g.L;
+  g.len = blue ? pad : rader ? g.L - 1 : g.L;
   g.log2len = log2_exact(g.len);
-  g.half = pad ? pad / 2 : g.L;
+  g.half = !blue && !rader ? g.L : g.len % 2 == 0 ? g.len / 2 : g.len;
   g.log2q = log2_exact(2 * g.half);
   g.seq = odd ? (tf + 1) / 2 : tf;
   g.F = n_fft / 2 + 1;
   g.n_stages = n_stages;
-  const int kind = pad ? kBluestein : g.log2len >= 0 ? kPow2 : kMixed;
-  if (pad && (g.log2len < 0 || pad < 2 * g.L - 1 || pad > kMaxPad ||
-              chirp == nullptr || chirp_fft == nullptr ||
-              (!odd && split == nullptr) || (odd && wide)))
+  if ((blue != (pad != 0)) || ((kind == kPrime || rader) && wide) ||
+      (blue && (pad < 2 * g.L - 1 || pad > kMaxPad || chirp == nullptr ||
+                chirp_fft == nullptr || (odd && wide))) ||
+      (rader && (g.L < 3 || !is_prime(g.L) || chirp_fft == nullptr ||
+                 perm == nullptr)) ||
+      ((blue || rader) && !odd && split == nullptr))
     return cudaErrorInvalidValue;
-  if (!plan_stages(g.stage, g.len, g.half, radices, n_stages, g.seq))
+  if (!plan_stages(g.stage, g.len, g.half, radices, n_stages, g.seq, kind))
     return cudaErrorInvalidValue;
   g.by_len = FastDiv::of(g.len);
   g.by_f = FastDiv::of(g.F);
@@ -1035,24 +1294,37 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
   const long long tiles = (T + tf - 1) / tf;
   if (tiles * B > 0x7fffffffLL) return cudaErrorInvalidValue;
   g.tiles = static_cast<int>(tiles);
+  const size_t own_split = (blue || rader) && !odd ? g.F : 0;
   const size_t smem =
       sizeof(float) * (2 * (size_t)g.region + (wide ? 0 : n_fft)) +
-      sizeof(float2) * ((size_t)g.half + 1 + (pad && !odd ? g.F : 0));
+      sizeof(float2) * (g.half + 1 + own_split + (rader ? 2 * g.seq : 0));
   if (smem + sizeof(Stage) * kMaxStages > kMaxSmem)
     return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto kernel =
-      wide ? (kind == kPow2    ? stft_fft_kernel<kPow2, false, true>
-              : kind == kMixed ? (odd ? stft_fft_kernel<kMixed, true, true>
-                                      : stft_fft_kernel<kMixed, false, true>)
-                               : stft_fft_kernel<kBluestein, false, true>)
-      : kind == kPow2  ? stft_fft_kernel<kPow2, false, false>
-      : kind == kMixed ? (odd ? stft_fft_kernel<kMixed, true, false>
-                              : stft_fft_kernel<kMixed, false, false>)
-                       : (odd ? stft_fft_kernel<kBluestein, true, false>
-                              : stft_fft_kernel<kBluestein, false, false>);
+  using Kernel = void (*)(const float*, const float*, const float2*,
+                          const float2*, const float2*, const float2*, float*,
+                          const Geometry, const int*);
+  // The 13 instances: above n_fft 4096 (WIDE) no kPrime, kRader or odd
+  // kBluestein; kPow2 has no odd n_fft.
+  const Kernel narrow[5][2] = {
+      {stft_fft_kernel<kPow2, false, false>, nullptr},
+      {stft_fft_kernel<kMixed, false, false>,
+       stft_fft_kernel<kMixed, true, false>},
+      {stft_fft_kernel<kBluestein, false, false>,
+       stft_fft_kernel<kBluestein, true, false>},
+      {stft_fft_kernel<kPrime, false, false>,
+       stft_fft_kernel<kPrime, true, false>},
+      {stft_fft_kernel<kRader, false, false>,
+       stft_fft_kernel<kRader, true, false>}};
+  const Kernel broad[3][2] = {
+      {stft_fft_kernel<kPow2, false, true>, nullptr},
+      {stft_fft_kernel<kMixed, false, true>,
+       stft_fft_kernel<kMixed, true, true>},
+      {stft_fft_kernel<kBluestein, false, true>, nullptr}};
+  const Kernel kernel = wide ? broad[kind][odd] : narrow[kind][odd];
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1064,7 +1336,8 @@ extern "C" int avsep_stft_fft_fwd(const void* audio, const void* window,
       static_cast<const float*>(audio), static_cast<const float*>(window),
       static_cast<const float2*>(twiddle), static_cast<const float2*>(split),
       static_cast<const float2*>(chirp),
-      static_cast<const float2*>(chirp_fft), static_cast<float*>(mag), g);
+      static_cast<const float2*>(chirp_fft), static_cast<float*>(mag), g,
+      static_cast<const int*>(perm));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1152,7 +1425,7 @@ extern "C" int avsep_stft_4step_fwd(
       f.region = seq * (pass == kRowsLast ? n2 : n1);
     }
     if (!plan_stages(f.stage, f.len, f.len, on_columns ? radices1 : radices2,
-                     f.n_stages, seq) ||
+                     f.n_stages, seq, f.pow2 ? kPow2 : kMixed) ||
         (long long)f.groups * seqs > 0x7fffffffLL ||
         (2 * (size_t)f.region + f.len + 1) * sizeof(float2) +
                 sizeof(Stage) * kMaxStages > kMaxSmem)

@@ -178,7 +178,10 @@ class PrefetchIterator:
     step K sees the batches an uninterrupted run sees from step K on.
 
     A worker's exception is raised by `__next__`.  `close()` stops and
-    joins the workers; the iterator is also a context manager.
+    joins the workers (each checks for it between samples, so the join
+    waits for one sample, not a batch); after it `__next__` raises
+    StopIteration, even where a worker had finished a later batch.  The
+    iterator is also a context manager.
     """
 
     def __init__(self, dataset: FileAVDataset, batch_size: int,
@@ -228,7 +231,11 @@ class PrefetchIterator:
         while not self._stop.is_set():
             ticket, idx = self._take()
             try:
-                samples = [self.ds[int(i)] for i in idx]
+                samples = []
+                for i in idx:
+                    if self._stop.is_set():
+                        return
+                    samples.append(self.ds[int(i)])
                 item = {k: np.stack([s[k] for s in samples])
                         for k in samples[0]}
             except Exception as e:  # noqa: BLE001 — raised by __next__
@@ -247,6 +254,8 @@ class PrefetchIterator:
         # The stash holds at most num_threads + queue_depth batches: the
         # consumer drains the queue while it waits for the next ticket, so
         # the worker that holds that ticket never waits on a full queue.
+        if self._stop.is_set():
+            raise StopIteration
         while self._next_ticket not in self._stash:
             if self._stop.is_set():
                 raise StopIteration

@@ -11,7 +11,7 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            each kernel instance's registers and spills (for example
            flash_bwd_dkv_kernel_pair, flash_bwd_dkv_kernel<128,1>,
            flash_fwd_kernel_wgmma<128,2>) and the instances that spill;
-           fails if an STFT instance (nine one-block, four four-step
+           fails if an STFT instance (13 one-block, four four-step
            passes), a bf16 `wgmma` flash or projection instance, a
            float32 flash instance at dh 256 (the three `_pair` kernels)
            or a flash instance above dh 256 spills or is missing.
@@ -65,7 +65,8 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            it, timed only.  Each projection row has a row of its weight
            split (three bf16 parts a weight, bit for bit against the
            plain split).  The STFT magnitude's FFT at every kind of
-           length (radix 2-8, Bluestein, odd n_fft, odd hops) on the
+           length (radix 2-8, prime radices 11-31, Rader, Bluestein
+           over a 7-smooth P, odd n_fft, odd hops) on the
            scaled, 44.1 kHz and demo device batches, an odd shape and
            70,000 signals (more than 65,535); above n_fft 4096 at one
            frame a block (8192 / 1024 and 16384 / 4096 scaled, 4410 / 441
@@ -143,7 +144,7 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
   device_data  batches generated on the card (data/device_synthetic.py
            generate_batch, batch 8) at the scaled config and two
            DataConfigs derived from it (44.1 kHz: n_fft 882, hop 441;
-           n_fft 514, Bluestein): exactly one STFT launch per batch on the
+           n_fft 514, Rader): exactly one STFT launch per batch on the
            FFT route, shapes, finite values, lips in [0, 1]; the same
            variates through `synthesize` on the CPU (spectra atol 1e-3 +
            rtol 1e-5, lips 1e-5); ms per generated batch (CUDA events),
@@ -502,8 +503,9 @@ def phase_env(state):
 
 def phase_build(state):
     """Builds every kernel; fails if an instance of the STFT's FFT kernels
-    spills or is missing (nine of the one-block kernel: power of two, mixed
-    radix and Bluestein, even and odd n_fft, up to and above n_fft 4096;
+    spills or is missing (13 of the one-block kernel: power of two, mixed
+    radix and Bluestein, even and odd n_fft, up to and above n_fft 4096,
+    and the prime-radix and Rader transforms, even and odd, up to 4096;
     the four passes of the four-step kernel), if an instance of the flash
     pair's `wgmma` kernels, of its float32 pair kernels at dh 256 or of its
     cluster kernels above dh 256 spills, or one of the three pair or
@@ -523,7 +525,7 @@ def phase_build(state):
     spills = {k: [int(n) for ln in v
                   for n in re.findall(r"(\d+) bytes spill", ln)]
               for k, v in fft.items()}
-    if logs.get("stft_fft") and (len(fft) != 13 or any(
+    if logs.get("stft_fft") and (len(fft) != 17 or any(
             sum(n) for n in spills.values())):
         raise AssertionError(f"stft_fft_kernel / stft_4step_kernel "
                              f"instances {fft}")
@@ -1061,11 +1063,11 @@ def _decoder_rows(record, gen, shapes=HEAD_SHAPES):
 
 # The DataConfigs the device_data phase generates on the card, derived
 # from `scaled`: a 44.1 kHz front end (20 ms window, 10 ms hop: n_fft 882,
-# an odd hop 441) and n_fft 514 (L 257, a prime: Bluestein).
+# an odd hop 441) and n_fft 514 (L 257, a prime: Rader over 256).
 DATA_VARIANTS = {"scaled": {},
                  "44.1 kHz": dict(sample_rate=44100, n_fft=882,
                                   hop_length=441),
-                 "n_fft 514 (Bluestein)": dict(n_fft=514)}
+                 "n_fft 514 (Rader)": dict(n_fft=514)}
 
 
 def _data_config(variant):
@@ -1079,14 +1081,18 @@ def _data_config(variant):
 def _stft_rows(record, gen):
     """The STFT magnitude against its plain version.  Device batches of
     generated tones (B 8: [mixed; 2 clean] = 24 signals): scaled (n_fft
-    512, and the mixed radix 400 / 160, radix 7 448 / 112, Bluestein
-    514 / 128, odd n_fft 401 / 160), the 44.1 kHz one (882 / 441, L 441 =
-    3^2 7^2 at an odd hop; Bluestein 1102 / 441) and demo's (512; Bluestein
-    62 / 30); noise at an odd shape (3 x 2,001, n_fft 128, hop 64) and
-    beyond grid.y's 65,535 (70,000 x 1,024, 128 / 64).  Above n_fft 4096,
+    512, and the mixed radix 400 / 160, radix 7 448 / 112, Rader 514 / 128
+    (L 257 over 256) and 1154 / 577 (L 577 over 576), odd n_fft under
+    Rader 401 / 160, prime radices 286 / 143 (L 143 = 11 13), Bluestein
+    402 / 100 (L 201, P 405) and odd 1005 / 250 (P 2016), odd n_fft on
+    prime radices 1001 / 250 (7 11 13) and on mixed 441 / 147), the 44.1
+    kHz one (882 / 441, L 441 = 3^2 7^2 at an odd hop; prime radices
+    1102 / 441, L 551 = 19 29) and demo's (512; Rader 62 / 30); noise
+    at an odd shape (3 x 2,001, n_fft 128, hop 64) and beyond grid.y's
+    65,535 (70,000 x 1,024, 128 / 64).  Above n_fft 4096,
     one frame a block: 8192 / 1024 and 16384 / 4096 on the scaled batch, 4410 /
     441 on the 44.1 kHz batch (mixed radix, L 2205) and 66,000 signals of
-    one 4,098-sample frame (Bluestein at P 8192); the four-step FFT:
+    one 4,098-sample frame (Bluestein at P 4116); the four-step FFT:
     8194 / 2048 (Bluestein, P 16384 = 8 x 2048) and 10125 / 2205 (odd
     n_fft, L = 5 x 2025) on the 44.1 kHz batch, 32768 / 8192 on 8 noise
     signals of 441,000 samples (L 16384 = 8 x 2048).  Float32 sums of
@@ -1145,12 +1151,24 @@ def _stft_rows(record, gen):
              ("scaled device batch, radix 7", scaled, 448, 112, 20, "flat"),
              ("44.1 kHz device batch, radix 7, odd hop", k44, 882, 441, 20,
               "peak"),
-             ("scaled device batch, odd n_fft", scaled, 401, 160, 20,
+             ("scaled device batch, odd n_fft, Rader", scaled, 401, 160, 20,
               "peak"),
-             ("scaled device batch, Bluestein", scaled, 514, 128, 20, "peak"),
-             ("44.1 kHz device batch, Bluestein, odd hop", k44, 1102, 441,
+             ("scaled device batch, Rader", scaled, 514, 128, 20, "peak"),
+             ("44.1 kHz device batch, prime radices, odd hop", k44, 1102,
+              441, 20, "peak"),
+             ("demo device batch, Rader over 30", demo, 62, 30, 20, "peak"),
+             ("scaled device batch, prime radices", scaled, 286, 143, 20,
+              "peak"),
+             ("scaled device batch, Rader over 576", scaled, 1154, 577, 20,
+              "peak"),
+             ("scaled device batch, Bluestein", scaled, 402, 100, 20,
+              "peak"),
+             ("scaled device batch, odd n_fft, Bluestein", scaled, 1005, 250,
               20, "peak"),
-             ("demo device batch, Bluestein", demo, 62, 30, 20, "peak"),
+             ("scaled device batch, odd n_fft, prime radices", scaled, 1001,
+              250, 20, "peak"),
+             ("scaled device batch, odd n_fft, mixed radix", scaled, 441, 147,
+              20, "peak"),
              ("70,000 signals", many, 128, 64, 20, "peak"),
              ("scaled device batch, one frame a block", scaled, 8192, 1024,
               10, "peak"),
@@ -1205,7 +1223,7 @@ def _stft_rows(record, gen):
         if route(n_fft) == "fft":
             name, per_call = "stft_mag_fwd", None
             transform = {"regime": "one block a tile of frames",
-                         "length": plan.length,
+                         "kind": plan.kind, "length": plan.length,
                          "radices": list(plan.radices),
                          "bluestein_pad": plan.pad,
                          "frames_a_block": fft_tile_frames(

@@ -9,9 +9,11 @@ kernels in interpret mode:
   - `csrc/stft_fft.cu`: the FFT of every n_fft >= 2 (half-length
     packing of an even n_fft, two frames a sequence for an odd one;
     Stockham stages over the host's plan of radices 2, 3, 4, 5, 7 and 8,
-    or Bluestein's chirp-z transform over a power of two; the kernel's own
-    float32 tables, butterfly constants and index arithmetic: shifts and
-    masks for a power of two, multiply-and-shift divisions otherwise)
+    direct prime radices 11 to 31, Rader's convolution over L - 1 for a
+    prime L, or Bluestein's chirp-z transform over a 7-smooth P; the
+    kernel's own float32 tables, permutations, butterfly constants and
+    index arithmetic: shifts and masks for a power of two,
+    multiply-and-shift divisions otherwise)
     plus the split or separation step into the bins of the real transform;
     one block a tile of frames, or one a frame above 4096 where it fits,
     and beyond the four-step FFT's passes (columns, twiddles, rows, under
@@ -48,19 +50,23 @@ from jax.experimental.pallas import tpu as pltpu
 from av_separation_torch.ops.kernels.attention import (flash_attn_bwd_torch,
                                                        flash_attn_fwd_torch,
                                                        keep_mask)
-from av_separation_torch.ops.kernels.stft import (FFT_TILES, MAX_PAD,
-                                                  MAX_SMEM_BYTES, MAX_STAGES,
+from av_separation_torch.ops.kernels.stft import (FFT_TILES,
+                                                  MAX_PAD, MAX_SMEM_BYTES,
+                                                  MAX_STAGES, PRIMES,
                                                   SMEM_SHARES, STAGED_MAX,
                                                   STAGE_TABLE_BYTES,
-                                                  _check, fft_plan,
-                                                  fft_sequences,
+                                                  TINY_N_FFT, TINY_TILES,
+                                                  _check, _chirp_tables,
+                                                  fft_plan, fft_sequences,
                                                   fft_smem_bytes, fft_tables,
                                                   fft_tile_frames,
                                                   four_step_plan,
                                                   four_step_sequences,
-                                                  four_step_tables, radices,
+                                                  four_step_tables,
+                                                  primitive_root, radices,
                                                   route,
-                                                  stft_magnitude_fwd_torch)
+                                                  stft_magnitude_fwd_torch,
+                                                  twiddle_half)
 
 CSRC = Path(__file__).resolve().parents[1] / "av_separation_torch" / "csrc"
 
@@ -86,15 +92,15 @@ def fast_div(n, d):
 
 def kernel_divisions(n_fft, tile):
     """Every (divisor, largest numerator) the kernel divides by FastDiv at
-    one n_fft and tile: the sequence index by the FFT length (a planned
-    length that is not a power of two), each mixed-radix stage's butterfly
-    index by len / R and the butterfly by the stride ns, and the split
-    step's index by F.  Powers of two use shifts."""
+    one n_fft and tile: the sequence index by the FFT length (every plan
+    but a power-of-two L), each such stage's butterfly index by len / R
+    and the butterfly by the stride ns, and the split step's index by F.
+    A power-of-two L uses shifts."""
     plan = fft_plan(n_fft)
     seq, f = fft_sequences(n_fft, tile), n_fft // 2 + 1
     out = [(f, seq * f - 1)]
-    n = plan.length
-    if not plan.pad and n & (n - 1):
+    n = plan.size
+    if plan.kind != "pow2":
         out.append((n, seq * n - 1))
         ns = 1
         for r in plan.radices:
@@ -110,12 +116,49 @@ S3 = np.float32(np.sin(2 * np.pi / 3))
 C7 = [np.float32(np.cos(2 * np.pi * j / 7)) for j in (1, 2, 3)]
 S7 = [np.float32(np.sin(2 * np.pi * j / 7)) for j in (1, 2, 3)]
 S8 = np.float32(np.sin(np.pi / 4))
+# The prime radices' cos and sin of 2 pi k / p, k = 1 .. (p - 1) / 2,
+# float64 rounded to float32 (`kPrimeTrig`).
+PRIME_COS = {p: [np.float32(np.cos(2 * np.pi * k / p))
+                 for k in range(1, (p + 1) // 2)] for p in PRIMES}
+PRIME_SIN = {p: [np.float32(np.sin(2 * np.pi * k / p))
+                 for k in range(1, (p + 1) // 2)] for p in PRIMES}
+
+
+def prime_butterfly(vr, vi):
+    """stft_fft.cu's `prime_step` after its twiddles: the R-point DFT from
+    the pairs a_j = v_j + v_(R-j), b_j = v_j - v_(R-j), summed in the
+    kernel's order: X_0 = v_0 + a_1 + a_2 ..., X_m = c_m - i s_m,
+    X_(R-m) = c_m + i s_m, c_m = v_0 + sum_j cos(2 pi m j / R) a_j,
+    s_m = sum_j sin(2 pi m j / R) b_j (cos even, sin odd in m j mod R)."""
+    r = len(vr)
+    h = (r - 1) // 2
+    ar = [vr[j] + vr[r - j] for j in range(1, h + 1)]
+    ai = [vi[j] + vi[r - j] for j in range(1, h + 1)]
+    br = [vr[j] - vr[r - j] for j in range(1, h + 1)]
+    bi = [vi[j] - vi[r - j] for j in range(1, h + 1)]
+    sr, si = vr[0], vi[0]
+    for j in range(h):
+        sr, si = sr + ar[j], si + ai[j]
+    outr, outi = [sr] + [None] * (r - 1), [si] + [None] * (r - 1)
+    for m in range(1, h + 1):
+        cr, ci, dr, di = vr[0], vi[0], np.float32(0), np.float32(0)
+        for j in range(1, h + 1):
+            e = m * j % r
+            cv = PRIME_COS[r][(e if e <= h else r - e) - 1]
+            sv = PRIME_SIN[r][e - 1] if e <= h else -PRIME_SIN[r][r - e - 1]
+            cr, ci = cr + cv * ar[j - 1], ci + cv * ai[j - 1]
+            dr, di = dr + sv * br[j - 1], di + sv * bi[j - 1]
+        outr[m], outi[m] = cr + di, ci - dr              # c - i s
+        outr[r - m], outi[r - m] = cr - di, ci + dr      # c + i s
+    return outr, outi
 
 
 def butterfly(vr, vi):
     """The R-point DFT of stft_fft.cu's `butterfly<R>` on lists of R
     real and imaginary float32 arrays, term by term as the kernel sums."""
     f32, r = np.float32, len(vr)
+    if r > 8:
+        return prime_butterfly(vr, vi)
     if r == 2:
         return [vr[0] + vr[1], vr[0] - vr[1]], [vi[0] + vi[1], vi[0] - vi[1]]
     if r == 4:
@@ -185,7 +228,8 @@ def stockham(zr, zi, plan_radices, tw, half):
     """The kernel's Stockham stages over the last axis (length n = the
     product of the radices), float32, with its twiddle indices: shifts and
     masks for a power of two, `fast_div` by the host's per-stage constants
-    otherwise.  `tw` holds W^0 .. W^half of W = exp(-2 pi i / 2 half)."""
+    otherwise (the kernel divides at every length but a power-of-two L: the
+    same indices).  `tw` holds W^0 .. W^half of W = exp(-2 pi i / 2 half)."""
     f32 = np.float32
     n = zr.shape[-1]
     pow2 = n & (n - 1) == 0
@@ -233,15 +277,18 @@ def fft_stft_emulated(audio: np.ndarray, n_fft: int, hop: int,
     float32: window; pack (even n_fft: z[n] = x[2n] + i x[2n+1], sample by
     sample, as the kernel reads at an odd hop; odd n_fft: frames 2s and
     2s + 1 of a tile as the real and imaginary parts, alone at tile 1);
-    the FFT of L points by the plan's Stockham stages or, under Bluestein,
-    z chirp, P-point FFT, times the chirp's transform, conjugate, P-point
-    FFT, conjugate times the chirp; then the real split step (even) or the
+    the FFT of L points by the plan's Stockham stages (prime radices
+    included); under Rader the gather a[q] = z[g^q], the (L - 1)-point FFT,
+    X[0] = z[0] + A[0], times the host's FFT(b) / (L - 1), conjugate, the
+    FFT again, X[k] = z[0] + conj(V[p(k)]); under Bluestein z chirp,
+    P-point FFT, times the chirp's transform, conjugate, P-point FFT,
+    conjugate times the chirp; then the real split step (even) or the
     separation of the two frames (odd); magnitude."""
     f32 = np.float32
     tables = fft_tables(n_fft)
     plan = fft_plan(n_fft)
     length, pad = plan.length, plan.pad
-    half = pad // 2 if pad else length
+    half = twiddle_half(plan)
     odd = n_fft % 2 == 1
     b, n = audio.shape
     frames = -(-num_frames // tile) * tile
@@ -255,7 +302,18 @@ def fft_stft_emulated(audio: np.ndarray, n_fft: int, hop: int,
         zr, zi = x[:, 0::2].copy(), x[:, 1::2].copy()
     else:
         zr, zi = x.copy(), np.zeros_like(x)
-    if pad:
+    if plan.kind == "rader":
+        m = plan.size
+        gather, bins = tables.perm[:m], tables.perm[m:]
+        z0r, z0i = zr[..., :1], zi[..., :1]
+        ar, ai = stockham(zr[..., gather], zi[..., gather], plan.radices,
+                          tables.twiddle, half)
+        x0r, x0i = z0r[..., 0] + ar[..., 0], z0i[..., 0] + ai[..., 0]
+        yr, yi = _cmul(ar, ai, tables.chirp_fft[:, 0], tables.chirp_fft[:, 1])
+        vr, vi = stockham(yr, -yi, plan.radices, tables.twiddle, half)
+        zr, zi = z0r + vr[..., bins], z0i - vi[..., bins]
+        zr[..., 0], zi[..., 0] = x0r, x0i
+    elif pad:
         cr, ci = tables.chirp[:, 0], tables.chirp[:, 1]
         zr, zi = _cmul(zr, zi, cr, ci)
         zr = np.concatenate([zr, np.zeros(zr.shape[:-1] + (pad - length,),
@@ -301,13 +359,19 @@ def plain_tol(peak):
     return 2e-4 * max(1.0, float(peak) / 100.0)
 
 
-# Every kind of length: even n_fft under Bluestein (62: L 31; 514: L 257;
-# 1102: L 551 = 19 29, at an odd hop), planned with radix 7 (448: L 224 =
-# 2^5 7; 882: L 441 = 3^2 7^2, at an odd hop); odd n_fft under Bluestein
-# (401; 4093 with P 8192, the largest block) and planned (441 = 3^2 7^2).
+# Every kind of length: planned with radix 7 (448: L 224 = 2^5 7; 882:
+# L 441 = 3^2 7^2, at an odd hop; odd 441); direct prime radices (286: L
+# 143 = 11 13; 1102: L 551 = 19 29, at an odd hop; 46: L 23; 68: L 34 =
+# 2 17; 1922: L 961 = 31^2); Rader (514: L 257 over 2^8; 1154: L 577 over
+# 2^6 3^2; odd 401 over 2^4 5^2; 22, 26 and 62: L 11, 13 and 31 over 10,
+# 12 and 30); Bluestein over a 7-smooth P (402: L 201 = 3 67, P 405; odd
+# 4093 with P 8192, the largest block; 4098: L 2049, P 4116, one frame a
+# block above 4096).
 KINDS = [(62, 30, 600), (401, 160, 2000), (448, 112, 2000), (514, 128, 2000),
          (882, 441, 4000), (1102, 441, 4000), (4093, 1000, 6000),
-         (441, 147, 3000)]
+         (441, 147, 3000), (22, 11, 300), (26, 13, 300), (286, 143, 2000),
+         (1154, 577, 4000), (402, 100, 2000), (4098, 2049, 8196),
+         (46, 23, 500), (68, 34, 700), (1922, 480, 4000)]
 
 
 class TestFftStft:
@@ -395,12 +459,12 @@ class TestFftStft:
         # would show first) and at the range's end.
         reach = {}
         for n_fft in range(2, STAGED_MAX + 1):
-            for tile in FFT_TILES:
+            for tile in TINY_TILES if n_fft <= TINY_N_FFT else FFT_TILES:
                 if fft_smem_bytes(n_fft, 1, tile) > MAX_SMEM_BYTES:
                     continue
                 for d, top in kernel_divisions(n_fft, tile):
                     reach[d] = max(reach.get(d, 0), top)
-        assert max(reach) == 3969 and max(reach.values()) < 1 << 16
+        assert max(reach) == 8192 and max(reach.values()) < 1 << 16
         for d, top in sorted(reach.items()):
             n = np.append(np.arange(d - 1, top + 1, d), top)
             np.testing.assert_array_equal(fast_div(n, d), n // d,
@@ -419,7 +483,21 @@ class TestFftStft:
         for name, value in consts.items():
             assert np.float32(float(value)) == want[name], name
 
-    @pytest.mark.parametrize("r", [2, 3, 4, 5, 7, 8])
+    def test_prime_radix_constants_are_rounded_from_float64(self):
+        # kPrimeTrig: for p = 11, 13, ..., 31 in turn, cos and then sin of
+        # 2 pi k / p, k = 1 .. (p - 1) / 2.
+        src = (CSRC / "stft_fft.cu").read_text()
+        body = src[src.index("kPrimeTrig[136] = {"):]
+        body = body[body.index("{") + 1:body.index("};")]
+        got = [float(v) for v in re.findall(r"(-?[0-9.]+(?:e-?\d+)?)f", body)]
+        want = [v for p in PRIMES for v in PRIME_COS[p] + PRIME_SIN[p]]
+        assert len(got) == len(want) == 136
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert np.float32(g) == w, i
+        assert PRIMES == (11, 13, 17, 19, 23, 29, 31)
+        assert "constexpr int kMaxPrime = 31;" in src
+
+    @pytest.mark.parametrize("r", [2, 3, 4, 5, 7, 8, *PRIMES])
     def test_butterfly_is_the_r_point_dft(self, r):
         v = rand((2, r, 16), 52 + r)
         got_r, got_i = butterfly(list(v[0]), list(v[1]))
@@ -438,7 +516,7 @@ class TestFftStft:
         assert tw[0, 1] == 0.0 and tw[256, 0] == -1.0
         assert tables.split is tw and tables.chirp.shape == (0, 2)
 
-    @pytest.mark.parametrize("n_fft", [514, 4093])
+    @pytest.mark.parametrize("n_fft", [402, 4093, 4098])
     def test_bluestein_tables_are_rounded_from_float64(self, n_fft):
         # The chirp from the integer phase n^2 mod 2L; the chirp's
         # transform, divided by P, such that the convolution it makes is
@@ -448,7 +526,7 @@ class TestFftStft:
         length, pad = plan.length, plan.pad
         assert tables.chirp.shape == (length, 2)
         assert tables.chirp_fft.shape == (pad, 2)
-        assert tables.twiddle.shape == (pad // 2 + 1, 2)
+        assert tables.twiddle.shape == (twiddle_half(plan) + 1, 2)
         n = np.arange(length)
         want = np.exp(-1j * np.pi * (n.astype(np.float64) ** 2) / length)
         got = tables.chirp[:, 0] + 1j * tables.chirp[:, 1].astype(np.float64)
@@ -463,6 +541,53 @@ class TestFftStft:
         np.testing.assert_allclose(want * y[:length],
                                    np.exp(-2j * np.pi * 5 * n / length),
                                    atol=1e-5)
+
+
+    # Rader: L 401 (odd n_fft; 400 = 2^4 5^2), 257 (2^8), 577 (2^6 3^2).
+    @pytest.mark.parametrize("n_fft", [401, 514, 1154])
+    def test_rader_tables(self, n_fft):
+        # The gather g^q and the bins' p(k) are permutations and inverse to
+        # each other through g^-p = k; the transform of b[m] = W_L^(g^-m)
+        # over L - 1 points is float64 rounded to float32; the split table
+        # is the split step's; the twiddles are of order L - 1.
+        plan, tables = fft_plan(n_fft), fft_tables(n_fft)
+        length, m = plan.length, plan.size
+        assert plan.kind == "rader" and m == length - 1
+        g = primitive_root(length)
+        assert sorted(pow(g, q, length) for q in range(m)) \
+            == list(range(1, length))
+        gather, bins = tables.perm[:m], tables.perm[m:]
+        assert tables.perm.dtype == np.int32 and len(bins) == length
+        np.testing.assert_array_equal(
+            gather, [pow(g, q, length) for q in range(m)])
+        assert sorted(bins[1:]) == list(range(m)) and bins[0] == 0
+        for k in range(1, length):
+            assert pow(g, (-int(bins[k])) % m, length) == k
+        ginv = pow(g, length - 2, length)
+        b = np.exp(-2j * np.pi * np.array(
+            [pow(ginv, q, length) for q in range(m)], np.float64) / length)
+        spec = np.fft.fft(b) / m
+        np.testing.assert_array_equal(tables.chirp_fft[:, 0],
+                                      spec.real.astype(np.float32))
+        np.testing.assert_array_equal(tables.chirp_fft[:, 1],
+                                      spec.imag.astype(np.float32))
+        assert tables.twiddle.shape == (m // 2 + 1, 2)
+        np.testing.assert_array_equal(
+            tables.twiddle[:, 0],
+            np.cos(-2 * np.pi * np.arange(m // 2 + 1) / m)
+            .astype(np.float32))
+        assert tables.chirp.shape == (0, 2)
+        if n_fft % 2 == 0:
+            assert tables.split.shape == (n_fft // 2 + 1, 2)
+        # The convolution the tables make is the DFT, in float64.
+        z = rand((2, length), 81 + n_fft).astype(np.float64)
+        z = z[0] + 1j * z[1]
+        a = np.fft.fft(z[gather])
+        t = tables.chirp_fft.astype(np.float64)
+        v = np.fft.fft(np.conj(a * (t[:, 0] + 1j * t[:, 1])))
+        x = z[0] + np.conj(v[bins])
+        x[0] = z[0] + a[0]
+        np.testing.assert_allclose(x, np.fft.fft(z), atol=1e-4)
 
 
 class TestStftRoute:
@@ -488,14 +613,66 @@ class TestStftRoute:
         assert got.radices == plan and got.pad == 0
         assert np.prod(plan) == got.length
 
+    # Bluestein over the smallest 7-smooth P >= 2L - 1: L 201 = 3 67 (P 405
+    # = 3^4 5), 503 (1008), odd 4093 (8192), 2047 = 23 89 (4096), 2049 =
+    # 3 683 (4116, above 4096), 67 (135).
     @pytest.mark.parametrize("n_fft,length,pad", [
-        (514, 257, 1024), (1102, 551, 2048), (62, 31, 64), (401, 401, 1024),
+        (402, 201, 405), (1006, 503, 1008), (134, 67, 135), (4098, 2049, 4116),
         (4093, 4093, 8192), (4094, 2047, 4096)])
     def test_bluestein_by_n_fft(self, n_fft, length, pad):
         plan = fft_plan(n_fft)
-        assert (plan.length, plan.pad) == (length, pad)
-        assert np.prod(plan.radices) == pad and pad >= 2 * length - 1
+        assert (plan.length, plan.pad, plan.kind) == (length, pad, "bluestein")
+        assert np.prod(plan.radices) == pad == plan.size >= 2 * length - 1
         assert radices(length) is None
+        assert all(radices(p) is None for p in range(2 * length - 1, pad))
+
+    # Rader (a prime L whose L - 1 is 7-smooth, the primes 11 to 31 among
+    # them) and the direct prime radices (L's factors at most 31), up to
+    # n_fft 4096.
+    @pytest.mark.parametrize("n_fft,kind,plan", [
+        (22, "rader", (2, 5)), (26, "rader", (4, 3)), (62, "rader", (2, 3, 5)),
+        (46, "prime", (23,)), (286, "prime", (11, 13)),
+        (1102, "prime", (19, 29)), (176, "prime", (8, 11)),
+        (1922, "prime", (31, 31)), (514, "rader", (4, 8, 8)),
+        (401, "rader", (4, 4, 5, 5)), (1154, "rader", (4, 4, 4, 3, 3)),
+        (74, "rader", (4, 3, 3))])
+    def test_prime_and_rader_by_n_fft(self, n_fft, kind, plan):
+        got = fft_plan(n_fft)
+        assert (got.kind, got.radices, got.pad) == (kind, plan, 0)
+        want = got.length - 1 if kind == "rader" else got.length
+        assert np.prod(plan) == got.size == want
+
+    # Every n_fft in [2, 4096] in one of the four routes: 247 7-smooth L,
+    # 793 prime radices, 137 Rader, 2,918 Bluestein.  Rader first would
+    # give 805 and 125: the 12 n_fft whose L is a prime from 11 to 31 with
+    # a 7-smooth L - 1 (all but 23) take Rader.  Above 4096 no prime or
+    # Rader plan.
+    def test_route_counts(self):
+        counts = {}
+        for n_fft in range(2, 4097):
+            kind = fft_plan(n_fft).kind
+            counts[kind] = counts.get(kind, 0) + 1
+        assert counts["pow2"] + counts["mixed"] == 247
+        assert (counts["prime"], counts["rader"], counts["bluestein"]) == \
+            (793, 137, 2918)
+        moved = [n for n in range(2, 4097) if fft_plan(n).kind == "rader"
+                 and fft_plan(n).length <= 31]
+        assert moved == [11, 13, 17, 19, 22, 26, 29, 31, 34, 38, 58, 62]
+        assert STAGED_MAX == 4096
+
+    # Above 4096: one frame a block for 2,150 n_fft (2 powers of two, 158
+    # 7-smooth L, 1,990 Bluestein at a 7-smooth P up to 8192), the
+    # four-step FFT for the 59,290 others; no prime or Rader plan.
+    def test_route_counts_above_4096(self):
+        counts = {}
+        for n_fft in range(4097, 65537):
+            key = (route(n_fft), fft_plan(n_fft).kind)
+            counts[key] = counts.get(key, 0) + 1
+        assert counts == {("fft", "pow2"): 2, ("fft", "mixed"): 158,
+                          ("fft", "bluestein"): 1990,
+                          ("four_step", "pow2"): 2,
+                          ("four_step", "mixed"): 204,
+                          ("four_step", "bluestein"): 59084}
 
     def test_plans_fit_the_kernel(self):
         plans = [fft_plan(n) for n in range(2, 4097) if route(n) == "fft"]
@@ -503,23 +680,35 @@ class TestStftRoute:
         assert len(plans) == 4095
 
     # Every n_fft in [2, 4096]: the FFT route; a plan that multiplies out
-    # to the transform length (or to Bluestein's P >= 2L - 1); one frame a
-    # block fits shared memory at hop 1, n_fft and 4 n_fft.
+    # to the transform length (L - 1 under Rader, Bluestein's 7-smooth
+    # P >= 2L - 1, at most the power of two the chirp-z transform would take
+    # otherwise); stages within the kernel's cap, prime radices only in
+    # prime plans; one frame a block fits shared memory at hop 1, n_fft and
+    # 4 n_fft.
     @pytest.mark.parametrize("hop_of", ["1", "n_fft", "4 n_fft"])
     def test_every_length_takes_the_fft(self, hop_of):
         for n_fft in range(2, 4097):
             assert route(n_fft) == "fft", n_fft
             plan = fft_plan(n_fft)
             assert plan.length == (n_fft if n_fft % 2 else n_fft // 2)
-            if plan.pad:
+            assert len(plan.radices) <= MAX_STAGES
+            assert all(r in PRIMES for r in plan.radices if r > 8)
+            assert plan.kind == "prime" or max(plan.radices, default=2) <= 8
+            if plan.kind == "bluestein":
                 assert radices(plan.length) is None
-                assert np.prod(plan.radices) == plan.pad >= \
-                    2 * plan.length - 1 > plan.pad // 2
+                pow2 = 1 << (2 * plan.length - 2).bit_length()
+                assert radices(plan.pad) is not None
+                assert np.prod(plan.radices) == plan.pad == plan.size
+                assert 2 * plan.length - 1 <= plan.pad <= pow2
+            elif plan.kind == "rader":
+                assert np.prod(plan.radices) == plan.size == plan.length - 1
             else:
                 assert np.prod(plan.radices) == plan.length, n_fft
             hop = {"1": 1, "n_fft": n_fft, "4 n_fft": 4 * n_fft}[hop_of]
             assert fft_smem_bytes(n_fft, hop, 1) <= MAX_SMEM_BYTES, n_fft
             assert fft_tile_frames(n_fft, hop, 1, 1, 132) in FFT_TILES
+            assert fft_tile_frames(n_fft, hop, 24, 5000, 132) in (
+                TINY_TILES if n_fft <= TINY_N_FFT else FFT_TILES)
 
     @pytest.mark.parametrize("signals,frames,tile", [
         (24, 501, 8),    # scaled device batch: 1,512 blocks
@@ -542,15 +731,39 @@ class TestStftRoute:
 
     # Odd n_fft: a sequence holds two frames, so one frame a block is
     # never chosen where two fit.  Tiles whose blocks let four share an SM
-    # come first (882: 8 frames take 62 KB; 1102: 2 frames 81 KB).
+    # come first (882: 8 frames take 62 KB; 1102 on radices 19, 29: 4
+    # frames 44 KB; 514 under Rader over 256: 8 frames 38 KB).
     @pytest.mark.parametrize("n_fft,hop,signals,frames,tile", [
         (401, 160, 3, 32, 2), (4093, 1000, 1, 4, 2), (4093, 4093, 1, 4, 2),
-        (882, 441, 24, 401, 4), (514, 128, 24, 501, 2),
-        (1102, 441, 24, 401, 1), (401, 160, 24, 401, 4)])
+        (882, 441, 24, 401, 4), (514, 128, 24, 501, 8),
+        (1102, 441, 24, 401, 4), (401, 160, 24, 401, 8)])
     def test_tile_for_odd_and_bluestein(self, n_fft, hop, signals, frames,
                                         tile):
         assert fft_tile_frames(n_fft, hop, signals, frames, 132) == tile
         assert fft_smem_bytes(n_fft, hop, tile) <= MAX_SMEM_BYTES
+
+    # Up to n_fft 64 a block takes up to 32 frames (a block of 8 is mostly
+    # fixed cost); from 66 on at most 8, as before.
+    @pytest.mark.parametrize("n_fft,hop,frames,tile", [
+        (22, 11, 5819, 32), (62, 30, 267, 16), (16, 4, 16001, 32),
+        (13, 6, 10667, 32), (64, 16, 4001, 32), (66, 33, 1940, 8),
+        (128, 64, 1001, 8)])
+    def test_tiny_n_fft_take_larger_tiles(self, n_fft, hop, frames, tile):
+        assert fft_tile_frames(n_fft, hop, 24, frames, 132) == tile
+        assert tile <= 32 and fft_smem_bytes(n_fft, hop, tile) <= \
+            SMEM_SHARES[0]
+
+    # No tile beyond the power of two that holds the frames (a pair for an
+    # odd n_fft): 66,000 one-frame signals at 4098 take one frame a block,
+    # though two fit shared memory at P 4116.
+    @pytest.mark.parametrize("n_fft,hop,signals,frames,tile", [
+        (4098, 4098, 66000, 1, 1), (4098, 4098, 6600, 2, 2),
+        (512, 128, 70000, 1, 1), (512, 128, 70000, 3, 4),
+        (401, 160, 70000, 1, 2), (8192, 1024, 5000, 1, 1)])
+    def test_tile_holds_no_more_than_the_frames(self, n_fft, hop, signals,
+                                                frames, tile):
+        assert fft_tile_frames(n_fft, hop, signals, frames, 132) == tile
+        assert fft_smem_bytes(n_fft, hop, 2) <= MAX_SMEM_BYTES
 
     def test_tile_fits_shared_memory_at_4096(self):
         # No tile lets four blocks share an SM; 2 frames let two (96 KB);
@@ -807,7 +1020,7 @@ class TestLargeNfft:
 
     # One frame a block (the 'fft' regime above 4096: nothing staged, the
     # same arithmetic): a power of two (8192, 16384), the mixed radix (4410:
-    # L 2205 = 3^2 5 7^2) and Bluestein at P 8192 (4098: L 2049), against
+    # L 2205 = 3^2 5 7^2) and Bluestein at P 4116 (4098: L 2049), against
     # the plain version at 2e-4 x max(1, peak / 100).
     @pytest.mark.parametrize("n_fft,hop,n", [(8192, 1024, 12000),
                                              (16384, 4096, 20000),
@@ -901,9 +1114,11 @@ class TestLargeNfft:
         # The chirp's transform in the [k1][k2] layout; the stages' tables
         # of order 2 n1 and 2 n2; the split table of order n_fft.
         plan, tables = four_step_plan(8194), four_step_tables(8194)
-        spec = fft_tables(4098).chirp_fft   # P 8192: the same formula
-        assert spec.shape == (8192, 2)
+        spec = _chirp_tables(4097, 16384)[1]   # the one-block formula
+        assert spec.shape == (16384, 2) and plan.pad == 16384
         cf = tables.chirp_fft.reshape(plan.n1, plan.n2, 2)
+        np.testing.assert_array_equal(
+            cf, spec.reshape(plan.n2, plan.n1, 2).transpose(1, 0, 2))
         k1, k2 = 3, 100
         ref = np.fft.fft(np.r_[
             np.exp(1j * np.pi * (np.arange(4097) ** 2 % 8194) / 4097),
