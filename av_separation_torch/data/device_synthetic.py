@@ -31,6 +31,7 @@ import torch
 from av_separation_torch.config import DataConfig
 from av_separation_torch.models.model import resolve_device
 from av_separation_torch.ops.kernels.stft import stft_magnitude_fwd
+from av_separation_torch.utils.profiling import span
 
 Variates = Dict[str, torch.Tensor]
 
@@ -158,9 +159,11 @@ def generate_batch(generator: torch.Generator, cfg: DataConfig,
     lip_frames (B, S*nf, H, W), clean_specs (B, S, F, T).  `rows` keeps
     those rows of the batch: the whole batch's variates are drawn, and
     only those rows are synthesized (a rank's share under a mesh; row i
-    is the same whatever the slice)."""
-    variates = draw_variates(generator, cfg, batch_size)
-    return synthesize({k: v[rows] for k, v in variates.items()}, cfg)
+    is the same whatever the slice).  Under a profiler the whole of it
+    is the range `avsep.data.generate`."""
+    with span("data.generate"):
+        variates = draw_variates(generator, cfg, batch_size)
+        return synthesize({k: v[rows] for k, v in variates.items()}, cfg)
 
 
 def step_generator(seed: int, step: int,

@@ -11,7 +11,9 @@ optimizer state in place (torch's idiom; the JAX step returns a new state).
 model's device (`data/device_synthetic.py`), with no read back to the host
 in between.  Both run at the config's compute dtype (float32 or bfloat16:
 parameters, gradients and the Adam state stay float32, the loss is taken
-on float32 outputs) and with its remat.
+on float32 outputs) and with its remat.  Under a profiler the step's
+phases are the ranges `avsep.train.forward`, `.loss`, `.backward` and
+`.optimizer` (`utils.profiling.span`).
 
 Given a mesh (`parallel/mesh.py`; every rank runs the same calls), the
 state holds the rank's pieces of the parameters and of Adam's moments
@@ -43,6 +45,7 @@ from av_separation_torch.models.model import (AVSeparationTransformer,
 from av_separation_torch.parallel import comm, shard
 from av_separation_torch.parallel.mesh import split_rows
 from av_separation_torch.utils.metrics import input_snr, permutation_snr
+from av_separation_torch.utils.profiling import span
 
 Batch = Mapping[str, np.ndarray | torch.Tensor]
 
@@ -163,18 +166,23 @@ def make_train_step(cfg: ExperimentConfig, mesh=None
 
     def step_fn(state: TrainState, batch: Batch):
         model = state.model.train()
-        mixed, frames, clean = _to_device(batch, _device_of(model))
-        separated, _ = model(mixed, frames, state.generators)
-        if mesh is not None:
-            separated = comm.gather_time(separated, mesh)
-        loss = separation_loss(separated, clean, l1_weight=loss_cfg.l1_weight,
-                               pit_mode=loss_cfg.pit_mode, eps=loss_cfg.eps,
-                               mesh=mesh)
-        state.optimizer.zero_grad()
-        loss.backward()
-        if mesh is not None:
-            shard.sync_grads(model, mesh)
-        grad_norm = state.optimizer.step()
+        with span("train.forward"):
+            mixed, frames, clean = _to_device(batch, _device_of(model))
+            separated, _ = model(mixed, frames, state.generators)
+            if mesh is not None:
+                separated = comm.gather_time(separated, mesh)
+        with span("train.loss"):
+            loss = separation_loss(separated, clean,
+                                   l1_weight=loss_cfg.l1_weight,
+                                   pit_mode=loss_cfg.pit_mode,
+                                   eps=loss_cfg.eps, mesh=mesh)
+        with span("train.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
+            if mesh is not None:
+                shard.sync_grads(model, mesh)
+        with span("train.optimizer"):
+            grad_norm = state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
 

@@ -2,6 +2,10 @@
 
 - ``trace(logdir)``: a `torch.profiler` window over the block that writes a
   Chrome trace (`trace.json`, viewable in Perfetto) into `logdir`.
+- ``span(name)``: the program's own range `avsep.<name>` around one phase
+  of its work, on the timeline of whatever profiler runs (that trace, the
+  benchmark's, NVTX under `torch.autograd.profiler.emit_nvtx`); with none
+  running, a shared null context that costs next to nothing.
 - ``Timer``: a wall clock that synchronises the CUDA device before it reads
   the clock, so the time covers the work queued before the call.
 - ``step_metrics_line``: one JSON line of metrics per step.
@@ -33,6 +37,19 @@ def trace(logdir: str) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """`record_function("avsep." + name)` while a profiler is enabled, else
+    the one shared null context.  The training step's phases are
+    `data.generate`, `train.forward`, `train.loss`, `train.backward` and
+    `train.optimizer`; they do not nest."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("avsep." + name)
+    return _NO_SPAN
 
 
 def _synchronize() -> None:

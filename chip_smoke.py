@@ -1629,7 +1629,7 @@ def phase_profile(state):
     return {"config": "scaled", "batch": int(audio.shape[0]),
             "card": state["card"], "batch_ms": batch_ms,
             "traced_batch_ms": traced_ms,
-            **device_split(prof, iters, traced_ms, "batch")}
+            **device_split(prof, iters, "batch")}
 
 
 def _long_requests(cfg, rows: int, segments: int):
@@ -1993,9 +1993,9 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, index_add)"
 
 
-def device_split(prof, iters: int, traced_ms: float, unit: str) -> dict:
+def device_split(prof, iters: int, unit: str) -> dict:
     """Device time per `unit` from a torch.profiler trace: summed per kernel
-    name and per group, and its share of the host-clock time."""
+    name and per group (overlapping kernels each count in full)."""
     from torch.autograd import DeviceType
 
     by_name, launches = {}, 0
@@ -2008,8 +2008,7 @@ def device_split(prof, iters: int, traced_ms: float, unit: str) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / iters
             launches += 1
     if not by_name:
-        return {f"device_ms_per_{unit}": "not measured",
-                "device_busy_share": "not measured"}
+        return {f"device_ms_per_{unit}": "not measured"}
     device_ms = sum(by_name.values())
     groups = {}
     for name, ms in by_name.items():
@@ -2020,7 +2019,6 @@ def device_split(prof, iters: int, traced_ms: float, unit: str) -> dict:
                    for e in prof.key_averages()),
                   key=lambda kv: -kv[1])[:8]
     return {f"device_ms_per_{unit}": device_ms,
-            "device_busy_share": device_ms / traced_ms,
             f"kernels_per_{unit}": launches / iters,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": [[name[:90], ms] for name, ms in top],
@@ -2041,7 +2039,7 @@ def _traced(fn, iters: int, unit: str) -> dict:
             fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / iters
-    split = device_split(prof, iters, traced_ms, unit)
+    split = device_split(prof, iters, unit)
     dev, groups = split[f"device_ms_per_{unit}"], split.get("groups_ms", {})
     flash = sum(ms for g, ms in groups.items() if g.startswith("flash_attn"))
     split["flash_ms"] = flash
@@ -2195,7 +2193,7 @@ def phase_train_profile(state):
         traced_ms = (time.perf_counter() - t0) / iters * 1e3
     return {"config": "scaled", "batch": cfg.train.batch_size,
             "card": state["card"], "traced_step_ms": traced_ms,
-            **device_split(prof, iters, traced_ms, "step")}
+            **device_split(prof, iters, "step")}
 
 
 def phase_device_data(state):
@@ -2421,7 +2419,7 @@ def phase_train_device_profile(state):
             "host_data_ms_per_step": turns["host"],
             "device_data_fused_ms_per_step": turns["device"],
             "traced_step_ms": traced_ms,
-            **device_split(prof, 2, traced_ms, "step")}
+            **device_split(prof, 2, "step")}
 
 
 def _rel(a: float, b: float) -> float:
@@ -2665,10 +2663,9 @@ def phase_data_tiers(state):
                 it.close()
             if not trace:
                 return ms
-            split = device_split(prof, steps, ms, "step")
+            split = device_split(prof, steps, "step")
             return {"traced_step_ms": ms,
-                    "device_ms_per_step": split["device_ms_per_step"],
-                    "device_busy_share": split["device_busy_share"]}
+                    "device_ms_per_step": split["device_ms_per_step"]}
 
         order = PIPELINES + PIPELINES[::-1]
         step_ms = {name: [] for name in PIPELINES}
