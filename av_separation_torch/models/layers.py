@@ -350,11 +350,11 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
         h = self.norm1(x)
-        x = x + self.drop1(self.self_attn(h, h, gens), bits(gens))
+        x = self.drop1(self.self_attn(h, h, gens), bits(gens), residual=x)
         h = self.linear1(self.norm2(x))
         h = relu_dropout(h, train_rate(self, self.dropout, gens), bits(gens),
                          tp_part(self.mesh))
-        return x + self.drop2(self.linear2(h), bits(gens))
+        return self.drop2(self.linear2(h), bits(gens), residual=x)
 
 
 class TransformerEncoder(nn.Module):

@@ -203,11 +203,11 @@ class CrossAttentionLayer(nn.Module):
     def forward(self, audio: torch.Tensor, visual: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
         attn = self.cross_attn(self.norm1(audio), visual, gens)
-        audio = audio + self.drop1(attn, bits(gens))
+        audio = self.drop1(attn, bits(gens), residual=audio)
         h = gelu_dropout(self.ff[0](self.norm2(audio)),
                          train_rate(self, self.dropout, gens), bits(gens),
                          tp_part(self.mesh))
-        return audio + self.drop2(self.ff[3](h), bits(gens))
+        return self.drop2(self.ff[3](h), bits(gens), residual=audio)
 
 
 class CrossModalFusion(nn.Module):

@@ -6,8 +6,9 @@ PyTorch version.  `LAUNCHES` counts kernel launches per wrapper and dtype
 (the bfloat16 instances under `name[bf16]`; the projection's weight
 split, its own launch, under `audio_proj_split` and
 `audio_proj_split[bf16]` by the dtype of x; the STFT's four-step FFT once
-a call under `stft_mag_4step_fwd`, whatever its passes and chunks), and
-only those: plain-version calls never touch it.
+a call under `stft_mag_4step_fwd`, whatever its passes and chunks; a
+dropout site's forward and backward under `dropout_fwd` and
+`dropout_bwd`), and only those: plain-version calls never touch it.
 """
 
 from typing import Callable, Sequence
@@ -24,7 +25,8 @@ LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
             "mask_decoder_fwd": 0, "stft_mag_fwd": 0, "stft_mag_4step_fwd": 0,
             "flash_attn_fwd[bf16]": 0, "flash_attn_bwd[bf16]": 0,
             "audio_proj_fwd[bf16]": 0, "audio_proj_split": 0,
-            "audio_proj_split[bf16]": 0}
+            "audio_proj_split[bf16]": 0, "dropout_fwd": 0, "dropout_bwd": 0,
+            "dropout_fwd[bf16]": 0, "dropout_bwd[bf16]": 0}
 
 
 def reset_launch_counts() -> None:

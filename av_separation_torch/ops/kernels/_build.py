@@ -24,7 +24,7 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "flash_fwd_wgmma",
            "flash_bwd_wgmma", "audio_proj", "mask_decoder",
-           "stft_fft")
+           "stft_fft", "dropout_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

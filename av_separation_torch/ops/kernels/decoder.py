@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from av_separation_torch.ops import kernels
-from av_separation_torch.ops.activations import gelu_grad
 from av_separation_torch.ops.kernels import _build
+from av_separation_torch.ops.kernels.dropout_fused import gelu_grad
 
 
 def mask_decoder_fwd_torch(x: torch.Tensor, w1: torch.Tensor,

@@ -14,7 +14,8 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            fails if an STFT instance (13 one-block, four four-step
            passes), a bf16 `wgmma` flash or projection instance, a
            float32 flash instance at dh 256 (the three `_pair` kernels)
-           or a flash instance above dh 256 spills or is missing.
+           or a flash instance above dh 256, or one of the 28 fused
+           dropout instances, spills or is missing.
   kernels  first one m16n8k8 3xTF32 tensor-core product against float64
            (the fragment layouts of the flash kernels).  Then each kernel
            against its plain PyTorch version on the card, at the shapes the
@@ -83,7 +84,16 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            the projection at B 65,536 (T 8, D 64) at both dtypes.  A
            projection launch is counted with its split (audio_proj_split,
            audio_proj_split[bf16]): every run launches as many splits as
-           projections of each dtype.  Every row also checks that the
+           projections of each dtype.  The fused dropout sites (port-only
+           kernels: dropout, dropout_add, relu_dropout, gelu_dropout,
+           forward and backward) at the cells' shapes (scaled B 128 x T
+           501 x 512 / 2048, the decoder's float32 x 1024; multihost B 48
+           x 501 x 1024 / 4096), a TP rank's column block of a full-width
+           draw, NaN at the dropped positions, and float32 at the
+           scaled shapes: bit for bit against the plain version but the
+           GELU forward (within 1 ulp of its dtype, the share of elements
+           that differ printed); the plain chain's device time as the
+           yardstick.  Every row also checks that the
            current CUDA device is the one before the kernel's call (each
            C entry point restores the caller's device; with one card only
            that much can be seen).
@@ -135,7 +145,8 @@ Phases, one JSON line each; any failed phase makes the exit code nonzero:
            dataset, through create_train_state -> make_train_step: loss
            and grad norm per step (finite), ms per step, training audio-s/s
            and launches per step (16 flash forward, 16 flash backward,
-           1 projection, 0 decoder; counts zeroed just before, read just
+           1 projection, 0 decoder, 51 dropout forward and 51 backward:
+           one each a dropout site; counts zeroed just before, read just
            after).  Then one step at dropout 0 and batch 2 on the card,
            against the same weights and batch in float64 on the CPU: loss,
            grad norm and the largest gradient error against stated
@@ -322,6 +333,17 @@ for _name in ("flash_attn_fwd", "flash_attn_bwd"):
         + "; dh above 256: a thread-block cluster of dh / 128 blocks, "
         + ("flash_fwd_kernel_cluster" if _name.endswith("fwd") else
            "flash_bwd_dkv_kernel_cluster / flash_bwd_dq_kernel_cluster"))
+# The fused dropout sites: port-only kernels, since the JAX package leaves
+# this chain to XLA's fusion; one forward and one backward launch a site.
+for _name in ("dropout_fwd", "dropout_bwd"):
+    KERNELS[_name] = {
+        "source": "av_separation_torch/csrc/dropout_fused.cu",
+        "replaces": None, "also_replaces": [],
+        "note": "port-only: the JAX package leaves the dropout sites' "
+                "mask, scale, activation and residual add to XLA's fusion "
+                "(av_separation_tpu/ops/dropout.py, ops/activations.py)"}
+    KERNELS[_name + "[bf16]"] = dict(KERNELS[_name], wrapper=_name,
+                                     dtype="bfloat16")
 # The device kernels of the wide route (above dh 256), by entry: listed in
 # the summary line, and held by the build phase to no spill.
 CLUSTER_INSTANCES = {
@@ -372,6 +394,8 @@ KERNEL_NAMES = {
                          "mask_decoder_mask_kernel"),
     "stft_mag_fwd": ("stft_fft_kernel",),
     "stft_mag_4step_fwd": ("stft_4step_kernel",),
+    "dropout_fwd": ("dropout_fused_fwd_kernel",),
+    "dropout_bwd": ("dropout_fused_bwd_kernel",),
 }
 ATTN_SEED = -12345  # an int32 dropout seed with the sign bit set
 
@@ -476,6 +500,24 @@ def want_launches(counts: dict) -> dict:
     return want
 
 
+def dropout_launches(m, steps: int = 1) -> dict:
+    """The fused dropout sites' launches in `steps` training steps of the
+    ModelConfig `m`: one forward and one backward a site (the two PE
+    sites; drop1, drop2 and the FFN of every encoder and fusion layer,
+    whose forwards run twice under remat; the decoder's GELU), the
+    decoder's in float32 and the others in the compute dtype; none at
+    dropout 0."""
+    if m.dropout == 0.0:
+        return {}
+    layers = 2 * m.num_encoder_layers + m.num_fusion_layers
+    dt = "[bf16]" if m.compute_dtype == "bfloat16" else ""
+    out = {"dropout_fwd" + dt: 2 + 3 * layers * (2 if m.remat else 1),
+           "dropout_bwd" + dt: 2 + 3 * layers}
+    for name in ("dropout_fwd", "dropout_bwd"):
+        out[name] = out.get(name, 0) + 1  # the decoder's
+    return {name: n * steps for name, n in out.items()}
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b|, taken in float64 (exact for float32 and bf16)."""
     return float((a.double() - b.double()).abs().max())
@@ -554,6 +596,15 @@ def phase_build(state):
     if logs.get("audio_proj") and (
             len(proj) != 8 or any(k in spilling for k in proj)):
         raise AssertionError(f"projection instances {proj}, spilling "
+                             f"{spilling}")
+    # And the fused dropout kernels: two dtypes, four forward and three
+    # backward epilogues (dropout_add's backward is dropout's), each with
+    # the 16-byte vector and the one-element loop.
+    drop = [k for k in usage.get("dropout_fused", {})
+            if k.startswith("dropout_fused_")]
+    if logs.get("dropout_fused") and (
+            len(drop) != 28 or any(k in spilling for k in drop)):
+        raise AssertionError(f"dropout instances {drop}, spilling "
                              f"{spilling}")
     return {"build_s": round(secs, 2), "spilling_instances": spilling,
             "cluster_smem": cluster_smem, "ptxas": usage}
@@ -773,6 +824,7 @@ def phase_kernels(state):
 
     _proj_rows(record, gen)
     _decoder_rows(record, gen)
+    _dropout_rows(record)
     _stft_rows(record, gen)
     _grid_cap_rows(record, gen)
 
@@ -1059,6 +1111,123 @@ def _decoder_rows(record, gen, shapes=HEAD_SHAPES):
                      decoder_rows(b * t, s * f, sms)],
                library="F.linear, F.gelu, F.linear, sigmoid, permute, "
                        "* mixed (cuBLAS)")
+
+
+# The fused dropout rows: (label, epilogue, shape, dtype, part, NaN at the
+# dropped positions).  The cells' sites: scaled B 128 and multihost B 48
+# at T 501, bf16 but the decoder's float32 GELU; then a TP rank's column
+# block of a full-width draw, NaN inputs, and the float32 instances.
+DROPOUT_ROWS = (
+    ("scaled PE", "dropout", (128, 501, 512), torch.bfloat16, (0, 1), False),
+    ("scaled drop1 / drop2", "dropout_add", (128, 501, 512), torch.bfloat16,
+     (0, 1), False),
+    ("scaled encoder FFN", "relu_dropout", (128, 501, 2048), torch.bfloat16,
+     (0, 1), False),
+    ("scaled fusion FFN", "gelu_dropout", (128, 501, 2048), torch.bfloat16,
+     (0, 1), False),
+    ("scaled decoder", "gelu_dropout", (128, 501, 1024), torch.float32,
+     (0, 1), False),
+    ("multihost PE", "dropout", (48, 501, 1024), torch.bfloat16, (0, 1),
+     False),
+    ("multihost drop1 / drop2", "dropout_add", (48, 501, 1024),
+     torch.bfloat16, (0, 1), False),
+    ("multihost encoder FFN", "relu_dropout", (48, 501, 4096),
+     torch.bfloat16, (0, 1), False),
+    ("multihost fusion FFN", "gelu_dropout", (48, 501, 4096),
+     torch.bfloat16, (0, 1), False),
+    ("multihost decoder", "gelu_dropout", (48, 501, 2048), torch.float32,
+     (0, 1), False),
+    ("TP rank block part (1, 2)", "relu_dropout", (48, 501, 2048),
+     torch.bfloat16, (1, 2), False),
+    ("NaN at the dropped", "gelu_dropout", (128, 501, 2048), torch.bfloat16,
+     (0, 1), True),
+    ("float32 scaled PE", "dropout", (128, 501, 512), torch.float32, (0, 1),
+     False),
+    ("float32 scaled drop1 / drop2", "dropout_add", (128, 501, 512),
+     torch.float32, (0, 1), False),
+    ("float32 scaled encoder FFN", "relu_dropout", (128, 501, 2048),
+     torch.float32, (0, 1), False),
+    ("float32 scaled fusion FFN", "gelu_dropout", (128, 501, 2048),
+     torch.float32, (0, 1), False),
+)
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of their dtype (float32 or
+    bf16), elementwise: the distance of their bit patterns, ordered."""
+    def ordered(t):
+        if t.dtype == torch.bfloat16:
+            i, mag = t.view(torch.int16).to(torch.int32), 0x7FFF
+        else:
+            i, mag = t.view(torch.int32).to(torch.int64), 0x7FFFFFFF
+        return torch.where(i < 0, -(i & mag), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _dropout_rows(record):
+    """The fused dropout kernels against their plain versions (the PyTorch
+    chain) at `DROPOUT_ROWS`, forward then backward: bit for bit, but the
+    GELU forward within 1 ulp of its dtype (the share of elements that
+    differ printed).  Bound: the bytes each reads and writes at 3.35 TB/s;
+    yardstick: the plain chain's device time."""
+    from av_separation_torch.ops.dropout import (keep_bits, keep_scale,
+                                                 quantized_rate)
+    from av_separation_torch.ops.kernels.dropout_fused import (
+        dropout_bwd, dropout_bwd_torch, dropout_fwd, dropout_fwd_torch)
+
+    cg = torch.Generator(device="cuda").manual_seed(0)
+    n = quantized_rate(0.1)
+    for label, kind, shape, dtype, part, nan in DROPOUT_ROWS:
+        def draw():
+            return (torch.randn(shape, device="cuda", generator=cg) * 2).to(
+                dtype)
+
+        x, g = draw(), draw()
+        res = draw() if kind == "dropout_add" else None
+        bits = keep_bits(shape, cg, "cuda", part)
+        if nan:
+            x.masked_fill_(bits < n, float("nan"))
+            g.masked_fill_(bits < n, float("nan"))
+        s = keep_scale(n, dtype)
+        size = x.element_size()
+        numel = x.numel()
+        dt = "[bf16]" if dtype == torch.bfloat16 else ""
+        row = f"{label} {'x'.join(map(str, shape))} {kind}"
+        tag = {"dtype": str(dtype).split(".")[-1], "epilogue": kind,
+               "part": list(part), "nan_at_dropped": nan,
+               "library": "the plain chain (PyTorch's kernels)"}
+
+        out_k = dropout_fwd(kind, x, bits, n, s, res)
+        out_p = dropout_fwd_torch(kind, x, bits, n, s, res)
+        fwd_bytes = numel * (2 * size + 1 + (size if res is not None else 0))
+        if kind == "gelu_dropout":
+            d = ulps(out_k, out_p)
+            err, tol = float(d.max()), 1.0
+            extra = {"unit": "ulp", "differ_share":
+                     float((d > 0).double().mean())}
+        else:
+            err, tol = max_err(out_k, out_p), 0.0
+            extra = {"bit_identical": torch.equal(out_k, out_p)}
+        record(f"dropout_fwd{dt}", row, err, tol, {},
+               lambda: dropout_fwd(kind, x, bits, n, s, res),
+               lambda: dropout_fwd_torch(kind, x, bits, n, s, res),
+               lambda: dropout_fwd_torch(kind, x, bits, n, s, res),
+               fwd_bytes, 0, 10, **tag, **extra)
+
+        saved = {"relu_dropout": out_p, "gelu_dropout": x}.get(kind)
+        bwd_bits = None if kind == "relu_dropout" else bits
+        bwd_bytes = numel * ((2 + (saved is not None)) * size
+                             + (bwd_bits is not None))
+        dx_k = dropout_bwd(kind, g, saved, bwd_bits, n, s)
+        dx_p = dropout_bwd_torch(kind, g, saved, bwd_bits, n, s)
+        record(f"dropout_bwd{dt}", row, max_err(dx_k, dx_p), 0.0, {},
+               lambda: dropout_bwd(kind, g, saved, bwd_bits, n, s),
+               lambda: dropout_bwd_torch(kind, g, saved, bwd_bits, n, s),
+               lambda: dropout_bwd_torch(kind, g, saved, bwd_bits, n, s),
+               bwd_bytes, 0, 10, **tag,
+               bit_identical=torch.equal(dx_k, dx_p))
+        del x, g, res, bits, out_k, out_p, dx_k, dx_p, saved
+        torch.cuda.empty_cache()
 
 
 # The DataConfigs the device_data phase generates on the card, derived
@@ -1481,7 +1650,8 @@ def _config_train_steps(bad: list, total: dict) -> dict:
             per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
             want = want_launches(dict(
                 flash_attn_fwd=per_step * (2 if m.remat else 1),
-                flash_attn_bwd=per_step, audio_proj_fwd=1))
+                flash_attn_bwd=per_step, audio_proj_fwd=1)
+                | dropout_launches(m))
             out[label] = {"batch": n, "remat": m.remat,
                           "dropout": m.dropout, "loss": loss,
                           "grad_norm": norm, "ms": ms,
@@ -2080,7 +2250,8 @@ def phase_train(state):
     step = make_train_step(cfg)
     per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
     want = want_launches({"flash_attn_fwd": per_step,
-                          "flash_attn_bwd": per_step, "audio_proj_fwd": 1})
+                          "flash_attn_bwd": per_step, "audio_proj_fwd": 1}
+                         | dropout_launches(m))
     n_steps, rows, bad = 6, [], []
     total = {name: 0 for name in kernels.LAUNCHES}
     for i in range(n_steps):
@@ -2314,7 +2485,8 @@ def phase_train_device(state):
     base = ["train", "--config", "scaled", "--batch", "8", "--data",
             "device"]
     per_step = want_launches({"flash_attn_fwd": 16, "flash_attn_bwd": 16,
-                              "audio_proj_fwd": 1, "stft_mag_fwd": 1})
+                              "audio_proj_fwd": 1, "stft_mag_fwd": 1}
+                             | dropout_launches(m))
     runs, bad = {}, []
     total = {name: 0 for name in per_step}
     for label, extra, steps in (("fused", ["--fused"], 20),
@@ -2547,7 +2719,8 @@ def phase_data_tiers(state):
         base = ["train", "--config", "scaled", "--batch", "8"]
         files_args = ["--data", "files", "--data-root", corpus]
         per_step = want_launches({"flash_attn_fwd": 16, "flash_attn_bwd": 16,
-                                  "audio_proj_fwd": 1})
+                                  "audio_proj_fwd": 1}
+                                 | dropout_launches(m))
         total = {name: 0 for name in per_step}
         runs = {}
         for label, args in (("files", files_args),
@@ -2707,7 +2880,8 @@ def phase_bf16(state):
       float32 from the same weights, generators and batch (the same
       dropout draws): loss and grad norm finite and within
       `TRAIN_BF16_RTOL` of the float32 step's, launches per step
-      16 / 16 / 1 / 0, all bf16 instances.  Two faulted bf16 steps (half
+      16 / 16 / 1 / 0 and 51 / 51 dropout (the decoder's float32), all
+      bf16 instances.  Two faulted bf16 steps (half
       the batch; no attention dropout) must fall outside those limits.
     - demo: the 100-step demo at bf16 must pass +35 dB.
     Launches are kept apart from the float32 paths' (the [bf16] kernel
@@ -2836,7 +3010,9 @@ def phase_bf16(state):
     t16, t32 = runs["bfloat16"], runs["float32"]
     want = want_launches({"flash_attn_fwd[bf16]": 16,
                           "flash_attn_bwd[bf16]": 16,
-                          "audio_proj_fwd[bf16]": 1})
+                          "audio_proj_fwd[bf16]": 1}
+                         | dropout_launches(dataclasses.replace(
+                             cfg_t.model, compute_dtype="bfloat16")))
     if t16["launches"] != want:
         bad.append(f"train launches {t16['launches']} != {want}")
     if not (np.isfinite(t16["loss"]) and np.isfinite(t16["grad_norm"])):
@@ -3014,7 +3190,8 @@ def _parallel_one_rank(bad: list, state) -> dict:
         m = cfg.model
         per_step = 2 * m.num_encoder_layers + m.num_fusion_layers
         want = want_launches(dict(flash_attn_fwd=2 * per_step,
-                                  flash_attn_bwd=per_step, audio_proj_fwd=1))
+                                  flash_attn_bwd=per_step, audio_proj_fwd=1)
+                             | dropout_launches(m))
         out["mesh_1x1x1x1"] = {
             "backend": torch.distributed.get_backend(), "loss": loss,
             "grad_norm": norm, "cold_step_ms": ms,

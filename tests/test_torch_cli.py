@@ -152,5 +152,7 @@ def test_serve_answers_over_http_and_stops_on_sigint():
                              "stft_mag_fwd", "stft_mag_4step_fwd",
                              "flash_attn_fwd[bf16]", "flash_attn_bwd[bf16]",
                              "audio_proj_fwd[bf16]", "audio_proj_split",
-                             "audio_proj_split[bf16]")}}
+                             "audio_proj_split[bf16]", "dropout_fwd",
+                             "dropout_bwd", "dropout_fwd[bf16]",
+                             "dropout_bwd[bf16]")}}
     assert "untrained init" in err

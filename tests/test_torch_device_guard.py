@@ -47,6 +47,8 @@ def test_every_entry_point_that_takes_a_device_uses_the_guard():
     assert sorted(guarded) == sorted([
         "audio_proj.cu:avsep_audio_proj_split",
         "audio_proj.cu:avsep_audio_proj_fwd",
+        "dropout_fused.cu:avsep_dropout_bwd",
+        "dropout_fused.cu:avsep_dropout_fwd",
         "flash_attn_bwd.cu:avsep_flash_attn_bwd",
         "flash_attn_fwd.cu:avsep_flash_attn_fwd",
         "flash_attn_fwd.cu:avsep_mma_3xtf32_probe",

@@ -31,6 +31,9 @@ from av_separation_torch.ops.kernels.audio_proj import (audio_proj_fwd,
                                                         audio_projection)
 from av_separation_torch.ops.kernels.decoder import (mask_decoder,
                                                      mask_decoder_fwd)
+from av_separation_torch.ops.kernels.dropout_fused import (EPILOGUES,
+                                                           dropout_bwd,
+                                                           dropout_fwd)
 from av_separation_torch.ops.kernels.stft import stft_magnitude_fwd
 
 SEED = -1234567  # an int32 dropout seed with the sign bit set
@@ -221,6 +224,12 @@ class TestDispatch:
         stft_magnitude_fwd(torch.zeros(2, 300), 56, 32)   # the FFT route's
         stft_magnitude_fwd(torch.zeros(2, 300), 4100, 32)  # one a frame
         stft_magnitude_fwd(torch.zeros(2, 300), 8194, 32)  # the four-step
+        bits = torch.zeros(4, 32, dtype=torch.uint8)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.ones(4, 32, dtype=dtype)
+            for kind in EPILOGUES:
+                dropout_fwd(kind, x, bits, 26, 1.25, x)
+                dropout_bwd(kind, x, x, bits, 26, 1.25)
         assert kernels.LAUNCHES == {"flash_attn_fwd": 0,
                                     "flash_attn_bwd": 0,
                                     "audio_proj_fwd": 0,
@@ -231,7 +240,10 @@ class TestDispatch:
                                     "flash_attn_bwd[bf16]": 0,
                                     "audio_proj_fwd[bf16]": 0,
                                     "audio_proj_split": 0,
-                                    "audio_proj_split[bf16]": 0}
+                                    "audio_proj_split[bf16]": 0,
+                                    "dropout_fwd": 0, "dropout_bwd": 0,
+                                    "dropout_fwd[bf16]": 0,
+                                    "dropout_bwd[bf16]": 0}
 
     # The flash kernels' head dims: demo (32), the reference's default
     # model ModelConfig() (d 256 / 4 heads = 64), every wider config (128).
@@ -534,7 +546,8 @@ class TestDropout:
         x = torch.from_numpy(rand((64, 96), 30))
         g = torch.from_numpy(rand((64, 96), 31))
         n = quantized_rate(0.1)
-        keep = keep_bits(x.shape, n, torch.Generator().manual_seed(7), "cpu")
+        keep = keep_bits(x.shape, torch.Generator().manual_seed(7),
+                         "cpu") >= n
         xa = x.clone().requires_grad_()
         ref = torch.where(keep, act(xa) * keep_scale(n), 0.0)
         ref.backward(g)
