@@ -10,13 +10,22 @@ geometry and training constants field for field (`multihost` with remat, as
 in JAX), `ModelConfig` carries the compute dtype and remat, and
 `TrainConfig` carries the four data pipelines (host, device, native,
 files) and the checkpoint fields, and `MeshConfig` the device mesh of the
-parallel tier (`parallel/`); `rng_impl` is not carried over.
+parallel tier (`parallel/`); `rng_impl` is not carried over.  Port-only:
+`ModelConfig.encoder_block` / `conv_kernel` (the Conformer block; the five
+shared names keep the defaults, the reference's transformer layer) and the
+named config `conformer_l`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+ENCODER_BLOCKS = ("transformer", "conformer")
+# The conformer's depthwise kernel sizes: those `csrc/glu_dwconv.cu` is
+# built for (odd, so that the zero padding is centred).
+CONV_KERNELS = (7, 31)
 
 
 @dataclass(frozen=True)
@@ -37,6 +46,21 @@ class ModelConfig:
     # Recompute each encoder and fusion layer in the backward instead of
     # keeping its activations (models/layers.py `remat_layer`).
     remat: bool = False
+    # Port-only: the encoders' block, 'transformer' (the reference's
+    # pre-norm layer) or 'conformer' (Gulati et al. 2020, models/layers.py
+    # `ConformerLayer`), and the conformer's depthwise kernel, one of
+    # `CONV_KERNELS`.
+    encoder_block: str = "transformer"
+    conv_kernel: int = 31
+
+    def __post_init__(self):
+        if self.encoder_block not in ENCODER_BLOCKS:
+            raise ValueError(f"encoder_block {self.encoder_block!r}: one of "
+                             f"{ENCODER_BLOCKS}")
+        if self.conv_kernel not in CONV_KERNELS:
+            raise ValueError(f"conv_kernel {self.conv_kernel}: one of "
+                             f"{CONV_KERNELS}, the odd kernels that "
+                             f"csrc/glu_dwconv.cu is built for")
 
 
 @dataclass(frozen=True)
@@ -221,12 +245,28 @@ def multihost_config() -> ExperimentConfig:
     )
 
 
+def conformer_l_config() -> ExperimentConfig:
+    """Port-only: Conformer(L) blocks (Gulati et al. 2020, Table 1: d 512,
+    8 heads, 17 layers) in both encoders, depthwise kernel 31, with the
+    scaled config's fusion, decoder and data (4 s at 16 kHz, T 501,
+    2 x 100 lip frames)."""
+    scaled = scaled_config()
+    return ExperimentConfig(
+        name="conformer_l",
+        model=ModelConfig(freq_bins=257, d_model=512, nhead=8,
+                          num_encoder_layers=17, num_fusion_layers=4,
+                          num_speakers=2, dropout=0.1,
+                          encoder_block="conformer", conv_kernel=31),
+        data=scaled.data, train=scaled.train)
+
+
 NAMED_CONFIGS = {
     "demo": demo_config,
     "scaled": scaled_config,
     "three_speaker": three_speaker_config,
     "lrs2": lrs2_config,
     "multihost": multihost_config,
+    "conformer_l": conformer_l_config,
 }
 
 

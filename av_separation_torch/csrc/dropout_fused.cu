@@ -15,17 +15,20 @@
 //   1 dropout_add    out = res + (keep ? x*s : 0)
 //   2 relu_dropout   out = keep ? relu(x)*s : 0
 //   3 gelu_dropout   out = keep ? gelu(x)*s : 0
+//   4 silu_dropout   out = keep ? silu(x)*s : 0
 // backward, dx from the gradient g of out:
 //   0, 1             dx = keep ? g*s : 0     (the residual's gradient is g)
 //   2                dx = out > 0 ? g*s : 0  (from the saved output)
 //   3                dx = keep ? (g*gelu'(x))*s : 0
+//   4                dx = keep ? (g*silu'(x))*s : 0
 //
 // Numbers.  A value is rounded to x's dtype wherever the PyTorch chain
 // (the plain version, ops/kernels/dropout_fused.py) rounds it: x*s, then
-// the add; gelu(x) and gelu'(x); g*gelu'(x), then *s.  Products and sums
-// are __fmul_rn / __fadd_rn, which nvcc never contracts into an FMA, so
-// gelu'(x) repeats the chain's float32 sequence op for op, with erff and
-// expf; gelu(x) is PyTorch's own expression.  A dropped element is
+// the add; gelu(x) and gelu'(x), silu(x) and silu'(x); g*gelu'(x) or
+// g*silu'(x), then *s.  Products and sums are __fmul_rn / __fadd_rn, which
+// nvcc never contracts into an FMA, so gelu'(x) and silu'(x) repeat the
+// chain's float32 sequences op for op, with erff and expf; gelu(x) and
+// silu(x) are PyTorch's own expressions.  A dropped element is
 // selected away, never multiplied by 0: a dropped NaN gives 0.
 //
 // Design.  Memory-bound: a few operations a byte.  A thread takes one
@@ -52,7 +55,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-enum { kDropout = 0, kDropoutAdd = 1, kRelu = 2, kGelu = 3 };
+enum { kDropout = 0, kDropoutAdd = 1, kRelu = 2, kGelu = 3, kSilu = 4 };
 
 // float(1 / sqrt(2)) and float(1 / sqrt(2 pi)): the chain's scalars as a
 // float32 tensor op rounds them.
@@ -95,6 +98,18 @@ __device__ __forceinline__ float gelu_grad(float v) {
   return __fadd_rn(cdf, __fmul_rn(v, pdf));
 }
 
+// PyTorch's SiLU: x / (1 + exp(-x)).
+__device__ __forceinline__ float silu(float v) {
+  return __fdiv_rn(v, __fadd_rn(1.0f, expf(-v)));
+}
+
+// ops/kernels/dropout_fused.py:silu_grad, one float32 op at a time:
+// sig = 1 / (1 + exp(-x)); sig * (1 + x * (1 - sig)).
+__device__ __forceinline__ float silu_grad(float v) {
+  const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
+  return __fmul_rn(sig, __fadd_rn(1.0f, __fmul_rn(v, __fsub_rn(1.0f, sig))));
+}
+
 // relu as torch.relu (clamp_min): a NaN passes.
 __device__ __forceinline__ float relu(float v) {
   return (v > 0.0f || v != v) ? v : 0.0f;
@@ -106,17 +121,21 @@ __device__ __forceinline__ float fwd_one(float x, float res, bool keep,
   float a = x;
   if (EPI == kRelu) a = relu(x);
   if (EPI == kGelu) a = round_to<T>(gelu(x));
+  if (EPI == kSilu) a = round_to<T>(silu(x));
   const float out = keep ? round_to<T>(__fmul_rn(a, s)) : 0.0f;
   return EPI == kDropoutAdd ? round_to<T>(__fadd_rn(res, out)) : out;
 }
 
-// `saved` is the forward's output for relu, x for GELU, unused otherwise.
+// `saved` is the forward's output for relu, x for GELU and SiLU, unused
+// otherwise.
 template <typename T, int EPI>
 __device__ __forceinline__ float bwd_one(float g, float saved, bool keep,
                                          float s) {
   if (EPI == kRelu) keep = saved > 0.0f;
   if (EPI == kGelu)
     g = round_to<T>(__fmul_rn(g, round_to<T>(gelu_grad(saved))));
+  if (EPI == kSilu)
+    g = round_to<T>(__fmul_rn(g, round_to<T>(silu_grad(saved))));
   return keep ? round_to<T>(__fmul_rn(g, s)) : 0.0f;
 }
 
@@ -227,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
                              const uint8_t* __restrict__ bits,
                              T* __restrict__ dx, long long numel,
                              long long cols, long long ld, int n, float s) {
-  constexpr bool kReadsSaved = EPI == kRelu || EPI == kGelu;
+  constexpr bool kReadsSaved = EPI == kRelu || EPI == kGelu || EPI == kSilu;
   constexpr bool kReadsBits = EPI != kRelu;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -309,6 +328,7 @@ cudaError_t by_epilogue(int epi, const Args& a) {
       return launch<T, BWD ? kDropout : kDropoutAdd, BWD, VEC>(a);
     case kRelu: return launch<T, kRelu, BWD, VEC>(a);
     case kGelu: return launch<T, kGelu, BWD, VEC>(a);
+    case kSilu: return launch<T, kSilu, BWD, VEC>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -327,7 +347,7 @@ cudaError_t dispatch(int dtype, int epi, int vec, const Args& a) {
 bool bad_args(int dtype, int epi, long long numel, long long cols,
               long long ld, int n, int vec, int sms) {
   const int v = dtype == 0 ? kVec<float> : kVec<__nv_bfloat16>;
-  return dtype < 0 || dtype > 1 || epi < 0 || epi > 3 || numel <= 0 ||
+  return dtype < 0 || dtype > 1 || epi < 0 || epi > kSilu || numel <= 0 ||
          cols <= 0 || ld < cols || sms <= 0 || n < 1 || n > 255 ||
          (vec && (cols % v || ld % v));
 }
@@ -355,7 +375,8 @@ extern "C" int avsep_dropout_fwd(int dtype, int epi, const void* x,
 }
 
 // dx from g, the backward of epilogue `epi`: `saved` is the forward's
-// output (relu_dropout) or its x (gelu_dropout), unused otherwise.
+// output (relu_dropout) or its x (gelu_dropout, silu_dropout), unused
+// otherwise.
 extern "C" int avsep_dropout_bwd(int dtype, int epi, const void* g,
                                  const void* saved, const void* bits, void* dx,
                                  long long numel, long long cols, long long ld,

@@ -12,6 +12,7 @@ is the S!-pass oracle it is held against.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Tuple
 
@@ -24,6 +25,16 @@ from av_separation_torch.parallel import comm
 def permutation_table(n: int) -> np.ndarray:
     """All n! permutations of range(n) as an (n!, n) int array."""
     return np.asarray(list(itertools.permutations(range(n))), dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=16)
+def _perms_on(n: int, device: torch.device) -> torch.Tensor:
+    """`permutation_table(n)` on `device`, made once: copied from the host
+    each step, it would wait for the device's queue to drain (a pageable
+    copy synchronises).  Read only; made outside inference mode, so that
+    training may use it after a served call."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(permutation_table(n), device=device)
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +78,7 @@ def _pit_per_perm(separated: torch.Tensor, targets: torch.Tensor,
     # L1 over the uncentred tensors (reference losses.py:68).
     l1m = (sep[:, :, None] - tgt[:, None]).abs().mean(dim=-1)
 
-    perms = torch.as_tensor(permutation_table(s), device=sep.device)
+    perms = _perms_on(s, sep.device)
     idx = torch.arange(s, device=sep.device)
     dots = d[:, perms, idx].sum(dim=-1)           # (B, P)
     l1 = l1m[:, perms, idx].mean(dim=-1)          # (B, P)
@@ -130,8 +141,7 @@ def separation_loss_direct(separated: torch.Tensor, targets: torch.Tensor,
 def best_permutation(separated: torch.Tensor, targets: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(perm indices (B, S), per-sample best SI-SNR (B,))."""
-    perms = torch.as_tensor(permutation_table(separated.shape[1]),
-                            device=separated.device)
+    perms = _perms_on(separated.shape[1], separated.device)
     snrs, _ = _pit_per_perm(separated, targets, 1e-8)
     best = snrs.argmax(dim=1)
     return perms[best], snrs.max(dim=1).values

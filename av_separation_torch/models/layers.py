@@ -1,6 +1,6 @@
 """Shared building blocks (port of `av_separation_tpu/models/layers.py`):
-positional encoding, torch-semantics BatchNorm, multi-head attention and the
-pre-norm transformer encoder stack.
+positional encoding, torch-semantics BatchNorm, multi-head attention, the
+pre-norm transformer encoder stack and, port-only, the conformer stack.
 
 Module and parameter names are the reference's torch names, so reference
 state dicts load with `load_state_dict`.  Every module runs in eval mode
@@ -18,7 +18,20 @@ float32 and are cast at use: `Linear` computes x.bf16 @ w.bf16 + b.bf16,
 as a flax Dense with dtype does; `LayerNorm` computes in float32 and
 rounds its output to the dtype; the PE table is added in x's dtype.  With
 `remat`, `TransformerEncoder` recomputes each layer in the backward
-(`remat_layer`), replaying the layer's own dropout draws.
+(`remat_layer`), replaying the layer's own dropout draws; a recompute
+leaves BatchNorm's running statistics as the first run moved them.
+
+`ConformerLayer` (port-only; Gulati et al. 2020, arXiv:2005.08100) is
+the macaron block: x + FFN/2, + MHSA, + convolution module, + FFN/2, then
+a LayerNorm.  Its FFNs use SiLU (`silu_dropout`), the convolution module
+is LayerNorm, Linear(d, 2d), GLU and a depthwise convolution over time in
+one kernel (`ops/kernels/glu_dwconv.py`), BatchNorm over (batch, time),
+SiLU and Linear(d, d).  MHSA is `MultiHeadAttention` without a relative
+position term (as `torchaudio.models.Conformer`).  Its draws, in forward
+order: FFN1's SiLU and residual, attention, its residual, the convolution
+module's residual, FFN2's SiLU and residual.  The halved residuals are
+`dropout_add` with the survivor scale halved (halving is exact, so
+x + (y s)/2 rounds as x + y (s/2)).
 
 Under a mesh (`parallel/shard.py` sets each module's `mesh`) a module
 computes the rank's part: `MultiHeadAttention` its head group (the rank's
@@ -32,8 +45,11 @@ over 'data' and 'fsdp').
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+import threading
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,9 +57,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from av_separation_torch.ops.activations import relu_dropout
+from av_separation_torch.ops.activations import relu_dropout, silu_dropout
 from av_separation_torch.ops.attention import multi_head_attention
-from av_separation_torch.ops.dropout import Dropout
+from av_separation_torch.ops.dropout import (Dropout, keep_bits, keep_scale,
+                                             quantized_rate)
+from av_separation_torch.ops.kernels.dropout_fused import fused_dropout
+from av_separation_torch.ops.kernels.glu_dwconv import glu_dwconv
 from av_separation_torch.parallel import comm
 
 
@@ -82,9 +101,87 @@ def tp_part(mesh) -> Tuple[int, int]:
         mesh.mesh_dim_names.index("model"))
 
 
+class _Casts(threading.local):
+    """The parameters cast once for a forward (`cast_once`), by id."""
+
+    table: dict = {}
+
+
+_CASTS = _Casts()
+
+
 def at(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """t in a module's compute dtype: cast where one is set, as it is."""
-    return t if dtype is None else t.to(dtype)
+    """t in a module's compute dtype: cast where one is set (a parameter
+    taken from the forward's casts, `cast_once`), as it is."""
+    if dtype is None:
+        return t
+    cast = _CASTS.table.get(id(t))
+    return t.to(dtype) if cast is None or cast.dtype != dtype else cast
+
+
+class _CastAll(torch.autograd.Function):
+    """The tensors of a list in `dtype`, as views of one cast of their
+    concatenation: a few launches, not one a tensor.  The gradients come
+    back the same way, each in its tensor's dtype, as a cast at each use
+    would give them (a cast is exact or rounds each element alone)."""
+
+    @staticmethod
+    def forward(ctx, dtype, *params):
+        ctx.set_materialize_grads(False)
+        ctx.shapes = [p.shape for p in params]
+        ctx.sizes = [p.numel() for p in params]
+        ctx.dtype = params[0].dtype
+        flat = torch.cat([p.reshape(-1) for p in params]).to(dtype)
+        return tuple(t.view(shape) for t, shape in
+                     zip(flat.split(ctx.sizes), ctx.shapes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like = next(g for g in grads if g is not None)
+        flat = torch.cat([
+            like.new_zeros(n) if g is None else g.reshape(-1)
+            for g, n in zip(grads, ctx.sizes)]).to(ctx.dtype)
+        return (None, *(t.view(shape) for t, shape in
+                        zip(flat.split(ctx.sizes), ctx.shapes)))
+
+
+@contextlib.contextmanager
+def cast_once(params: Sequence[torch.Tensor],
+              dtype: Optional[torch.dtype]):
+    """Within the block, `at(p, dtype)` of each of `params` returns one
+    cast made on entry, so that a forward casts its parameters in a few
+    launches and one autograd node, not one of each a use.  `params` share
+    one dtype, and each is used once a forward (a second use would sum
+    its gradients in `dtype`).  A remat recompute runs in the backward,
+    outside the block, and casts at each use again: the same values."""
+    if dtype is None or not params:
+        yield
+        return
+    outer = _CASTS.table
+    _CASTS.table = dict(zip(map(id, params), _CastAll.apply(dtype, *params)))
+    try:
+        yield
+    finally:
+        _CASTS.table = outer
+
+
+class _Recompute(threading.local):
+    """Set on the thread that recomputes a layer holding a BatchNorm, for
+    that recompute: `TorchBatchNorm` then leaves its running statistics."""
+
+    active = False
+
+
+_RECOMPUTE = _Recompute()
+
+
+def holds_batch_norm(layer: nn.Module) -> bool:
+    """Whether a layer holds a `TorchBatchNorm`; looked up once a layer."""
+    held = layer.__dict__.get("_holds_batch_norm")
+    if held is None:
+        held = any(isinstance(m, TorchBatchNorm) for m in layer.modules())
+        layer.__dict__["_holds_batch_norm"] = held
+    return held
 
 
 def remat_layer(layer: nn.Module, gens: Optional[Generators],
@@ -97,21 +194,30 @@ def remat_layer(layer: nn.Module, gens: Optional[Generators],
     both explicit generators are taken before the first run, which
     advances them as an unchecked call would, and the recompute draws from
     copies of those states: the same seeds and bits, hence the same
-    masks, and `gens` is not advanced twice."""
-    if gens is None:
+    masks, and `gens` is not advanced twice.  A layer holding a BatchNorm
+    is recomputed with its running statistics left as the first run moved
+    them (the batch statistics it normalises with are recomputed alike)."""
+    if gens is None and not holds_batch_norm(layer):
         return checkpoint(layer, *xs, None, use_reentrant=False,
                           preserve_rng_state=False)
-    snap = (gens.seeds.get_state(), gens.bits.get_state())
+    snap = None if gens is None \
+        else (gens.seeds.get_state(), gens.bits.get_state())
     ran = []
 
     def run(*inner: torch.Tensor) -> torch.Tensor:
         if not ran:
             ran.append(True)
             return layer(*inner, gens)
-        replay = Generators(
+        replay = None if snap is None else Generators(
             torch.Generator().set_state(snap[0]),
             torch.Generator(device=gens.bits.device).set_state(snap[1]))
-        return layer(*inner, replay)
+        if not holds_batch_norm(layer):
+            return layer(*inner, replay)
+        _RECOMPUTE.active = True
+        try:
+            return layer(*inner, replay)
+        finally:
+            _RECOMPUTE.active = False
 
     return checkpoint(run, *xs, use_reentrant=False,
                       preserve_rng_state=False)
@@ -203,6 +309,17 @@ def sinusoidal_pe(seq_len: int, d_model: int,
     return torch.as_tensor(pe.astype(np.float32), device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def _pe_on(seq_len: int, d_model: int, device: torch.device) -> torch.Tensor:
+    """`sinusoidal_pe` made once a shape and device, for every forward
+    after: a table copied from the host waits for the device's queue to
+    drain (a pageable copy synchronises), so the host could not run ahead
+    of the card.  Read only; made outside inference mode, so that training
+    may use it after a served call."""
+    with torch.inference_mode(False):
+        return sinusoidal_pe(seq_len, d_model, device)
+
+
 class PositionalEncoding(nn.Module):
     """Adds the sinusoidal PE, computed for the input's length, then
     dropout.  The reference's `pe` buffer (a 5000-row table) has no
@@ -223,7 +340,7 @@ class PositionalEncoding(nn.Module):
         # global offset on.
         start = 0 if self.mesh is None \
             else self.mesh.get_local_rank("seq") * t
-        pe = sinusoidal_pe(start + t, self.d_model, x.device)[start:]
+        pe = _pe_on(start + t, self.d_model, x.device)[start:]
         x = x + pe.to(x.dtype)  # in x's dtype, as the JAX table is made
         return self.dropout(x, bits(gens))
 
@@ -234,17 +351,27 @@ class TorchBatchNorm(nn.Module):
     `TorchBatchNorm`: y = (x - mean) * (rsqrt(var + eps) * weight) + bias.
     In training, mean and the biased variance of the batch normalise, and
     the running stats move by momentum 0.1 towards the mean and the
-    unbiased variance; in eval, the running stats normalise.  Statistics
-    and the map run in float32 (or wider) and the output is in x's dtype,
-    as the JAX module computes a bf16 x."""
+    unbiased variance (not again in a remat recompute, `remat_layer`); in
+    eval, the running stats normalise.  Statistics and the map run in
+    float32 (or wider) and the output is in x's dtype, as the JAX module
+    computes a bf16 x.
+
+    The default is that float32 chain, op by op, which the JAX package and
+    the benchmark's reference compute for the visual stem: `F.batch_norm`
+    sums in another order, and moved the stem's gradients several times
+    further from theirs (PERF.md).  `one_op` (the conformer's convolution
+    module, which has no mesh route) takes one `F.batch_norm` op each way
+    instead, for its ~20 ops a block; there a remat recompute moves copies
+    of the running stats, so that it saves what the first run saved."""
 
     mesh = None
 
     def __init__(self, features: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, one_op: bool = False):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.one_op = one_op
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -253,6 +380,8 @@ class TorchBatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
+        if self.one_op and self.mesh is None:
+            return self._one_op(x_in)
         x = x_in.to(torch.promote_types(x_in.dtype, torch.float32))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
@@ -269,17 +398,27 @@ class TorchBatchNorm(nn.Module):
                 n *= comm.rows_size(self.mesh)
             else:
                 var = (x - mean.view(shape)).square().mean(dim=axes)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(
-                    m * var * (n / max(n - 1, 1)))
-                self.num_batches_tracked.add_(1)
+            if not _RECOMPUTE.active:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean)
+                    self.running_var.mul_(1 - m).add_(
+                        m * var * (n / max(n - 1, 1)))
+                    self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
         return y.to(x_in.dtype)
+
+    def _one_op(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = self.running_mean, self.running_var
+        if self.training and _RECOMPUTE.active:
+            mean, var = mean.clone(), var.clone()
+        elif self.training:
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, mean, var, self.weight, self.bias,
+                            self.training, self.momentum, self.eps)
 
 
 class MultiHeadAttention(nn.Module):
@@ -374,3 +513,137 @@ class TransformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
         return call_layers(self.layers, self.remat, gens, x)
+
+
+def half_residual(module: nn.Module, y: torch.Tensor, x: torch.Tensor,
+                  gens: Optional[Generators]) -> torch.Tensor:
+    """x + Drop(y) / 2, the macaron FFN's residual: `dropout_add` with the
+    survivor scale halved (one draw, one launch); x + y / 2 in eval mode
+    or at rate 0."""
+    rate = train_rate(module, module.dropout, gens)
+    if rate == 0.0:
+        return x + 0.5 * y
+    n = quantized_rate(rate)
+    return fused_dropout("dropout_add", y,
+                         keep_bits(y.shape, gens.bits, y.device), n,
+                         0.5 * keep_scale(n, y.dtype), x)
+
+
+class ConformerFeedForward(nn.Module):
+    """One macaron half: LayerNorm, Linear(d, 4d), SiLU + dropout,
+    Linear(4d, d).  The dropout after it and the halved residual are the
+    layer's (`half_residual`)."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.norm = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.linear1 = Linear(d_model, 4 * d_model, dtype)
+        self.linear2 = Linear(4 * d_model, d_model, dtype)
+
+    def forward(self, x: torch.Tensor,
+                gens: Optional[Generators] = None) -> torch.Tensor:
+        h = silu_dropout(self.linear1(self.norm(x)),
+                         train_rate(self, self.dropout, gens), bits(gens))
+        return self.linear2(h)
+
+
+class ConformerConvModule(nn.Module):
+    """LayerNorm, Linear(d, 2d), GLU and the depthwise convolution over
+    time (kernel K, centred zero padding; one kernel,
+    `ops/kernels/glu_dwconv.py`), BatchNorm over (batch, time) with batch
+    statistics in training (one op each way), SiLU,
+    Linear(d, d).  The depthwise weight is
+    an `nn.Conv1d(d, d, K, groups=d)`'s, (d, 1, K), drawn at fan-in K."""
+
+    def __init__(self, d_model: int, kernel: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.norm = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.pointwise1 = Linear(d_model, 2 * d_model, dtype)
+        self.depthwise = nn.Conv1d(d_model, d_model, kernel,
+                                   padding=(kernel - 1) // 2, groups=d_model)
+        self.batch_norm = TorchBatchNorm(d_model, one_op=True)
+        self.pointwise2 = Linear(d_model, d_model, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        h = glu_dwconv(self.pointwise1(self.norm(x)),
+                       at(self.depthwise.weight, cd),
+                       at(self.depthwise.bias, cd))
+        b, t, d = h.shape
+        h = self.batch_norm(h.reshape(b * t, d)).view(b, t, d)
+        # F.silu computes in float32 and rounds once to h's dtype.
+        return self.pointwise2(F.silu(h))
+
+
+class ConformerLayer(nn.Module):
+    """The conformer block (Gulati et al. 2020; no relative-position term
+    in MHSA, as torchaudio's):
+
+        x = x + Drop(FFN1(x)) / 2
+        x = x + Drop(MHSA(LN(x)))
+        x = x + Drop(Conv(x))
+        x = x + Drop(FFN2(x)) / 2
+        y = LN(x)
+    """
+
+    def __init__(self, d_model: int, nhead: int, kernel: int,
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.ffn1 = ConformerFeedForward(d_model, dropout, dtype)
+        self.norm_attn = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout, dtype)
+        self.drop_attn = Dropout(dropout)
+        self.conv = ConformerConvModule(d_model, kernel, dtype)
+        self.drop_conv = Dropout(dropout)
+        self.ffn2 = ConformerFeedForward(d_model, dropout, dtype)
+        self.norm_out = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                gens: Optional[Generators] = None) -> torch.Tensor:
+        x = half_residual(self, self.ffn1(x, gens), x, gens)
+        h = self.norm_attn(x)
+        x = self.drop_attn(self.self_attn(h, h, gens), bits(gens),
+                           residual=x)
+        x = self.drop_conv(self.conv(x), bits(gens), residual=x)
+        x = half_residual(self, self.ffn2(x, gens), x, gens)
+        return self.norm_out(x)
+
+
+class ConformerEncoder(nn.Module):
+    """Stack of conformer layers (each ends in its own LayerNorm); with
+    `remat`, each layer is recomputed in the backward."""
+
+    def __init__(self, d_model: int, nhead: int, num_layers: int,
+                 kernel: int, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
+        super().__init__()
+        self.remat = remat
+        self.layers = nn.ModuleList(
+            ConformerLayer(d_model, nhead, kernel, dropout, dtype)
+            for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor,
+                gens: Optional[Generators] = None) -> torch.Tensor:
+        return call_layers(self.layers, self.remat, gens, x)
+
+
+def cast_parameters(model: nn.Module) -> List[nn.Parameter]:
+    """The parameters that `model`'s modules cast to a compute dtype
+    through `at`: every `Linear` and `Conv2d`'s, `MultiHeadAttention`'s
+    input projection and the conformer's depthwise filter."""
+    out = []
+    for m in model.modules():
+        if getattr(m, "compute_dtype", None) is None:
+            continue
+        if isinstance(m, (Linear, Conv2d)):
+            out += [m.weight, m.bias]
+        elif isinstance(m, MultiHeadAttention):
+            out += [m.in_proj_weight, m.in_proj_bias]
+        elif isinstance(m, ConformerConvModule):
+            out += [m.depthwise.weight, m.depthwise.bias]
+    return out

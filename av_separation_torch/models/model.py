@@ -37,6 +37,10 @@ layers split too (their attention is the seq route), gathered and resampled
 to T before the rank's time block is taken, and so on through the fusion
 and the decoder: the outputs are the rank's time block, and
 `parallel.comm.gather_time` puts T back together for the loss.
+
+`encoder_block` "conformer" (port-only) puts conformer layers in both
+encoders' stacks (`models/layers.py:ConformerLayer`); the rest of the model
+is the same.  It has no mesh route yet (`parallel/shard.py` refuses it).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import torch.nn as nn
 
 from av_separation_torch.config import ModelConfig
 from av_separation_torch.models.layers import (
+    ConformerEncoder,
     Conv2d,
     Generators,
     LayerNorm,
@@ -59,6 +64,8 @@ from av_separation_torch.models.layers import (
     TransformerEncoder,
     bits,
     call_layers,
+    cast_once,
+    cast_parameters,
     tp_part,
     train_rate,
 )
@@ -91,6 +98,17 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
+def encoder_stack(cfg: ModelConfig) -> nn.Module:
+    """The layer stack of each encoder by `cfg.encoder_block`: the
+    reference's pre-norm transformer layers, or (port-only) conformer
+    layers.  Either sits in the reference's `transformer` slot."""
+    args = (cfg.d_model, cfg.nhead, cfg.num_encoder_layers)
+    if cfg.encoder_block == "conformer":
+        return ConformerEncoder(*args, cfg.conv_kernel, cfg.dropout,
+                                _cdt(cfg), cfg.remat)
+    return TransformerEncoder(*args, cfg.dropout, _cdt(cfg), cfg.remat)
+
+
 class Projection(nn.Module):
     """The fused projection kernel as a module without parameters (the
     weights stay in `AudioEncoder.input_proj`, the reference's slots), so
@@ -109,7 +127,8 @@ def _seq_split(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
 
 
 class AudioEncoder(nn.Module):
-    """Mixed-spectrogram encoder (reference model.py:22-60)."""
+    """Mixed-spectrogram encoder (reference model.py:22-60); its layers as
+    `encoder_stack` builds them."""
 
     mesh = None
 
@@ -121,10 +140,7 @@ class AudioEncoder(nn.Module):
             nn.Conv1d(d, d, 3, padding=1), nn.ReLU())
         self.projection = Projection()
         self.pos_enc = PositionalEncoding(d, cfg.dropout)
-        self.transformer = TransformerEncoder(d, cfg.nhead,
-                                              cfg.num_encoder_layers,
-                                              cfg.dropout, _cdt(cfg),
-                                              cfg.remat)
+        self.transformer = encoder_stack(cfg)
 
     def forward(self, x: torch.Tensor,
                 gens: Optional[Generators] = None) -> torch.Tensor:
@@ -161,9 +177,7 @@ class VisualEncoder(nn.Module):
         self.conv = nn.Sequential(*layers)
         self.frame_proj = Linear(128, cfg.d_model, dt)
         self.pos_enc = PositionalEncoding(cfg.d_model, cfg.dropout)
-        self.transformer = TransformerEncoder(cfg.d_model, cfg.nhead,
-                                              cfg.num_encoder_layers,
-                                              cfg.dropout, dt, cfg.remat)
+        self.transformer = encoder_stack(cfg)
 
     def forward(self, frames: torch.Tensor, target_len: int,
                 gens: Optional[Generators] = None) -> torch.Tensor:
@@ -281,15 +295,21 @@ class AVSeparationTransformer(nn.Module):
                 gens: Optional[Generators] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """In training mode with dropout > 0, `gens` must be given.  The
-        inputs are cast to the compute dtype at entry; the decoder runs on
-        the float32 mixture; the outputs are float32."""
+        inputs are cast to the compute dtype at entry, and the parameters
+        that the encoders and the fusion compute in it in one op
+        (`cast_once`); the decoder runs on the float32 mixture; the outputs
+        are float32."""
         dt = _cdt(self.cfg)
-        audio = self.audio_encoder(
-            mixed_spec if dt is None else mixed_spec.to(dt), gens)
-        visual = self.visual_encoder(
-            lip_frames if dt is None else lip_frames.to(dt),
-            mixed_spec.shape[-1], gens)
-        fused = self.fusion(audio, visual, gens)
+        casts = self.__dict__.get("_casts")
+        if casts is None:  # found once: the walk costs the host ~1 ms
+            casts = self.__dict__["_casts"] = cast_parameters(self)
+        with cast_once(casts, dt):
+            audio = self.audio_encoder(
+                mixed_spec if dt is None else mixed_spec.to(dt), gens)
+            visual = self.visual_encoder(
+                lip_frames if dt is None else lip_frames.to(dt),
+                mixed_spec.shape[-1], gens)
+            fused = self.fusion(audio, visual, gens)
         mixed_spec = _seq_split(mixed_spec, -1, self.mesh)
         if dt is None:
             return self.decoder(fused, mixed_spec, gens)

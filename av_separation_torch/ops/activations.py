@@ -7,6 +7,8 @@
                 saved output.
   gelu_dropout  exact (erf) GELU, then dropout; saves the input and the
                 draw and recomputes the GELU derivative in backward.
+  silu_dropout  SiLU (x sigmoid(x)), then dropout, as gelu_dropout (the
+                conformer's FFNs; port-only, no JAX counterpart).
 
 Both take the quantized uint8 draw of `ops/dropout.py` (same n/256
 threshold, same survivor scale, rounded to the tensor's dtype) and run as
@@ -25,7 +27,7 @@ import torch
 from av_separation_torch.ops.dropout import (keep_bits, keep_scale,
                                              quantized_rate)
 from av_separation_torch.ops.kernels.dropout_fused import (fused_dropout,
-                                                           gelu)
+                                                           gelu, silu)
 
 
 def _fused(kind: str, x: torch.Tensor, rate: float,
@@ -55,3 +57,11 @@ def gelu_dropout(x: torch.Tensor, rate: float,
     if rate == 0.0 or generator is None:
         return gelu(x)
     return _fused("gelu_dropout", x, rate, generator, part)
+
+
+def silu_dropout(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """silu -> dropout(rate); rate 0 or no generator means plain silu."""
+    if rate == 0.0 or generator is None:
+        return silu(x)
+    return _fused("silu_dropout", x, rate, generator, (0, 1))

@@ -16,6 +16,7 @@ the saved key instead).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,6 +30,7 @@ def quantized_rate(rate: float) -> int:
     return min(max(int(round(rate * 256.0)), 1), 255)
 
 
+@functools.lru_cache(maxsize=None)
 def keep_scale(n: int, dtype: torch.dtype = torch.float32) -> float:
     """The survivor scale 1 / (1 - n/256), rounded to `dtype`: x * scale
     then rounds once to x's dtype, as a product in that dtype does."""

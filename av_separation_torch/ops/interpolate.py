@@ -11,6 +11,9 @@ rounded to x's dtype, as the JAX blend of a bf16 x with float32 weights.
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -20,6 +23,19 @@ def interpolate_time_linear(x: torch.Tensor, target_len: int) -> torch.Tensor:
     n_in = x.shape[-2]
     if n_in == target_len:
         return x
+    wdt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    lo_t, hi_t, w_lo_t, w_hi_t = _taps(n_in, target_len, wdt, x.device)
+    return (x.index_select(-2, lo_t) * w_lo_t
+            + x.index_select(-2, hi_t) * w_hi_t).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _taps(n_in: int, target_len: int, wdt: torch.dtype,
+          device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The indices and weights on `device`, made once a shape: copied from
+    the host each call, they would wait for the device's queue to drain (a
+    pageable copy synchronises).  Read only; made outside inference mode,
+    so that training may use them after a served call."""
     scale = n_in / target_len
     src = (np.arange(target_len, dtype=np.float64) + 0.5) * scale - 0.5
     src = np.maximum(src, 0.0)
@@ -27,12 +43,8 @@ def interpolate_time_linear(x: torch.Tensor, target_len: int) -> torch.Tensor:
     hi = np.minimum(lo + 1, n_in - 1)
     w_hi = (src - lo).astype(np.float32)
     w_lo = (1.0 - w_hi).astype(np.float32)
-
-    dev = x.device
-    lo_t = torch.as_tensor(lo, device=dev)
-    hi_t = torch.as_tensor(hi, device=dev)
-    wdt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
-    w_lo_t = torch.as_tensor(w_lo, device=dev)[:, None].to(wdt)
-    w_hi_t = torch.as_tensor(w_hi, device=dev)[:, None].to(wdt)
-    return (x.index_select(-2, lo_t) * w_lo_t
-            + x.index_select(-2, hi_t) * w_hi_t).to(x.dtype)
+    with torch.inference_mode(False):
+        return (torch.as_tensor(lo, device=device),
+                torch.as_tensor(hi, device=device),
+                torch.as_tensor(w_lo, device=device)[:, None].to(wdt),
+                torch.as_tensor(w_hi, device=device)[:, None].to(wdt))

@@ -8,7 +8,9 @@ split, its own launch, under `audio_proj_split` and
 `audio_proj_split[bf16]` by the dtype of x; the STFT's four-step FFT once
 a call under `stft_mag_4step_fwd`, whatever its passes and chunks; a
 dropout site's forward and backward under `dropout_fwd` and
-`dropout_bwd`), and only those: plain-version calls never touch it.
+`dropout_bwd`; the conformer's GLU + depthwise convolution under
+`glu_dwconv_fwd` and `glu_dwconv_bwd`, its backward's two kernels one
+call), and only those: plain-version calls never touch it.
 """
 
 from typing import Callable, Sequence
@@ -26,12 +28,20 @@ LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "audio_proj_fwd": 0,
             "flash_attn_fwd[bf16]": 0, "flash_attn_bwd[bf16]": 0,
             "audio_proj_fwd[bf16]": 0, "audio_proj_split": 0,
             "audio_proj_split[bf16]": 0, "dropout_fwd": 0, "dropout_bwd": 0,
-            "dropout_fwd[bf16]": 0, "dropout_bwd[bf16]": 0}
+            "dropout_fwd[bf16]": 0, "dropout_bwd[bf16]": 0,
+            "glu_dwconv_fwd": 0, "glu_dwconv_bwd": 0,
+            "glu_dwconv_fwd[bf16]": 0, "glu_dwconv_bwd[bf16]": 0}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of `device`'s current CUDA stream, for a launch (the
+    `torch.cuda.Stream` object costs the host a few us a call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def count_launch(name: str, dtype: torch.dtype) -> None:

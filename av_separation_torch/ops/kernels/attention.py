@@ -467,7 +467,7 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 rate: float, seed: int, scale: Optional[float] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     o, lse, scratch, args = fwd_call(q, k, v, rate, seed, scale)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = kernels.stream(q.device)
     if q.dtype == torch.bfloat16:   # up to 256 and the cluster kernel
         lib, fn = _wgmma_fwd_entry()
         rc = fn(*args, q.device.index, stream, _ptr(scratch))
@@ -503,7 +503,7 @@ def mma_3xtf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = torch.empty(16, 8, dtype=torch.float32, device=a.device)
     lib, fn = _probe_entry()
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), a.device.index,
-            torch.cuda.current_stream(a.device).cuda_stream)
+            kernels.stream(a.device))
     _build.check(lib, rc, "mma_3xtf32_probe")
     return c
 
@@ -567,7 +567,7 @@ def _launch_bwd(q, k, v, o, do, lse, rate: float, seed: int,
     # The delta and scratch buffers are held until the launch.
     dq, dk, dv, _delta, scratch, args = bwd_call(q, k, v, o, do, lse, rate,
                                                  seed, scale)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = kernels.stream(q.device)
     if wgmma_route(q.dtype, q.shape[-1]):
         lib, fn = _wgmma_bwd_entry()
         rc = fn(*args, q.device.index, stream)

@@ -211,7 +211,7 @@ def audio_proj_split(w1: torch.Tensor, w2: torch.Tensor,
     lib, fn = _split_entry()
     rc = fn(w1.data_ptr(), w2.data_ptr(), p1.data_ptr(), p2.data_ptr(),
             w1.numel(), w2.numel(), w1.device.index,
-            torch.cuda.current_stream(w1.device).cuda_stream)
+            kernels.stream(w1.device))
     _build.check(lib, rc, "audio_proj_split")
     kernels.count_launch("audio_proj_split", dtype)
     return p1, p2
@@ -229,7 +229,7 @@ def _launch(x, w1, b1, w2, b2, keep_h32=False):
     y = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     h = torch.empty_like(y)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = kernels.stream(x.device)
     p1, p2 = audio_proj_split(w1, w2, x.dtype)
     # At bf16 conv1 also writes the float32 h that conv2 reads; at float32
     # conv2 reads h itself.

@@ -125,7 +125,7 @@ def _launch(x, w1, b1, w2, b2, mixed, num_speakers: int
     hidden = torch.empty((b * t, 2 * d), dtype=x.dtype, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib, fn = _entry()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = kernels.stream(x.device)
     rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), mixed.data_ptr(), hidden.data_ptr(),
             masks.data_ptr(), sep.data_ptr(), b, t, d, num_speakers, f,

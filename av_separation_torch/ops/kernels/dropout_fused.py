@@ -4,16 +4,18 @@ and the autograd function around them.
 
 A site draws its uint8 bits (`ops/dropout.py:keep_bits`) and hands them
 here as drawn; an element is kept where its bits are >= n, and survivors
-are scaled by `keep_scale(n, dtype)`.  Four epilogues:
+are scaled by `keep_scale(n, dtype)`.  Five epilogues:
 
   dropout       keep ? x*s : 0                 (positional encoding)
   dropout_add   res + (keep ? x*s : 0)         (drop1 / drop2 and the add)
   relu_dropout  keep ? relu(x)*s : 0           (the encoder FFN)
   gelu_dropout  keep ? gelu(x)*s : 0           (the fusion FFN, the decoder)
+  silu_dropout  keep ? silu(x)*s : 0           (the conformer's FFNs)
 
 The backward of dropout and dropout_add is keep ? g*s : 0 (the residual's
 gradient is g itself); relu_dropout's reads its saved output, out > 0 ?
-g*s : 0; gelu_dropout's recomputes the exact GELU's derivative from x.
+g*s : 0; gelu_dropout's and silu_dropout's recompute the activation's
+derivative from x.
 The saved mask is the uint8 draw itself.  The plain version is the chain
 of PyTorch ops the model ran before the kernels, kept bit for bit; the
 kernels round where it rounds.
@@ -35,7 +37,11 @@ import torch.nn.functional as F
 from av_separation_torch.ops import kernels, upcast
 from av_separation_torch.ops.kernels import _build
 
-EPILOGUES = ("dropout", "dropout_add", "relu_dropout", "gelu_dropout")
+EPILOGUES = ("dropout", "dropout_add", "relu_dropout", "gelu_dropout",
+             "silu_dropout")
+# The epilogues whose backward recomputes the activation's derivative from
+# the saved x.
+_SAVES_X = ("gelu_dropout", "silu_dropout")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -50,6 +56,18 @@ def gelu_grad(x: torch.Tensor) -> torch.Tensor:
     return cdf + x * pdf
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU computed in float32 (or wider), in x's dtype."""
+    return F.silu(upcast(x)).to(x.dtype)
+
+
+def silu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx [x sigmoid(x)] = s (1 + x (1 - s)), s = 1 / (1 + exp(-x)),
+    one float32 op at a time (the kernel repeats the sequence)."""
+    sig = 1.0 / (1.0 + torch.exp(-x))
+    return sig * (1.0 + x * (1.0 - sig))
+
+
 def dropout_fwd_torch(kind: str, x: torch.Tensor, bits: torch.Tensor,
                       n: int, scale: float,
                       res: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -59,6 +77,8 @@ def dropout_fwd_torch(kind: str, x: torch.Tensor, bits: torch.Tensor,
         x = torch.relu(x)
     elif kind == "gelu_dropout":
         x = gelu(x)
+    elif kind == "silu_dropout":
+        x = silu(x)
     out = torch.where(keep, x * scale, 0.0)
     return res + out if kind == "dropout_add" else out
 
@@ -68,12 +88,15 @@ def dropout_bwd_torch(kind: str, g: torch.Tensor,
                       bits: Optional[torch.Tensor], n: int,
                       scale: float) -> torch.Tensor:
     """Plain version of the backward: dx from g.  `saved` is the forward's
-    output (relu_dropout) or its x (gelu_dropout), unused otherwise."""
+    output (relu_dropout) or its x (gelu_dropout, silu_dropout), unused
+    otherwise."""
     if kind == "relu_dropout":
         return torch.where(saved > 0, g * scale, 0.0)
     keep = bits >= n
     if kind == "gelu_dropout":
         g = g * gelu_grad(upcast(saved)).to(saved.dtype)
+    elif kind == "silu_dropout":
+        g = g * silu_grad(upcast(saved)).to(saved.dtype)
     return torch.where(keep, g * scale, 0.0)
 
 
@@ -148,7 +171,7 @@ def _launch(bwd: bool, kind: str, a: torch.Tensor,
                   a.data_ptr(), 0 if other is None else other.data_ptr(),
                   0 if bits is None else bits.data_ptr(), out.data_ptr(),
                   numel, cols, ld, n, scale, int(vec), _sms(index), index,
-                  torch.cuda.current_stream(a.device).cuda_stream)
+                  kernels.stream(a.device))
     name = "dropout_bwd" if bwd else "dropout_fwd"
     _build.check(lib, rc, name)
     kernels.count_launch(name, a.dtype)
@@ -180,7 +203,7 @@ def dropout_bwd(kind: str, g: torch.Tensor, saved: Optional[torch.Tensor],
 
 class FusedDropout(torch.autograd.Function):
     """out = dropout_fwd(kind, x, bits, n, scale, res); saves the draw (and
-    x for GELU), or relu_dropout's output alone."""
+    x for GELU and SiLU), or relu_dropout's output alone."""
 
     @staticmethod
     def forward(ctx, x, res, bits, kind: str, n: int, scale: float):
@@ -188,7 +211,7 @@ class FusedDropout(torch.autograd.Function):
         if kind == "relu_dropout":
             ctx.save_for_backward(out, None)
         else:
-            ctx.save_for_backward(x if kind == "gelu_dropout" else None, bits)
+            ctx.save_for_backward(x if kind in _SAVES_X else None, bits)
         ctx.kind, ctx.n, ctx.scale = kind, n, scale
         return out
 

@@ -529,7 +529,7 @@ def stft_magnitude_fwd(audio: torch.Tensor, n_fft: int, hop: int,
     if b == 0:
         return out.reshape(*lead, freq_bins, num_frames)
     index = audio.device.index
-    stream = torch.cuda.current_stream(audio.device).cuda_stream
+    stream = kernels.stream(audio.device)
     if route(n_fft) == "fft":
         tables = _fft_tables(n_fft, audio.device)
         tile = fft_tile_frames(n_fft, hop, b, num_frames, _sm_count(index))

@@ -56,9 +56,20 @@ def _owner(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
 def shard_model(model: nn.Module, mesh) -> nn.Module:
     """Cut `model` (whole, on any device) into this rank's pieces, in
     place, and point its mesh-aware modules at `mesh`.  Raises a
-    ValueError naming the 'model' axis when it does not divide the heads."""
+    ValueError naming the 'model' axis when it does not divide the heads,
+    and NotImplementedError for the conformer block, which has no mesh
+    route yet."""
     if getattr(model, "avsep_shards", None) is not None:
         raise ValueError("the model is already sharded")
+    if model.cfg.encoder_block == "conformer":
+        k = model.cfg.conv_kernel
+        raise NotImplementedError(
+            f"the conformer block has no mesh route yet: under 'seq' its "
+            f"depthwise convolution needs a halo of K - 1 = {k - 1} frames "
+            f"from the neighbouring time blocks, under 'model' its "
+            f"convolution module needs a column split (pointwise1's two GLU "
+            f"halves, the depthwise channels, pointwise2's rows), and its "
+            f"BatchNorm's statistics over 'data' / 'fsdp' are untested")
     s, c = sizes(mesh), coords(mesh)
     nhead = model.cfg.nhead
     if nhead % s["model"]:

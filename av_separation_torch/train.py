@@ -63,6 +63,10 @@ class ClippedAdam:
     gives each piece's squared sum its weight in one all-reduce over every
     rank (`parallel.shard.norm_weights`), so that the norm is the whole
     gradient's, each piece counted once.
+
+    Each step takes a few launches whatever the number of tensors: the
+    tensors' norms in one `_foreach_norm`, the scale in one `_foreach_mul_`
+    and Adam's fused update, on every device.
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter], max_norm: float,
@@ -71,7 +75,7 @@ class ClippedAdam:
         self.norm_weights = norm_weights
         self.max_norm = max_norm
         self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
+                                     eps=1e-8, fused=True)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -80,17 +84,16 @@ class ClippedAdam:
         """Clip, update; returns the unclipped global norm (a 0-d tensor)."""
         if self.norm_weights is None:
             grads = [p.grad for p in self.params if p.grad is not None]
-            norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-        else:
+            total = torch.stack(torch._foreach_norm(grads)).square().sum()
+        else:  # every piece, in the order of `norm_weights`
             grads = [p.grad for p in self.params]
-            sq = torch.stack([g.square().sum() for g in grads])
+            sq = torch.stack(torch._foreach_norm(grads)).square()
             total = (sq * torch.tensor(self.norm_weights, dtype=sq.dtype,
                                        device=sq.device)).sum()
             dist.all_reduce(total)  # every rank of the job
-            norm = total.sqrt()
+        norm = total.sqrt()
         scale = torch.where(norm > self.max_norm, self.max_norm / norm, 1.0)
-        for g in grads:
-            g.mul_(scale)
+        torch._foreach_mul_(grads, scale)
         self.adam.step()
         return norm
 
@@ -165,7 +168,9 @@ def make_train_step(cfg: ExperimentConfig, mesh=None
     loss_cfg = cfg.loss
 
     def step_fn(state: TrainState, batch: Batch):
-        model = state.model.train()
+        model = state.model
+        if not model.training:  # train() walks every module: not a step
+            model.train()
         with span("train.forward"):
             mixed, frames, clean = _to_device(batch, _device_of(model))
             separated, _ = model(mixed, frames, state.generators)

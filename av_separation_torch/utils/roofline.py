@@ -2,7 +2,8 @@
 (port of `av_separation_tpu/utils/roofline.py`).
 
   - FLOPs: analytic matmul and conv FLOPs from the config, in the MFU
-    convention (remat does not inflate the numerator).
+    convention (remat does not inflate the numerator); the encoders'
+    layers as `encoder_block` sets them (`conformer_block_flops`, port-only).
   - Bytes: `train_step_bytes`, an analytic estimate of parameter and
     optimizer traffic plus the activations the backward keeps.  There is
     no compiler cost analysis in PyTorch, so this is the only byte source.
@@ -40,6 +41,15 @@ def detect_chip(device_name: str) -> Optional[Tuple]:
     return None
 
 
+def conformer_block_flops(seq: int, d: int, k: int) -> float:
+    """FLOPs of one conformer block over `seq` rows (two a multiply-add):
+    two 4d FFNs (16 seq d^2 MACs), q / k / v / out (4 seq d^2), QK^T and
+    PV (2 seq^2 d), the pointwise convolutions d -> 2d and d -> d
+    (3 seq d^2) and the depthwise one (seq d K).  GLU, BatchNorm, SiLU and
+    the norms are not counted."""
+    return 2.0 * (23 * seq * d * d + 2 * seq * seq * d + seq * d * k)
+
+
 def model_forward_flops(cfg: ExperimentConfig) -> float:
     """Forward-pass FLOPs for ONE sample (batch=1)."""
     m, d_cfg = cfg.model, cfg.data
@@ -59,16 +69,21 @@ def model_forward_flops(cfg: ExperimentConfig) -> float:
         ffn = 2 * seq_q * d * 4 * d
         return 2 * (proj + kv + scores + ffn)
 
+    def enc_block(seq):
+        if m.encoder_block == "conformer":
+            return conformer_block_flops(seq, d, m.conv_kernel)
+        return attn_block(seq, seq)
+
     total = 0.0
     total += 2 * 3 * t * (f * d + d * d)           # audio projection
-    total += m.num_encoder_layers * attn_block(t, t)
+    total += m.num_encoder_layers * enc_block(t)
     h, w = d_cfg.frame_h, d_cfg.frame_w            # visual conv stem
     stem = (h // 2) * (w // 2) * 9 * 1 * 32 \
         + (h // 4) * (w // 4) * 9 * 32 * 64 \
         + (h // 8) * (w // 8) * 9 * 64 * 128
     total += 2 * n * stem
     total += 2 * n * 128 * d                       # frame projection
-    total += m.num_encoder_layers * attn_block(n, n)
+    total += m.num_encoder_layers * enc_block(n)
     total += m.num_fusion_layers * attn_block(t, t)
     total += 2 * t * (d * 2 * d + 2 * d * f * s)   # decoder MLP
     return total
@@ -97,11 +112,15 @@ def param_count(cfg: ExperimentConfig) -> float:
     weights; biases and norms are noise)."""
     m = cfg.model
     d, f, s = m.d_model, m.freq_bins, m.num_speakers
-    enc_block = 4 * d * d + 8 * d * d  # qkv + out, ffn up + down
+    attn_block = 4 * d * d + 8 * d * d  # qkv + out, ffn up + down
+    # The conformer's: two FFNs, qkv + out, the pointwise and depthwise
+    # convolutions.
+    enc_block = (23 * d * d + d * m.conv_kernel
+                 if m.encoder_block == "conformer" else attn_block)
     total = 3 * f * d + 3 * d * d      # audio convs (k=3)
     total += 2 * m.num_encoder_layers * enc_block  # audio + visual stacks
     total += 9 * (32 + 32 * 64 + 64 * 128) + 128 * d  # stem + projection
-    total += m.num_fusion_layers * enc_block
+    total += m.num_fusion_layers * attn_block
     total += d * 2 * d + 2 * d * f * s  # decoder
     return float(total)
 
@@ -116,7 +135,9 @@ def train_step_bytes(cfg: ExperimentConfig, batch_size: int) -> float:
         (norm outputs, q/k/v, attention output, both FFN intermediates),
         each written in the forward and read in the backward, and the
         flash kernels' float32 lse (L values) in place of the
-        probabilities."""
+        probabilities; per conformer block ~34 (two FFNs' 9 each, the
+        attention's 5, the convolution module's 6, the residual
+        stream's 4)."""
     m, d_cfg = cfg.model, cfg.data
     t = d_cfg.num_stft_frames
     n = d_cfg.total_lip_frames
@@ -125,10 +146,12 @@ def train_step_bytes(cfg: ExperimentConfig, batch_size: int) -> float:
     p = param_count(cfg)
     param_bytes = p * (2 * c + 4) + p * 4 * 7
 
-    def block_bytes(lq):
-        return 15 * lq * d * c * 2 + lq * 4 * 2
+    def block_bytes(lq, saved=15):
+        return saved * lq * d * c * 2 + lq * 4 * 2
 
-    act = m.num_encoder_layers * (block_bytes(t) + block_bytes(n))
+    enc_saved = 34 if m.encoder_block == "conformer" else 15
+    act = m.num_encoder_layers * (block_bytes(t, enc_saved)
+                                  + block_bytes(n, enc_saved))
     act += m.num_fusion_layers * block_bytes(t)
     h, w = d_cfg.frame_h, d_cfg.frame_w
     act += n * (h * w // 4 * 32 + h * w // 16 * 64 + h * w // 64 * 128) \

@@ -240,6 +240,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -344,6 +345,17 @@ for _name in ("dropout_fwd", "dropout_bwd"):
                 "(av_separation_tpu/ops/dropout.py, ops/activations.py)"}
     KERNELS[_name + "[bf16]"] = dict(KERNELS[_name], wrapper=_name,
                                      dtype="bfloat16")
+# The conformer's GLU + depthwise convolution: port-only, since the JAX
+# package has no conformer block; one launch forward, the backward's two
+# kernels one call.
+for _name in ("glu_dwconv_fwd", "glu_dwconv_bwd"):
+    KERNELS[_name] = {
+        "source": "av_separation_torch/csrc/glu_dwconv.cu",
+        "replaces": None, "also_replaces": [],
+        "note": "port-only: the conformer block (encoder_block "
+                "'conformer'), which the JAX package does not have"}
+    KERNELS[_name + "[bf16]"] = dict(KERNELS[_name], wrapper=_name,
+                                     dtype="bfloat16")
 # The device kernels of the wide route (above dh 256), by entry: listed in
 # the summary line, and held by the build phase to no spill.
 CLUSTER_INSTANCES = {
@@ -396,6 +408,9 @@ KERNEL_NAMES = {
     "stft_mag_4step_fwd": ("stft_4step_kernel",),
     "dropout_fwd": ("dropout_fused_fwd_kernel",),
     "dropout_bwd": ("dropout_fused_bwd_kernel",),
+    "glu_dwconv_fwd": ("glu_dwconv_fwd_kernel",),
+    "glu_dwconv_bwd": ("glu_dwconv_bwd_kernel",
+                       "glu_dwconv_bwd_reduce_kernel"),
 }
 ATTN_SEED = -12345  # an int32 dropout seed with the sign bit set
 
@@ -504,15 +519,17 @@ def dropout_launches(m, steps: int = 1) -> dict:
     """The fused dropout sites' launches in `steps` training steps of the
     ModelConfig `m`: one forward and one backward a site (the two PE
     sites; drop1, drop2 and the FFN of every encoder and fusion layer,
-    whose forwards run twice under remat; the decoder's GELU), the
-    decoder's in float32 and the others in the compute dtype; none at
-    dropout 0."""
+    six a conformer layer (two SiLU FFNs, their halved residuals, the
+    attention's and the convolution module's residuals), whose forwards
+    run twice under remat; the decoder's GELU), the decoder's in float32
+    and the others in the compute dtype; none at dropout 0."""
     if m.dropout == 0.0:
         return {}
-    layers = 2 * m.num_encoder_layers + m.num_fusion_layers
+    per_layer = 6 if m.encoder_block == "conformer" else 3
+    sites = 2 * m.num_encoder_layers * per_layer + 3 * m.num_fusion_layers
     dt = "[bf16]" if m.compute_dtype == "bfloat16" else ""
-    out = {"dropout_fwd" + dt: 2 + 3 * layers * (2 if m.remat else 1),
-           "dropout_bwd" + dt: 2 + 3 * layers}
+    out = {"dropout_fwd" + dt: 2 + sites * (2 if m.remat else 1),
+           "dropout_bwd" + dt: 2 + sites}
     for name in ("dropout_fwd", "dropout_bwd"):
         out[name] = out.get(name, 0) + 1  # the decoder's
     return {name: n * steps for name, n in out.items()}
@@ -597,14 +614,24 @@ def phase_build(state):
             len(proj) != 8 or any(k in spilling for k in proj)):
         raise AssertionError(f"projection instances {proj}, spilling "
                              f"{spilling}")
-    # And the fused dropout kernels: two dtypes, four forward and three
+    # And the fused dropout kernels: two dtypes, five forward and four
     # backward epilogues (dropout_add's backward is dropout's), each with
     # the 16-byte vector and the one-element loop.
     drop = [k for k in usage.get("dropout_fused", {})
             if k.startswith("dropout_fused_")]
     if logs.get("dropout_fused") and (
-            len(drop) != 28 or any(k in spilling for k in drop)):
+            len(drop) != 36 or any(k in spilling for k in drop)):
         raise AssertionError(f"dropout instances {drop}, spilling "
+                             f"{spilling}")
+    # The GLU + depthwise kernels: three kernels, two dtypes, the K of
+    # CONV_KERNELS; the conformer_l config's K 31 instances must not spill.
+    from av_separation_torch.config import CONV_KERNELS
+    glu = [k for k in usage.get("glu_dwconv", {})
+           if k.startswith("glu_dwconv_")]
+    if logs.get("glu_dwconv") and (
+            len(glu) != 6 * len(CONV_KERNELS)
+            or any(k in spilling for k in glu if k.endswith(",31>"))):
+        raise AssertionError(f"glu_dwconv instances {glu}, spilling "
                              f"{spilling}")
     return {"build_s": round(secs, 2), "spilling_instances": spilling,
             "cluster_smem": cluster_smem, "ptxas": usage}
@@ -825,6 +852,7 @@ def phase_kernels(state):
     _proj_rows(record, gen)
     _decoder_rows(record, gen)
     _dropout_rows(record)
+    _glu_dwconv_rows(record)
     _stft_rows(record, gen)
     _grid_cap_rows(record, gen)
 
@@ -1143,6 +1171,14 @@ DROPOUT_ROWS = (
      (0, 1), True),
     ("float32 scaled PE", "dropout", (128, 501, 512), torch.float32, (0, 1),
      False),
+    ("conformer_l FFN", "silu_dropout", (64, 501, 2048), torch.bfloat16,
+     (0, 1), False),
+    ("conformer_l visual FFN", "silu_dropout", (64, 200, 2048),
+     torch.bfloat16, (0, 1), False),
+    ("float32 conformer_l FFN", "silu_dropout", (64, 501, 2048),
+     torch.float32, (0, 1), False),
+    ("NaN at the dropped", "silu_dropout", (64, 501, 2048), torch.bfloat16,
+     (0, 1), True),
     ("float32 scaled drop1 / drop2", "dropout_add", (128, 501, 512),
      torch.float32, (0, 1), False),
     ("float32 scaled encoder FFN", "relu_dropout", (128, 501, 2048),
@@ -1167,8 +1203,10 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _dropout_rows(record):
     """The fused dropout kernels against their plain versions (the PyTorch
     chain) at `DROPOUT_ROWS`, forward then backward: bit for bit, but the
-    GELU forward within 1 ulp of its dtype (the share of elements that
-    differ printed).  Bound: the bytes each reads and writes at 3.35 TB/s;
+    GELU and SiLU forwards within 1 ulp of their dtype (F.gelu and F.silu
+    are one PyTorch kernel each, whose float32 expression the compiler may
+    contract otherwise than the kernel's __f*_rn ops; the share of
+    elements that differ printed).  Bound: the bytes each reads and writes at 3.35 TB/s;
     yardstick: the plain chain's device time."""
     from av_separation_torch.ops.dropout import (keep_bits, keep_scale,
                                                  quantized_rate)
@@ -1200,7 +1238,7 @@ def _dropout_rows(record):
         out_k = dropout_fwd(kind, x, bits, n, s, res)
         out_p = dropout_fwd_torch(kind, x, bits, n, s, res)
         fwd_bytes = numel * (2 * size + 1 + (size if res is not None else 0))
-        if kind == "gelu_dropout":
+        if kind in ("gelu_dropout", "silu_dropout"):
             d = ulps(out_k, out_p)
             err, tol = float(d.max()), 1.0
             extra = {"unit": "ulp", "differ_share":
@@ -1214,7 +1252,8 @@ def _dropout_rows(record):
                lambda: dropout_fwd_torch(kind, x, bits, n, s, res),
                fwd_bytes, 0, 10, **tag, **extra)
 
-        saved = {"relu_dropout": out_p, "gelu_dropout": x}.get(kind)
+        saved = {"relu_dropout": out_p, "gelu_dropout": x,
+                 "silu_dropout": x}.get(kind)
         bwd_bits = None if kind == "relu_dropout" else bits
         bwd_bytes = numel * ((2 + (saved is not None)) * size
                              + (bwd_bits is not None))
@@ -1228,6 +1267,123 @@ def _dropout_rows(record):
                bit_identical=torch.equal(dx_k, dx_p))
         del x, g, res, bits, out_k, out_p, dx_k, dx_p, saved
         torch.cuda.empty_cache()
+
+
+# (label, B, T, d, K, dtype) of the GLU + depthwise rows: conformer_l's
+# audio and visual calls in both dtypes, and ragged edges (d 196: a slab of
+# 4 channels past 192; T 37: a part tile; K 7).
+GLU_DWCONV_ROWS = (
+    ("conformer_l audio", 64, 501, 512, 31, torch.bfloat16),
+    ("conformer_l visual", 64, 200, 512, 31, torch.bfloat16),
+    ("float32 conformer_l audio", 64, 501, 512, 31, torch.float32),
+    ("ragged d196 T37 K7", 3, 37, 196, 7, torch.bfloat16),
+    ("float32 ragged d196 T37 K7", 3, 37, 196, 7, torch.float32),
+)
+
+
+def _glu_dwconv_rows(record):
+    """The GLU + depthwise kernels against their plain version (F.glu and
+    the grouped conv1d in float32, no TF32, rounded once) at
+    `GLU_DWCONV_ROWS`, forward then backward.  Tolerances: in float32 1e-5
+    x the peak for y and du (31 products a sum), 1e-4 for dw and dbias (B T
+    products a sum, in another order); in bf16 1 ulp of each stored element
+    (both sides round the same float32 value, which their sums' orders move
+    by ~1e-7 relative: across a rounding boundary now and then), or the
+    float32 tolerance where that is larger (a sum near nought).  The
+    backward twice, bit for bit (a fixed order of sums).  Bound: the bytes
+    at 3.35 TB/s (`conformer_work`'s count); yardstick: PyTorch's own chain
+    in the compute dtype (bf16 F.glu, cuDNN's grouped conv1d)."""
+    import torch.nn.functional as F
+
+    from av_separation_torch.ops.kernels.glu_dwconv import (
+        glu_dwconv_bwd_cuda, glu_dwconv_fwd_cuda, glu_dwconv_torch)
+
+    cg = torch.Generator(device="cuda").manual_seed(1)
+    saved_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for label, b, t, d, k, dtype in GLU_DWCONV_ROWS:
+            def rnd(*shape, scale=1.0):
+                return (torch.randn(shape, device="cuda", generator=cg)
+                        * scale).to(dtype)
+
+            u = rnd(b, t, 2 * d, scale=2.0)
+            w = rnd(d, 1, k, scale=1.0 / math.sqrt(k))
+            bias = rnd(d, scale=0.1)
+            dy = rnd(b, t, d)
+            dt = "[bf16]" if dtype == torch.bfloat16 else ""
+            size = u.element_size()
+            row = f"{label} B{b} T{t} d{d} K{k}"
+            tag = {"dtype": str(dtype).split(".")[-1],
+                   "library": "PyTorch's chain in the compute dtype: F.glu, "
+                              "cuDNN grouped conv1d"}
+
+            def chain(uu, ww, bb):
+                return F.conv1d(F.glu(uu, dim=-1).transpose(1, 2), ww, bb,
+                                padding=(k - 1) // 2,
+                                groups=d).transpose(1, 2)
+
+            def err_of(got, want, rel=1e-5):
+                scale = float(want.abs().max())
+                if dtype == torch.float32:
+                    return max_err(got, want), rel * scale, {}
+                # In bf16: |diff| in units of the larger of the stored
+                # value's ulp and `rel` x the peak (near nought the float32
+                # sums' order moves a value by more than its own ulp).
+                wf, diff = want.float(), (got.float() - want.float()).abs()
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    wf.abs().clamp_min(1e-30))) - 7)
+                units = diff / torch.clamp(ulp, min=rel * scale)
+                return float(units.max()), 1.0, {
+                    "differ_share": float((got != want).double().mean())}
+
+            y_k = glu_dwconv_fwd_cuda(u, w, bias)
+            y_p = glu_dwconv_torch(u, w, bias)
+            err, tol, extra = err_of(y_k, y_p)
+            record(f"glu_dwconv_fwd{dt}", row, err, tol, {},
+                   lambda: glu_dwconv_fwd_cuda(u, w, bias),
+                   lambda: glu_dwconv_torch(u, w, bias),
+                   lambda: chain(u, w, bias),
+                   b * t * 3 * d * size, 2.0 * b * t * d * k, 10,
+                   op_rate="bf16", **tag, **extra)
+
+            du_k, dw_k, db_k = glu_dwconv_bwd_cuda(u, w, dy)
+            again = glu_dwconv_bwd_cuda(u, w, dy)
+            same = all(torch.equal(x, y)
+                       for x, y in zip((du_k, dw_k, db_k), again))
+            leaves = [x.detach().requires_grad_() for x in (u, w, bias)]
+            y_plain = glu_dwconv_torch(*leaves)
+            du_p, dw_p, db_p = torch.autograd.grad(y_plain, leaves, dy,
+                                                   retain_graph=True)
+            y_lib = chain(*leaves)
+            errs = {}
+            for name, got, want, rel in (
+                    ("du", du_k, du_p, 1e-5),
+                    ("dw", dw_k, dw_p.reshape(d, k), 1e-4),
+                    ("dbias", db_k, db_p, 1e-4)):
+                e, tl, more = err_of(got, want, rel)
+                errs[name] = (e, tl)
+                extra = {**extra, **{f"{name}_{x}": v
+                                     for x, v in more.items()}}
+            e_du, t_du = errs.pop("du")
+            record(f"glu_dwconv_bwd{dt}", row, e_du, t_du, errs,
+                   lambda: glu_dwconv_bwd_cuda(u, w, dy),
+                   lambda: torch.autograd.grad(y_plain, leaves, dy,
+                                               retain_graph=True),
+                   lambda: torch.autograd.grad(y_lib, leaves, dy,
+                                               retain_graph=True),
+                   b * t * 5 * d * size, 4.0 * b * t * d * k, 10,
+                   op_rate="bf16", per_call=2, bit_identical=same, **tag,
+                   **{x: v for x, v in extra.items()
+                      if x.startswith(("du_", "dw_", "dbias_"))})
+            del u, w, bias, dy, y_k, y_p, du_k, dw_k, db_k, again, leaves
+            del y_plain, y_lib, du_p, dw_p, db_p
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved_tf32
 
 
 # The DataConfigs the device_data phase generates on the card, derived
@@ -2536,6 +2692,107 @@ def phase_train_device(state):
                        "tol": 1e-5, "files": saved}}
 
 
+def phase_conformer(state):
+    """conformer_l (17 + 17 conformer layers, d 512, 8 heads, K 31) through
+    the port's entry points: `cli train --config conformer_l --data device
+    --fused` in bf16 at batch 8, its launches a step (the flash pair, the
+    projection, the STFT, 12 dropout sites a conformer layer pair each
+    way, 34 GLU + depthwise calls each way); a float32 eval forward at
+    batch 2 against the CPU (masks within 1e-4, as `configs` holds them);
+    the Separator's masks against the model's own; one remat step at
+    batch 2 moving each BatchNorm's running statistics once, as the step
+    without remat moves them."""
+    import dataclasses
+
+    from av_separation_torch.config import get_config
+    from av_separation_torch.inference import Separator
+    from av_separation_torch.models.model import build_model
+    from av_separation_torch.train import create_train_state, make_train_step
+
+    cfg = get_config("conformer_l")
+    m = dataclasses.replace(cfg.model, compute_dtype="bfloat16")
+    if (m.encoder_block, m.d_model, m.nhead, m.num_encoder_layers,
+            m.conv_kernel) != ("conformer", 512, 8, 17, 31):
+        raise AssertionError(f"not the conformer_l config: {m}")
+    bad, out = [], {}
+    steps = 4
+    lines, launches = _run_cli(["train", "--config", "conformer_l",
+                                "--batch", "8", "--data", "device",
+                                "--fused", "--dtype", "bfloat16",
+                                "--steps", str(steps)])
+    attn = 2 * m.num_encoder_layers + m.num_fusion_layers
+    per_step = want_launches(
+        {"flash_attn_fwd[bf16]": attn, "flash_attn_bwd[bf16]": attn,
+         "audio_proj_fwd[bf16]": 1, "stft_mag_fwd": 1,
+         "glu_dwconv_fwd[bf16]": 2 * m.num_encoder_layers,
+         "glu_dwconv_bwd[bf16]": 2 * m.num_encoder_layers}
+        | dropout_launches(m))
+    got = {name: launches[name] / steps for name in per_step}
+    if got != per_step:
+        bad.append(f"launches per step {got} != {per_step}")
+    final = lines[-1]
+    if not np.isfinite(final["loss"]):
+        bad.append(f"final line {final}")
+    out["cli"] = {"final": final, "launches_per_step": got}
+    state["launches"]["conformer"] = dict(launches)
+
+    # float32 eval forward, card against the CPU.
+    saved_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        data = dataclasses.replace(cfg.data, num_samples=2)
+        from av_separation_torch.data.loader import batch_iterator
+        from av_separation_torch.data.synthetic import SyntheticAVDataset
+        b = next(batch_iterator(SyntheticAVDataset(data), 2, seed=0))
+        net = build_model(cfg.model, device="cuda", seed=3)
+        with torch.no_grad():
+            _, masks = net(torch.as_tensor(b["mixed_spec"]).cuda(),
+                           torch.as_tensor(b["lip_frames"]).cuda())
+            cpu = build_model(cfg.model, device="cpu", seed=3)
+            _, want = cpu(torch.as_tensor(b["mixed_spec"]),
+                          torch.as_tensor(b["lip_frames"]))
+        err = max_err(masks.cpu(), want)
+        if err > 1e-4:
+            bad.append(f"eval masks against the CPU: {err}")
+        sep = Separator(cfg.model, net.state_dict(), cfg.data)
+        _, sep_masks = sep.separate(b["mixed_spec"], b["lip_frames"])
+        sep_err = max_err(torch.as_tensor(np.asarray(sep_masks)),
+                          masks.cpu())
+        if sep_err > 1e-6:
+            bad.append(f"Separator masks against the model's: {sep_err}")
+        out["eval"] = {"masks_err_vs_cpu": err, "tol": 1e-4,
+                       "separator_err": sep_err}
+        del net, cpu, sep
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved_tf32
+
+    # A remat step moves each BatchNorm once.
+    stats = {}
+    for remat in (False, True):
+        mc = dataclasses.replace(m, remat=remat)
+        # The same weights and generators from the config's seed.
+        st = create_train_state(dataclasses.replace(cfg, model=mc))
+        bb = next(batch_iterator(SyntheticAVDataset(data), 2, seed=1))
+        make_train_step(dataclasses.replace(cfg, model=mc))(st, bb)
+        stats[remat] = {k: v.detach().cpu()
+                        for k, v in st.model.named_buffers()}
+        del st
+        torch.cuda.empty_cache()
+    counts = {k: int(v) for k, v in stats[True].items()
+              if k.endswith("num_batches_tracked")}
+    moved_once = all(c == 1 for c in counts.values())
+    same = all(torch.equal(v, stats[False][k])
+               for k, v in stats[True].items())
+    if not (moved_once and same and len(counts) == 3 + 2 * 17):
+        bad.append(f"remat BatchNorm: counts {counts}, same as without "
+                   f"remat {same}")
+    out["remat"] = {"batch_norms": len(counts), "moved_once": moved_once,
+                    "running_stats_as_without_remat": same}
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 def phase_train_device_profile(state):
     """Where the time of a fused device-data step goes, against the
     host-data step: the two run in turns (host, device, device, host), four
@@ -3571,7 +3828,8 @@ def main() -> int:
                         ("train_device", phase_train_device),
                         ("train_device_profile", phase_train_device_profile),
                         ("data_tiers", phase_data_tiers),
-                        ("bf16", phase_bf16), ("bench", phase_bench),
+                        ("bf16", phase_bf16), ("conformer", phase_conformer),
+                        ("bench", phase_bench),
                         ("demo", phase_demo), ("parallel", phase_parallel)):
         t0 = time.perf_counter()
         try:

@@ -154,5 +154,7 @@ def test_serve_answers_over_http_and_stops_on_sigint():
                              "audio_proj_fwd[bf16]", "audio_proj_split",
                              "audio_proj_split[bf16]", "dropout_fwd",
                              "dropout_bwd", "dropout_fwd[bf16]",
-                             "dropout_bwd[bf16]")}}
+                             "dropout_bwd[bf16]", "glu_dwconv_fwd",
+                             "glu_dwconv_bwd", "glu_dwconv_fwd[bf16]",
+                             "glu_dwconv_bwd[bf16]")}}
     assert "untrained init" in err

@@ -54,6 +54,9 @@ def test_every_entry_point_that_takes_a_device_uses_the_guard():
         "flash_attn_fwd.cu:avsep_mma_3xtf32_probe",
         "flash_bwd_wgmma.cu:avsep_flash_bwd_wgmma",
         "flash_fwd_wgmma.cu:avsep_flash_fwd_wgmma",
+        "glu_dwconv.cu:avsep_glu_dwconv_bwd",
+        "glu_dwconv.cu:avsep_glu_dwconv_fwd",
+        "glu_dwconv.cu:avsep_glu_dwconv_groups",
         "mask_decoder.cu:avsep_mask_decoder_fwd",
         "stft_fft.cu:avsep_stft_4step_fwd",
         "stft_fft.cu:avsep_stft_fft_fwd"])

@@ -50,6 +50,12 @@ def chain(kind, x, res, keep, s, g):
         pdf = torch.exp(-0.5 * xf * xf) * (1.0 / math.sqrt(2.0 * math.pi))
         dgelu = (cdf + xf * pdf).to(x.dtype)
         return out, torch.where(keep, g * dgelu * s, 0.0)
+    if kind == "silu_dropout":
+        xf = upcast(x)
+        out = torch.where(keep, F.silu(xf).to(x.dtype) * s, 0.0)
+        sig = 1.0 / (1.0 + torch.exp(-xf))
+        dsilu = (sig * (1.0 + xf * (1.0 - sig))).to(x.dtype)
+        return out, torch.where(keep, g * dsilu * s, 0.0)
     out = torch.where(keep, x * s, 0.0)
     if kind == "dropout_add":
         out = res + out
@@ -103,7 +109,8 @@ class TestPlainVersion:
     @pytest.mark.parametrize("kind,saved", [
         ("dropout", [torch.uint8]), ("dropout_add", [torch.uint8]),
         ("relu_dropout", [torch.bfloat16]),
-        ("gelu_dropout", [torch.bfloat16, torch.uint8])])
+        ("gelu_dropout", [torch.bfloat16, torch.uint8]),
+        ("silu_dropout", [torch.bfloat16, torch.uint8])])
     def test_the_backward_keeps_the_draw_not_a_bool_mask(self, kind, saved):
         x = rand((8, 32), 9, torch.bfloat16).requires_grad_()
         bits = keep_bits(x.shape, torch.Generator().manual_seed(1), "cpu")

@@ -34,6 +34,7 @@ from av_separation_torch.ops.kernels.decoder import (mask_decoder,
 from av_separation_torch.ops.kernels.dropout_fused import (EPILOGUES,
                                                            dropout_bwd,
                                                            dropout_fwd)
+from av_separation_torch.ops.kernels.glu_dwconv import glu_dwconv
 from av_separation_torch.ops.kernels.stft import stft_magnitude_fwd
 
 SEED = -1234567  # an int32 dropout seed with the sign bit set
@@ -230,6 +231,9 @@ class TestDispatch:
             for kind in EPILOGUES:
                 dropout_fwd(kind, x, bits, 26, 1.25, x)
                 dropout_bwd(kind, x, x, bits, 26, 1.25)
+            u = torch.ones(2, 5, 2 * d, dtype=dtype, requires_grad=True)
+            glu_dwconv(u, torch.ones(d, 1, 7, dtype=dtype),
+                       torch.ones(d, dtype=dtype)).sum().backward()
         assert kernels.LAUNCHES == {"flash_attn_fwd": 0,
                                     "flash_attn_bwd": 0,
                                     "audio_proj_fwd": 0,
@@ -243,7 +247,11 @@ class TestDispatch:
                                     "audio_proj_split[bf16]": 0,
                                     "dropout_fwd": 0, "dropout_bwd": 0,
                                     "dropout_fwd[bf16]": 0,
-                                    "dropout_bwd[bf16]": 0}
+                                    "dropout_bwd[bf16]": 0,
+                                    "glu_dwconv_fwd": 0,
+                                    "glu_dwconv_bwd": 0,
+                                    "glu_dwconv_fwd[bf16]": 0,
+                                    "glu_dwconv_bwd[bf16]": 0}
 
     # The flash kernels' head dims: demo (32), the reference's default
     # model ModelConfig() (d 256 / 4 heads = 64), every wider config (128).

@@ -200,3 +200,26 @@ class TestModelContract:
         mixed, frames = inputs()
         with pytest.raises(ValueError, match="(?i)generator"):
             model(torch.from_numpy(mixed), torch.from_numpy(frames))
+
+    def test_the_tables_a_forward_reads_are_made_once(self):
+        """The PE table, the resampling taps and the permutation table are
+        made once a shape and device (copied from the host at each call,
+        they would wait for the card's queue); a second call reads the
+        same tensors, equal to the tables made afresh."""
+        from av_separation_torch.losses import _perms_on, permutation_table
+        from av_separation_torch.models.layers import _pe_on, sinusoidal_pe
+        from av_separation_torch.ops.interpolate import (
+            _taps, interpolate_time_linear)
+        dev = torch.device("cpu")
+        assert _pe_on(37, 16, dev) is _pe_on(37, 16, dev)
+        assert torch.equal(_pe_on(37, 16, dev), sinusoidal_pe(37, 16))
+        assert _taps(10, 24, torch.float32, dev) \
+            is _taps(10, 24, torch.float32, dev)
+        x = torch.randn(2, 10, 8)
+        want = torch.nn.functional.interpolate(
+            x.transpose(1, 2), size=24, mode="linear",
+            align_corners=False).transpose(1, 2)
+        torch.testing.assert_close(interpolate_time_linear(x, 24), want)
+        assert _perms_on(3, dev) is _perms_on(3, dev)
+        assert torch.equal(_perms_on(3, dev),
+                           torch.as_tensor(permutation_table(3)))

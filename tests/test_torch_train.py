@@ -239,12 +239,15 @@ class TestData:
 
 
 class TestOptimizer:
+    @pytest.mark.parametrize("shapes", [((5, 3), (7,)),
+                                        ((4,), (2, 3, 2), (1,))])
     @pytest.mark.parametrize("scale", [0.01, 10.0])
-    def test_clipped_adam_matches_optax(self, scale):
-        """Two updates, with the global norm below (no clip) and above 1."""
+    def test_clipped_adam_matches_optax(self, scale, shapes):
+        """Two updates, with the global norm below (no clip) and above 1,
+        in multi-tensor ops (fused Adam, `_foreach_norm`, `_foreach_mul_`)
+        over two lists of tensors."""
         rng = np.random.default_rng(4)
-        params = [rng.normal(size=s).astype(np.float32)
-                  for s in ((5, 3), (7,))]
+        params = [rng.normal(size=s).astype(np.float32) for s in shapes]
         grads = [[(rng.normal(size=p.shape) * scale).astype(np.float32)
                   for p in params] for _ in range(2)]
         tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(LR))
